@@ -142,6 +142,26 @@ def check_kernels(torch, A):
     return results
 
 
+def step_flops(b: int, frames: int = 8, width: int = 768, layers: int = 12,
+               grid: int = 196, visible: int = 320, taps: int = 6,
+               out_dim: int = 512) -> float:
+    """Model operations of one stage-1 step, from the shapes: the teacher's
+    forward (no gradient), the tap projection at the visible tokens, and the
+    student's forward and backward (three times its forward). Matrix
+    products and attention only; K2's recomputed scores are not counted."""
+    def layer(tokens, seq):  # qkv, proj, fc1, fc2 (12 w^2) + q.k^T and p.v
+        return tokens * (2 * 12 * width * width + 4 * seq * width)
+
+    patch = 2 * 3 * 16 * 16 * width  # per patch
+    teacher_tokens = b * frames * (grid + 1)
+    teacher = (layers * layer(teacher_tokens, grid + 1)
+               + b * frames * grid * patch
+               + taps * b * visible * 2 * width * out_dim)
+    student = (layers * layer(b * visible, visible) + b * visible * patch
+               + taps * b * visible * 2 * width * out_dim)
+    return float(teacher + 3 * student)
+
+
 def build_step(torch, b: int, dtype, device: str, drop_path: float,
                state_dict=None, teacher_state=None):
     """The stage-1 step as run_stage1.main builds it, with the
@@ -255,7 +275,10 @@ def main_path(torch, A, b: int = 64, warmup: int = 2, timed: int = 5):
         raise AssertionError(f"launches K1 {k1}, K2 {k2} over {n} steps; "
                              f"expected {24 * n} and {12 * n}")
     k1_teacher = sum(teacher_k1)
+    flops = step_flops(b)
     res = dict(clips_per_s=b * timed / dt, step_ms=dt / timed * 1e3,
+               model_tflop_per_step=flops / 1e12,
+               model_flops_util=flops * timed / dt / PEAK_BF16,
                peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
                steps=n, k1_launches=k1, k1_teacher=k1_teacher,
                k1_student=k1 - k1_teacher, k2_launches=k2)

@@ -122,7 +122,7 @@ def test_attention_mask_with_the_same_gumbel_noise():
     key = jax.random.PRNGKey(7)
     ref = np.asarray(jmask.attention_multinomial_mask(key, jnp.asarray(attn),
                                                       0.8))
-    g = np.asarray(jax.random.gumbel(key, attn.shape, dtype=jnp.float32))
+    g = np.array(jax.random.gumbel(key, attn.shape, dtype=jnp.float32))
     out = tmask.attention_multinomial_mask(torch.from_numpy(attn), 0.8,
                                            gumbel=torch.from_numpy(g))
     np.testing.assert_array_equal(out.numpy(), ref)

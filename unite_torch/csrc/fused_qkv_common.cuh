@@ -6,8 +6,10 @@
 // ever materialized in device memory. D is fixed at 64 (every shipped model).
 //
 // Tiles are products on the tensor cores through mma.sync m16n8k16 (bf16
-// operands, fp32 accumulation). Each warp owns 16 rows; a block is 4 warps
-// (64 rows). Fragment layouts (PTX ISA, lane = 4*g + t):
+// operands, fp32 accumulation). Each warp owns 16 rows at a time; a block
+// holds one (batch, head) and its warps walk that head's 16-row tiles.
+// Right operands come from shared memory through ldmatrix (x4, transposed
+// for the p.v-type products). Fragment layouts (PTX ISA, lane = 4*g + t):
 //   A 16x16: a0 (g, 2t..2t+1)   a1 (g+8, 2t..)   a2 (g, 8+2t..)   a3 (g+8, 8+2t..)
 //   B 16x8 : b0 (k=2t..2t+1, n=g)                b1 (k=8+2t.., n=g)
 //   C 16x8 : c0,c1 (g, 2t..2t+1)                 c2,c3 (g+8, 2t..2t+1)
@@ -24,19 +26,18 @@ namespace unite {
 typedef __nv_bfloat16 bf16;
 
 constexpr int HEAD_DIM = 64;
-constexpr int WARPS = 4;
 constexpr int ROWS_PER_WARP = 16;
-constexpr int BLOCK_ROWS = WARPS * ROWS_PER_WARP;  // 64
-constexpr int THREADS = WARPS * 32;
-// Shared-memory row pitch in bf16 elements: 64 + 8 of padding keeps both the
-// 32-bit fragment loads and the 16-bit transposed loads free of bank conflicts.
+// Shared-memory row pitch in bf16 elements: 64 + 8 of padding (144 bytes) puts
+// the eight 16-byte rows of each ldmatrix read in eight distinct bank groups.
 constexpr int PITCH = HEAD_DIM + 8;
 
 __host__ __device__ __forceinline__ int round16(int x) { return (x + 15) & ~15; }
 
+// Not volatile: a product has no effect beyond its outputs, so the compiler
+// may interleave independent accumulator chains.
 __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
                                          uint32_t b0, uint32_t b1) {
-  asm volatile(
+  asm(
       "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
@@ -45,6 +46,28 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
 
 __device__ __forceinline__ uint32_t ld32(const bf16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// Four 8x8 bf16 matrices from shared memory: lanes 8i..8i+7 give the row
+// addresses (16-byte aligned) of matrix i, which lands in r[i]. Plain, a
+// lane receives row g, elements 2t..2t+1; transposed, rows 2t..2t+1 of
+// column g.
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
+  const uint32_t a = (uint32_t)__cvta_generic_to_shared(p);
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a)
+      : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const bf16* p) {
+  const uint32_t a = (uint32_t)__cvta_generic_to_shared(p);
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a)
+      : "memory");
 }
 
 // Two bf16 values into one 32-bit register, the lower index in the low half.
@@ -76,7 +99,7 @@ __device__ __forceinline__ float quad_max(float v) {
 __device__ __forceinline__ void load_rows(bf16* dst, const bf16* src,
                                           size_t stride, int rows_valid,
                                           int rows_total) {
-  for (int idx = threadIdx.x; idx < rows_total * 8; idx += THREADS) {
+  for (int idx = threadIdx.x; idx < rows_total * 8; idx += blockDim.x) {
     const int r = idx >> 3;
     const int col = (idx & 7) * 8;
     uint4 v = make_uint4(0u, 0u, 0u, 0u);
@@ -107,30 +130,38 @@ __device__ __forceinline__ void load_a_rows(uint32_t (&a)[4][4],
 
 // c += A(16x64 rows) . X[n0:n0+8, :]^T with X row-major in shared memory:
 // the 8 columns of the 16x8 result are rows n0..n0+7 of X (keys for q.k^T,
-// queries for k.q^T).
+// queries for k.q^T). One ldmatrix.x4 gives the B fragments of 32 head
+// lanes: matrix i is rows n0..n0+7 at head lanes 8i..8i+7 of that half.
 __device__ __forceinline__ void mma_rows_t(float (&c)[4],
                                            const uint32_t (&a)[4][4],
                                            const bf16* xs, int n0) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const bf16* row = xs + (n0 + g) * PITCH + 2 * t;
+  const int lane = threadIdx.x & 31;
+  const bf16* row = xs + (n0 + (lane & 7)) * PITCH + (lane >> 3) * 8;
 #pragma unroll
-  for (int kc = 0; kc < 4; ++kc)
-    mma_bf16(c, a[kc], ld32(row + kc * 16), ld32(row + kc * 16 + 8));
+  for (int half = 0; half < 2; ++half) {
+    uint32_t b[4];
+    ldsm_x4(b, row + half * 32);
+    mma_bf16(c, a[2 * half], b[0], b[1]);
+    mma_bf16(c, a[2 * half + 1], b[2], b[3]);
+  }
 }
 
 // acc[j] += P(16x16, A fragment) . X[k0:k0+16, 8j:8j+8] with X row-major in
-// shared memory (the right operand read transposed, two 16-bit loads each).
+// shared memory. The right operand is read transposed: one ldmatrix.x4.trans
+// gives columns 8j..8j+15 (matrices: rows k0.., k0+8.., at columns 8j, then
+// 8j+8).
 __device__ __forceinline__ void mma_p_x(float (&acc)[8][4],
                                         const uint32_t (&p)[4],
                                         const bf16* xs, int k0) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const bf16* r0 = xs + (k0 + 2 * t) * PITCH + g;
+  const int lane = threadIdx.x & 31;
+  const bf16* r0 =
+      xs + (k0 + (lane & 7) + ((lane >> 3) & 1) * 8) * PITCH + (lane >> 4) * 8;
 #pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    const bf16* r = r0 + j * 8;
-    const uint32_t b0 = pack_raw(r[0], r[PITCH]);
-    const uint32_t b1 = pack_raw(r[8 * PITCH], r[9 * PITCH]);
-    mma_bf16(acc[j], p, b0, b1);
+  for (int j = 0; j < 8; j += 2) {
+    uint32_t b[4];
+    ldsm_x4_t(b, r0 + j * 8);
+    mma_bf16(acc[j], p, b[0], b[1]);
+    mma_bf16(acc[j + 1], p, b[2], b[3]);
   }
 }
 

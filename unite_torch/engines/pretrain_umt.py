@@ -22,7 +22,7 @@ from unite_torch.ops.eval_transforms import bicubic_resize_square
 from unite_torch.ops.masking import (
     attention_multinomial_mask,
     frame_mask_to_video,
-    n_visible,
+    n_visible_total,
     visible_indices,
 )
 from unite_torch.ops.normalize import normalize_videos
@@ -67,7 +67,7 @@ def make_pretrain_train_step(
     if clip_loss_data not in ("mixed", "source", "target"):
         raise NotImplementedError(clip_loss_data)
     patches_per_frame = num_patches // frames
-    nv_total = n_visible(patches_per_frame, mask_ratio) * frames
+    nv_total = n_visible_total(num_patches, frames, mask_ratio)
 
     def loss_of(x_clip, targets, batch):
         if clip_loss_data == "mixed":

@@ -43,12 +43,12 @@ def get_sinusoid_encoding_table(n_position: int, d_hid: int) -> np.ndarray:
 
 
 def layer_norm(x, weight, bias, eps: float):
-    """fp32-statistics LayerNorm from raw params; output in x's dtype."""
-    x32 = x.float()
-    mean = x32.mean(dim=-1, keepdim=True)
-    var = (x32 - mean).square().mean(dim=-1, keepdim=True)
-    y = (x32 - mean) * torch.rsqrt(var + eps)
-    return (y * weight + bias).to(x.dtype)
+    """LayerNorm from raw fp32 params; output in x's dtype. Statistics and
+    affine in fp32 with one rounding at the output (the JAX package's
+    math), through the fused ``F.layer_norm`` kernels. CUDA's layer_norm
+    refuses a bf16 input with fp32 params, so x goes in as fp32."""
+    return F.layer_norm(x.float(), (x.shape[-1],), weight, bias, eps
+                        ).to(x.dtype)
 
 
 class LayerNorm(nn.Module):
@@ -130,11 +130,12 @@ class Attention(nn.Module):
         self.proj = Linear(dim, dim, dtype=dtype)
 
     def forward(self, x):
-        qkv = self.qkv(x)
+        dt = self.qkv.dtype
+        bias = None
         if self.q_bias is not None:
             bias = torch.cat([self.q_bias, torch.zeros_like(self.q_bias),
-                              self.v_bias])
-            qkv = qkv + bias.to(qkv.dtype)
+                              self.v_bias]).to(dt)
+        qkv = F.linear(x.to(dt), self.qkv.weight.to(dt), bias)
         return self.proj(fused_qkv_attention(qkv, self.num_heads, self.scale))
 
 

@@ -18,7 +18,6 @@ import hashlib
 import os
 import shutil
 import subprocess
-import time
 from pathlib import Path
 from typing import Dict
 
@@ -30,7 +29,6 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
-build_seconds = 0.0  # wall time of the last build that compiled anything
 
 
 def nvcc() -> str:
@@ -59,11 +57,9 @@ def build_all() -> Dict[str, Path]:
     Raises with the compiler's output when a build fails. The ptxas report
     (registers, shared memory, spills) is kept beside each library as
     ``<lib>.log``."""
-    global build_seconds
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     paths = {name: library_path(name) for name in SOURCES}
     jobs = {}
-    t0 = time.perf_counter()
     for name, path in paths.items():
         if path.exists():
             continue
@@ -81,8 +77,6 @@ def build_all() -> Dict[str, Path]:
             tmp.unlink(missing_ok=True)
         else:
             os.replace(tmp, path)
-    if jobs:
-        build_seconds = time.perf_counter() - t0
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
     return paths
