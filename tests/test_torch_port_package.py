@@ -11,6 +11,7 @@ import pytest
 import torch
 
 import unite_torch
+from unite_torch.engines.finetune import make_eval_step, make_finetune_train_step
 from unite_torch.engines.pretrain_umt import make_pretrain_train_step
 from unite_torch.optim.factory import create_optimizer
 
@@ -65,10 +66,23 @@ def test_entry_points_refuse_the_cpu_unless_asked(monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         make_pretrain_train_step(student, student, num_patches=392, frames=2,
                                  mask_ratio=0.8, source_batch_size=0)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        unite_torch.create_model("vit_base_patch16_224")
+    vit = unite_torch.create_model("vit_base_patch16_224", device="cpu",
+                                   num_classes=12, all_frames=2,
+                                   tubelet_size=1)
+    assert next(vit.parameters()).device.type == "cpu"
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        create_optimizer("adamw", 1e-3, vit, num_layers=1, layer_decay=0.65)
+    for build in (make_finetune_train_step, make_eval_step):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            build(vit)
 
 
 def test_create_model_names_the_models():
-    assert {"clip_b16", "adaptation_umt_base_patch16_224"} <= set(
+    assert {"clip_b16", "adaptation_umt_base_patch16_224",
+            "vit_base_patch16_224", "vit_base_patch16_384",
+            "vit_large_patch16_224", "vit_large_patch16_384"} <= set(
         unite_torch.list_models())
     with pytest.raises(KeyError, match="available: .*clip_b16"):
         unite_torch.create_model("no_such_model", device="cpu")

@@ -1,4 +1,5 @@
-// Shared pieces of the fused-qkv attention kernels (forward and backward).
+// Shared pieces of the attention kernels: fused-qkv (K1, K2) and packed
+// flash (K3, K4).
 //
 // Layout: qkv is the qkv projection's natural [B, S, 3*H*D] row-major bf16
 // output. Head h reads q at lanes [h*D, (h+1)*D), k at +H*D, v at +2*H*D;
@@ -6,8 +7,10 @@
 // ever materialized in device memory. D is fixed at 64 (every shipped model).
 //
 // Tiles are products on the tensor cores through mma.sync m16n8k16 (bf16
-// operands, fp32 accumulation). Each warp owns 16 rows at a time; a block
-// holds one (batch, head) and its warps walk that head's 16-row tiles.
+// operands, fp32 accumulation). Each warp owns 16 rows at a time; a K1/K2
+// block holds one (batch, head) and its warps walk that head's 16-row
+// tiles, a K3/K4 block one 128-row tile of a (batch, head) that streams the
+// other operands through shared memory.
 // Right operands come from shared memory through ldmatrix (x4, transposed
 // for the p.v-type products). Fragment layouts (PTX ISA, lane = 4*g + t):
 //   A 16x16: a0 (g, 2t..2t+1)   a1 (g+8, 2t..)   a2 (g, 8+2t..)   a3 (g+8, 8+2t..)
@@ -107,6 +110,69 @@ __device__ __forceinline__ void load_rows(bf16* dst, const bf16* src,
       v = *reinterpret_cast<const uint4*>(src + (size_t)r * stride + col);
     *reinterpret_cast<uint4*>(dst + r * PITCH + col) = v;
   }
+}
+
+// Asynchronous copies (cp.async, sm_80+) for the streaming kernels: a copy
+// with a source size of 0 writes zeros, so missing rows read as zeros.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool valid) {
+  const uint32_t d = (uint32_t)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(d), "l"(src), "r"(valid ? 16 : 0) : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool valid) {
+  const uint32_t d = (uint32_t)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(d), "l"(src), "r"(valid ? 4 : 0) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most N of this thread's committed groups are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// load_rows with cp.async: rows [0, rows_valid) of a [*, 64] head slice
+// into shared memory at pitch PITCH, zeros up to rows_total. Not complete
+// until cp_async_wait and a barrier.
+__device__ __forceinline__ void load_rows_async(bf16* dst, const bf16* src,
+                                                size_t stride, int rows_valid,
+                                                int rows_total) {
+  for (int idx = threadIdx.x; idx < rows_total * 8; idx += blockDim.x) {
+    const int r = idx >> 3;
+    const int col = (idx & 7) * 8;
+    const bool ok = r < rows_valid;
+    cp_async16(dst + r * PITCH + col, src + (ok ? (size_t)r * stride : 0) + col,
+               ok);
+  }
+}
+
+// Runs step(n0, nk) over the 16-row steps n0 of a streamed tile that holds
+// nk <= FULL valid rows. A full tile takes an unrolled loop with a constant
+// bound, so the compiler can overlap one step's products with the next
+// one's exp2 and shared-memory reads; the partial last tile takes a plain
+// loop.
+template <int FULL, typename F>
+__device__ __forceinline__ void for_steps(int nk, F&& step) {
+  if (nk == FULL) {
+#pragma unroll
+    for (int n0 = 0; n0 < FULL; n0 += 16) step(n0, FULL);
+  } else {
+    for (int n0 = 0; n0 < nk; n0 += 16) step(n0, nk);
+  }
+}
+
+// 2^x on the special-function unit, denormal results flushed to 0.
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
 // A fragments of a 16x64 row block (rows r0.., the 64 head lanes) straight

@@ -1,8 +1,43 @@
-"""Stage-1 CLIP alignment loss (unite_tpu/engines/losses.py), in fp32."""
+"""Losses of the stages (unite_tpu/engines/losses.py), all in fp32: the
+stage-2 criteria (soft-target CE under mixup, else CE with optional label
+smoothing), top-k accuracy, and the stage-1 CLIP alignment loss."""
 
 from __future__ import annotations
 
 import torch
+
+
+def cross_entropy(logits, labels, label_smoothing: float = 0.0,
+                  reduction: str = "mean"):
+    """CE over int labels with optional smoothing (torch semantics);
+    ``reduction`` is "mean", "sum" or anything else for per-sample."""
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    nll = -logp.gather(-1, labels.long()[..., None])[..., 0]
+    if label_smoothing > 0.0:
+        loss = ((1.0 - label_smoothing) * nll
+                + label_smoothing * -logp.mean(dim=-1))
+    else:
+        loss = nll
+    if reduction == "mean":
+        return loss.mean()
+    if reduction == "sum":
+        return loss.sum()
+    return loss
+
+
+def soft_target_cross_entropy(logits, soft_targets):
+    """timm SoftTargetCrossEntropy: batch mean of -sum(t * logp)."""
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    return (-soft_targets.float() * logp).sum(dim=-1).mean()
+
+
+def accuracy_topk(logits, labels, ks=(1, 5)):
+    """Top-k accuracies in percent, as 0-d tensors on the logits' device;
+    k is clamped to the class count."""
+    ks = [min(k, logits.shape[-1]) for k in ks]
+    pred = logits.float().topk(max(ks), dim=-1).indices
+    correct = pred == labels.long()[:, None]
+    return [100.0 * correct[:, :k].any(dim=1).float().mean() for k in ks]
 
 
 def clip_alignment_loss(x_clip, targets, loss_type: str = "l2",

@@ -1,3 +1,3 @@
 """Model families; importing this module registers them."""
 
-from unite_torch.models import adaptation, clip  # noqa: F401
+from unite_torch.models import adaptation, clip, vit  # noqa: F401

@@ -102,11 +102,15 @@ def gelu_for(dtype):
 
 
 class Mlp(nn.Module):
-    def __init__(self, dim: int, hidden_features: int, dtype=torch.float32):
+    """fc1 -> act -> fc2; ``act`` defaults to ``gelu_for(dtype)`` and
+    ``out_features`` to ``dim``."""
+
+    def __init__(self, dim: int, hidden_features: int, dtype=torch.float32,
+                 out_features: Optional[int] = None, act=None):
         super().__init__()
         self.fc1 = Linear(dim, hidden_features, dtype=dtype)
-        self.fc2 = Linear(hidden_features, dim, dtype=dtype)
-        self.act = gelu_for(dtype)
+        self.fc2 = Linear(hidden_features, out_features or dim, dtype=dtype)
+        self.act = act or gelu_for(dtype)
 
     def forward(self, x):
         return self.fc2(self.act(self.fc1(x)))

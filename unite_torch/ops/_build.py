@@ -23,7 +23,8 @@ from typing import Dict
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "unite_torch_kernels"
-SOURCES = ("fused_qkv_fwd", "fused_qkv_bwd")
+SOURCES = ("fused_qkv_fwd", "fused_qkv_bwd", "packed_flash_fwd",
+           "packed_flash_bwd")
 HEADERS = ("fused_qkv_common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -90,6 +91,16 @@ def _declare(lib: ctypes.CDLL) -> None:
     if hasattr(lib, "unite_fused_qkv_bwd"):
         lib.unite_fused_qkv_bwd.argtypes = [p, p, p, p, p, p, i, i, i, f, f, p]
         lib.unite_fused_qkv_bwd.restype = i
+    if hasattr(lib, "unite_packed_flash_fwd"):
+        lib.unite_packed_flash_fwd.argtypes = [p, p, p, i, i, i, f, p]
+        lib.unite_packed_flash_fwd.restype = i
+    if hasattr(lib, "unite_packed_flash_dq"):
+        lib.unite_packed_flash_dq.argtypes = [p, p, p, p, p, p, i, i, i, f, f,
+                                              p]
+        lib.unite_packed_flash_dq.restype = i
+    if hasattr(lib, "unite_packed_flash_dkv"):
+        lib.unite_packed_flash_dkv.argtypes = [p, p, p, p, p, i, i, i, f, f, p]
+        lib.unite_packed_flash_dkv.restype = i
 
 
 def load(name: str) -> ctypes.CDLL:

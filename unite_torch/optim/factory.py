@@ -1,5 +1,6 @@
-"""Optimizer factory: AdamW with per-step lr / weight-decay tables
-(unite_tpu/optim/factory.py, the ``adamw`` path of ``create_optimizer``).
+"""Optimizer factory: AdamW with per-step lr / weight-decay tables and
+layer-wise lr decay (unite_tpu/optim/factory.py, the ``adamw`` path of
+``create_optimizer``).
 
 The update is optax's ``scale_by_adam`` followed by the decoupled decay of
 ``scheduled_optimizer``:
@@ -26,20 +27,58 @@ from unite_torch.utils.device import resolve_device
 DEFAULT_SKIP_LIST = ("pos_embed", "cls_token", "mask_token", "clip_pos_embed")
 
 
+def get_num_layer_for_vit(name: str, num_max_layer: int) -> int:
+    """Layer id of a parameter for layer-wise decay, from its dotted name
+    (optim_factory.py:44-62 of the reference, with the JAX package's extra
+    names); a leading ``encoder.`` (adaptation students) or
+    ``transformer.`` (CLIP's resblocks) is skipped."""
+    parts = name.split(".")
+    if parts[0] in ("encoder", "transformer"):
+        parts = parts[1:]
+    head = parts[0]
+    if head in ("cls_token", "mask_token", "pos_embed", "class_embedding",
+                "positional_embedding", "temporal_positional_embedding"):
+        return 0
+    if head.startswith("patch_embed") or head.startswith("conv1"):
+        return 0
+    if head.startswith("rel_pos_bias"):
+        return num_max_layer - 1
+    if head in ("blocks", "resblocks"):
+        return int(parts[1]) + 1
+    return num_max_layer - 1
+
+
+def layer_decay_scales(layer_decay: float, num_layers: int) -> list:
+    """decay**(num_layers+1-i) for i in 0..num_layers+1 (run_stage2.py:616)."""
+    return [layer_decay ** (num_layers + 1 - i) for i in range(num_layers + 2)]
+
+
 def param_group_metadata(named_params, weight_decay: float,
                          skip_list: Sequence[str] = DEFAULT_SKIP_LIST,
-                         trainable: Optional[Callable[[str], bool]] = None):
+                         trainable: Optional[Callable[[str], bool]] = None,
+                         num_layers: Optional[int] = None,
+                         layer_decay: Optional[float] = None):
     """name -> {"weight_decay", "lr_scale", "params": [names]} groups:
     no decay for tensors of ndim <= 1, for ``bias`` and for names in the
-    skip list; a parameter for which ``trainable(name)`` is False goes to
-    the "frozen" group with scale 0."""
+    skip list. With ``layer_decay`` < 1 the groups are
+    ``layer_{id}_{decay|no_decay}`` with scale ``layer_decay_scales[id]``.
+    A parameter for which ``trainable(name)`` is False goes to the "frozen"
+    group with scale 0."""
+    scales = None
+    if layer_decay is not None and layer_decay < 1.0:
+        if num_layers is None:
+            raise ValueError("layer_decay needs num_layers")
+        scales = layer_decay_scales(layer_decay, num_layers)
     groups: Dict[str, dict] = {}
     for name, p in named_params:
         parts = name.split(".")
         no_decay = (p.ndim <= 1 or parts[-1] == "bias"
                     or parts[-1] in skip_list or parts[0] in skip_list)
-        scale = 1.0
-        gname = "no_decay" if no_decay else "decay"
+        kind = "no_decay" if no_decay else "decay"
+        scale, gname = 1.0, kind
+        if scales is not None:
+            layer_id = get_num_layer_for_vit(name, len(scales))
+            scale, gname = scales[layer_id], f"layer_{layer_id}_{kind}"
         if trainable is not None and not trainable(name):
             scale, gname = 0.0, "frozen"
         groups.setdefault(gname, {"weight_decay": 0.0 if no_decay
@@ -102,10 +141,14 @@ def create_optimizer(opt: str, lr, model: torch.nn.Module,
                      eps: float = 1e-8,
                      skip_list: Sequence[str] = DEFAULT_SKIP_LIST,
                      trainable: Optional[Callable[[str], bool]] = None,
+                     num_layers: Optional[int] = None,
+                     layer_decay: Optional[float] = None,
                      device=None):
     """Build the optimizer for ``model``'s parameters, which must lie on
     ``device`` (CUDA when None). ``lr`` and ``weight_decay`` are per-step
-    tables or constants. Returns (optimizer, groups)."""
+    tables or constants; ``layer_decay`` < 1 with the model's
+    ``num_layers`` scales each group's lr by layer. Returns (optimizer,
+    groups)."""
     name = opt.lower()
     if name != "adamw":
         raise NotImplementedError(
@@ -118,7 +161,8 @@ def create_optimizer(opt: str, lr, model: torch.nn.Module,
             raise ValueError(f"parameter {pname} is on {p.device}, "
                              f"optimizer asked for {dev}")
     wd_value = float(np.max(_table(weight_decay)))
-    groups = param_group_metadata(named, wd_value, skip_list, trainable)
+    groups = param_group_metadata(named, wd_value, skip_list, trainable,
+                                  num_layers, layer_decay)
     by_name = dict(named)
     torch_groups = [{"params": [by_name[n] for n in g["params"]],
                      "lr_scale": g["lr_scale"],
