@@ -15,9 +15,12 @@ toolkit. In order:
    student's [64, 320, 2304], K2 (its backward) at [64, 320, 2304]; K3
    (packed flash forward) at the stage-2 train step's [8, 1568, 2304] with
    lse and the eval step's [32, 1568, 2304] without, K4's dQ and dK/dV
-   kernels at [8, 1568, 2304]; error, median time, the plain version's
-   time, the bound, and one PyTorch call (``scaled_dot_product_attention``)
-   as a yardstick;
+   kernels at [8, 1568, 2304]; K6 (the [B, H, S, D] flash forward, dQ and
+   dK/dV kernels) at the stage-3 CLS shapes [5, 12, 1569, 64] and (forward)
+   [32, 12, 1569, 64] and the clip_l14_336 teacher's [40, 16, 577, 64], on
+   contiguous tensors and on strided qkv views; error, median time, the
+   plain version's time, the bound, and one PyTorch call
+   (``scaled_dot_product_attention``) as a yardstick;
 4. one stage-1 step on the card in bf16 against the same step on the CPU in
    fp32 (B=2, same weights, same batch, injected visible tokens);
 5. the stage-1 path: the train step at full ViT-B/16 width and
@@ -35,7 +38,21 @@ toolkit. In order:
    launch counts and a profiled step;
 8. the stage-2 eval step at the config's batch_size_val of 32, 2 warm-up
    and 10 timed calls, with the launch counts and a profiled call;
-9. one JSON line of every kernel's numbers, the card line again, and the
+9. one stage-3 step on the card in bf16 against the CPU in fp32, without
+   and with the CLS token (B=2, same weights and batch, injected teacher
+   attention and CLIP similarities): loss, grad norm and the full and
+   grad-member logits, with the selection agreement reported apart;
+10. the stage-3 path ``stage3-b16-b5``: configs/stage3_config.yaml with
+   stage3.sh's batch of 5 (adaptation_umt_base_patch16_224 over 8 x 224^2
+   with tubelet 1, clip_b16 teacher, mask 0.8, committee 2,
+   clip_matchORconf, AdamW), each step after the zero-shot similarities of
+   its batch (text features from a seed), 2 warm-up and 10 timed steps,
+   with exact launch counts (K1, K2, K3, K4; no K6) and a profiled step;
+11. ``stage3-cls-b16-b5``: the same with ``use_cls_token``, whose full
+   passes run 1569 tokens through K6 (no K3/K4);
+12. ``stage3-cls-eval-b16-b32``: its eval step at batch_size_val 32, K6
+   forward only;
+13. one JSON line of every kernel's numbers, the card line again, and the
    last line ``{"ok": true, "device": {...}}``.
 
 Any failed check raises and the script exits non-zero. With no CUDA device,
@@ -60,6 +77,7 @@ FWD_TOL = 1e-2         # a few bf16 ulps of |o| <= 1
 BWD_TOL = 2e-2         # times max |dqkv| of the plain version
 STEP_RTOL = 2e-2       # bf16 card step against the fp32 CPU step
 STAGE2_TOKENS = 1568   # 8 frames x 196 patches, tubelet 1
+STAGE3_CLS_TOKENS = STAGE2_TOKENS + 1  # the same with the CLS token
 
 
 def card_line() -> str:
@@ -95,16 +113,25 @@ def counters(A) -> dict:
     """Every kernel wrapper of the port, by kernel id."""
     return {"K1": A.fused_qkv_fwd, "K2": A.fused_qkv_bwd,
             "K3": A.packed_flash_fwd, "K4a": A.packed_flash_dq,
-            "K4b": A.packed_flash_dkv}
+            "K4b": A.packed_flash_dkv, "K6": A.flash_fwd,
+            "K6dq": A.flash_dq, "K6dkv": A.flash_dkv}
+
+
+def lse_counters(A) -> dict:
+    """The forward wrappers' launches that also wrote the lse."""
+    return {"K3+lse": A.packed_flash_fwd, "K6+lse": A.flash_fwd}
 
 
 def reset_counts(A) -> None:
     for fn in counters(A).values():
         fn.launches = 0
+    for fn in lse_counters(A).values():
+        fn.lse_launches = 0
 
 
 def read_counts(A) -> dict:
-    return {k: fn.launches for k, fn in counters(A).items()}
+    return dict({k: fn.launches for k, fn in counters(A).items()},
+                **{k: fn.lse_launches for k, fn in lse_counters(A).items()})
 
 
 def expect_counts(counts: dict, want: dict, what: str) -> None:
@@ -356,12 +383,12 @@ def profile_step(torch, run_step, dest_name: str) -> dict:
         (annotations if getattr(e, "is_user_annotation", False) else rows
          ).append((e.key, e.self_device_time_total / 1e3, e.count))
     rows.sort(key=lambda r: -r[1])
-    classes = {"attention (K1-K4)": 0.0, "matmul (cuBLAS)": 0.0,
+    classes = {"attention (K1-K4, K6)": 0.0, "matmul (cuBLAS)": 0.0,
                "other (elementwise, norms, reductions, copies)": 0.0}
     for name, ms, _ in rows:
         low = name.lower()
-        if "fused_qkv" in low or "packed_flash" in low:
-            classes["attention (K1-K4)"] += ms
+        if "fused_qkv" in low or "flash_" in low:
+            classes["attention (K1-K4, K6)"] += ms
         elif any(t in low for t in ("gemm", "xmma", "cutlass", "nvjet",
                                     "cublas")):
             classes["matmul (cuBLAS)"] += ms
@@ -590,8 +617,8 @@ def stage2_path(torch, A, b: int = 8, warmup: int = 2, timed: int = 10):
     print(f"stage-2 path losses/grad norms: {vals}", flush=True)
     check_finite(vals)
     # all 12 blocks run K3 forward and K4 backward, the frozen ones too
-    expect_counts(counts, {"K3": 12 * n, "K4a": 12 * n, "K4b": 12 * n},
-                  f"stage-2 path, {n} steps")
+    expect_counts(counts, {"K3": 12 * n, "K3+lse": 12 * n, "K4a": 12 * n,
+                           "K4b": 12 * n}, f"stage-2 path, {n} steps")
     flops = b * stage2_clip_flops()
     res = dict(clips_per_s=b * timed / dt, step_ms=dt / timed * 1e3,
                model_tflop_per_step=flops / 1e12,
@@ -646,6 +673,366 @@ def stage2_eval(torch, A, state, eval_step, b: int = 32, warmup: int = 2,
     return res
 
 
+def check_flash_kernels(torch, A):
+    """Phase 3, stage 3: K6 against its plain version at the stage-3 CLS
+    train shape [5, 12, 1569, 64], the CLS eval shape [32, 12, 1569, 64]
+    (forward only) and the clip_l14_336 teacher's [40, 16, 577, 64], on
+    contiguous tensors and on the strided views of a qkv projection output
+    that the models pass; times on the views."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    results = {}
+    for label, b, h, s, train in (("train", 5, HEADS, STAGE3_CLS_TOKENS, True),
+                                  ("l14", 40, 16, 577, True),
+                                  ("eval", 32, HEADS, STAGE3_CLS_TOKENS,
+                                   False)):
+        qkv = torch.randn((b, s, 3 * h * 64), generator=gen,
+                          device="cuda").to(torch.bfloat16)
+        views = A._split_heads(qkv, h)
+        dense = [t.contiguous() for t in views]
+        ref, ref_lse = A.flash_reference(*dense, scale=SCALE)
+        errs = {}
+        for layout, (q, k, v) in (("contiguous", dense), ("views", views)):
+            out, lse = A.flash_fwd(q, k, v, SCALE, with_lse=train)
+            torch.cuda.synchronize()
+            e = (out.float() - ref.float()).abs().max().item()
+            if not bool(torch.isfinite(out).all()) or e > FWD_TOL:
+                raise AssertionError(f"K6 {label} {layout}: max abs err {e} "
+                                     f"> {FWD_TOL}")
+            if train and (lse - ref_lse).abs().max().item() > 1e-3:
+                raise AssertionError(f"K6 {label} {layout}: lse err")
+            errs[layout] = e
+        q, k, v = views
+        out_nl, none = A.flash_fwd(q, k, v, SCALE)
+        if none is not None or not torch.equal(out_nl, out):
+            raise AssertionError(f"K6 {label}: the forward without lse differs")
+        ms = median_ms(lambda: A.flash_fwd(q, k, v, SCALE, train))
+        plain_ms = median_ms(lambda: A.flash_reference(q, k, v, scale=SCALE))
+        lib_ms = median_ms(lambda: F.scaled_dot_product_attention(
+            *dense, scale=SCALE))
+        tok = b * h * s * 64 * 2  # bytes of one [B, H, S, 64] bf16 tensor
+        stat = b * h * s * 4      # one fp32 row statistic
+        bms, by = bound(4 * tok + (stat if train else 0),
+                        4.0 * b * h * s * s * 64)
+        results[f"K6/{label}"] = dict(
+            shape=[b, h, s, 64], max_abs_err=max(errs.values()),
+            max_abs_err_by_layout=errs, ms=ms, plain_ms=plain_ms,
+            bound_ms=bms, bound_by=by, library_ms=lib_ms,
+            library="scaled_dot_product_attention forward")
+        print(f"K6 flash_fwd {label} {results[f'K6/{label}']}", flush=True)
+        del ref, ref_lse, out_nl
+        if not train:
+            del qkv, views, dense, q, k, v, out, lse
+            torch.cuda.empty_cache()
+            continue
+
+        # dq and dk/dv from the forward above, on both layouts
+        do = torch.randn(out.shape, generator=gen, device="cuda").to(
+            torch.bfloat16)
+        refs = A.flash_reference_bwd(*dense, out, lse, do, scale=SCALE)
+        berr = {}
+        for layout, qkv_t in (("contiguous", dense), ("views", views)):
+            got = A.flash_bwd(*qkv_t, out, lse, do, SCALE)
+            torch.cuda.synchronize()
+            for name, a, r in zip(("dq", "dk", "dv"), got, refs):
+                e = (a.float() - r.float()).abs().max().item()
+                tol = BWD_TOL * r.float().abs().max().item()
+                if not bool(torch.isfinite(a).all()) or e > tol:
+                    raise AssertionError(f"K6 {label} {layout} {name}: max "
+                                         f"abs err {e} > {tol}")
+                berr[name] = max(berr.get(name, (0.0, tol)), (e, tol))
+        del refs, got
+        dq, dk, dv = (A._empty_like_rows(t) for t in views)
+        delta = torch.empty((b, h, s), dtype=torch.float32, device="cuda")
+        ms_dq = median_ms(lambda: A.flash_dq(q, k, v, out, do, lse, dq, delta,
+                                             SCALE))
+        ms_dkv = median_ms(lambda: A.flash_dkv(q, k, v, do, lse, delta, dk, dv,
+                                               SCALE))
+        plain_dq = median_ms(lambda: A._flash_dq_reference(q, k, v, out, do,
+                                                           lse, SCALE))
+        plain_dkv = median_ms(lambda: A._flash_dkv_reference(q, k, v, do, lse,
+                                                             delta, SCALE))
+        leaves = [t.detach().requires_grad_(True) for t in dense]
+        o_lib = F.scaled_dot_product_attention(*leaves, scale=SCALE)
+        bwd_ms = median_ms(lambda: torch.autograd.grad(o_lib, leaves, do,
+                                                       retain_graph=True))
+
+        def sdpa_fwd_bwd():
+            F.scaled_dot_product_attention(*leaves, scale=SCALE).backward(do)
+
+        fwd_bwd_ms = median_ms(sdpa_fwd_bwd)
+        for key, ms_k, plain, nbytes, flops, e in (
+                ("dq", ms_dq, plain_dq, 6 * tok + 2 * stat, 6.0, berr["dq"]),
+                ("dkv", ms_dkv, plain_dkv, 6 * tok + 2 * stat, 8.0,
+                 max(berr["dk"], berr["dv"]))):
+            bms, by = bound(nbytes, flops * b * h * s * s * 64)
+            results[f"K6{key}/{label}"] = dict(
+                shape=[b, h, s, 64], max_abs_err=e[0], tol=e[1], ms=ms_k,
+                plain_ms=plain, bound_ms=bms, bound_by=by, library_ms=bwd_ms,
+                library="scaled_dot_product_attention backward (dq, dk, dv: "
+                        "the dq and dk/dv kernels together)",
+                library_fwd_bwd_ms=fwd_bwd_ms)
+            print(f"K6 flash_{key} {label} {results[f'K6{key}/{label}']}",
+                  flush=True)
+        del (qkv, views, dense, q, k, v, out, lse, do, dq, dk, dv, delta,
+             leaves, o_lib)
+        torch.cuda.empty_cache()
+    return results
+
+
+def stage3_step_flops(b: int, cls: bool, frames: int = 8, width: int = 768,
+                      layers: int = 12, grid: int = 196,
+                      visible: int = 320) -> float:
+    """Model operations of one stage-3 step at B_s = B_t = b, from the
+    shapes (matrix products and attention; a backward counts as two
+    forwards): the zero-shot and the attention teacher passes over b*8
+    frames of 197 tokens, the source full pass forward and backward, the
+    target full pass forward, and the committee's grad member forward and
+    backward at the visible tokens (the CLS student embeds every patch
+    before its gather). The kernels' recomputed scores are not counted."""
+    def layer(tokens, seq):  # qkv, proj, fc1, fc2 (12 w^2) + q.k^T and p.v
+        return tokens * (2 * 12 * width * width + 4 * seq * width)
+
+    patch = 2 * 3 * 16 * 16 * width  # per patch
+    n, nv = frames * grid + cls, visible + cls
+    teacher = layers * layer(b * frames * (grid + 1), grid + 1) \
+        + b * frames * grid * patch
+    full = layers * layer(b * n, n) + b * frames * grid * patch
+    grad = layers * layer(b * nv, nv) + b * (frames * grid if cls
+                                             else visible) * patch
+    return float(2 * teacher + 3 * full + full + 3 * grad)
+
+
+def build_stage3(torch, dtype, device: str, drop_path: float, cls: bool,
+                 b: int, model_state=None):
+    """The stage-3 student, teacher, classifier, optimizer, steps and
+    zero-shot function of configs/stage3_config.yaml with stage3.sh's run
+    values (epochs 20, warmup 4, lr 1e-5 scaled by the batch, AdamW (0.9,
+    0.95) eps 1e-8, wd 0.05, mask 0.8, committee 2, clip_matchORconf at
+    0.1, conf-weighted, train_masked, taps [6], 12 classes), and text
+    features for the zero-shot teacher made from a seed."""
+    import numpy as np
+
+    from unite_torch import create_model
+    from unite_torch.engines.selftrain import (make_selftrain_eval_step,
+                                               make_selftrain_step)
+    from unite_torch.models.clip_text import build_zero_shot_fn
+    from unite_torch.train import run_stage3
+    from unite_torch.train.train_state import TrainState
+    from unite_torch.utils.schedules import cosine_scheduler, scaled_lr
+
+    args = SimpleNamespace(opt="adamw", opt_betas=[0.9, 0.95], opt_eps=1e-8,
+                           nb_classes=12, freeze_clip_decoders=False,
+                           src_classifier_type="linear",
+                           clip_input_resolution=224)
+    student = create_model(
+        "adaptation_umt_base_patch16_224", device=device, dtype=dtype,
+        num_frames=8, tubelet_size=1, drop_path_rate=drop_path,
+        use_cls_token=cls, clip_decoder_embed_dim=768, clip_output_dim=512,
+        clip_norm_type="l2", clip_return_layers=(6,))
+    teacher = create_model("clip_b16", device=device, dtype=dtype,
+                           input_resolution=224, clip_norm_type="l2",
+                           return_attn=True, return_index=(6,))
+    classifier = run_stage3.build_classifier(args, 768, device)
+    model = run_stage3.combine(student, classifier)
+    if model_state is not None:
+        model.load_state_dict(model_state)
+    niter, epochs = 100, 20
+    lr_tab = cosine_scheduler(scaled_lr(1e-5, b), scaled_lr(1e-5, b), epochs,
+                              niter, warmup_epochs=4,
+                              start_warmup_value=scaled_lr(1e-6, b))
+    tx, _ = run_stage3.build_optimizer(args, model, lr_tab, 0.05, device)
+    kw = dict(num_patches=1568, frames=8, mask_ratio=0.8, committee_size=2,
+              selection_strategy="clip_matchORconf", clip_threshold=0.1,
+              conf_weighted_loss=True, train_masked=True, use_cls_token=cls,
+              clip_input_resolution=224, nb_classes=12, device=device)
+    step = make_selftrain_step(student, classifier, teacher, **kw)
+    eval_step = make_selftrain_eval_step(student, classifier, cls,
+                                         device=device)
+    feats = ROOT / "build" / "chip_smoke_text_features.npy"
+    feats.parent.mkdir(exist_ok=True)
+    np.save(feats, np.random.default_rng(12).standard_normal(
+        (12, 512)).astype(np.float32))
+    args.clip_text_features = str(feats)
+    zero_shot = build_zero_shot_fn(args, teacher)
+    return TrainState(model, tx), step, eval_step, zero_shot
+
+
+def stage3_batch(torch, b: int, seed: int):
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+
+    def vids():
+        return torch.from_numpy(
+            rng.integers(0, 256, (b, 8, 224, 224, 3), dtype=np.uint8))
+
+    return {"videos_s": vids(), "labels_s": torch.from_numpy(
+                rng.integers(0, 12, (b,))),
+            "videos_t": vids(), "videos_t_aug": vids(),
+            "labels_t": torch.from_numpy(rng.integers(0, 12, (b,)))}
+
+
+def stage3_card_vs_cpu(torch, cls: bool, card: str = "cuda"):
+    """Phase 9: one stage-3 step on the card (bf16) against the CPU (fp32),
+    B=2, with the same weights, batch, injected teacher attention and an
+    injected clip_sim that agrees with the CPU's full-target predictions,
+    so that every row matches CLIP on the CPU; the selection agreement of
+    the card is reported apart (a discontinuous function of the logits)."""
+    import numpy as np
+
+    from unite_torch.engines.selftrain import pool_outputs
+    from unite_torch.ops.masking import greedy_committee_masks, visible_indices
+    from unite_torch.ops.normalize import normalize_videos
+
+    torch.manual_seed(13)
+    cpu_state, cpu_step, _, _ = build_stage3(torch, torch.float32, "cpu", 0.0,
+                                             cls, 2)
+    sd = {k: v.clone() for k, v in cpu_state.model.state_dict().items()}
+    gpu_state, gpu_step, _, _ = build_stage3(torch, torch.bfloat16, card,
+                                             0.0, cls, 2, sd)
+    batch = stage3_batch(torch, 2, 14)
+    rng = np.random.default_rng(15)
+    batch["attn"] = torch.from_numpy(rng.dirichlet(
+        np.ones(196), size=16).astype(np.float32))
+    vis = visible_indices(greedy_committee_masks(batch["attn"], 0.8, 2)[-1]
+                          .reshape(2, -1), 320)
+
+    def logits(model, dev):
+        student, head = model["model"].eval(), model["classifier"]
+        with torch.no_grad():
+            full = head(pool_outputs(student.encoder(normalize_videos(
+                batch["videos_t"].to(dev)))[0], cls)).float().cpu()
+            grad = head(pool_outputs(student.encoder(normalize_videos(
+                batch["videos_t_aug"].to(dev)), vis.to(dev))[0], cls)
+                ).float().cpu()
+        return full, grad
+
+    l_cpu, l_gpu = logits(cpu_state.model, "cpu"), logits(gpu_state.model,
+                                                           card)
+    sim = torch.full((2, 12), 0.1 / 11)
+    sim[torch.arange(2), l_cpu[0].argmax(-1)] = 0.9
+    batch["clip_sim"] = sim
+    rel = {name: ((g - c).abs().max() / c.abs().max()).item()
+           for name, g, c in zip(("full_logits", "grad_logits"), l_gpu, l_cpu)}
+    m_gpu = gpu_step(gpu_state, batch)
+    m_cpu = cpu_step(cpu_state, batch)
+    for k in ("loss", "grad_norm"):
+        rel[k] = abs(m_gpu[k].item() - m_cpu[k].item()) / abs(m_cpu[k].item())
+    agree = {k: (m_gpu[k].cpu().tolist(), m_cpu[k].tolist())
+             for k in ("preds_t", "sel_ratio", "match_select_rate")}
+    print(f"stage-3 step card bf16 vs cpu fp32 (cls={cls}): rel {rel}; "
+          f"selection card/cpu {agree}; loss card {m_gpu['loss'].item()} "
+          f"cpu {m_cpu['loss'].item()}", flush=True)
+    check_finite([(m_gpu["loss"].item(), m_gpu["grad_norm"].item())])
+    if not all(r <= STEP_RTOL for r in rel.values()):
+        raise AssertionError(f"stage-3 card step (cls={cls}) disagrees with "
+                             f"the CPU: {rel}")
+    return dict(rel, selection_agrees=all(a == b for a, b in agree.values()))
+
+
+def stage3_path(torch, A, cls: bool, b: int = 5, warmup: int = 2,
+                timed: int = 10, device: str = "cuda"):
+    """Phases 10 and 11: the stage-3 train step with the zero-shot
+    similarities of each batch, as the stage-3 loop runs them; returns its
+    numbers and the trained state with its eval step."""
+    torch.manual_seed(16)
+    state, step, eval_step, zero_shot = build_stage3(
+        torch, torch.bfloat16, device, 0.1, cls, b)
+    gen = torch.Generator(device=device).manual_seed(17)
+    batch = {k: v.pin_memory() if device == "cuda" else v
+             for k, v in stage3_batch(torch, b, 18).items()}
+
+    def run():
+        batch["clip_sim"] = zero_shot(batch["videos_t"])
+        return step(state, batch, gen)
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(A)
+    metrics = [run() for _ in range(warmup)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(timed):
+        metrics.append(run())
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = read_counts(A)
+    n = warmup + timed
+    vals = [(m["loss"].item(), m["grad_norm"].item()) for m in metrics]
+    name = "stage3-cls-b16-b5" if cls else "stage3-b16-b5"
+    print(f"{name} losses/grad norms: {vals}", flush=True)
+    check_finite(vals)
+    # K1: the zero-shot teacher, the attention teacher and the committee's
+    # grad member forward (12 layers each); K2: its backward. The full
+    # passes: the source forward with lse and backward, the target forward
+    # without lse, on K3/K4 at 1568 tokens or K6 at 1569.
+    want = {"K1": 36 * n, "K2": 12 * n}
+    if cls:
+        want.update({"K6": 24 * n, "K6+lse": 12 * n, "K6dq": 12 * n,
+                     "K6dkv": 12 * n})
+    else:
+        want.update({"K3": 24 * n, "K3+lse": 12 * n, "K4a": 12 * n,
+                     "K4b": 12 * n})
+    expect_counts(counts, want, f"{name}, {n} steps")
+    flops = stage3_step_flops(b, cls)
+    sel = [m["sel_ratio"].item() for m in metrics]
+    res = dict(clips_per_s=b * timed / dt, step_ms=dt / timed * 1e3,
+               model_tflop_per_step=flops / 1e12,
+               model_flops_util=flops * timed / dt / PEAK_BF16,
+               peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+               steps=n, launches=counts, sel_ratio=sel[-1])
+    print(f"{name} B={b}: {res} on {card_line()}", flush=True)
+    res["profile"] = profile_step(torch, run,
+                                  f"chip_smoke_profile_{name}.json")
+    res["device_share_of_timed_step"] = (res["profile"]["device_ms"]
+                                         / res["step_ms"])
+    return res, state, eval_step
+
+
+def stage3_eval(torch, A, state, eval_step, b: int = 32, warmup: int = 2,
+                timed: int = 10, device: str = "cuda"):
+    """Phase 12: the stage-3 eval step of the CLS student (softmax, top-1/5,
+    loss) at the config's batch_size_val, on K6 forward only."""
+    batch = {k: v.pin_memory() if device == "cuda" else v
+             for k, v in stage2_batch(torch, b, 19).items()}
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(A)
+    outs = [eval_step(state, batch) for _ in range(warmup)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(timed):
+        outs.append(eval_step(state, batch))
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = read_counts(A)
+    n = warmup + timed
+    expect_counts(counts, {"K6": 12 * n}, f"stage-3 CLS eval, {n} calls")
+    probs = outs[-1]["probs"]
+    sums = probs.sum(-1)
+    if (probs.shape != (b, 12) or not bool(torch.isfinite(probs).all())
+            or (sums - 1).abs().max().item() > 1e-4):
+        raise AssertionError(f"stage-3 eval probs: shape {tuple(probs.shape)},"
+                             f" row sums {sums.tolist()}")
+    # the full forward of the CLS student (matrix products and attention)
+    n_tok = STAGE3_CLS_TOKENS
+    fwd = b * (12 * n_tok * (2 * 12 * 768 * 768 + 4 * n_tok * 768)
+               + 8 * 196 * 2 * 3 * 16 * 16 * 768)
+    res = dict(views_per_s=b * timed / dt, call_ms=dt / timed * 1e3,
+               model_tflop_per_call=fwd / 1e12,
+               model_flops_util=fwd * timed / dt / PEAK_BF16,
+               peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+               calls=n, k6_launches=counts["K6"],
+               acc1=outs[-1]["acc1"].item(), loss=outs[-1]["loss"].item())
+    print(f"stage3-cls-eval-b16-b32 B={b}: {res} on {card_line()}",
+          flush=True)
+    res["profile"] = profile_step(torch, lambda: eval_step(state, batch),
+                                  "chip_smoke_profile_stage3_cls_eval.json")
+    res["device_share_of_timed_call"] = (res["profile"]["device_ms"]
+                                         / res["call_ms"])
+    return res
+
+
 def main() -> int:
     try:
         import torch
@@ -682,11 +1069,21 @@ def main() -> int:
 
     kr = check_kernels(torch, A)
     kr.update(check_packed_kernels(torch, A))
+    kr.update(check_flash_kernels(torch, A))
     card_vs_cpu(torch)
     mp = main_path(torch, A)
     s2_rel = stage2_card_vs_cpu(torch)
     s2, state, eval_step = stage2_path(torch, A)
     ev = stage2_eval(torch, A, state, eval_step)
+    del state, eval_step
+    torch.cuda.empty_cache()
+    s3_rel = {f"cls={cls}": stage3_card_vs_cpu(torch, cls)
+              for cls in (False, True)}
+    s3, state, _ = stage3_path(torch, A, cls=False)
+    del state
+    torch.cuda.empty_cache()
+    s3c, state, eval_step = stage3_path(torch, A, cls=True)
+    ev3 = stage3_eval(torch, A, state, eval_step)
 
     kernels = []
     for key, name, src, rep, launches in (
@@ -710,7 +1107,19 @@ def main() -> int:
              "unite_tpu/ops/attention.py:983", s2["k4_dq_launches"]),
             ("K4b", "packed_flash_dkv[train B=8 S=1568]",
              "unite_torch/csrc/packed_flash_bwd.cu",
-             "unite_tpu/ops/attention.py:1014", s2["k4_dkv_launches"])):
+             "unite_tpu/ops/attention.py:1014", s2["k4_dkv_launches"]),
+            ("K6/train", "flash_fwd[stage-3 CLS train B=5 S=1569]",
+             "unite_torch/csrc/packed_flash_fwd.cu",
+             "unite_tpu/ops/attention.py:148", s3c["launches"]["K6"]),
+            ("K6/eval", "flash_fwd[stage-3 CLS eval B=32 S=1569]",
+             "unite_torch/csrc/packed_flash_fwd.cu",
+             "unite_tpu/ops/attention.py:148", ev3["k6_launches"]),
+            ("K6dq/train", "flash_dq[stage-3 CLS train B=5 S=1569]",
+             "unite_torch/csrc/packed_flash_bwd.cu",
+             "unite_tpu/ops/attention.py:231", s3c["launches"]["K6dq"]),
+            ("K6dkv/train", "flash_dkv[stage-3 CLS train B=5 S=1569]",
+             "unite_torch/csrc/packed_flash_bwd.cu",
+             "unite_tpu/ops/attention.py:270", s3c["launches"]["K6dkv"])):
         r = kr[key]
         kernels.append({"name": name, "route": "cuda", "source": src,
                         "replaces": rep, "launches": launches,
@@ -720,6 +1129,8 @@ def main() -> int:
                         "library_ms": r["library_ms"]})
     print(json.dumps({"kernels": kernels, "step": mp, "stage2_step": s2,
                       "stage2_eval": ev, "stage2_card_vs_cpu_rel": s2_rel,
+                      "stage3_step": s3, "stage3_cls_step": s3c,
+                      "stage3_cls_eval": ev3, "stage3_card_vs_cpu": s3_rel,
                       "yardsticks": {k: {x: r[x] for x in r if x.startswith(
                           "library")} for k, r in kr.items()}}))
     print(card_line())

@@ -47,7 +47,8 @@ def test_cuda_refuses_what_the_kernel_does_not_take(cuda):
         x = torch.zeros((1, s, 3 * HEADS * 64), device=cuda)
         with pytest.raises(TypeError):
             TA.fused_qkv_attention(x, HEADS, SCALE)  # fp32: no silent fallback
-    # K1 keeps its shared-memory guard; the route sends such lengths to K3
+    # K1 keeps its shared-memory guard; the route sends such lengths to
+    # K3/K4 or K6
     x = torch.zeros((1, TA.FUSED_QKV_MAX_SEQ + 1, 3 * HEADS * 64),
                     device=cuda, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="K3"):
@@ -97,6 +98,84 @@ def test_packed_kernels_match_plain_on_card(cuda, s):
         tol = 2e-2 * dref[..., sl].abs().max().item()
         assert (dqkv[..., sl].float() - dref[..., sl]).abs().max().item() \
             <= tol, part
+
+
+def _flash_inputs(cuda, b, s, seed, strided):
+    """q, k, v [B, H, S, 64] bf16: contiguous, or the strided views of a
+    qkv projection output that the models pass."""
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    if strided:
+        qkv = torch.randn((b, s, 3 * HEADS * 64), generator=gen, device=cuda
+                          ).to(torch.bfloat16)
+        return TA._split_heads(qkv, HEADS), gen
+    return [torch.randn((b, HEADS, s, 64), generator=gen, device=cuda
+                        ).to(torch.bfloat16) for _ in range(3)], gen
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("strided", [False, True])
+@pytest.mark.parametrize("s", [577, 785, 1569])
+def test_flash_kernels_match_plain_on_card(cuda, s, strided):
+    # none of these lengths has a divisor query block: partial tiles
+    (q, k, v), gen = _flash_inputs(cuda, 3, s, s, strided)
+    out, lse = TA.flash_fwd(q, k, v, SCALE, with_lse=True)
+    ref, ref_lse = TA.flash_reference(q, k, v, scale=SCALE)
+    assert out.stride() == TA._empty_like_rows(q).stride()
+    assert (out.float() - ref.float()).abs().max().item() <= 1e-2
+    assert (lse - ref_lse).abs().max().item() <= 1e-3
+    out_nl, none = TA.flash_fwd(q, k, v, SCALE)
+    assert none is None and torch.equal(out_nl, out)
+    do = torch.randn(out.shape, generator=gen, device=cuda).to(torch.bfloat16)
+    got = TA.flash_bwd(q, k, v, out, lse, do, SCALE)
+    refs = TA.flash_reference_bwd(q, k, v, out, lse, do, scale=SCALE)
+    for name, a, r in zip("qkv", got, refs):
+        tol = 2e-2 * r.float().abs().max().item()
+        assert (a.float() - r.float()).abs().max().item() <= tol, name
+
+
+@pytest.mark.cuda
+def test_autograd_through_multi_head_attention(cuda):
+    (q, k, v), _ = _flash_inputs(cuda, 2, 600, 2, strided=False)
+    leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
+    before = [getattr(TA, n).launches for n in ("flash_fwd", "flash_dq",
+                                                "flash_dkv")]
+    out = TA.multi_head_attention(*leaves, scale=SCALE)
+    out.float().square().sum().backward()
+    after = [getattr(TA, n).launches for n in ("flash_fwd", "flash_dq",
+                                               "flash_dkv")]
+    assert [a - b for a, b in zip(after, before)] == [1, 1, 1]
+    o, lse = TA.flash_reference(q, k, v, scale=SCALE)
+    refs = TA.flash_reference_bwd(q, k, v, out.detach(), lse,
+                                  (2 * out.float()).to(torch.bfloat16),
+                                  scale=SCALE)
+    for leaf, r in zip(leaves, refs):
+        tol = 2e-2 * r.float().abs().max().item()
+        assert (leaf.grad.float() - r.float()).abs().max().item() <= tol
+    # below 513 tokens [B, H, S, D] attention is K5, not ported: no fallback
+    with pytest.raises(NotImplementedError, match="K5"):
+        TA.multi_head_attention(q[:, :, :512], k[:, :, :512], v[:, :, :512])
+    with pytest.raises(TypeError):
+        TA.multi_head_attention(q.float(), k.float(), v.float())
+
+
+@pytest.mark.cuda
+def test_model_route_takes_k6_on_strided_views(cuda):
+    # 1569 = 1568 + CLS has no divisor block: the route runs K6 on views of
+    # qkv, and the gradient reaches qkv
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    x = torch.randn((2, 1569, 3 * HEADS * 64), generator=gen, device=cuda
+                    ).to(torch.bfloat16).requires_grad_(True)
+    f0, p0 = TA.flash_fwd.launches, TA.packed_flash_fwd.launches
+    out = TA.self_attention(x, HEADS, SCALE)
+    out.float().square().sum().backward()
+    assert (TA.flash_fwd.launches - f0, TA.packed_flash_fwd.launches - p0) \
+        == (1, 0)
+    _, lse = TA.packed_flash_reference(x.detach(), HEADS, SCALE)
+    ref = TA.packed_flash_reference_bwd(
+        x.detach(), out.detach(), lse, (2 * out.float()).to(torch.bfloat16),
+        HEADS, SCALE).float()
+    assert (x.grad.float() - ref).abs().max().item() <= \
+        2e-2 * ref.abs().max().item()
 
 
 @pytest.mark.cuda

@@ -6,6 +6,7 @@ import shutil
 import subprocess
 import sys
 from pathlib import Path
+from types import SimpleNamespace
 
 import pytest
 import torch
@@ -13,10 +14,18 @@ import torch
 import unite_torch
 from unite_torch.engines.finetune import make_eval_step, make_finetune_train_step
 from unite_torch.engines.pretrain_umt import make_pretrain_train_step
+from unite_torch.engines.selftrain import (make_selftrain_eval_step,
+                                           make_selftrain_step)
 from unite_torch.optim.factory import create_optimizer
+from unite_torch.train.run_stage3 import build_classifier
 
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "unite_tpu")
+# the modules of each slice, named so that a module left out of the walk
+# fails the check
+SLICE_MODULES = ("ops.attention", "models.adaptation", "engines.finetune",
+                 "engines.selftrain", "models.clip_text", "train.run_stage3",
+                 "utils.knn", "utils.metrics")
 
 
 def _run(code_or_args, cwd=ROOT):
@@ -36,10 +45,13 @@ def test_every_module_imports_without_jax():
         "import chip_smoke\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
         "assert not bad, bad\n"
+        f"missing = [m for m in {SLICE_MODULES!r} if 'unite_torch.' + m "
+        "not in names]\n"
+        "assert not missing, missing\n"
         "print(len(names))\n")
     r = _run(code)
     assert r.returncode == 0, r.stderr
-    assert int(r.stdout.strip()) >= 20
+    assert int(r.stdout.strip()) >= 25
 
 
 def test_no_source_names_jax():
@@ -77,6 +89,13 @@ def test_entry_points_refuse_the_cpu_unless_asked(monkeypatch):
     for build in (make_finetune_train_step, make_eval_step):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             build(vit)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_selftrain_step(student, vit, student, num_patches=392,
+                            frames=2, mask_ratio=0.8)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_selftrain_eval_step(student, vit)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        build_classifier(SimpleNamespace(nb_classes=12), 768)
 
 
 def test_create_model_names_the_models():

@@ -1,5 +1,5 @@
-// Shared pieces of the attention kernels: fused-qkv (K1, K2) and packed
-// flash (K3, K4).
+// Shared pieces of the attention kernels: fused-qkv (K1, K2) and the
+// strided flash kernels (K3, K4 on the packed layout, K6 on [B, H, S, D]).
 //
 // Layout: qkv is the qkv projection's natural [B, S, 3*H*D] row-major bf16
 // output. Head h reads q at lanes [h*D, (h+1)*D), k at +H*D, v at +2*H*D;
@@ -35,6 +35,25 @@ constexpr int ROWS_PER_WARP = 16;
 constexpr int PITCH = HEAD_DIM + 8;
 
 __host__ __device__ __forceinline__ int round16(int x) { return (x + 15) & ~15; }
+
+// A [B, H, S, 64] bf16 view: element (b, h, s, d) at p[b*sb + h*sh + s*sr + d].
+// Row starts are 16-byte aligned (the wrappers check it). The packed layout
+// is one such view per q/k/v lane slice of qkv [B, S, 3*H*64]:
+// (sb, sh, sr) = (S*3*H*64, 64, 3*H*64), and o [B, S, H*64] is
+// (S*H*64, 64, H*64); a contiguous [B, H, S, 64] tensor is (H*S*64, S*64, 64).
+struct View {
+  bf16* p;
+  long long sb, sh, sr;
+  __device__ __forceinline__ bf16* head(int b, int h) const {
+    return p + b * sb + h * sh;
+  }
+};
+
+// Views from the C entry points: pointer i with strides s[3i..3i+2].
+inline View view_of(const void* p, const long long* s, int i) {
+  return View{static_cast<bf16*>(const_cast<void*>(p)), s[3 * i], s[3 * i + 1],
+              s[3 * i + 2]};
+}
 
 // Not volatile: a product has no effect beyond its outputs, so the compiler
 // may interleave independent accumulator chains.

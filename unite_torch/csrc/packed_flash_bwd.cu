@@ -1,43 +1,48 @@
-// K4: packed flash attention backward for Hopper (sm_90a), any sequence
-// length, as two kernels in the FlashAttention-2 split the TPU has:
+// Flash attention backward for Hopper (sm_90a) over strided [B, H, S, 64]
+// views, any sequence length, as two kernels in the FlashAttention-2 split
+// the TPU has. They serve two TPU kernel pairs:
 //
 //   K4a replaces unite_tpu/ops/attention.py::_packed_dq_kernel,
 //   K4b replaces unite_tpu/ops/attention.py::_packed_dkv_kernel
-//   (both called from _packed_flash_bwd).
+//   (both called from _packed_flash_bwd): q, k, v, o and do are lane slices
+//   of the packed [B, S, 3*H*D] and [B, S, H*D] layouts, and dq, dk, dv are
+//   written straight into the lane slices of the packed dqkv (the TPU's
+//   concatenation does not survive);
+//   K6 dq replaces unite_tpu/ops/attention.py::_bwd_dq_kernel,
+//   K6 dkv replaces unite_tpu/ops/attention.py::_bwd_dkv_kernel
+//   (both called from _flash_bwd): every tensor is a [B, H, S, D] view.
 //
-// Given qkv [B, S, 3*H*D], K3's output o [B, S, H*D] and base-2 row
-// log-sum-exp lse2 [B, H, S], and the cotangent do [B, S, H*D], they write
-// dq, dk and dv straight into the lane slices of the packed dqkv
-// [B, S, 3*H*D] (the TPU's concatenation does not survive). Per head:
+// Given q, k, v, the forward's output o and base-2 row log-sum-exp lse2
+// [B, H, S], and the cotangent do, per head:
 //
-//   K4a  delta = rowsum(do * o)              fp32 over the bf16 do and o
+//   dq   delta = rowsum(do * o)              fp32 over the bf16 do and o
 //        p  = exp2(q.k^T * c - lse2)         fp32, never rounded
 //        dp = do.v^T
 //        ds = p * (dp - delta) * scale       rounded to bf16
 //        dq = ds.k
-//   K4b  p^T  = exp2(k.q^T * c - lse2)       ROUNDED to bf16
+//   dkv  p^T  = exp2(k.q^T * c - lse2)       ROUNDED to bf16
 //        dv   = p^T.do
 //        dp^T = v.do^T
 //        ds^T = p^T * (dp^T - delta) * scale rounded to bf16
 //        dk   = ds^T.q
 //
 // The asymmetry (fp32 p on the dQ side, bf16 p^T on the dK/dV side) is the
-// TPU kernels' own (:1004 against :1035) and is kept.
+// TPU kernels' own (:263 and :1004 against :289 and :1035) and is kept.
 //
-// Design. K4a: one block of 8 warps per (batch, head, 128-query tile); each
+// Design. dq: one block of 8 warps per (batch, head, 128-query tile); each
 // warp keeps its 16 rows of q and do as mma A fragments, computes delta for
-// them (written out for K4b) and streams K and V through shared memory in
-// 64-key tiles. K4b: one block per (batch, head, 128-key tile); each warp
-// keeps its 16 rows of k and v as A fragments and streams Q, dO and the
-// queries' lse2 and delta through shared memory in 64-query tiles. K4b runs
-// after K4a on one stream. Each stream is double-buffered: cp.async copies
-// tile i+1 into shared memory while the warps compute on tile i. Partial
-// tiles: missing keys get p = 0 in K4a; missing queries read as zero rows in
-// K4b, which add exactly 0 to dk and dv; rows past S are never written.
-// Score tiles live only in registers.
+// them (written out for the dkv kernel) and streams K and V through shared
+// memory in 64-key tiles. dkv: one block per (batch, head, 128-key tile);
+// each warp keeps its 16 rows of k and v as A fragments and streams Q, dO
+// and the queries' lse2 and delta through shared memory in 64-query tiles.
+// dkv runs after dq on one stream. Each stream is double-buffered: cp.async
+// copies tile i+1 into shared memory while the warps compute on tile i.
+// Partial tiles: missing keys get p = 0 in dq; missing queries read as zero
+// rows in dkv, which add exactly 0 to dk and dv; rows past S are never
+// written. Score tiles live only in registers.
 //
-// What bounds it on the H100: at [8, 1568, 2304], K4a does 3 products
-// (6*S^2*D flops a head, 9.1e10 in all, 0.092 ms at 989 TFLOP/s) and K4b 4
+// What bounds it on the H100: at [8, 1568, 2304], dq does 3 products
+// (6*S^2*D flops a head, 9.1e10 in all, 0.092 ms at 989 TFLOP/s) and dkv 4
 // (8*S^2*D, 0.122 ms), against 0.02-0.03 ms of bytes each: both are bound
 // by operations. The products are mma.sync (wgmma and TMA are later work),
 // and exp2 runs on the special-function unit with denormals flushed to 0.
@@ -52,23 +57,18 @@ constexpr int BLOCK_T = 64;                         // streamed rows a tile
 constexpr int TILE = BLOCK_T * PITCH;               // elements of one buffer
 
 __global__ void __launch_bounds__(THREADS, 2)
-    packed_flash_dq_kernel(const bf16* __restrict__ qkv,
-                           const bf16* __restrict__ out,
-                           const bf16* __restrict__ dout,
-                           const float* __restrict__ lse,
-                           float* __restrict__ delta,
-                           bf16* __restrict__ dqkv, int S, int H, float c,
-                           float scale) {
+    flash_dq_kernel(View q, View k, View v, View o, View dout,
+                    const float* __restrict__ lse, float* __restrict__ delta,
+                    View dq, int S, int H, float c, float scale) {
   __shared__ __align__(16) bf16 k_s[2][TILE];
   __shared__ __align__(16) bf16 v_s[2][TILE];
 
   const int h = blockIdx.y, b = blockIdx.z;
-  const int hd = H * HEAD_DIM;
-  const size_t stride = 3 * (size_t)hd;
-  const bf16* base = qkv + (size_t)b * S * stride;
-  const bf16* k_g = base + hd + h * HEAD_DIM;
-  const bf16* v_g = base + 2 * hd + h * HEAD_DIM;
-  const size_t off = (size_t)b * S * hd + h * HEAD_DIM;  // o, do, head h
+  const bf16* k_g = k.head(b, h);
+  const bf16* v_g = v.head(b, h);
+  const bf16* o_h = o.head(b, h);
+  const bf16* do_h = dout.head(b, h);
+  const size_t ks_r = k.sr, vs_r = v.sr;
   const size_t stat = ((size_t)b * H + h) * S;
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const int r0 = blockIdx.x * BLOCK_ROWS + (threadIdx.x >> 5) * ROWS_PER_WARP;
@@ -80,40 +80,40 @@ __global__ void __launch_bounds__(THREADS, 2)
   if (active) {
     for (int i = 0; i < ROWS_PER_WARP; ++i) {
       const int row = r0 + i;
-      float v = 0.f;
+      float x = 0.f;
       if (row < S) {
         const __nv_bfloat162 a = reinterpret_cast<const __nv_bfloat162*>(
-            dout + off + (size_t)row * hd)[lane];
-        const __nv_bfloat162 o = reinterpret_cast<const __nv_bfloat162*>(
-            out + off + (size_t)row * hd)[lane];
-        v = __bfloat162float(a.x) * __bfloat162float(o.x) +
-            __bfloat162float(a.y) * __bfloat162float(o.y);
+            do_h + (size_t)row * dout.sr)[lane];
+        const __nv_bfloat162 y = reinterpret_cast<const __nv_bfloat162*>(
+            o_h + (size_t)row * o.sr)[lane];
+        x = __bfloat162float(a.x) * __bfloat162float(y.x) +
+            __bfloat162float(a.y) * __bfloat162float(y.y);
       }
 #pragma unroll
-      for (int sh = 16; sh > 0; sh >>= 1) v += __shfl_xor_sync(0xffffffffu, v, sh);
-      if (lane == 0 && row < S) delta[stat + row] = v;
-      if (i == g) dl0 = v;
-      if (i == g + 8) dl1 = v;
+      for (int sh = 16; sh > 0; sh >>= 1) x += __shfl_xor_sync(0xffffffffu, x, sh);
+      if (lane == 0 && row < S) delta[stat + row] = x;
+      if (i == g) dl0 = x;
+      if (i == g + 8) dl1 = x;
     }
     ls0 = r0 + g < S ? lse[stat + r0 + g] : 0.f;
     ls1 = r0 + g + 8 < S ? lse[stat + r0 + g + 8] : 0.f;
   }
-  load_a_rows(qa, base + h * HEAD_DIM, stride, r0, S);
-  load_a_rows(da, dout + off, hd, r0, S);
+  load_a_rows(qa, q.head(b, h), q.sr, r0, S);
+  load_a_rows(da, do_h, dout.sr, r0, S);
 
   float acc[8][4];
 #pragma unroll
   for (int j = 0; j < 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
   const int ntiles = (S + BLOCK_T - 1) / BLOCK_T;
-  load_rows_async(k_s[0], k_g, stride, min(BLOCK_T, S), BLOCK_T);
-  load_rows_async(v_s[0], v_g, stride, min(BLOCK_T, S), BLOCK_T);
+  load_rows_async(k_s[0], k_g, ks_r, min(BLOCK_T, S), BLOCK_T);
+  load_rows_async(v_s[0], v_g, vs_r, min(BLOCK_T, S), BLOCK_T);
   cp_async_commit();
   for (int i = 0; i < ntiles; ++i) {
     if (i + 1 < ntiles) {  // tile i+1 streams in while tile i is used
       const int k1 = (i + 1) * BLOCK_T;
-      load_rows_async(k_s[(i + 1) & 1], k_g + (size_t)k1 * stride, stride,
+      load_rows_async(k_s[(i + 1) & 1], k_g + (size_t)k1 * ks_r, ks_r,
                       min(BLOCK_T, S - k1), BLOCK_T);
-      load_rows_async(v_s[(i + 1) & 1], v_g + (size_t)k1 * stride, stride,
+      load_rows_async(v_s[(i + 1) & 1], v_g + (size_t)k1 * vs_r, vs_r,
                       min(BLOCK_T, S - k1), BLOCK_T);
     }
     cp_async_commit();
@@ -147,28 +147,23 @@ __global__ void __launch_bounds__(THREADS, 2)
     __syncthreads();  // tile i's buffers are free for tile i+2
   }
   if (!active) return;
-  store_rows(dqkv + (size_t)b * S * stride + h * HEAD_DIM, stride, acc, r0, S,
-             1.f, 1.f);
+  store_rows(dq.head(b, h), dq.sr, acc, r0, S, 1.f, 1.f);
 }
 
 __global__ void __launch_bounds__(THREADS, 2)
-    packed_flash_dkv_kernel(const bf16* __restrict__ qkv,
-                            const bf16* __restrict__ dout,
-                            const float* __restrict__ lse,
-                            const float* __restrict__ delta,
-                            bf16* __restrict__ dqkv, int S, int H, float c,
-                            float scale) {
+    flash_dkv_kernel(View q, View k, View v, View dout,
+                     const float* __restrict__ lse,
+                     const float* __restrict__ delta, View dk, View dv_out,
+                     int S, int H, float c, float scale) {
   __shared__ __align__(16) bf16 q_s[2][TILE];
   __shared__ __align__(16) bf16 do_s[2][TILE];
   __shared__ __align__(16) float lse_s[2][BLOCK_T];
   __shared__ __align__(16) float delta_s[2][BLOCK_T];
 
   const int h = blockIdx.y, b = blockIdx.z;
-  const int hd = H * HEAD_DIM;
-  const size_t stride = 3 * (size_t)hd;
-  const bf16* base = qkv + (size_t)b * S * stride;
-  const bf16* q_g = base + h * HEAD_DIM;
-  const bf16* do_g = dout + (size_t)b * S * hd + h * HEAD_DIM;
+  const bf16* q_g = q.head(b, h);
+  const bf16* do_g = dout.head(b, h);
+  const size_t qs_r = q.sr, dos_r = dout.sr;
   const size_t stat = ((size_t)b * H + h) * S;
   const int t = threadIdx.x & 3;
   const int j0 = blockIdx.x * BLOCK_ROWS + (threadIdx.x >> 5) * ROWS_PER_WARP;
@@ -176,22 +171,22 @@ __global__ void __launch_bounds__(THREADS, 2)
 
   // the warp's 16 keys, as left operands: s^T = k.q^T and dp^T = v.do^T
   uint32_t ka[4][4], va[4][4];
-  load_a_rows(ka, base + hd + h * HEAD_DIM, stride, j0, S);
-  load_a_rows(va, base + 2 * hd + h * HEAD_DIM, stride, j0, S);
+  load_a_rows(ka, k.head(b, h), k.sr, j0, S);
+  load_a_rows(va, v.head(b, h), v.sr, j0, S);
 
-  float dk[8][4], dv[8][4];
+  float dk_acc[8][4], dv_acc[8][4];
 #pragma unroll
   for (int j = 0; j < 8; ++j) {
-    dk[j][0] = dk[j][1] = dk[j][2] = dk[j][3] = 0.f;
-    dv[j][0] = dv[j][1] = dv[j][2] = dv[j][3] = 0.f;
+    dk_acc[j][0] = dk_acc[j][1] = dk_acc[j][2] = dk_acc[j][3] = 0.f;
+    dv_acc[j][0] = dv_acc[j][1] = dv_acc[j][2] = dv_acc[j][3] = 0.f;
   }
   // one tile of queries: their q and do rows, lse2 and delta. Missing
   // queries read zeros everywhere, and a zero q and do row adds exactly 0
   // to dk and dv (p^T = 1 multiplies do = 0; ds^T = 1*(0 - 0)*scale).
   auto load_tile = [&](int buf, int i0) {
     const int nq = min(BLOCK_T, S - i0);
-    load_rows_async(q_s[buf], q_g + (size_t)i0 * stride, stride, nq, BLOCK_T);
-    load_rows_async(do_s[buf], do_g + (size_t)i0 * hd, hd, nq, BLOCK_T);
+    load_rows_async(q_s[buf], q_g + (size_t)i0 * qs_r, qs_r, nq, BLOCK_T);
+    load_rows_async(do_s[buf], do_g + (size_t)i0 * dos_r, dos_r, nq, BLOCK_T);
     const int i = threadIdx.x & (BLOCK_T - 1);
     const bool ok = i < nq;
     const size_t at = stat + i0 + (ok ? i : 0);
@@ -220,9 +215,9 @@ __global__ void __launch_bounds__(THREADS, 2)
           float s[4] = {0.f, 0.f, 0.f, 0.f}, dp[4] = {0.f, 0.f, 0.f, 0.f};
           mma_rows_t(s, ka, qs, n0 + half * 8);
           mma_rows_t(dp, va, ds, n0 + half * 8);
-          const int q = n0 + half * 8 + 2 * t;  // query columns q, q + 1
-          const float la = ls[q], lb = ls[q + 1];
-          const float da = dl[q], db = dl[q + 1];
+          const int qi = n0 + half * 8 + 2 * t;  // query columns qi, qi + 1
+          const float la = ls[qi], lb = ls[qi + 1];
+          const float da = dl[qi], db = dl[qi + 1];
           const bf16 p00 = __float2bfloat16_rn(fast_exp2(s[0] * c - la));
           const bf16 p01 = __float2bfloat16_rn(fast_exp2(s[1] * c - lb));
           const bf16 p10 = __float2bfloat16_rn(fast_exp2(s[2] * c - la));
@@ -236,43 +231,47 @@ __global__ void __launch_bounds__(THREADS, 2)
               pack_f32(__bfloat162float(p10) * (dp[2] - da) * scale,
                        __bfloat162float(p11) * (dp[3] - db) * scale);
         }
-        mma_p_x(dv, pa, ds, n0);
-        mma_p_x(dk, dsa, qs, n0);
+        mma_p_x(dv_acc, pa, ds, n0);
+        mma_p_x(dk_acc, dsa, qs, n0);
       });
     }
     __syncthreads();
   }
   if (!active) return;
-  bf16* dst = dqkv + (size_t)b * S * stride + h * HEAD_DIM;
-  store_rows(dst + hd, stride, dk, j0, S, 1.f, 1.f);
-  store_rows(dst + 2 * hd, stride, dv, j0, S, 1.f, 1.f);
+  store_rows(dk.head(b, h), dk.sr, dk_acc, j0, S, 1.f, 1.f);
+  store_rows(dv_out.head(b, h), dv_out.sr, dv_acc, j0, S, 1.f, 1.f);
 }
 
-// K4a. qkv [B, S, 3*H*64], out and dout [B, S, H*64] bf16, lse [B, H, S]
-// fp32 -> the q lanes of dqkv [B, S, 3*H*64] and delta [B, H, S] fp32.
-// c = scale*log2(e). Launches on `stream`; returns cudaGetLastError().
-extern "C" int unite_packed_flash_dq(const void* qkv, const void* out,
-                                     const void* dout, const void* lse,
-                                     void* delta, void* dqkv, int B, int S,
-                                     int H, float c, float scale,
-                                     void* stream) {
+// dq and delta. q, k, v, o, do and dq are [B, H, S, 64] bf16 views whose
+// (batch, head, row) strides are strides[3i..3i+2] in that order; lse (in)
+// and delta (out) [B, H, S] fp32 contiguous. c = scale*log2(e). Launches on
+// `stream`; returns cudaGetLastError().
+extern "C" int unite_flash_dq(const void* q, const void* k, const void* v,
+                              const void* o, const void* dout,
+                              const void* lse, void* delta, void* dq,
+                              const long long* strides, int B, int S, int H,
+                              float c, float scale, void* stream) {
   const dim3 grid((S + BLOCK_ROWS - 1) / BLOCK_ROWS, H, B);
-  packed_flash_dq_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
-      static_cast<const bf16*>(qkv), static_cast<const bf16*>(out),
-      static_cast<const bf16*>(dout), static_cast<const float*>(lse),
-      static_cast<float*>(delta), static_cast<bf16*>(dqkv), S, H, c, scale);
+  flash_dq_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
+      view_of(q, strides, 0), view_of(k, strides, 1), view_of(v, strides, 2),
+      view_of(o, strides, 3), view_of(dout, strides, 4),
+      static_cast<const float*>(lse), static_cast<float*>(delta),
+      view_of(dq, strides, 5), S, H, c, scale);
   return (int)cudaGetLastError();
 }
 
-// K4b. qkv, dout, lse and K4a's delta -> the k and v lanes of dqkv.
-extern "C" int unite_packed_flash_dkv(const void* qkv, const void* dout,
-                                      const void* lse, const void* delta,
-                                      void* dqkv, int B, int S, int H,
-                                      float c, float scale, void* stream) {
+// dk and dv from q, k, v, do, lse and the dq kernel's delta. Views q, k, v,
+// do, dk, dv with strides[3i..3i+2] in that order.
+extern "C" int unite_flash_dkv(const void* q, const void* k, const void* v,
+                               const void* dout, const void* lse,
+                               const void* delta, void* dk, void* dv,
+                               const long long* strides, int B, int S, int H,
+                               float c, float scale, void* stream) {
   const dim3 grid((S + BLOCK_ROWS - 1) / BLOCK_ROWS, H, B);
-  packed_flash_dkv_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
-      static_cast<const bf16*>(qkv), static_cast<const bf16*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<bf16*>(dqkv), S, H, c, scale);
+  flash_dkv_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
+      view_of(q, strides, 0), view_of(k, strides, 1), view_of(v, strides, 2),
+      view_of(dout, strides, 3), static_cast<const float*>(lse),
+      static_cast<const float*>(delta), view_of(dk, strides, 4),
+      view_of(dv, strides, 5), S, H, c, scale);
   return (int)cudaGetLastError();
 }

@@ -1,13 +1,20 @@
-// K3: packed flash attention forward for Hopper (sm_90a), any sequence length.
+// Flash attention forward for Hopper (sm_90a) over strided [B, H, S, 64]
+// views, any sequence length. One kernel serves two TPU kernels:
 //
-// Replaces the TPU kernel unite_tpu/ops/attention.py::_packed_fwd_kernel
-// (called from _packed_flash_fwd). Per head: o = softmax(q.k^T * scale) . v,
-// read from and written to the packed layouts [B, S, 3*H*D] -> [B, S, H*D]
-// with strides (no head split or merge in device memory), plus the base-2
-// row log-sum-exp lse2 = m*c + log2(l), [B, H, S] fp32, when the caller
-// trains (K4 reads it).
+//   K3 replaces unite_tpu/ops/attention.py::_packed_fwd_kernel (called from
+//      _packed_flash_fwd): q, k, v are lane slices of the packed qkv
+//      [B, S, 3*H*D] and o is written into [B, S, H*D], with strides (no
+//      head split or merge in device memory);
+//   K6 replaces unite_tpu/ops/attention.py::_fwd_kernel (called from
+//      _flash_fwd): q, k, v and o are [B, H, S, D] tensors, contiguous or
+//      strided views of the qkv projection's output (the models' route for
+//      lengths with no divisor block, e.g. 1569 = 1568 patches + CLS).
 //
-// Contract kept from the TPU kernel: bf16 operands, fp32 accumulation, the
+// Per head: o = softmax(q.k^T * scale) . v, plus the base-2 row
+// log-sum-exp lse2 = m*c + log2(l), [B, H, S] fp32, when the caller trains
+// (the backward kernels read it).
+//
+// Contract kept from the TPU kernels: bf16 operands, fp32 accumulation, the
 // scale folded into exp2 as c = scale*log2(e), and p = exp2((s - m)*c)
 // rounded to bf16 against the EXACT global row max m before the p.v product;
 // l = rowsum of the rounded p; o = (p.v) * (1/l). An online-softmax rescale
@@ -22,18 +29,18 @@
 // A fragments in registers, and K and V stream through shared memory in
 // 64-key tiles that every warp of the block reads through ldmatrix. The last
 // key tile and the last query tile may be partial (1568 = 24*64 + 32 keys,
-// 12*128 + 32 queries): missing key rows are zero-filled and get p = 0,
-// missing query rows are computed on zeros and never written.
+// 12*128 + 32 queries; 1569 = 24*64 + 33 and 12*128 + 33): missing key rows
+// are zero-filled and get p = 0, missing query rows are computed on zeros
+// and never written.
 //
 // What bounds it on the H100: at [8, 1568, 2304] the attention is 6.0e10
 // flops (0.061 ms at 989 TFLOP/s) against 77 MB of qkv read and o written
-// (0.023 ms at 3.35 TB/s), so it is bound by operations, the first kernel of
-// the port that is. The tiles of a (batch, head) are neighbours in the grid,
-// so a head's K and V come from L2 after the first tile reads them. Each
-// stream is double-buffered: cp.async copies tile i+1 into shared memory
-// while the warps compute on tile i. The products are mma.sync (wgmma and
-// TMA are later work), and exp2 runs on the special-function unit with
-// denormal results flushed to 0.
+// (0.023 ms at 3.35 TB/s), so it is bound by operations. The tiles of a
+// (batch, head) are neighbours in the grid, so a head's K and V come from L2
+// after the first tile reads them. Each stream is double-buffered: cp.async
+// copies tile i+1 into shared memory while the warps compute on tile i. The
+// products are mma.sync (wgmma and TMA are later work), and exp2 runs on the
+// special-function unit with denormal results flushed to 0.
 #include "fused_qkv_common.cuh"
 
 using namespace unite;
@@ -45,20 +52,17 @@ constexpr int BLOCK_K = 64;                      // keys a shared-memory tile
 constexpr int TILE = BLOCK_K * PITCH;            // elements of one tile buffer
 
 __global__ void __launch_bounds__(THREADS, 2)
-    packed_flash_fwd_kernel(const bf16* __restrict__ qkv,
-                            bf16* __restrict__ out, float* __restrict__ lse,
-                            int S, int H, float c) {
+    flash_fwd_kernel(View q, View k, View v, View o, float* __restrict__ lse,
+                     int S, int H, float c) {
   // two buffers a stream: tile i+1 is copied in (cp.async) while the warps
   // compute on tile i
   __shared__ __align__(16) bf16 k_s[2][TILE];
   __shared__ __align__(16) bf16 v_s[2][TILE];
 
   const int h = blockIdx.y, b = blockIdx.z;
-  const int hd = H * HEAD_DIM;
-  const size_t stride = 3 * (size_t)hd;
-  const bf16* base = qkv + (size_t)b * S * stride;
-  const bf16* k_g = base + hd + h * HEAD_DIM;
-  const bf16* v_g = base + 2 * hd + h * HEAD_DIM;
+  const bf16* k_g = k.head(b, h);
+  const bf16* v_g = v.head(b, h);
+  const size_t ks_r = k.sr, vs_r = v.sr;
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const int r0 = blockIdx.x * BLOCK_Q + (threadIdx.x >> 5) * ROWS_PER_WARP;
   // warps whose 16 rows all lie past S take part in the copies only
@@ -66,16 +70,16 @@ __global__ void __launch_bounds__(THREADS, 2)
   const int ntiles = (S + BLOCK_K - 1) / BLOCK_K;
 
   uint32_t qa[4][4];
-  load_a_rows(qa, base + h * HEAD_DIM, stride, r0, S);
+  load_a_rows(qa, q.head(b, h), q.sr, r0, S);
 
   // sweep 1: the exact row max over every valid key (K only)
   float m0 = -INFINITY, m1 = -INFINITY;
-  load_rows_async(k_s[0], k_g, stride, min(BLOCK_K, S), BLOCK_K);
+  load_rows_async(k_s[0], k_g, ks_r, min(BLOCK_K, S), BLOCK_K);
   cp_async_commit();
   for (int i = 0; i < ntiles; ++i) {
     if (i + 1 < ntiles) {
       const int k1 = (i + 1) * BLOCK_K;
-      load_rows_async(k_s[(i + 1) & 1], k_g + (size_t)k1 * stride, stride,
+      load_rows_async(k_s[(i + 1) & 1], k_g + (size_t)k1 * ks_r, ks_r,
                       min(BLOCK_K, S - k1), BLOCK_K);
     }
     cp_async_commit();
@@ -106,15 +110,15 @@ __global__ void __launch_bounds__(THREADS, 2)
   float acc[8][4];
 #pragma unroll
   for (int j = 0; j < 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-  load_rows_async(k_s[0], k_g, stride, min(BLOCK_K, S), BLOCK_K);
-  load_rows_async(v_s[0], v_g, stride, min(BLOCK_K, S), BLOCK_K);
+  load_rows_async(k_s[0], k_g, ks_r, min(BLOCK_K, S), BLOCK_K);
+  load_rows_async(v_s[0], v_g, vs_r, min(BLOCK_K, S), BLOCK_K);
   cp_async_commit();
   for (int i = 0; i < ntiles; ++i) {
     if (i + 1 < ntiles) {
       const int k1 = (i + 1) * BLOCK_K;
-      load_rows_async(k_s[(i + 1) & 1], k_g + (size_t)k1 * stride, stride,
+      load_rows_async(k_s[(i + 1) & 1], k_g + (size_t)k1 * ks_r, ks_r,
                       min(BLOCK_K, S - k1), BLOCK_K);
-      load_rows_async(v_s[(i + 1) & 1], v_g + (size_t)k1 * stride, stride,
+      load_rows_async(v_s[(i + 1) & 1], v_g + (size_t)k1 * vs_r, vs_r,
                       min(BLOCK_K, S - k1), BLOCK_K);
     }
     cp_async_commit();
@@ -151,8 +155,7 @@ __global__ void __launch_bounds__(THREADS, 2)
   l0 = quad_sum(l0);
   l1 = quad_sum(l1);
 
-  store_rows(out + (size_t)b * S * hd + h * HEAD_DIM, hd, acc, r0, S,
-             1.f / l0, 1.f / l1);
+  store_rows(o.head(b, h), o.sr, acc, r0, S, 1.f / l0, 1.f / l1);
   if (lse != nullptr && t == 0) {
     float* lse_row = lse + ((size_t)b * H + h) * S;
     if (r0 + g < S) lse_row[r0 + g] = m0 * c + log2f(l0);
@@ -160,14 +163,16 @@ __global__ void __launch_bounds__(THREADS, 2)
   }
 }
 
-// qkv [B, S, 3*H*64] bf16 -> out [B, S, H*64] bf16, lse [B, H, S] fp32 (or
-// null). c = scale*log2(e). Launches on `stream`; returns cudaGetLastError().
-extern "C" int unite_packed_flash_fwd(const void* qkv, void* out, void* lse,
-                                      int B, int S, int H, float c,
-                                      void* stream) {
+// q, k, v -> o, each a [B, H, S, 64] bf16 view whose (batch, head, row)
+// strides in elements are strides[3i..3i+2] for i = q, k, v, o; lse
+// [B, H, S] fp32 contiguous, or null. c = scale*log2(e). Launches on
+// `stream`; returns cudaGetLastError().
+extern "C" int unite_flash_fwd(const void* q, const void* k, const void* v,
+                               void* o, void* lse, const long long* strides,
+                               int B, int S, int H, float c, void* stream) {
   const dim3 grid((S + BLOCK_Q - 1) / BLOCK_Q, H, B);
-  packed_flash_fwd_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
-      static_cast<const bf16*>(qkv), static_cast<bf16*>(out),
-      static_cast<float*>(lse), S, H, c);
+  flash_fwd_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
+      view_of(q, strides, 0), view_of(k, strides, 1), view_of(v, strides, 2),
+      view_of(o, strides, 3), static_cast<float*>(lse), S, H, c);
   return (int)cudaGetLastError();
 }

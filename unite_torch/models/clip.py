@@ -4,6 +4,8 @@ Counterpart of unite_tpu/models/clip.py: a per-frame patch projection with
 no bias, a class token and 2-D positional embedding, ``ln_pre``, residual
 blocks with QuickGELU and a full qkv bias, taps at ``return_index`` layers
 and, on request, the last layer's head-averaged CLS->patch attention row.
+With ``cls_features`` it is the image encoder of the stage-3 zero-shot
+teacher: the per-frame L2-normed ``ln_post(cls) @ proj``.
 
 Parameter names are the OpenAI CLIP visual tower's (``conv1.weight`` in
 Conv3d shape, ``transformer.resblocks.N.attn.in_proj_weight``,
@@ -26,7 +28,7 @@ from unite_torch.models.layers import (
     layer_norm,
     patchify,
 )
-from unite_torch.ops.attention import fused_qkv_attention
+from unite_torch.ops.attention import self_attention
 from unite_torch.utils.registry import register_model
 
 
@@ -48,13 +50,15 @@ class CLIPAttention(nn.Module):
     def forward(self, x, cls_probs: bool = False):
         """With ``cls_probs`` also returns the head-averaged CLS-query
         attention row [B, N]: one fp32 [B, H, N] product and softmax beside
-        the fused kernel, never the full [B, H, N, N] matrix."""
+        the attention kernel, never the full [B, H, N, N] matrix. The
+        attention takes ``self_attention``'s route with no width, as JAX's
+        CLIP passes none: K1 at 197 tokens, K6 at 577 (L/14 at 336^2)."""
         b, n, c = x.shape
         d = c // self.num_heads
         scale = d ** -0.5
         qkv = F.linear(x.to(self.dtype), self.in_proj_weight.to(self.dtype),
                        self.in_proj_bias.to(self.dtype))
-        out = self.out_proj(fused_qkv_attention(qkv, self.num_heads, scale))
+        out = self.out_proj(self_attention(qkv, self.num_heads, scale))
         if not cls_probs:
             return out
         qh = qkv[:, 0, :c].reshape(b, self.num_heads, d).float()
@@ -129,8 +133,13 @@ class CLIPVisionTransformer(nn.Module):
         self.ln_post = LayerNorm(width, 1e-5)
         self.proj = nn.Parameter(torch.randn(width, output_dim) * std)
 
-    def forward(self, x, raw_taps: bool = False):
+    def forward(self, x, raw_taps: bool = False, cls_features: bool = False):
         """x [B, T, H, W, 3] -> z, or (z, attn) when ``return_attn``.
+
+        ``cls_features``: the image-encoder mode (unite_tpu ``cls_features``,
+        OpenAI ``encode_image``): only the per-frame L2-normed
+        ``ln_post(cls) @ proj``, fp32 [B*T', output_dim], from all layers,
+        with no taps and no attention row.
 
         z: [K, B, T'*HW, output_dim] L2-normed features, or with
         ``raw_taps`` the tap stack before ln_post/proj/L2 [K, B, T'*HW, width]
@@ -156,7 +165,7 @@ class CLIPVisionTransformer(nn.Module):
         taps, attn = [], None
         blocks = self.transformer.resblocks
         for i, blk in enumerate(blocks):
-            if self.return_attn and i == len(blocks) - 1:
+            if self.return_attn and i == len(blocks) - 1 and not cls_features:
                 x, probs = blk(x, cls_probs=True)
                 attn = probs[:, 1:]
             else:
@@ -164,6 +173,8 @@ class CLIPVisionTransformer(nn.Module):
             if i in self.return_index:
                 taps.append(x)
 
+        if cls_features:
+            return project_clip_taps(self, x[:, 0], "l2", torch.float32)
         z = torch.stack(taps)[:, :, 1:, :]  # strip CLS
         z = z.reshape(z.shape[0], b, t * hw, self.width)
         if not raw_taps:

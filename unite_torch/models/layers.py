@@ -11,7 +11,8 @@ Counterpart of unite_tpu/models/layers.py, with the same conventions:
   than autocast so LayerNorm and the loss stay in fp32 where the JAX
   package keeps them;
 * LayerNorm statistics in fp32, output in the input dtype;
-* attention through ``ops.attention.fused_qkv_attention``;
+* attention through ``ops.attention.self_attention``, the JAX package's
+  dispatch (K1/K2, K3/K4 or K6);
 * stochastic depth draws from an explicit ``torch.Generator``.
 
 Parameter names are the reference torch names (``blocks.N.attn.qkv.weight``,
@@ -28,7 +29,20 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from unite_torch.ops.attention import fused_qkv_attention
+from unite_torch.ops.attention import self_attention
+
+
+# flax truncated_normal(stddev): a standard normal cut at +-2, rescaled so
+# the cut distribution has the given stddev
+_TRUNC_STD = 0.87962566103423978
+
+
+def trunc_normal_(w: torch.Tensor, stddev: float = 0.02, scale: float = 1.0):
+    s = stddev / _TRUNC_STD
+    with torch.no_grad():
+        nn.init.trunc_normal_(w, std=s, a=-2.0 * s, b=2.0 * s)
+        w.mul_(scale)
+    return w
 
 
 def get_sinusoid_encoding_table(n_position: int, d_hid: int) -> np.ndarray:
@@ -140,7 +154,8 @@ class Attention(nn.Module):
             bias = torch.cat([self.q_bias, torch.zeros_like(self.q_bias),
                               self.v_bias]).to(dt)
         qkv = F.linear(x.to(dt), self.qkv.weight.to(dt), bias)
-        return self.proj(fused_qkv_attention(qkv, self.num_heads, self.scale))
+        return self.proj(self_attention(qkv, self.num_heads, self.scale,
+                                        dim=x.shape[-1]))
 
 
 class Block(nn.Module):

@@ -8,7 +8,9 @@ classifier head (linear, or the two-layer ``mlp`` with no activation)
 computes in fp32; its output layer's init is scaled by ``init_scale``.
 
 At 8 frames of 224^2 with tubelet 1 the sequence is 1568 tokens, so the
-blocks' attention takes the packed flash kernels K3/K4.
+blocks' attention takes the packed flash kernels K3/K4; with a CLS token
+(``use_mean_pooling=False``) it is 1569, which has no divisor query block,
+and takes K6.
 
 Parameter names are the reference torch names (``patch_embed.proj.weight``
 in Conv3d shape, ``blocks.N.attn.q_bias``, ``fc_norm.weight``,
@@ -31,21 +33,9 @@ from unite_torch.models.layers import (
     PatchEmbed,
     get_sinusoid_encoding_table,
     num_patches,
+    trunc_normal_,
 )
 from unite_torch.utils.registry import register_model
-
-# flax truncated_normal(stddev): a standard normal cut at +-2, rescaled so
-# the cut distribution has the given stddev
-_TRUNC_STD = 0.87962566103423978
-
-
-def trunc_normal_(w: torch.Tensor, stddev: float = 0.02, scale: float = 1.0):
-    s = stddev / _TRUNC_STD
-    with torch.no_grad():
-        nn.init.trunc_normal_(w, std=s, a=-2.0 * s, b=2.0 * s)
-        w.mul_(scale)
-    return w
-
 
 class VisionTransformer(nn.Module):
     def __init__(self, img_size: int = 224, patch_size: int = 16,

@@ -85,22 +85,18 @@ def build_all() -> Dict[str, Path]:
 
 def _declare(lib: ctypes.CDLL) -> None:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    if hasattr(lib, "unite_fused_qkv_fwd"):
-        lib.unite_fused_qkv_fwd.argtypes = [p, p, p, i, i, i, f, p]
-        lib.unite_fused_qkv_fwd.restype = i
-    if hasattr(lib, "unite_fused_qkv_bwd"):
-        lib.unite_fused_qkv_bwd.argtypes = [p, p, p, p, p, p, i, i, i, f, f, p]
-        lib.unite_fused_qkv_bwd.restype = i
-    if hasattr(lib, "unite_packed_flash_fwd"):
-        lib.unite_packed_flash_fwd.argtypes = [p, p, p, i, i, i, f, p]
-        lib.unite_packed_flash_fwd.restype = i
-    if hasattr(lib, "unite_packed_flash_dq"):
-        lib.unite_packed_flash_dq.argtypes = [p, p, p, p, p, p, i, i, i, f, f,
-                                              p]
-        lib.unite_packed_flash_dq.restype = i
-    if hasattr(lib, "unite_packed_flash_dkv"):
-        lib.unite_packed_flash_dkv.argtypes = [p, p, p, p, p, i, i, i, f, f, p]
-        lib.unite_packed_flash_dkv.restype = i
+    ll = ctypes.POINTER(ctypes.c_longlong)  # the views' strides
+    signatures = {
+        "unite_fused_qkv_fwd": [p, p, p, i, i, i, f, p],
+        "unite_fused_qkv_bwd": [p, p, p, p, p, p, i, i, i, f, f, p],
+        "unite_flash_fwd": [p, p, p, p, p, ll, i, i, i, f, p],
+        "unite_flash_dq": [p] * 8 + [ll, i, i, i, f, f, p],
+        "unite_flash_dkv": [p] * 8 + [ll, i, i, i, f, f, p],
+    }
+    for name, argtypes in signatures.items():
+        if hasattr(lib, name):
+            getattr(lib, name).argtypes = argtypes
+            getattr(lib, name).restype = i
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -1,16 +1,29 @@
-"""Multi-head attention: plain PyTorch references and the packed-qkv kernels.
+"""Multi-head attention: plain PyTorch references and the hand-written kernels.
 
-Counterpart of unite_tpu/ops/attention.py. The models run attention only
-through ``fused_qkv_attention``: it consumes the qkv projection's natural
-[B, S, 3*H*D] layout and returns [B, S, H*D], with the head split and merge
-done inside the kernels. The route follows ``_fused_qkv_fwd`` in the JAX
-package: S <= 512 (``FUSED_QKV_FWD_MAX_SEQ``) takes the fused-qkv kernels,
-csrc/fused_qkv_fwd.cu (K1) and csrc/fused_qkv_bwd.cu (K2); longer sequences
-take the packed flash kernels, csrc/packed_flash_fwd.cu (K3) and the dQ and
-dK/dV kernels of csrc/packed_flash_bwd.cu (K4). Beside each kernel is its
-plain version, with the TPU kernel's math and rounding points; a wrapper
-uses it only for a tensor on the CPU. A CUDA tensor launches the kernel or
-raises.
+Counterpart of unite_tpu/ops/attention.py. The models call ``self_attention``
+on the qkv projection's natural [B, S, 3*H*D] layout, and it follows the JAX
+package's dispatch (models/layers.py:174-190, models/clip.py:82-108):
+
+* where ``use_fused_qkv`` accepts, ``fused_qkv_attention`` consumes qkv and
+  returns [B, S, H*D] with the head split and merge done inside the kernels:
+  S <= 512 (``FUSED_QKV_FWD_MAX_SEQ``) takes the fused-qkv kernels,
+  csrc/fused_qkv_fwd.cu (K1) and csrc/fused_qkv_bwd.cu (K2); longer
+  sequences with a divisor query block (1568, 1000, 600, ...) take the
+  packed flash kernels, csrc/packed_flash_fwd.cu (K3) and the dQ and dK/dV
+  kernels of csrc/packed_flash_bwd.cu (K4);
+* everywhere else above 512 tokens (1569 = 1568 patches + CLS, 577, 785,
+  ...) q, k and v become strided [B, H, S, D] views of qkv, and
+  ``multi_head_attention`` runs the blocked flash kernels K6 on them: the
+  same CUDA kernels as K3/K4, which take per-tensor strides, each with its
+  own launch counter.
+
+Below 513 tokens JAX sends training at 385-512 tokens, and widths that are
+not a multiple of 128, to its grouped kernels (K5); the port keeps K1/K2
+there until K5 is ported (ROADMAP queue 2).
+
+Beside each kernel is its plain version, with the TPU kernel's math and
+rounding points; a wrapper uses it only for a tensor on the CPU. A CUDA
+tensor launches the kernel or raises.
 
 All kernels fold the softmax scale into a base-2 exponent,
 exp(s*scale - m*scale) == exp2((s - m)*c) with c = scale*log2(e), and the
@@ -21,7 +34,10 @@ lse2 = m*c + log2(l), [B, H, S] fp32 (the TPU kernels broadcast it to
 
 from __future__ import annotations
 
+import ctypes
+import functools
 import math
+from typing import Optional
 
 import torch
 
@@ -29,30 +45,103 @@ from unite_torch.ops import _build
 
 INV_LN2 = 1.4426950408889634  # log2(e)
 HEAD_DIM = 64
-# The route: K1/K2 up to this length, K3/K4 beyond (unite_tpu's
-# FUSED_QKV_FWD_MAX_SEQ).
+# The route: K1/K2 up to this length (unite_tpu's FUSED_QKV_FWD_MAX_SEQ);
+# JAX's training cap FUSED_QKV_MAX_SEQ = 384 enters only use_fused_qkv.
 FUSED_QKV_FWD_MAX_SEQ = 512
+FUSED_QKV_TRAIN_MAX_SEQ = 384
 # K1/K2 hold one head's whole K and V (forward, dq) or Q and dO (dkv) in
 # shared memory: 2*S*72*2 bytes, plus 8*S for the row statistics, under
 # 227 KB. The route never sends them more than 512; this is their guard.
 FUSED_QKV_MAX_SEQ = 768
+# [B, H, S, D] attention: unite_tpu's grouped kernel K5 up to here, K6 beyond
+GROUPED_MAX_SEQ = 512
+# unite_tpu's _flash_qblock at its defaults: the packed route needs a
+# multiple-of-8 query block in [64, 224] that divides S.
+PACKED_QBLOCK_MIN, PACKED_QBLOCK_MAX = 64, 224
 
 
-def attention_reference(q, k, v, *, scale=None):
+# ---------------------------------------------------------------- the route
+
+
+def divisor_block(s: int, target: int) -> int:
+    """Largest multiple-of-8 divisor of ``s`` that is <= ``target``, or 0
+    (unite_tpu ``_divisor_block``)."""
+    best = 0
+    for b in range(8, min(target, s) + 1, 8):
+        if s % b == 0:
+            best = b
+    return best
+
+
+def packed_flash_ok(seq: int) -> bool:
+    """unite_tpu ``_packed_flash_ok`` at the default block sizes: the query
+    side of the packed kernels needs no padding."""
+    return divisor_block(seq, PACKED_QBLOCK_MAX) >= PACKED_QBLOCK_MIN
+
+
+def use_fused_qkv(seq: int, fwd_only: bool = False,
+                  dim: Optional[int] = None) -> bool:
+    """unite_tpu ``use_fused_qkv`` with its kernels on (``use_pallas``):
+    whether the JAX models take the packed-qkv kernels (K1/K2 or K3/K4)
+    rather than ``multi_head_attention``. ``dim`` is the model width, which
+    JAX's lane-sliced blocks need to be a multiple of 128."""
+    cap = FUSED_QKV_FWD_MAX_SEQ if fwd_only else FUSED_QKV_TRAIN_MAX_SEQ
+    dim_ok = dim is None or dim % 128 == 0
+    seq_ok = seq <= cap or (seq > FUSED_QKV_FWD_MAX_SEQ
+                            and packed_flash_ok(seq))
+    return seq_ok and dim_ok
+
+
+def uses_packed_route(seq: int, dim: Optional[int] = None) -> bool:
+    """True where ``self_attention`` takes K3/K4."""
+    return seq > FUSED_QKV_FWD_MAX_SEQ and use_fused_qkv(seq, dim=dim)
+
+
+def self_attention(qkv, heads: int, scale: float, dim: Optional[int] = None):
+    """The models' attention: qkv [B, S, 3*H*D] -> [B, S, H*D].
+
+    K1/K2 up to 512 tokens, K3/K4 where JAX packs, K6 on strided
+    [B, H, S, D] views of qkv otherwise; the output of K6 is written in
+    [B, S, H, D] memory, so the head merge is a view. ``dim`` as in
+    ``use_fused_qkv`` (the ViT blocks pass their width, CLIP passes none).
+    JAX's ``fwd_only`` moves its cap only within S <= 512, where the port
+    takes K1/K2 either way."""
+    s = qkv.shape[1]
+    if s <= FUSED_QKV_FWD_MAX_SEQ or uses_packed_route(s, dim):
+        return fused_qkv_attention(qkv, heads, scale)
+    q, k, v = _split_heads(qkv, heads)
+    return _merge_heads(multi_head_attention(q, k, v, scale=scale))
+
+
+# --------------------------------------------------------- plain versions
+
+
+def attention_reference(q, k, v, *, scale=None, return_probs: bool = False,
+                        dropout_rate: float = 0.0,
+                        generator: Optional[torch.Generator] = None):
     """Plain attention, q/k/v [B, H, S, D]; fp32 scores and softmax, p cast
-    to v's dtype for the p.v product (unite_tpu attention_xla)."""
+    to v's dtype for the p.v product (unite_tpu attention_xla). Dropout on
+    the probabilities draws from ``generator``; ``return_probs`` also
+    returns the fp32 probabilities before dropout."""
     scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
     scores = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
     probs = torch.softmax(scores, dim=-1)
-    out = torch.einsum("bhqk,bhkd->bhqd", probs.to(v.dtype).float(), v.float())
-    return out.to(q.dtype)
+    probs_out = probs
+    if dropout_rate > 0.0:
+        keep = torch.rand(probs.shape, generator=generator,
+                          device=probs.device) < 1.0 - dropout_rate
+        probs = probs * keep / (1.0 - dropout_rate)
+    out = torch.einsum("bhqk,bhkd->bhqd", probs.to(v.dtype).float(),
+                       v.float()).to(q.dtype)
+    return (out, probs_out) if return_probs else out
 
 
 def _split_heads(qkv, heads):
+    """[B, S, 3*H*D] -> q, k, v, each a [B, H, S, D] view of qkv (unbind:
+    the gradient of the three views is one stack)."""
     b, s, thd = qkv.shape
     d = thd // (3 * heads)
-    x = qkv.reshape(b, s, 3, heads, d)
-    return [x[:, :, i].transpose(1, 2) for i in range(3)]  # each [B, H, S, D]
+    return [x.transpose(1, 2) for x in qkv.reshape(b, s, 3, heads, d).unbind(2)]
 
 
 def _merge_heads(x):
@@ -61,26 +150,75 @@ def _merge_heads(x):
 
 
 def _heads_of(x, heads):
-    """[B, S, H*D] -> fp32 [B, H, S, D]."""
+    """[B, S, H*D] -> a [B, H, S, D] view."""
     b, s, hd = x.shape
-    return x.reshape(b, s, heads, hd // heads).transpose(1, 2).float()
+    return x.reshape(b, s, heads, hd // heads).transpose(1, 2)
+
+
+def flash_reference(q, k, v, *, scale: float):
+    """Plain K6 forward (``_fwd_kernel``, attention.py:148-171), which is
+    also plain K1 and K3: raw fp32 scores, the exact row max,
+    p = exp2((s - m)*c) rounded to the working type, l the row sum of the
+    rounded p (``_pv_and_rowsum``), o = (p.v)/l. q/k/v [B, H, S, D] ->
+    (o [B, H, S, D] in q's dtype, lse2 [B, H, S] fp32). Products take the
+    working-type values in fp32, which is exact for bf16 operands with fp32
+    accumulation."""
+    dt = q.dtype
+    s = q.float() @ k.float().transpose(-1, -2)  # the scale folds into exp2
+    m = s.amax(dim=-1, keepdim=True)
+    c = scale * INV_LN2
+    p = torch.exp2((s - m) * c).to(dt).float()
+    l = p.sum(dim=-1, keepdim=True)
+    o = (p @ v.float()) * (1.0 / l)
+    return o.to(dt), (m * c + torch.log2(l)).squeeze(-1)
+
+
+def _flash_dq_reference(q, k, v, o, do, lse, scale: float):
+    """Plain dQ (``_bwd_dq_kernel`` :231-267, ``_packed_dq_kernel``
+    :983-1011): delta = rowsum(do*o) in fp32, p from the lse in fp32,
+    ds = p*(dp - delta)*scale rounded, dq = ds.k. Returns (dq, delta
+    [B, H, S] fp32)."""
+    dt = q.dtype
+    kf, g = k.float(), do.float()
+    delta = (g * o.float()).sum(-1, keepdim=True)
+    p = torch.exp2((q.float() @ kf.transpose(-1, -2)) * (scale * INV_LN2)
+                   - lse[..., None])
+    dp = g @ v.float().transpose(-1, -2)
+    ds = (p * (dp - delta) * scale).to(dt).float()
+    return (ds @ kf).to(dt), delta.squeeze(-1)
+
+
+def _flash_dkv_reference(q, k, v, do, lse, delta, scale: float):
+    """Plain dK/dV (``_bwd_dkv_kernel`` :270-304, ``_packed_dkv_kernel``
+    :1014-1047): p^T from the lse rounded to the working type,
+    dv = p^T.do, ds^T = p^T*(dp^T - delta)*scale rounded, dk = ds^T.q.
+    Returns (dk, dv)."""
+    dt = q.dtype
+    qf, g = q.float(), do.float()
+    pt = torch.exp2((k.float() @ qf.transpose(-1, -2)) * (scale * INV_LN2)
+                    - lse[:, :, None, :]).to(dt).float()
+    dv = pt @ g
+    dpt = v.float() @ g.transpose(-1, -2)
+    dst = (pt * (dpt - delta[:, :, None, :]) * scale).to(dt).float()
+    return (dst @ qf).to(dt), dv.to(dt)
+
+
+def flash_reference_bwd(q, k, v, o, lse, do, *, scale: float):
+    """Plain K6 backward: (dq, dk, dv) from q/k/v, the forward's o and
+    lse2, and the cotangent do, all [B, H, S, D]. The dQ side keeps p in
+    fp32 and the dK/dV side rounds p^T, as the TPU kernels do (:263 against
+    :289); delta comes from the dQ side, as ``_flash_bwd`` computes it
+    outside the dK/dV kernel (:327)."""
+    dq, delta = _flash_dq_reference(q, k, v, o, do, lse, scale)
+    return (dq,) + _flash_dkv_reference(q, k, v, do, lse, delta, scale)
 
 
 def qkv_attention_reference(qkv, heads: int, scale: float):
-    """Plain K1: the TPU kernel's math and rounding (attention.py:690-704).
-
-    Returns (out [B, S, H*D] in qkv's dtype, lse2 [B, H, S] fp32). Products
-    take the working-type values in fp32, which is exact for bf16 operands
-    with fp32 accumulation."""
-    q, k, v = (t.float() for t in _split_heads(qkv, heads))
-    s = q @ k.transpose(-1, -2)  # raw scores; the scale folds into exp2
-    m = s.amax(dim=-1, keepdim=True)
-    c = scale * INV_LN2
-    p = torch.exp2((s - m) * c).to(qkv.dtype).float()
-    l = p.sum(dim=-1, keepdim=True)
-    o = (p @ v) * (1.0 / l)
-    lse2 = (m * c + torch.log2(l)).squeeze(-1)
-    return _merge_heads(o.to(qkv.dtype)), lse2
+    """Plain K1 (attention.py:690-704), the arithmetic of plain K6 on the
+    packed layout. Returns (out [B, S, H*D] in qkv's dtype, lse2 [B, H, S]
+    fp32)."""
+    o, lse = flash_reference(*_split_heads(qkv, heads), scale=scale)
+    return _merge_heads(o), lse
 
 
 def qkv_attention_reference_bwd(qkv, do, heads: int, scale: float):
@@ -88,7 +226,7 @@ def qkv_attention_reference_bwd(qkv, do, heads: int, scale: float):
     (attention.py:789-826). qkv [B, S, 3*H*D], do [B, S, H*D] -> dqkv."""
     dt = qkv.dtype
     q, k, v = (t.float() for t in _split_heads(qkv, heads))
-    g = _heads_of(do, heads)
+    g = _heads_of(do, heads).float()
     s = q @ k.transpose(-1, -2)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp2((s - m) * (scale * INV_LN2)).to(dt).float()
@@ -104,10 +242,47 @@ def qkv_attention_reference_bwd(qkv, do, heads: int, scale: float):
     return torch.cat([_merge_heads(x.to(dt)) for x in (dq, dk, dv)], dim=-1)
 
 
+def packed_flash_reference(qkv, heads: int, scale: float):
+    """Plain K3 (attention.py:913-934): the same function as plain K1. The
+    TPU kernel blocks the queries but keeps every key in view, so the row
+    max is the exact global one and p = exp2((s - m)*c) is rounded against
+    it. Returns (out [B, S, H*D], lse2 [B, H, S] fp32)."""
+    return qkv_attention_reference(qkv, heads, scale)
+
+
+def _packed_dq_reference(qkv, out, lse, do, heads: int, scale: float):
+    """Plain K4a (``_packed_dq_kernel``, :983-1011, delta as
+    ``_packed_flash_bwd`` :1062-1063). Returns (dq [B, S, H*D], delta
+    [B, H, S] fp32)."""
+    q, k, v = _split_heads(qkv, heads)
+    dq, delta = _flash_dq_reference(q, k, v, _heads_of(out, heads),
+                                    _heads_of(do, heads), lse, scale)
+    return _merge_heads(dq), delta
+
+
+def _packed_dkv_reference(qkv, lse, delta, do, heads: int, scale: float):
+    """Plain K4b (``_packed_dkv_kernel``, :1014-1047). Returns (dk, dv),
+    each [B, S, H*D]."""
+    dk, dv = _flash_dkv_reference(*_split_heads(qkv, heads),
+                                  _heads_of(do, heads), lse, delta, scale)
+    return _merge_heads(dk), _merge_heads(dv)
+
+
+def packed_flash_reference_bwd(qkv, out, lse, do, heads: int, scale: float):
+    """Plain K4: dqkv [B, S, 3*H*D] from qkv, K3's out and lse2 and the
+    cotangent do (the arithmetic of plain K6's backward)."""
+    dq, delta = _packed_dq_reference(qkv, out, lse, do, heads, scale)
+    dk, dv = _packed_dkv_reference(qkv, lse, delta, do, heads, scale)
+    return torch.cat([dq, dk, dv], dim=-1)
+
+
+# ------------------------------------------------------------ launching
+
+
 def _check_cuda(qkv, heads, **aux):
-    """What every kernel needs: bf16 qkv of head dim 64, and each auxiliary
-    tensor (out, do, lse, delta, dqkv) of its shape and type, contiguous,
-    on qkv's device."""
+    """What K1/K2 need: bf16 qkv of head dim 64, and each auxiliary tensor
+    (out, do, lse, delta, dqkv) of its shape and type, contiguous, on qkv's
+    device. K3/K4 check the same before they take strided views."""
     if qkv.dtype != torch.bfloat16:
         raise TypeError(f"attention kernels take bf16 on CUDA, got {qkv.dtype}")
     b, s, thd = qkv.shape
@@ -136,12 +311,118 @@ def _check_resident(qkv):
         raise ValueError(
             f"sequence {s} > {FUSED_QKV_MAX_SEQ}: one head's K/V no longer fit "
             "in shared memory for K1/K2; sequences longer than "
-            f"{FUSED_QKV_FWD_MAX_SEQ} take the packed flash kernels K3/K4 "
-            "(fused_qkv_attention routes them there)")
+            f"{FUSED_QKV_FWD_MAX_SEQ} take the flash kernels K3/K4 or K6 "
+            "(self_attention routes them there)")
 
 
 def _stream(t):
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+@functools.lru_cache(maxsize=256)
+def _strides_arg(strides: tuple):
+    """The strides as the C entry points take them (cached: a step passes
+    the same few layouts over and over)."""
+    return (ctypes.c_longlong * len(strides))(*strides)
+
+
+def _view_args(*views):
+    """(data pointers, strides) of [B, H, S, 64] bf16 views for the C entry
+    points, after checking that all share one shape and device and that
+    the kernels take each as it is."""
+    shape, dev = views[0].shape, views[0].device
+    ptrs, strides = [], []
+    for t in views:
+        if t.dtype != torch.bfloat16:
+            raise TypeError(f"attention kernels take bf16 on CUDA, got "
+                            f"{t.dtype}")
+        st, ptr = t.stride(), t.data_ptr()
+        if (t.shape != shape or t.device != dev or st[3] != 1 or ptr % 16
+                or any(x % 8 for n, x in zip(shape[:3], st) if n > 1)):
+            raise ValueError(
+                f"flash kernels take [B, H, S, {HEAD_DIM}] views of one shape "
+                "on one device, with contiguous head lanes and 16-byte "
+                f"aligned rows: shape {tuple(t.shape)} strides {st} on "
+                f"{t.device}, against {tuple(shape)} on {dev}")
+        ptrs.append(ptr)
+        strides += st[:3]
+    if len(shape) != 4 or shape[3] != HEAD_DIM:
+        raise ValueError(f"flash kernels take [B, H, S, {HEAD_DIM}], got "
+                         f"{tuple(shape)}")
+    return ptrs, _strides_arg(tuple(strides))
+
+
+def _lanes(t, heads: int, parts):
+    """(data pointers, strides) of lane slices ``parts`` of a contiguous
+    [B, S, n*H*64] tensor (qkv, out, do, dqkv) as [B, H, S, 64] views,
+    computed from its shape: the packed route makes no view objects."""
+    _, s, width = t.shape
+    hd, base = heads * HEAD_DIM, t.data_ptr()
+    return ([base + t.element_size() * i * hd for i in parts],
+            (s * width, HEAD_DIM, width) * len(parts))
+
+
+def _packed_args(heads: int, *tensor_parts):
+    """Pointers and strides of the packed kernels' views: pairs of a
+    [B, S, n*H*64] tensor and its lane slices, in the C entry's order."""
+    ptrs, strides = [], ()
+    for t, parts in tensor_parts:
+        p, st = _lanes(t, heads, parts)
+        ptrs += p
+        strides += st
+    return ptrs, _strides_arg(strides)
+
+
+def _stats(like, *stats):
+    b, h, s, _ = like.shape
+    for t in stats:
+        if (tuple(t.shape) != (b, h, s) or t.dtype != torch.float32
+                or not t.is_contiguous() or t.device != like.device):
+            raise ValueError(f"row statistic {tuple(t.shape)} {t.dtype}: the "
+                             f"kernels take contiguous fp32 {(b, h, s)}")
+
+
+def _empty_like_rows(x):
+    """An output [B, H, S, D] laid out as ``x`` is: [B, S, H, D] memory
+    when x's heads share its rows (a view of the qkv projection), so the
+    head merge after it is free, else contiguous."""
+    b, h, s, d = x.shape
+    if h > 1 and x.stride(1) < x.stride(2):
+        return torch.empty((b, s, h, d), dtype=x.dtype,
+                           device=x.device).transpose(1, 2)
+    return torch.empty((b, h, s, d), dtype=x.dtype, device=x.device)
+
+
+def _launch_fwd(ptrs, strides, lse, dims, scale: float, stream):
+    """The strided forward kernel (K3 or K6): pointers of q, k, v, o."""
+    b, h, s = dims
+    err = _build.load("packed_flash_fwd").unite_flash_fwd(
+        *ptrs, lse.data_ptr() if lse is not None else None, strides, b, s, h,
+        scale * INV_LN2, stream)
+    _build.check(err, "flash_fwd")
+
+
+def _launch_dq(ptrs, strides, lse, delta, dims, scale: float, stream):
+    """The strided dQ kernel: pointers of q, k, v, o, do, dq."""
+    b, h, s = dims
+    q, k, v, o, do, dq = ptrs
+    err = _build.load("packed_flash_bwd").unite_flash_dq(
+        q, k, v, o, do, lse.data_ptr(), delta.data_ptr(), dq, strides, b, s,
+        h, scale * INV_LN2, scale, stream)
+    _build.check(err, "flash_dq")
+
+
+def _launch_dkv(ptrs, strides, lse, delta, dims, scale: float, stream):
+    """The strided dK/dV kernel: pointers of q, k, v, do, dk, dv."""
+    b, h, s = dims
+    q, k, v, do, dk, dv = ptrs
+    err = _build.load("packed_flash_bwd").unite_flash_dkv(
+        q, k, v, do, lse.data_ptr(), delta.data_ptr(), dk, dv, strides, b, s,
+        h, scale * INV_LN2, scale, stream)
+    _build.check(err, "flash_dkv")
+
+
+# ------------------------------------------------------------ K1 and K2
 
 
 def _fwd_outputs(qkv, heads, with_lse):
@@ -198,73 +479,28 @@ def fused_qkv_bwd(qkv, out, lse, do, heads: int, scale: float):
 fused_qkv_bwd.launches = 0
 
 
-def packed_flash_reference(qkv, heads: int, scale: float):
-    """Plain K3 (attention.py:913-934): the same function as plain K1. The
-    TPU kernel blocks the queries but keeps every key in view, so the row
-    max is the exact global one and p = exp2((s - m)*c) is rounded against
-    it. Returns (out [B, S, H*D], lse2 [B, H, S] fp32)."""
-    return qkv_attention_reference(qkv, heads, scale)
-
-
-def _packed_dq_reference(qkv, out, lse, do, heads: int, scale: float):
-    """Plain K4a (``_packed_dq_kernel``, :983-1011, delta as
-    ``_packed_flash_bwd`` :1062-1063): delta = rowsum(do*o) in fp32, p
-    from the lse in fp32, ds = p*(dp - delta)*scale rounded, dq = ds.k.
-    Returns (dq [B, S, H*D], delta [B, H, S] fp32)."""
-    q, k, v = (t.float() for t in _split_heads(qkv, heads))
-    g, o = _heads_of(do, heads), _heads_of(out, heads)
-    delta = (g * o).sum(-1, keepdim=True)
-    p = torch.exp2((q @ k.transpose(-1, -2)) * (scale * INV_LN2)
-                   - lse[..., None])
-    dp = g @ v.transpose(-1, -2)
-    ds = (p * (dp - delta) * scale).to(qkv.dtype).float()
-    return _merge_heads((ds @ k).to(qkv.dtype)), delta.squeeze(-1)
-
-
-def _packed_dkv_reference(qkv, lse, delta, do, heads: int, scale: float):
-    """Plain K4b (``_packed_dkv_kernel``, :1014-1047): p^T from the lse
-    rounded to the working type, dv = p^T.do, ds^T = p^T*(dp^T -
-    delta)*scale rounded, dk = ds^T.q. Returns (dk, dv), each
-    [B, S, H*D]."""
-    dt = qkv.dtype
-    q, k, v = (t.float() for t in _split_heads(qkv, heads))
-    g = _heads_of(do, heads)
-    pt = torch.exp2((k @ q.transpose(-1, -2)) * (scale * INV_LN2)
-                    - lse[:, :, None, :]).to(dt).float()
-    dv = pt @ g
-    dpt = v @ g.transpose(-1, -2)
-    dst = (pt * (dpt - delta[:, :, None, :]) * scale).to(dt).float()
-    return _merge_heads((dst @ q).to(dt)), _merge_heads(dv.to(dt))
-
-
-def packed_flash_reference_bwd(qkv, out, lse, do, heads: int, scale: float):
-    """Plain K4: dqkv [B, S, 3*H*D] from qkv, K3's out and lse2 and the
-    cotangent do. The dQ side keeps p in fp32 and the dK/dV side rounds
-    p^T, as the two TPU kernels do (:1004 against :1035)."""
-    dq, delta = _packed_dq_reference(qkv, out, lse, do, heads, scale)
-    dk, dv = _packed_dkv_reference(qkv, lse, delta, do, heads, scale)
-    return torch.cat([dq, dk, dv], dim=-1)
+# ------------------------------------------------------------ K3 and K4
 
 
 def packed_flash_fwd(qkv, heads: int, scale: float, with_lse: bool = False):
     """K3: qkv [B, S, 3*H*D] -> (out [B, S, H*D], lse2 [B, H, S] or None),
     any S. CPU tensors take the plain version; CUDA tensors launch the
-    kernel."""
+    strided forward kernel on the lane slices of qkv and out."""
     if qkv.device.type == "cpu":
         out, lse = packed_flash_reference(qkv, heads, scale)
         return out, (lse if with_lse else None)
     _check_cuda(qkv, heads)
     out, lse = _fwd_outputs(qkv, heads, with_lse)
-    lib = _build.load("packed_flash_fwd")
-    err = lib.unite_packed_flash_fwd(
-        qkv.data_ptr(), out.data_ptr(), lse.data_ptr() if with_lse else None,
-        qkv.shape[0], qkv.shape[1], heads, scale * INV_LN2, _stream(qkv))
-    _build.check(err, "packed_flash_fwd")
+    ptrs, strides = _packed_args(heads, (qkv, (0, 1, 2)), (out, (0,)))
+    _launch_fwd(ptrs, strides, lse, (qkv.shape[0], heads, qkv.shape[1]),
+                scale, _stream(qkv))
     packed_flash_fwd.launches += 1
+    if with_lse:
+        packed_flash_fwd.lse_launches += 1
     return out, lse
 
 
-packed_flash_fwd.launches = 0
+packed_flash_fwd.launches = packed_flash_fwd.lse_launches = 0
 
 
 def packed_flash_dq(qkv, out, lse, do, dqkv, delta, heads: int,
@@ -278,12 +514,10 @@ def packed_flash_dq(qkv, out, lse, do, dqkv, delta, heads: int,
         delta.copy_(dl)
         return
     _check_cuda(qkv, heads, out=out, lse=lse, do=do, dqkv=dqkv, delta=delta)
-    lib = _build.load("packed_flash_bwd")
-    err = lib.unite_packed_flash_dq(
-        qkv.data_ptr(), out.data_ptr(), do.data_ptr(), lse.data_ptr(),
-        delta.data_ptr(), dqkv.data_ptr(), qkv.shape[0], qkv.shape[1],
-        heads, scale * INV_LN2, scale, _stream(qkv))
-    _build.check(err, "packed_flash_dq")
+    ptrs, strides = _packed_args(heads, (qkv, (0, 1, 2)), (out, (0,)),
+                                 (do, (0,)), (dqkv, (0,)))
+    _launch_dq(ptrs, strides, lse, delta, (qkv.shape[0], heads, qkv.shape[1]),
+               scale, _stream(qkv))
     packed_flash_dq.launches += 1
 
 
@@ -300,12 +534,10 @@ def packed_flash_dkv(qkv, do, lse, delta, dqkv, heads: int, scale: float):
         dqkv[..., 2 * hd:] = dv
         return
     _check_cuda(qkv, heads, lse=lse, delta=delta, do=do, dqkv=dqkv)
-    lib = _build.load("packed_flash_bwd")
-    err = lib.unite_packed_flash_dkv(
-        qkv.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-        dqkv.data_ptr(), qkv.shape[0], qkv.shape[1], heads,
-        scale * INV_LN2, scale, _stream(qkv))
-    _build.check(err, "packed_flash_dkv")
+    ptrs, strides = _packed_args(heads, (qkv, (0, 1, 2)), (do, (0,)),
+                                 (dqkv, (1, 2)))
+    _launch_dkv(ptrs, strides, lse, delta,
+                (qkv.shape[0], heads, qkv.shape[1]), scale, _stream(qkv))
     packed_flash_dkv.launches += 1
 
 
@@ -323,16 +555,11 @@ def packed_flash_bwd(qkv, out, lse, do, heads: int, scale: float):
     return dqkv
 
 
-def uses_packed_route(seq: int) -> bool:
-    """True where fused_qkv_attention takes K3/K4 rather than K1/K2."""
-    return seq > FUSED_QKV_FWD_MAX_SEQ
-
-
 class _FusedQKVAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, qkv, heads, scale):
         train = ctx.needs_input_grad[0]
-        ctx.packed = uses_packed_route(qkv.shape[1])
+        ctx.packed = qkv.shape[1] > FUSED_QKV_FWD_MAX_SEQ
         fwd = packed_flash_fwd if ctx.packed else fused_qkv_fwd
         out, lse = fwd(qkv, heads, scale, with_lse=train)
         if train:
@@ -350,5 +577,133 @@ class _FusedQKVAttention(torch.autograd.Function):
 
 def fused_qkv_attention(qkv, heads: int, scale: float):
     """qkv [B, S, 3*H*D] (natural Linear layout) -> [B, S, H*D], through
-    K1/K2 up to 512 tokens and K3/K4 beyond."""
+    K1/K2 up to 512 tokens and K3/K4 beyond (the kernels take any S; the
+    models send them only what ``use_fused_qkv`` accepts)."""
     return _FusedQKVAttention.apply(qkv, heads, scale)
+
+
+# ------------------------------------------------------------------- K6
+
+
+def flash_fwd(q, k, v, scale: float, with_lse: bool = False):
+    """K6 forward: q/k/v [B, H, S, 64] -> (o [B, H, S, 64] laid out as q,
+    lse2 [B, H, S] or None), any S, contiguous tensors or strided views.
+    CPU tensors take the plain version; CUDA tensors launch the kernel."""
+    if q.device.type == "cpu":
+        o, lse = flash_reference(q, k, v, scale=scale)
+        return o, (lse if with_lse else None)
+    o = _empty_like_rows(q)
+    ptrs, strides = _view_args(q, k, v, o)
+    b, h, s, _ = q.shape
+    lse = (torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+           if with_lse else None)
+    _launch_fwd(ptrs, strides, lse, (b, h, s), scale, _stream(q))
+    flash_fwd.launches += 1
+    if with_lse:
+        flash_fwd.lse_launches += 1
+    return o, lse
+
+
+flash_fwd.launches = flash_fwd.lse_launches = 0
+
+
+def flash_dq(q, k, v, o, do, lse, dq, delta, scale: float):
+    """K6 dQ: writes dq into ``dq`` and rowsum(do*o) into ``delta``
+    [B, H, S] fp32."""
+    if q.device.type == "cpu":
+        g, dl = _flash_dq_reference(q, k, v, o, do, lse, scale)
+        dq.copy_(g)
+        delta.copy_(dl)
+        return
+    ptrs, strides = _view_args(q, k, v, o, do, dq)
+    _stats(q, lse, delta)
+    _launch_dq(ptrs, strides, lse, delta, q.shape[:3], scale, _stream(q))
+    flash_dq.launches += 1
+
+
+flash_dq.launches = 0
+
+
+def flash_dkv(q, k, v, do, lse, delta, dk, dv, scale: float):
+    """K6 dK/dV: writes dk and dv from the forward's lse2 and the dQ
+    kernel's delta."""
+    if q.device.type == "cpu":
+        gk, gv = _flash_dkv_reference(q, k, v, do, lse, delta, scale)
+        dk.copy_(gk)
+        dv.copy_(gv)
+        return
+    ptrs, strides = _view_args(q, k, v, do, dk, dv)
+    _stats(q, lse, delta)
+    _launch_dkv(ptrs, strides, lse, delta, q.shape[:3], scale, _stream(q))
+    flash_dkv.launches += 1
+
+
+flash_dkv.launches = 0
+
+
+def flash_bwd(q, k, v, o, lse, do, scale: float):
+    """K6 backward: (dq, dk, dv), each laid out as its input, through the
+    dQ kernel then the dK/dV kernel."""
+    dq, dk, dv = (_empty_like_rows(x) for x in (q, k, v))
+    b, h, s, _ = q.shape
+    delta = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+    flash_dq(q, k, v, o, do, lse, dq, delta, scale)
+    flash_dkv(q, k, v, do, lse, delta, dk, dv, scale)
+    return dq, dk, dv
+
+
+def _kernel_layout(t):
+    """A cotangent as the flash kernels take it: ``t`` itself where its
+    head lanes are contiguous and its rows 16-byte aligned, else a
+    contiguous copy (a broadcast gradient, a misaligned slice)."""
+    if t.device.type == "cpu" or (
+            t.stride(-1) == 1 and t.data_ptr() % 16 == 0
+            and all(st % 8 == 0 for n, st in zip(t.shape[:3], t.stride()[:3])
+                    if n > 1)):
+        return t
+    return t.contiguous()
+
+
+class _FlashAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, scale):
+        train = any(ctx.needs_input_grad[:3])
+        o, lse = flash_fwd(q, k, v, scale, with_lse=train)
+        if train:
+            ctx.save_for_backward(q, k, v, o, lse)
+        ctx.scale = scale
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        return flash_bwd(q, k, v, o, lse, _kernel_layout(do),
+                         ctx.scale) + (None,)
+
+
+def multi_head_attention(q, k, v, *, scale=None, return_probs: bool = False,
+                         dropout_rate: float = 0.0,
+                         generator: Optional[torch.Generator] = None,
+                         deterministic: bool = True):
+    """q, k, v [B, H, S, D] -> [B, H, S, D] (unite_tpu
+    ``multi_head_attention`` without its TPU knobs).
+
+    Probabilities or dropout take the plain ``attention_reference``, as
+    ``attention_xla`` serves them in JAX. Otherwise S > 512 takes K6 (CPU
+    tensors its plain version); S <= 512 is JAX's grouped kernel K5, not
+    ported yet: CUDA tensors raise, CPU tensors take the plain attention."""
+    scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
+    drop = dropout_rate if not deterministic else 0.0
+    if return_probs or drop > 0.0:
+        return attention_reference(q, k, v, scale=scale,
+                                   return_probs=return_probs,
+                                   dropout_rate=drop, generator=generator)
+    if q.shape[2] > GROUPED_MAX_SEQ:
+        return _FlashAttention.apply(q, k, v, scale)
+    if q.device.type != "cpu":
+        raise NotImplementedError(
+            f"[B, H, S, D] attention at S = {q.shape[2]} <= {GROUPED_MAX_SEQ} "
+            "is unite_tpu's grouped kernel K5 (_grouped_fwd_kernel, "
+            "_grouped_bwd_kernel), not ported yet (ROADMAP queue 2); the "
+            "models take K1/K2 there through self_attention")
+    return attention_reference(q, k, v, scale=scale)

@@ -1,8 +1,9 @@
-"""Token masking for stage 1 (unite_tpu/ops/masking.py).
+"""Token masking for stages 1 and 3 (unite_tpu/ops/masking.py).
 
 Mask convention: True = masked, False = visible. The teacher-attention mask
 samples N_vis patches per frame without replacement, proportional to the
-teacher's CLS attention, by the Gumbel top-k trick.
+teacher's CLS attention, by the Gumbel top-k trick; the stage-3 committee
+deals the attention-sorted patches out to k members in turn.
 """
 
 from __future__ import annotations
@@ -52,6 +53,21 @@ def attention_multinomial_mask(attn, mask_ratio: float, *,
     vis = torch.topk(keys, nv, dim=-1).indices
     mask = torch.ones((bt, n), dtype=torch.bool, device=attn.device)
     return mask.scatter(1, vis, False)
+
+
+def greedy_committee_masks(attn, mask_ratio: float, k: int):
+    """k disjoint high-attention visible sets for the stage-3 committee:
+    attn [BT, N] -> bool [k, BT, N], True = masked. Member i unmasks the
+    patches at positions i, i + k, i + 2k, ... of the descending attention
+    order, the first N_vis of them. The sort is stable, as jnp.argsort is,
+    so tied weights keep index order and membership matches JAX's."""
+    bt, n = attn.shape
+    nv = n_visible(n, mask_ratio)
+    order = torch.argsort(-attn, dim=-1, stable=True)
+    masks = torch.ones((k, bt, n), dtype=torch.bool, device=attn.device)
+    for i in range(k):
+        masks[i].scatter_(1, order[:, i::k][:, :nv], False)
+    return masks
 
 
 def frame_mask_to_video(mask_bt, batch: int):

@@ -4,9 +4,12 @@ the port's ``state_dict`` names.
 Students and ViTs take the keys of unite_tpu/utils/torch_export.py
 (``blocks_N`` -> ``blocks.N``, LayerNorm ``scale`` -> ``weight``, Dense
 ``kernel`` [in, out] -> ``weight`` [out, in], the patch-embed kernel
-[kt*kh*kw*C, D] -> Conv3d ``weight`` [D, C, kt, kh, kw]). CLIP takes the
-OpenAI visual tower's keys, the inverse of
-unite_tpu/utils/torch_import.py::clip_key_to_flax.
+[kt*kh*kw*C, D] -> Conv3d ``weight`` [D, C, kt, kh, kw]); an adaptation
+student's ``cls_token`` and learnable ``pos_embed`` keep their names
+(``encoder.cls_token``). CLIP takes the OpenAI visual tower's keys, the
+inverse of unite_tpu/utils/torch_import.py::clip_key_to_flax, and the text
+tower's (``token_embedding.weight``, ``ln_final``, ``attn.in_proj_*``), the
+inverse of unite_tpu/models/clip_text.py::text_state_to_flax_params.
 """
 
 from __future__ import annotations
@@ -63,15 +66,19 @@ def clip_key(path: Tuple[str, ...], arr: np.ndarray,
              patch_size: int) -> Tuple[str, np.ndarray]:
     if path == ("conv1", "proj", "kernel"):
         return "conv1.weight", conv3d_weight(arr, patch_size)
-    if len(path) == 1:  # class_embedding, positional_embedding, proj
+    if path == ("token_embedding",):
+        return "token_embedding.weight", arr
+    if len(path) == 1:  # embeddings, proj, text_projection
         return path[0], arr
-    if path[0] in ("ln_pre", "ln_post"):
+    if path[0] in ("ln_pre", "ln_post", "ln_final"):
         return f"{path[0]}.{'weight' if path[1] == 'scale' else 'bias'}", arr
     m = _INDEXED.match(path[0])
     if not m or m.group(1) != "resblocks":
         raise ValueError(f"unhandled CLIP param: {'/'.join(path)}")
     base = f"transformer.resblocks.{m.group(2)}."
     rest = path[1:]
+    if rest[0] in ("attn_in_proj", "attn_out_proj"):  # the text tower
+        rest = ("attn", rest[0][len("attn_"):]) + rest[1:]
     if rest[0] == "attn" and rest[1] == "in_proj":
         return (base + "attn.in_proj_" + ("weight" if rest[2] == "kernel"
                                           else "bias"),
@@ -94,7 +101,7 @@ def flax_to_state_dict(params: dict, *, kind: str = "student",
                        patch_size: int = 16) -> Dict[str, torch.Tensor]:
     """Nested flax params -> flat state dict of fp32 CPU tensors in the
     port's names. ``kind`` is "student" (adaptation students, ViTs) or
-    "clip"."""
+    "clip" (the visual and the text tower)."""
     if kind not in ("student", "clip"):
         raise ValueError(f"kind must be 'student' or 'clip', got {kind!r}")
     state = {}
