@@ -18,41 +18,52 @@ toolkit. In order:
    kernels at [8, 1568, 2304]; K6 (the [B, H, S, D] flash forward, dQ and
    dK/dV kernels) at the stage-3 CLS shapes [5, 12, 1569, 64] and (forward)
    [32, 12, 1569, 64] and the clip_l14_336 teacher's [40, 16, 577, 64], on
-   contiguous tensors and on strided qkv views; error, median time, the
-   plain version's time, the bound, and one PyTorch call
+   contiguous tensors and on strided qkv views; K5 (the grouped forward, dQ
+   and dK/dV kernels) at the stage-1 mask-0.75 student's [64, 12, 392, 64]
+   (both layouts), [64, 12, 512, 64] and [5, 12, 393, 64]; error, median
+   time, the plain version's time, the bound, and one PyTorch call
    (``scaled_dot_product_attention``) as a yardstick;
 4. one stage-1 step on the card in bf16 against the same step on the CPU in
    fp32 (B=2, same weights, same batch, injected visible tokens);
-5. the stage-1 path: the train step at full ViT-B/16 width and
-   ``bench.py::main``'s geometry (B=64, 8 x 224^2, mask 0.8 -> 320 visible
-   tokens, clip_b16 teacher with taps 6-11, AdamW from
-   configs/stage1_config.yaml), 2 warm-up and 5 timed steps, with the kernel
-   launch counts read around it;
-6. one stage-2 step on the card in bf16 against the same step on the CPU in
+5. the stage-1 path ``stage1-b16-b64``: the train step at full ViT-B/16
+   width and ``bench.py::main``'s geometry (B=64, 8 x 224^2, mask 0.8 ->
+   320 visible tokens, clip_b16 teacher with taps 6-11, AdamW from
+   configs/stage1_config.yaml), 2 warm-up and 5 timed steps, with the
+   kernel launch counts read around it;
+6. phase 4 at mask 0.75 (392 visible tokens: the card's student runs K5),
+   then ``stage1-m075-b16-b64``: phase 5 at mask 0.75 (12 K1 + 12 K5
+   forward + 12 K5 dQ + 12 K5 dK/dV a step, no K2);
+7. ``stage1-entry-b32x2``: ``unite_torch.train.run_stage1.main`` with no
+   --config (``STAGE1_ARGS``: stage1_config.yaml and stage1.sh) on
+   synthetic clips at mask 0.75, 2 x 32 clips a step, uint8 clips
+   normalized on the card: one epoch of 4 steps with its checkpoint, then a
+   second call that auto-resumes and is preempted after 2 steps; exact
+   launch counts, and the entry's clips/s beside the step's;
+8. one stage-2 step on the card in bf16 against the same step on the CPU in
    fp32 (B=2, 1568 tokens, same weights and batch, drop path 0);
-7. the stage-2 path: the finetune train step of ``vit_base_patch16_224``
+9. the stage-2 path: the finetune train step of ``vit_base_patch16_224``
    over 8 frames of 224^2 with tubelet 1 (1568 tokens) at
    ``bench.py::bench_stage2``'s B=8, configured as
    configs/stage2_config.yaml (12 classes, drop path 0.1, AdamW with layer
    decay 0.65, blocks 0-6 frozen), 2 warm-up and 10 timed steps, with the
    launch counts and a profiled step;
-8. the stage-2 eval step at the config's batch_size_val of 32, 2 warm-up
+10. the stage-2 eval step at the config's batch_size_val of 32, 2 warm-up
    and 10 timed calls, with the launch counts and a profiled call;
-9. one stage-3 step on the card in bf16 against the CPU in fp32, without
+11. one stage-3 step on the card in bf16 against the CPU in fp32, without
    and with the CLS token (B=2, same weights and batch, injected teacher
    attention and CLIP similarities): loss, grad norm and the full and
    grad-member logits, with the selection agreement reported apart;
-10. the stage-3 path ``stage3-b16-b5``: configs/stage3_config.yaml with
+12. the stage-3 path ``stage3-b16-b5``: configs/stage3_config.yaml with
    stage3.sh's batch of 5 (adaptation_umt_base_patch16_224 over 8 x 224^2
    with tubelet 1, clip_b16 teacher, mask 0.8, committee 2,
    clip_matchORconf, AdamW), each step after the zero-shot similarities of
    its batch (text features from a seed), 2 warm-up and 10 timed steps,
    with exact launch counts (K1, K2, K3, K4; no K6) and a profiled step;
-11. ``stage3-cls-b16-b5``: the same with ``use_cls_token``, whose full
+13. ``stage3-cls-b16-b5``: the same with ``use_cls_token``, whose full
    passes run 1569 tokens through K6 (no K3/K4);
-12. ``stage3-cls-eval-b16-b32``: its eval step at batch_size_val 32, K6
+14. ``stage3-cls-eval-b16-b32``: its eval step at batch_size_val 32, K6
    forward only;
-13. one JSON line of every kernel's numbers, the card line again, and the
+15. one JSON line of every kernel's numbers, the card line again, and the
    last line ``{"ok": true, "device": {...}}``.
 
 Any failed check raises and the script exits non-zero. With no CUDA device,
@@ -78,6 +89,37 @@ BWD_TOL = 2e-2         # times max |dqkv| of the plain version
 STEP_RTOL = 2e-2       # bf16 card step against the fp32 CPU step
 STAGE2_TOKENS = 1568   # 8 frames x 196 patches, tubelet 1
 STAGE3_CLS_TOKENS = STAGE2_TOKENS + 1  # the same with the CLS token
+M075_TOKENS = 8 * 49   # stage 1 at mask 0.75: 49 of 196 patches a frame
+# configs/stage1_config.yaml key for key, with stage1.sh's overrides (the
+# dataset mapping, output dir and published weights left out): the stage-1
+# entry's command line without --config
+STAGE1_ARGS = [
+    "--model", "adaptation_umt_base_patch16_224", "--batch_size", "64",
+    "--batch_size_val", "32", "--epochs", "100", "--warmup_epochs", "10",
+    "--lr", "0.00015", "--min_lr", "1e-05", "--warmup_lr", "1e-06",
+    "--weight_decay", "0.05", "--opt", "adamw", "--opt_eps", "1e-08",
+    "--opt_betas", "0.9", "0.95", "--layer_decay", "1.0",
+    "--mask_type", "attention", "--mask_ratio", "0.8",
+    "--clip_teacher", "clip_b16", "--clip_input_resolution", "224",
+    "--clip_loss_type", "l2", "--clip_loss_data", "source",
+    "--clip_loss_ratio", "1.0", "--clip_decoder_embed_dim", "768",
+    "--clip_output_dim", "512", "--clip_norm_type", "l2",
+    "--clip_return_layers", "6", "7", "8", "9", "10", "11",
+    "--clip_return_attn", "true", "--use_cls_token", "false",
+    "--num_frames", "8", "--num_segments", "8", "--tubelet_size", "1",
+    "--input_size", "224", "--short_side_size", "224",
+    "--data_set", "Kinetics_sparse", "--split", ",", "--drop_path", "0.1",
+    "--num_sample", "1", "--sampling_rate", "0", "--train_fraction", "1.0",
+    "--train_interpolation", "bicubic", "--test_num_segment", "5",
+    "--test_num_crop", "3", "--nb_classes", "12", "--color_jitter", "0.0",
+    "--flip", "true", "--num_workers", "10", "--seed", "0",
+    "--log_freq", "10", "--save_ckpt_freq", "50",
+    "--checkpoints_enabled", "true", "--auto_resume", "false",
+    "--model_key", "model|module", "--student_prefix", "", "--prefix", "",
+    "--val_interval", "100", "--initial_validation", "false",
+    "--test_best", "true", "--disable_wandb", "true"]
+ENTRY_BATCH = 32       # a stream: 64 clips a step, the bench geometry
+ENTRY_STEPS = 4        # an epoch of the entry run
 
 
 def card_line() -> str:
@@ -113,7 +155,8 @@ def counters(A) -> dict:
     """Every kernel wrapper of the port, by kernel id."""
     return {"K1": A.fused_qkv_fwd, "K2": A.fused_qkv_bwd,
             "K3": A.packed_flash_fwd, "K4a": A.packed_flash_dq,
-            "K4b": A.packed_flash_dkv, "K6": A.flash_fwd,
+            "K4b": A.packed_flash_dkv, "K5": A.grouped_fwd,
+            "K5dq": A.grouped_dq, "K5dkv": A.grouped_dkv, "K6": A.flash_fwd,
             "K6dq": A.flash_dq, "K6dkv": A.flash_dkv}
 
 
@@ -209,6 +252,113 @@ def check_kernels(torch, A):
     return results
 
 
+def check_grouped_kernels(torch, A):
+    """Phase 3, stage 1 at mask 0.75: K5 against its plain version at the
+    student's [64, 12, 392, 64] (contiguous tensors and the strided views of
+    a qkv projection that the models pass), the route's edge
+    [64, 12, 512, 64] and a ragged [5, 12, 393, 64], forward and backward;
+    times on the views at 392."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    results, errs = {}, {}
+    for label, b, s in (("m075", 64, M075_TOKENS), ("edge", 64, 512),
+                        ("ragged", 5, M075_TOKENS + 1)):
+        qkv = torch.randn((b, s, 3 * HEADS * 64), generator=gen,
+                          device="cuda").to(torch.bfloat16)
+        views = A._split_heads(qkv, HEADS)
+        dense = [t.contiguous() for t in views]
+        ref, ref_m, ref_l = A.grouped_reference(*dense, scale=SCALE)
+        do = torch.randn(ref.shape, generator=gen, device="cuda").to(
+            torch.bfloat16)
+        refs = A.grouped_reference_bwd(*dense, do, scale=SCALE)
+        layouts = ((("contiguous", dense), ("views", views))
+                   if label == "m075" else (("views", views),))
+        for layout, qkv_t in layouts:
+            out, (m, l) = A.grouped_fwd(*qkv_t, SCALE, with_stats=True)
+            grads = A.grouped_bwd(*qkv_t, do, m, l, SCALE)
+            torch.cuda.synchronize()
+            e = (out.float() - ref.float()).abs().max().item()
+            stat = max((m - ref_m).abs().max().item(),
+                       ((l - ref_l).abs() / ref_l).max().item())
+            if not bool(torch.isfinite(out).all()) or e > FWD_TOL \
+                    or stat > 1e-3:
+                raise AssertionError(f"K5 {label} {layout}: max abs err {e} "
+                                     f"> {FWD_TOL} or m/l err {stat}")
+            errs[f"fwd/{label}/{layout}"] = e
+            for name, a, r in zip(("dq", "dk", "dv"), grads, refs):
+                e = (a.float() - r.float()).abs().max().item()
+                tol = BWD_TOL * r.float().abs().max().item()
+                if not bool(torch.isfinite(a).all()) or e > tol:
+                    raise AssertionError(f"K5 {label} {layout} {name}: max "
+                                         f"abs err {e} > {tol}")
+                errs[f"{name}/{label}/{layout}"] = (e, tol)
+        print(f"K5 {label} [{b}, {HEADS}, {s}, 64] agrees with its plain "
+              "version", flush=True)
+        del ref, refs, out, grads
+        if label == "m075":
+            timed = (qkv, views, dense, do, m, l)
+        torch.cuda.empty_cache()
+
+    qkv, (q, k, v), dense, do, m, l = timed
+    b, h, s, _ = q.shape
+    ms = median_ms(lambda: A.grouped_fwd(q, k, v, SCALE, True))
+    plain_ms = median_ms(lambda: A.grouped_reference(q, k, v, scale=SCALE))
+    lib_ms = median_ms(lambda: F.scaled_dot_product_attention(*dense,
+                                                              scale=SCALE))
+    dq, dk, dv = (A._empty_like_rows(t) for t in (q, k, v))
+    delta = torch.empty((b, h, s), dtype=torch.float32, device="cuda")
+    ms_dq = median_ms(lambda: A.grouped_dq(q, k, v, do, m, l, dq, delta,
+                                           SCALE))
+    ms_dkv = median_ms(lambda: A.grouped_dkv(q, k, v, do, m, l, delta, dk, dv,
+                                             SCALE))
+    plain_dq = median_ms(lambda: A._grouped_dq_reference(q, k, v, do, m, l,
+                                                         SCALE))
+    plain_dkv = median_ms(lambda: A._grouped_dkv_reference(q, k, v, do, m, l,
+                                                           delta, SCALE))
+    leaves = [t.detach().requires_grad_(True) for t in dense]
+    o_lib = F.scaled_dot_product_attention(*leaves, scale=SCALE)
+    bwd_ms = median_ms(lambda: torch.autograd.grad(o_lib, leaves, do,
+                                                   retain_graph=True))
+
+    def sdpa_fwd_bwd():
+        F.scaled_dot_product_attention(*leaves, scale=SCALE).backward(do)
+
+    fwd_bwd_ms = median_ms(sdpa_fwd_bwd)
+    tok = b * h * s * 64 * 2  # bytes of one [B, H, S, 64] bf16 tensor
+    stat = b * h * s * 4      # one fp32 row statistic
+    by_shape = {k: v for k, v in errs.items()}
+    bms, by = bound(4 * tok + 2 * stat, 4.0 * b * h * s * s * 64)
+    results["K5/m075"] = dict(
+        shape=[b, h, s, 64], max_abs_err=max(v for k, v in errs.items()
+                                             if k.startswith("fwd/")),
+        errors_by_shape=by_shape, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+        bound_by=by, library_ms=lib_ms,
+        library="scaled_dot_product_attention forward")
+    print(f"K5 grouped_fwd m075 {results['K5/m075']}", flush=True)
+    # dq reads q, k, v, do, m, l and writes dq and delta; dkv reads q, k, v,
+    # do, m, l, delta and writes dk and dv: the function's 6 and 8 S^2*D
+    # flops a head (the convention of K4 and K6)
+    for key, ms_k, plain, nbytes, flops, parts in (
+            ("K5dq", ms_dq, plain_dq, 5 * tok + 3 * stat, 6.0, ("dq",)),
+            ("K5dkv", ms_dkv, plain_dkv, 6 * tok + 3 * stat, 8.0,
+             ("dk", "dv"))):
+        e, tol = max(v for k, v in errs.items()
+                     if k.split("/")[0] in parts)
+        bms, by = bound(nbytes, flops * b * h * s * s * 64)
+        results[f"{key}/m075"] = dict(
+            shape=[b, h, s, 64], max_abs_err=e, tol=tol, ms=ms_k,
+            plain_ms=plain, bound_ms=bms, bound_by=by, library_ms=bwd_ms,
+            library="scaled_dot_product_attention backward (dq, dk, dv: the "
+                    "dq and dk/dv kernels together)",
+            library_fwd_bwd_ms=fwd_bwd_ms)
+        print(f"K5 {key} m075 {results[f'{key}/m075']}", flush=True)
+    del (qkv, q, k, v, dense, do, m, l, dq, dk, dv, delta, leaves, o_lib,
+         timed)
+    torch.cuda.empty_cache()
+    return results
+
+
 def step_flops(b: int, frames: int = 8, width: int = 768, layers: int = 12,
                grid: int = 196, visible: int = 320, taps: int = 6,
                out_dim: int = 512) -> float:
@@ -230,7 +380,7 @@ def step_flops(b: int, frames: int = 8, width: int = 768, layers: int = 12,
 
 
 def build_step(torch, b: int, dtype, device: str, drop_path: float,
-               state_dict=None, teacher_state=None):
+               state_dict=None, teacher_state=None, mask_ratio: float = 0.8):
     """The stage-1 step as run_stage1.main builds it, with the
     configs/stage1_config.yaml values."""
     from unite_torch import create_model
@@ -260,35 +410,40 @@ def build_step(torch, b: int, dtype, device: str, drop_path: float,
                              betas=(0.9, 0.95), eps=1e-8, device=device)
     step = make_pretrain_train_step(
         student, teacher, num_patches=frames * 196, frames=frames,
-        mask_ratio=0.8, source_batch_size=b, clip_loss_data="mixed",
+        mask_ratio=mask_ratio, source_batch_size=b, clip_loss_data="mixed",
         clip_grad=None, clip_input_resolution=224, device=device)
     return TrainState(student, tx), teacher, step
 
 
-def random_batch(torch, b: int, seed: int, with_vis_idx: bool):
+def random_batch(torch, b: int, seed: int, with_vis_idx: bool,
+                 per_frame: int = 40):
     import numpy as np
 
     rng = np.random.default_rng(seed)
     batch = {"videos": torch.from_numpy(
         rng.integers(0, 256, (b, 8, 224, 224, 3), dtype=np.uint8))}
     if with_vis_idx:
-        vis = [np.sort(np.concatenate([f * 196 + rng.choice(196, 40, False)
+        vis = [np.sort(np.concatenate([f * 196 + rng.choice(196, per_frame,
+                                                            False)
                                        for f in range(8)]))
                for _ in range(b)]
         batch["vis_idx"] = torch.from_numpy(np.stack(vis))
     return batch
 
 
-def card_vs_cpu(torch):
-    """Phase 4: one step on the card (bf16) against the CPU (fp32)."""
+def card_vs_cpu(torch, mask_ratio: float = 0.8):
+    """Phase 4: one step on the card (bf16) against the CPU (fp32), with
+    injected visible tokens (320 at mask 0.8, 392 at 0.75, where the card's
+    student runs K5)."""
     torch.manual_seed(0)
-    cpu_state, cpu_teacher, cpu_step = build_step(torch, 2, torch.float32,
-                                                  "cpu", 0.0)
+    cpu_state, cpu_teacher, cpu_step = build_step(
+        torch, 2, torch.float32, "cpu", 0.0, mask_ratio=mask_ratio)
     sd = {k: v.clone() for k, v in cpu_state.model.state_dict().items()}
     td = cpu_teacher.state_dict()
     gpu_state, gpu_teacher, gpu_step = build_step(
-        torch, 2, torch.bfloat16, "cuda", 0.0, sd, td)
-    batch = random_batch(torch, 2, 1, with_vis_idx=True)
+        torch, 2, torch.bfloat16, "cuda", 0.0, sd, td, mask_ratio=mask_ratio)
+    batch = random_batch(torch, 2, 1, with_vis_idx=True,
+                         per_frame=196 - int(196 * mask_ratio))
     from unite_torch.ops.normalize import normalize_videos
 
     with torch.no_grad():
@@ -301,17 +456,22 @@ def card_vs_cpu(torch):
     m_cpu = {k: v.item() for k, v in cpu_step(cpu_state, batch).items()}
     rel = {k: abs(m_gpu[k] - m_cpu[k]) / abs(m_cpu[k])
            for k in ("loss", "grad_norm")}
-    print(f"step card bf16 vs cpu fp32: card {m_gpu} cpu {m_cpu} rel {rel} "
-          f"student x_clip max abs err {out_err}", flush=True)
+    print(f"step (mask {mask_ratio}) card bf16 vs cpu fp32: card {m_gpu} cpu "
+          f"{m_cpu} rel {rel} student x_clip max abs err {out_err}",
+          flush=True)
     if not all(r <= STEP_RTOL for r in rel.values()) or out_err > 5e-2:
-        raise AssertionError(f"card step disagrees with the CPU: {rel}, "
-                             f"x_clip err {out_err}")
+        raise AssertionError(f"card step (mask {mask_ratio}) disagrees with "
+                             f"the CPU: {rel}, x_clip err {out_err}")
+    return dict(rel, x_clip_max_abs_err=out_err)
 
 
-def main_path(torch, A, b: int = 64, warmup: int = 2, timed: int = 5):
-    """Phase 5: the full stage-1 step; returns counts and timings."""
+def main_path(torch, A, b: int = 64, warmup: int = 2, timed: int = 5,
+              mask_ratio: float = 0.8):
+    """Phase 5: the full stage-1 step; returns counts and timings. At mask
+    0.8 the student runs 320 tokens on K1/K2; at 0.75, 392 on K5."""
     torch.manual_seed(1)
-    state, teacher, step = build_step(torch, b, torch.bfloat16, "cuda", 0.1)
+    state, teacher, step = build_step(torch, b, torch.bfloat16, "cuda", 0.1,
+                                      mask_ratio=mask_ratio)
     gen = torch.Generator(device="cuda").manual_seed(2)
     batch = random_batch(torch, b, 3, with_vis_idx=False)
     batch["videos"] = batch["videos"].pin_memory()
@@ -335,21 +495,29 @@ def main_path(torch, A, b: int = 64, warmup: int = 2, timed: int = 5):
     k1, k2 = counts["K1"], counts["K2"]
     n = warmup + timed
     vals = [(m["loss"].item(), m["grad_norm"].item()) for m in losses]
-    print(f"main path losses/grad norms: {vals}", flush=True)
+    name = "stage1-b16-b64" if mask_ratio == 0.8 else "stage1-m075-b16-b64"
+    print(f"{name} losses/grad norms: {vals}", flush=True)
     check_finite(vals)
-    expect_counts(counts, {"K1": 24 * n, "K2": 12 * n},
-                  f"stage-1 path, {n} steps")
+    if mask_ratio == 0.8:  # 320 tokens: K1/K2
+        want = {"K1": 24 * n, "K2": 12 * n}
+    else:  # 392 tokens in training: K5, and no K2
+        want = {"K1": 12 * n, "K5": 12 * n, "K5dq": 12 * n, "K5dkv": 12 * n}
+    expect_counts(counts, want, f"{name}, {n} steps")
     k1_teacher = sum(teacher_k1)
-    flops = step_flops(b)
+    visible = 8 * (196 - int(196 * mask_ratio))
+    flops = step_flops(b, visible=visible)
     res = dict(clips_per_s=b * timed / dt, step_ms=dt / timed * 1e3,
                model_tflop_per_step=flops / 1e12,
                model_flops_util=flops * timed / dt / PEAK_BF16,
                peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
-               steps=n, k1_launches=k1, k1_teacher=k1_teacher,
+               steps=n, visible_tokens=visible, launches=counts,
+               k1_launches=k1, k1_teacher=k1_teacher,
                k1_student=k1 - k1_teacher, k2_launches=k2)
-    print(f"main path B={b}: {res} on {card_line()}", flush=True)
-    res["profile"] = profile_step(torch, lambda: step(state, batch, gen),
-                                  "chip_smoke_profile.json")
+    print(f"{name} B={b}: {res} on {card_line()}", flush=True)
+    res["profile"] = profile_step(
+        torch, lambda: step(state, batch, gen),
+        "chip_smoke_profile.json" if mask_ratio == 0.8
+        else "chip_smoke_profile_stage1_m075.json")
     res["device_share_of_timed_step"] = (res["profile"]["device_ms"]
                                          / res["step_ms"])
     return res
@@ -383,12 +551,12 @@ def profile_step(torch, run_step, dest_name: str) -> dict:
         (annotations if getattr(e, "is_user_annotation", False) else rows
          ).append((e.key, e.self_device_time_total / 1e3, e.count))
     rows.sort(key=lambda r: -r[1])
-    classes = {"attention (K1-K4, K6)": 0.0, "matmul (cuBLAS)": 0.0,
+    classes = {"attention (K1-K6)": 0.0, "matmul (cuBLAS)": 0.0,
                "other (elementwise, norms, reductions, copies)": 0.0}
     for name, ms, _ in rows:
         low = name.lower()
-        if "fused_qkv" in low or "flash_" in low:
-            classes["attention (K1-K4, K6)"] += ms
+        if "fused_qkv" in low or "flash_" in low or "grouped_" in low:
+            classes["attention (K1-K6)"] += ms
         elif any(t in low for t in ("gemm", "xmma", "cutlass", "nvjet",
                                     "cublas")):
             classes["matmul (cuBLAS)"] += ms
@@ -1033,6 +1201,117 @@ def stage3_eval(torch, A, state, eval_step, b: int = 32, warmup: int = 2,
     return res
 
 
+def entry_run(torch, A, argv, records: list) -> dict:
+    """One call of ``run_stage1.main`` on the card with the launch counts
+    read around it."""
+    from unite_torch.config import parse_with_config
+    from unite_torch.train import run_stage1
+    from unite_torch.train.args import stage1_parser
+
+    args = parse_with_config(stage1_parser(), STAGE1_ARGS + argv)
+    records.clear()
+    reset_counts(A)
+    t0 = time.perf_counter()
+    run_stage1.main(args)
+    wall = time.perf_counter() - t0
+    counts = read_counts(A)
+    n = len(records)
+    expect_counts(counts, {"K1": 12 * n, "K5": 12 * n, "K5dq": 12 * n,
+                           "K5dkv": 12 * n}, f"stage-1 entry, {n} steps")
+    check_finite([(r["loss"], r["grad_norm"]) for r in records])
+    ts = [r["t"] for r in records]
+    clips = 2 * ENTRY_BATCH
+    return dict(steps=n, wall_s=wall, first_step_s=ts[0] - t0,
+                clips_per_s=clips * (n - 1) / (ts[-1] - ts[0]),
+                steps_seen=[r["step"] for r in records],
+                losses=[r["loss"] for r in records], launches=counts)
+
+
+def stage1_entry(torch, A, m075: dict) -> dict:
+    """Phase: ``stage1-entry-b32x2``. ``unite_torch.train.run_stage1.main``
+    on the card with no --config: ``STAGE1_ARGS`` (stage1_config.yaml and
+    stage1.sh) and synthetic source and target annotation files of 128
+    clips each, uint8 clips normalized on the card, mask 0.75, 32 clips a
+    stream. Call 1 trains epoch 0 (4 steps) and checkpoints at its end;
+    call 2 auto-resumes at epoch 1 and is preempted after 2 steps
+    (``--stop_after_steps``), writing a mid-epoch checkpoint. Each step is
+    timed after a synchronize, so the entry's clips/s sits beside the bare
+    step's (``m075``) and the data path's share shows."""
+    import tempfile
+
+    import unite_torch.train.run_stage1 as R
+    from unite_torch.utils.checkpoint import load_checkpoint
+
+    records = []
+    build = R.make_pretrain_train_step
+
+    def timed_build(*a, **k):
+        step = build(*a, **k)
+
+        def timed(state, batch, gen=None):
+            out = step(state, batch, gen)
+            torch.cuda.synchronize()
+            records.append(dict(t=time.perf_counter(), step=state.step,
+                                loss=out["loss"].item(),
+                                grad_norm=out["grad_norm"].item()))
+            return out
+
+        return timed
+
+    R.make_pretrain_train_step = timed_build
+    try:
+        with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+            tmp = Path(tmp)
+            for name in ("source", "target"):
+                (tmp / f"{name}.csv").write_text("".join(
+                    f"{name}/clip_{i:04d}.mp4,{i % 12}\n"
+                    for i in range(ENTRY_BATCH * ENTRY_STEPS)))
+            out = tmp / "run"
+            base = ["--synthetic_data", "true", "--device_normalize", "true",
+                    "--mask_ratio", "0.75", "--batch_size", str(ENTRY_BATCH),
+                    "--ann_file_train", str(tmp / "source.csv"),
+                    "--ann_file_train_target", str(tmp / "target.csv"),
+                    "--output_dir", str(out)]
+            first = entry_run(torch, A, base + [
+                "--stop_after_steps", str(ENTRY_STEPS)], records)
+            stats = [json.loads(x) for x in (out / "log.txt").read_text(
+                ).splitlines()]
+            saved = load_checkpoint(out / "checkpoint-latest.pth")
+            if (first["steps_seen"] != list(range(1, ENTRY_STEPS + 1))
+                    or len(stats) != 1 or stats[0]["epoch"] != 0
+                    or not all(abs(stats[0][k]) < float("inf") and
+                               stats[0][k] == stats[0][k]
+                               for k in ("train_loss", "train_grad_norm"))
+                    or saved["epoch"] != 0
+                    or saved["extra"]["step"] != ENTRY_STEPS):
+                raise AssertionError(f"entry call 1: steps "
+                                     f"{first['steps_seen']}, log {stats}, "
+                                     f"checkpoint epoch {saved['epoch']} "
+                                     f"extra {saved.get('extra')}")
+            second = entry_run(torch, A, base + [
+                "--auto_resume", "true", "--stop_after_steps", "2"], records)
+            saved = load_checkpoint(out / "checkpoint-latest.pth")
+            if (second["steps_seen"] != [ENTRY_STEPS + 1, ENTRY_STEPS + 2]
+                    or saved["epoch"] != 1
+                    or saved["extra"]["epoch_step"] != 2
+                    or saved["extra"]["step"] != ENTRY_STEPS + 2):
+                raise AssertionError(f"entry call 2 did not resume at epoch "
+                                     f"1 step 0: steps {second['steps_seen']},"
+                                     f" checkpoint epoch {saved['epoch']} "
+                                     f"extra {saved.get('extra')}")
+    finally:
+        R.make_pretrain_train_step = build
+    res = dict(first=first, resumed=second, epoch0_log=stats[0],
+               step_clips_per_s=m075["clips_per_s"],
+               entry_share_of_step_rate=first["clips_per_s"]
+               / m075["clips_per_s"])
+    print(f"stage1-entry-b32x2: entry {first['clips_per_s']:.2f} clips/s "
+          f"(resumed call {second['clips_per_s']:.2f}) beside the step's "
+          f"{m075['clips_per_s']:.2f}; {json.dumps(res)} on {card_line()}",
+          flush=True)
+    return res
+
+
 def main() -> int:
     try:
         import torch
@@ -1070,8 +1349,14 @@ def main() -> int:
     kr = check_kernels(torch, A)
     kr.update(check_packed_kernels(torch, A))
     kr.update(check_flash_kernels(torch, A))
+    kr.update(check_grouped_kernels(torch, A))
     card_vs_cpu(torch)
     mp = main_path(torch, A)
+    m075_rel = card_vs_cpu(torch, mask_ratio=0.75)
+    m075 = main_path(torch, A, mask_ratio=0.75)
+    torch.cuda.empty_cache()
+    entry = stage1_entry(torch, A, m075)
+    torch.cuda.empty_cache()
     s2_rel = stage2_card_vs_cpu(torch)
     s2, state, eval_step = stage2_path(torch, A)
     ev = stage2_eval(torch, A, state, eval_step)
@@ -1119,7 +1404,16 @@ def main() -> int:
              "unite_tpu/ops/attention.py:231", s3c["launches"]["K6dq"]),
             ("K6dkv/train", "flash_dkv[stage-3 CLS train B=5 S=1569]",
              "unite_torch/csrc/packed_flash_bwd.cu",
-             "unite_tpu/ops/attention.py:270", s3c["launches"]["K6dkv"])):
+             "unite_tpu/ops/attention.py:270", s3c["launches"]["K6dkv"]),
+            ("K5/m075", "grouped_fwd[stage-1 mask 0.75 B=64 S=392]",
+             "unite_torch/csrc/packed_flash_fwd.cu",
+             "unite_tpu/ops/attention.py:441", m075["launches"]["K5"]),
+            ("K5dq/m075", "grouped_dq[stage-1 mask 0.75 B=64 S=392]",
+             "unite_torch/csrc/grouped_attn_bwd.cu",
+             "unite_tpu/ops/attention.py:467", m075["launches"]["K5dq"]),
+            ("K5dkv/m075", "grouped_dkv[stage-1 mask 0.75 B=64 S=392]",
+             "unite_torch/csrc/grouped_attn_bwd.cu",
+             "unite_tpu/ops/attention.py:467", m075["launches"]["K5dkv"])):
         r = kr[key]
         kernels.append({"name": name, "route": "cuda", "source": src,
                         "replaces": rep, "launches": launches,
@@ -1127,7 +1421,10 @@ def main() -> int:
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"],
                         "library_ms": r["library_ms"]})
-    print(json.dumps({"kernels": kernels, "step": mp, "stage2_step": s2,
+    print(json.dumps({"kernels": kernels, "step": mp,
+                      "stage1_m075_step": m075,
+                      "stage1_m075_card_vs_cpu_rel": m075_rel,
+                      "stage1_entry": entry, "stage2_step": s2,
                       "stage2_eval": ev, "stage2_card_vs_cpu_rel": s2_rel,
                       "stage3_step": s3, "stage3_cls_step": s3c,
                       "stage3_cls_eval": ev3, "stage3_card_vs_cpu": s3_rel,

@@ -151,9 +151,6 @@ def test_autograd_through_multi_head_attention(cuda):
     for leaf, r in zip(leaves, refs):
         tol = 2e-2 * r.float().abs().max().item()
         assert (leaf.grad.float() - r.float()).abs().max().item() <= tol
-    # below 513 tokens [B, H, S, D] attention is K5, not ported: no fallback
-    with pytest.raises(NotImplementedError, match="K5"):
-        TA.multi_head_attention(q[:, :, :512], k[:, :, :512], v[:, :, :512])
     with pytest.raises(TypeError):
         TA.multi_head_attention(q.float(), k.float(), v.float())
 
@@ -194,5 +191,52 @@ def test_autograd_through_the_packed_kernels(cuda):
     ref = TA.packed_flash_reference_bwd(
         x.detach(), out.detach(), lse, (2 * out.float()).to(torch.bfloat16),
         HEADS, SCALE).float()
+    assert (x.grad.float() - ref).abs().max().item() <= \
+        2e-2 * ref.abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("strided", [False, True])
+@pytest.mark.parametrize("s", [100, 392, 393, 512])
+def test_grouped_kernels_match_plain_on_card(cuda, s, strided):
+    # K5: 392 is stage 1 at mask 0.75, 393 a ragged key tile, 512 the
+    # route's edge
+    (q, k, v), gen = _flash_inputs(cuda, 3, s, s + 1, strided)
+    out, (m, l) = TA.grouped_fwd(q, k, v, SCALE, with_stats=True)
+    ref, ref_m, ref_l = TA.grouped_reference(q, k, v, scale=SCALE)
+    assert out.stride() == TA._empty_like_rows(q).stride()
+    assert (out.float() - ref.float()).abs().max().item() <= 1e-2
+    assert (m - ref_m).abs().max().item() <= 1e-3  # raw scores, fp32 sums
+    assert ((l - ref_l).abs() / ref_l).max().item() <= 1e-4
+    out_ns, none = TA.grouped_fwd(q, k, v, SCALE)
+    assert none is None and torch.equal(out_ns, out)
+    do = torch.randn(out.shape, generator=gen, device=cuda).to(torch.bfloat16)
+    got = TA.grouped_bwd(q, k, v, do, m, l, SCALE)
+    refs = TA.grouped_reference_bwd(q, k, v, do, scale=SCALE)
+    for name, a, r in zip("qkv", got, refs):
+        tol = 2e-2 * r.float().abs().max().item()
+        assert (a.float() - r.float()).abs().max().item() <= tol, name
+
+
+@pytest.mark.cuda
+def test_model_route_takes_k5_in_training_at_392(cuda):
+    # stage 1 at mask 0.75: 392 tokens in training take K5 on views of qkv
+    # (no K2 above 384); forward-only they take K1
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    x = torch.randn((2, 392, 3 * HEADS * 64), generator=gen, device=cuda
+                    ).to(torch.bfloat16).requires_grad_(True)
+    names = ("grouped_fwd", "grouped_dq", "grouped_dkv", "fused_qkv_fwd",
+             "fused_qkv_bwd")
+    before = [getattr(TA, n).launches for n in names]
+    out = TA.self_attention(x, HEADS, SCALE, dim=768)
+    out.float().square().sum().backward()
+    TA.self_attention(x.detach(), HEADS, SCALE, dim=768, fwd_only=True)
+    after = [getattr(TA, n).launches for n in names]
+    assert [a - b for a, b in zip(after, before)] == [1, 1, 1, 1, 0]
+    q, k, v = (t.contiguous() for t in TA._split_heads(x.detach(), HEADS))
+    refs = TA.grouped_reference_bwd(
+        q, k, v, TA._heads_of((2 * out.float()).to(torch.bfloat16), HEADS),
+        scale=SCALE)
+    ref = torch.cat([TA._merge_heads(r) for r in refs], dim=-1).float()
     assert (x.grad.float() - ref).abs().max().item() <= \
         2e-2 * ref.abs().max().item()

@@ -118,19 +118,23 @@ def test_plain_k4_is_the_gradient_in_fp32():
 
 
 def test_route_switches_above_512_and_no_counter_moves(monkeypatch):
-    # the models' route: K1/K2 to 512; above, K3/K4 where S has a divisor
-    # query block (520 = 5 * 104), K6 where it has none (513)
+    # the models' training route: K1/K2 to 384, K5 at 385-512; above, K3/K4
+    # where S has a divisor query block (520 = 5 * 104), K6 where it has
+    # none (513)
     counters = (TA.fused_qkv_fwd, TA.fused_qkv_bwd, TA.packed_flash_fwd,
                 TA.packed_flash_dq, TA.packed_flash_dkv, TA.flash_fwd,
-                TA.flash_dq, TA.flash_dkv)
+                TA.flash_dq, TA.flash_dkv, TA.grouped_fwd, TA.grouped_dq,
+                TA.grouped_dkv)
     before = [c.launches for c in counters]
     calls = []
     for name in ("fused_qkv_fwd", "fused_qkv_bwd", "packed_flash_fwd",
-                 "packed_flash_bwd", "flash_fwd", "flash_bwd"):
+                 "packed_flash_bwd", "flash_fwd", "flash_bwd", "grouped_fwd",
+                 "grouped_bwd"):
         fn = getattr(TA, name)
         monkeypatch.setattr(TA, name, lambda *a, _n=name, _f=fn, **k: (
             calls.append(_n), _f(*a, **k))[1])
-    for s, route in ((512, ["fused_qkv_fwd", "fused_qkv_bwd"]),
+    for s, route in ((384, ["fused_qkv_fwd", "fused_qkv_bwd"]),
+                     (512, ["grouped_fwd", "grouped_bwd"]),
                      (520, ["packed_flash_fwd", "packed_flash_bwd"]),
                      (513, ["flash_fwd", "flash_bwd"])):
         calls.clear()
@@ -138,6 +142,9 @@ def test_route_switches_above_512_and_no_counter_moves(monkeypatch):
                              ).requires_grad_(True)
         TA.self_attention(x, HEADS, SCALE).sum().backward()
         assert calls == route, s
-        assert TA.uses_packed_route(s) == (s == 520)
-    assert [c.launches for c in counters] == before == [0] * 8
-
+    # forward-only, 512 tokens stay on K1
+    calls.clear()
+    TA.self_attention(torch.from_numpy(_rand((1, 512, 3 * HEADS * 64), 5)),
+                      HEADS, SCALE, fwd_only=True)
+    assert calls == ["fused_qkv_fwd"]
+    assert [c.launches for c in counters] == before == [0] * 11

@@ -1,5 +1,5 @@
 // Flash attention forward for Hopper (sm_90a) over strided [B, H, S, 64]
-// views, any sequence length. One kernel serves two TPU kernels:
+// views, any sequence length. One kernel body serves three TPU kernels:
 //
 //   K3 replaces unite_tpu/ops/attention.py::_packed_fwd_kernel (called from
 //      _packed_flash_fwd): q, k, v are lane slices of the packed qkv
@@ -8,7 +8,11 @@
 //   K6 replaces unite_tpu/ops/attention.py::_fwd_kernel (called from
 //      _flash_fwd): q, k, v and o are [B, H, S, D] tensors, contiguous or
 //      strided views of the qkv projection's output (the models' route for
-//      lengths with no divisor block, e.g. 1569 = 1568 patches + CLS).
+//      lengths with no divisor block, e.g. 1569 = 1568 patches + CLS);
+//   K5 replaces unite_tpu/ops/attention.py::_grouped_fwd_kernel (called from
+//      _grouped_attention_fwd): [B, H, S, D] views at S <= 512, the models'
+//      route for training at 385-512 tokens (392 = stage 1 at mask 0.75)
+//      and for widths that are not a multiple of 128. Template GROUPED.
 //
 // Per head: o = softmax(q.k^T * scale) . v, plus the base-2 row
 // log-sum-exp lse2 = m*c + log2(l), [B, H, S] fp32, when the caller trains
@@ -17,7 +21,11 @@
 // Contract kept from the TPU kernels: bf16 operands, fp32 accumulation, the
 // scale folded into exp2 as c = scale*log2(e), and p = exp2((s - m)*c)
 // rounded to bf16 against the EXACT global row max m before the p.v product;
-// l = rowsum of the rounded p; o = (p.v) * (1/l). An online-softmax rescale
+// l = rowsum of the rounded p; o = (p.v) * (1/l). K5 (GROUPED) differs in
+// one rounding point: its l is the row sum of the fp32 e = exp2((s - m)*c)
+// BEFORE the rounding (_grouped_fwd_kernel :459), and it saves the raw row
+// max m and that l ([B, H, S] fp32 each) for its backward, which recomputes
+// e against the exact m. An online-softmax rescale
 // would round p against a running max, which is a different function, so the
 // kernel sweeps the keys twice: sweep 1 takes the row max of q.k^T, sweep 2
 // recomputes q.k^T, forms p, sums l and accumulates p.v. That is 6*S^2*D
@@ -40,7 +48,14 @@
 // after the first tile reads them. Each stream is double-buffered: cp.async
 // copies tile i+1 into shared memory while the warps compute on tile i. The
 // products are mma.sync (wgmma and TMA are later work), and exp2 runs on the
-// special-function unit with denormal results flushed to 0.
+// special-function unit with denormal results flushed to 0. K5 at the
+// stage-1 mask-0.75 shape [64, 12, 392, 64] moves 38.5 MB a tensor (q, k,
+// v, o: 0.046 ms at 3.35 TB/s) against 3.0e10 flops of attention (0.031 ms
+// at 989 TFLOP/s), so it is bound by bytes; its 392 keys take 7 tiles, the
+// last one 8 keys long, and the 4 query tiles of a head read K and V from
+// L2 after the first. The TPU's G heads a program amortised its program
+// launch; here a block per (batch, head, 128 queries) already gives 3072
+// blocks, about 12 waves at two blocks an SM, so nothing is grouped.
 #include "fused_qkv_common.cuh"
 
 using namespace unite;
@@ -51,8 +66,12 @@ constexpr int BLOCK_Q = WARPS * ROWS_PER_WARP;  // 128 queries a block
 constexpr int BLOCK_K = 64;                      // keys a shared-memory tile
 constexpr int TILE = BLOCK_K * PITCH;            // elements of one tile buffer
 
+// GROUPED = false (K3, K6): stat0 is lse2 or null, stat1 unused.
+// GROUPED = true (K5): stat0 = m and stat1 = l, both null or both set.
+template <bool GROUPED>
 __global__ void __launch_bounds__(THREADS, 2)
-    flash_fwd_kernel(View q, View k, View v, View o, float* __restrict__ lse,
+    flash_fwd_kernel(View q, View k, View v, View o,
+                     float* __restrict__ stat0, float* __restrict__ stat1,
                      int S, int H, float c) {
   // two buffers a stream: tile i+1 is copied in (cp.async) while the warps
   // compute on tile i
@@ -105,7 +124,8 @@ __global__ void __launch_bounds__(THREADS, 2)
   m0 = quad_max(m0);
   m1 = quad_max(m1);
 
-  // sweep 2: p = exp2((s - m)*c) rounded to bf16, l = rowsum(p), acc = p.v
+  // sweep 2: p = exp2((s - m)*c) rounded to bf16, l = rowsum(p) (K5: of
+  // the fp32 e before rounding), acc = p.v
   float l0 = 0.f, l1 = 0.f;
   float acc[8][4];
 #pragma unroll
@@ -137,12 +157,21 @@ __global__ void __launch_bounds__(THREADS, 2)
         for (int half = 0; half < 2; ++half) {
           const int key = n0 + half * 8 + 2 * t;
           const bool ok0 = key < nk, ok1 = key + 1 < nk;
-          const bf16 p00 = __float2bfloat16_rn(ok0 ? fast_exp2((s[half][0] - m0) * c) : 0.f);
-          const bf16 p01 = __float2bfloat16_rn(ok1 ? fast_exp2((s[half][1] - m0) * c) : 0.f);
-          const bf16 p10 = __float2bfloat16_rn(ok0 ? fast_exp2((s[half][2] - m1) * c) : 0.f);
-          const bf16 p11 = __float2bfloat16_rn(ok1 ? fast_exp2((s[half][3] - m1) * c) : 0.f);
-          l0 += __bfloat162float(p00) + __bfloat162float(p01);
-          l1 += __bfloat162float(p10) + __bfloat162float(p11);
+          const float e00 = ok0 ? fast_exp2((s[half][0] - m0) * c) : 0.f;
+          const float e01 = ok1 ? fast_exp2((s[half][1] - m0) * c) : 0.f;
+          const float e10 = ok0 ? fast_exp2((s[half][2] - m1) * c) : 0.f;
+          const float e11 = ok1 ? fast_exp2((s[half][3] - m1) * c) : 0.f;
+          const bf16 p00 = __float2bfloat16_rn(e00);
+          const bf16 p01 = __float2bfloat16_rn(e01);
+          const bf16 p10 = __float2bfloat16_rn(e10);
+          const bf16 p11 = __float2bfloat16_rn(e11);
+          if (GROUPED) {
+            l0 += e00 + e01;
+            l1 += e10 + e11;
+          } else {
+            l0 += __bfloat162float(p00) + __bfloat162float(p01);
+            l1 += __bfloat162float(p10) + __bfloat162float(p11);
+          }
           pa[2 * half] = pack_raw(p00, p01);      // row g
           pa[2 * half + 1] = pack_raw(p10, p11);  // row g + 8
         }
@@ -156,10 +185,15 @@ __global__ void __launch_bounds__(THREADS, 2)
   l1 = quad_sum(l1);
 
   store_rows(o.head(b, h), o.sr, acc, r0, S, 1.f / l0, 1.f / l1);
-  if (lse != nullptr && t == 0) {
-    float* lse_row = lse + ((size_t)b * H + h) * S;
-    if (r0 + g < S) lse_row[r0 + g] = m0 * c + log2f(l0);
-    if (r0 + g + 8 < S) lse_row[r0 + g + 8] = m1 * c + log2f(l1);
+  if (stat0 != nullptr && t == 0) {
+    const size_t row = ((size_t)b * H + h) * S + r0 + g;
+    if (GROUPED) {
+      if (r0 + g < S) { stat0[row] = m0; stat1[row] = l0; }
+      if (r0 + g + 8 < S) { stat0[row + 8] = m1; stat1[row + 8] = l1; }
+    } else {
+      if (r0 + g < S) stat0[row] = m0 * c + log2f(l0);
+      if (r0 + g + 8 < S) stat0[row + 8] = m1 * c + log2f(l1);
+    }
   }
 }
 
@@ -171,8 +205,23 @@ extern "C" int unite_flash_fwd(const void* q, const void* k, const void* v,
                                void* o, void* lse, const long long* strides,
                                int B, int S, int H, float c, void* stream) {
   const dim3 grid((S + BLOCK_Q - 1) / BLOCK_Q, H, B);
-  flash_fwd_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
+  flash_fwd_kernel<false><<<grid, THREADS, 0, (cudaStream_t)stream>>>(
       view_of(q, strides, 0), view_of(k, strides, 1), view_of(v, strides, 2),
-      view_of(o, strides, 3), static_cast<float*>(lse), S, H, c);
+      view_of(o, strides, 3), static_cast<float*>(lse), nullptr, S, H, c);
+  return (int)cudaGetLastError();
+}
+
+// K5: q, k, v -> o as above, S <= 512, with l summed before rounding; m
+// and l [B, H, S] fp32 contiguous (the raw row max of q.k^T and the row sum
+// of exp2((s - m)*c)), both null when the caller does not train.
+extern "C" int unite_grouped_fwd(const void* q, const void* k, const void* v,
+                                 void* o, void* m, void* l,
+                                 const long long* strides, int B, int S, int H,
+                                 float c, void* stream) {
+  const dim3 grid((S + BLOCK_Q - 1) / BLOCK_Q, H, B);
+  flash_fwd_kernel<true><<<grid, THREADS, 0, (cudaStream_t)stream>>>(
+      view_of(q, strides, 0), view_of(k, strides, 1), view_of(v, strides, 2),
+      view_of(o, strides, 3), static_cast<float*>(m), static_cast<float*>(l),
+      S, H, c);
   return (int)cudaGetLastError();
 }

@@ -51,14 +51,16 @@ class CLIPAttention(nn.Module):
         """With ``cls_probs`` also returns the head-averaged CLS-query
         attention row [B, N]: one fp32 [B, H, N] product and softmax beside
         the attention kernel, never the full [B, H, N, N] matrix. The
-        attention takes ``self_attention``'s route with no width, as JAX's
-        CLIP passes none: K1 at 197 tokens, K6 at 577 (L/14 at 336^2)."""
+        attention takes ``self_attention``'s forward-only route with no
+        width, as JAX's CLIP does (models/clip.py:82): K1 at 197 tokens, K6
+        at 577 (L/14 at 336^2)."""
         b, n, c = x.shape
         d = c // self.num_heads
         scale = d ** -0.5
         qkv = F.linear(x.to(self.dtype), self.in_proj_weight.to(self.dtype),
                        self.in_proj_bias.to(self.dtype))
-        out = self.out_proj(self_attention(qkv, self.num_heads, scale))
+        out = self.out_proj(self_attention(qkv, self.num_heads, scale,
+                                           fwd_only=True))
         if not cls_probs:
             return out
         qh = qkv[:, 0, :c].reshape(b, self.num_heads, d).float()

@@ -154,8 +154,11 @@ class Attention(nn.Module):
             bias = torch.cat([self.q_bias, torch.zeros_like(self.q_bias),
                               self.v_bias]).to(dt)
         qkv = F.linear(x.to(dt), self.qkv.weight.to(dt), bias)
+        # fwd_only is JAX's deterministic (models/layers.py:174-175): the
+        # training route takes K5 at 385-512 tokens even under no_grad
         return self.proj(self_attention(qkv, self.num_heads, self.scale,
-                                        dim=x.shape[-1]))
+                                        dim=x.shape[-1],
+                                        fwd_only=not self.training))
 
 
 class Block(nn.Module):

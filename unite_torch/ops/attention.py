@@ -1,35 +1,35 @@
 """Multi-head attention: plain PyTorch references and the hand-written kernels.
 
 Counterpart of unite_tpu/ops/attention.py. The models call ``self_attention``
-on the qkv projection's natural [B, S, 3*H*D] layout, and it follows the JAX
+on the qkv projection's natural [B, S, 3*H*D] layout, and it copies the JAX
 package's dispatch (models/layers.py:174-190, models/clip.py:82-108):
 
 * where ``use_fused_qkv`` accepts, ``fused_qkv_attention`` consumes qkv and
   returns [B, S, H*D] with the head split and merge done inside the kernels:
-  S <= 512 (``FUSED_QKV_FWD_MAX_SEQ``) takes the fused-qkv kernels,
-  csrc/fused_qkv_fwd.cu (K1) and csrc/fused_qkv_bwd.cu (K2); longer
-  sequences with a divisor query block (1568, 1000, 600, ...) take the
-  packed flash kernels, csrc/packed_flash_fwd.cu (K3) and the dQ and dK/dV
-  kernels of csrc/packed_flash_bwd.cu (K4);
-* everywhere else above 512 tokens (1569 = 1568 patches + CLS, 577, 785,
-  ...) q, k and v become strided [B, H, S, D] views of qkv, and
-  ``multi_head_attention`` runs the blocked flash kernels K6 on them: the
-  same CUDA kernels as K3/K4, which take per-tensor strides, each with its
-  own launch counter.
-
-Below 513 tokens JAX sends training at 385-512 tokens, and widths that are
-not a multiple of 128, to its grouped kernels (K5); the port keeps K1/K2
-there until K5 is ported (ROADMAP queue 2).
+  S <= 384 in training and S <= 512 forward-only (``fwd_only``, JAX's
+  ``deterministic``), at widths that are a multiple of 128, take the
+  fused-qkv kernels, csrc/fused_qkv_fwd.cu (K1) and csrc/fused_qkv_bwd.cu
+  (K2); longer sequences with a divisor query block (1568, 1000, 600, ...)
+  take the packed flash kernels, csrc/packed_flash_fwd.cu (K3) and the dQ
+  and dK/dV kernels of csrc/packed_flash_bwd.cu (K4);
+* everywhere else q, k and v become strided [B, H, S, D] views of qkv and
+  ``multi_head_attention`` runs on them: up to 512 tokens the grouped
+  kernels K5 (training at 385-512 tokens, 392 = stage 1 at mask 0.75, and
+  widths that are not a multiple of 128), the forward in
+  csrc/packed_flash_fwd.cu and the dQ and dK/dV kernels in
+  csrc/grouped_attn_bwd.cu; above 512 tokens (1569 = 1568 patches + CLS,
+  577, 785, ...) the blocked flash kernels K6, the same CUDA kernels as
+  K3/K4, which take per-tensor strides. Each has its own launch counter.
 
 Beside each kernel is its plain version, with the TPU kernel's math and
 rounding points; a wrapper uses it only for a tensor on the CPU. A CUDA
 tensor launches the kernel or raises.
 
 All kernels fold the softmax scale into a base-2 exponent,
-exp(s*scale - m*scale) == exp2((s - m)*c) with c = scale*log2(e), and the
-saved row statistic is the base-2 log-sum-exp of the scaled scores,
-lse2 = m*c + log2(l), [B, H, S] fp32 (the TPU kernels broadcast it to
-[B, H, S, 8]).
+exp(s*scale - m*scale) == exp2((s - m)*c) with c = scale*log2(e). The flash
+kernels' saved row statistic is the base-2 log-sum-exp of the scaled
+scores, lse2 = m*c + log2(l), [B, H, S] fp32 (the TPU kernels broadcast it
+to [B, H, S, 8]); K5 saves the raw row max m and the row sum l instead.
 """
 
 from __future__ import annotations
@@ -92,22 +92,17 @@ def use_fused_qkv(seq: int, fwd_only: bool = False,
     return seq_ok and dim_ok
 
 
-def uses_packed_route(seq: int, dim: Optional[int] = None) -> bool:
-    """True where ``self_attention`` takes K3/K4."""
-    return seq > FUSED_QKV_FWD_MAX_SEQ and use_fused_qkv(seq, dim=dim)
-
-
-def self_attention(qkv, heads: int, scale: float, dim: Optional[int] = None):
+def self_attention(qkv, heads: int, scale: float, dim: Optional[int] = None,
+                   fwd_only: bool = False):
     """The models' attention: qkv [B, S, 3*H*D] -> [B, S, H*D].
 
-    K1/K2 up to 512 tokens, K3/K4 where JAX packs, K6 on strided
-    [B, H, S, D] views of qkv otherwise; the output of K6 is written in
-    [B, S, H, D] memory, so the head merge is a view. ``dim`` as in
-    ``use_fused_qkv`` (the ViT blocks pass their width, CLIP passes none).
-    JAX's ``fwd_only`` moves its cap only within S <= 512, where the port
-    takes K1/K2 either way."""
-    s = qkv.shape[1]
-    if s <= FUSED_QKV_FWD_MAX_SEQ or uses_packed_route(s, dim):
+    K1/K2 or K3/K4 where ``use_fused_qkv`` accepts, else K5 (S <= 512) or
+    K6 on strided [B, H, S, D] views of qkv, whose output is written in
+    [B, S, H, D] memory so the head merge is a view. ``dim`` and
+    ``fwd_only`` as in ``use_fused_qkv``: the ViT blocks pass their width
+    and ``not self.training`` (JAX's ``deterministic``), CLIP passes no
+    width and ``fwd_only=True``."""
+    if use_fused_qkv(qkv.shape[1], fwd_only, dim):
         return fused_qkv_attention(qkv, heads, scale)
     q, k, v = _split_heads(qkv, heads)
     return _merge_heads(multi_head_attention(q, k, v, scale=scale))
@@ -211,6 +206,61 @@ def flash_reference_bwd(q, k, v, o, lse, do, *, scale: float):
     outside the dK/dV kernel (:327)."""
     dq, delta = _flash_dq_reference(q, k, v, o, do, lse, scale)
     return (dq,) + _flash_dkv_reference(q, k, v, do, lse, delta, scale)
+
+
+def grouped_reference(q, k, v, *, scale: float):
+    """Plain K5 forward (``_grouped_fwd_kernel``, attention.py:441-464): raw
+    fp32 scores, the exact row max m, e = exp2((s - m)*c) in fp32, l the row
+    sum of e BEFORE rounding (plain K1/K6 sum the rounded p), and
+    o = (bf16(e).v)/l. q/k/v [B, H, S, D] -> (o in q's dtype, m, l
+    [B, H, S] fp32)."""
+    dt = q.dtype
+    s = q.float() @ k.float().transpose(-1, -2)
+    m = s.amax(dim=-1, keepdim=True)
+    e = torch.exp2((s - m) * (scale * INV_LN2))
+    l = e.sum(dim=-1, keepdim=True)
+    o = (e.to(dt).float() @ v.float()) / l
+    return o.to(dt), m.squeeze(-1), l.squeeze(-1)
+
+
+def _grouped_e(q, k, m, l, scale: float):
+    """e = exp2((q.k^T - m)*c) against the forward's row max, and 1/l."""
+    s = q.float() @ k.float().transpose(-1, -2)
+    return torch.exp2((s - m[..., None]) * (scale * INV_LN2)), 1.0 / l[..., None]
+
+
+def _grouped_dq_reference(q, k, v, do, m, l, scale: float):
+    """Plain K5 dQ side (``_grouped_bwd_kernel`` :475-502):
+    delta = rowsum(e*dp)/l, ds = e*(dp - delta) unnormalised,
+    dq = bf16(ds).k * (scale/l). Returns (dq, delta [B, H, S] fp32)."""
+    dt = q.dtype
+    e, inv_l = _grouped_e(q, k, m, l, scale)
+    dp = do.float() @ v.float().transpose(-1, -2)
+    delta = (e * dp).sum(dim=-1, keepdim=True) * inv_l
+    ds = e * (dp - delta)
+    dq = (ds.to(dt).float() @ k.float()) * (scale * inv_l)
+    return dq.to(dt), delta.squeeze(-1)
+
+
+def _grouped_dkv_reference(q, k, v, do, m, l, delta, scale: float):
+    """Plain K5 dK/dV side (:486-506): dv = bf16(e)^T.bf16(do/l),
+    dk = bf16(ds/l)^T.q * scale. Returns (dk, dv)."""
+    dt = q.dtype
+    e, inv_l = _grouped_e(q, k, m, l, scale)
+    do_l = (do.float() * inv_l).to(dt).float()
+    dv = e.to(dt).float().transpose(-1, -2) @ do_l
+    ds = e * (do.float() @ v.float().transpose(-1, -2) - delta[..., None])
+    dk = ((ds * inv_l).to(dt).float().transpose(-1, -2) @ q.float()) * scale
+    return dk.to(dt), dv.to(dt)
+
+
+def grouped_reference_bwd(q, k, v, do, *, scale: float):
+    """Plain K5 backward: (dq, dk, dv) from q/k/v and the cotangent do, all
+    [B, H, S, D], recomputing the forward's m and l as the TPU kernel
+    recomputes them."""
+    _, m, l = grouped_reference(q, k, v, scale=scale)
+    dq, delta = _grouped_dq_reference(q, k, v, do, m, l, scale)
+    return (dq,) + _grouped_dkv_reference(q, k, v, do, m, l, delta, scale)
 
 
 def qkv_attention_reference(qkv, heads: int, scale: float):
@@ -652,6 +702,85 @@ def flash_bwd(q, k, v, o, lse, do, scale: float):
     return dq, dk, dv
 
 
+# ------------------------------------------------------------------- K5
+
+
+def grouped_fwd(q, k, v, scale: float, with_stats: bool = False):
+    """K5 forward: q/k/v [B, H, S, 64] -> (o laid out as q, (m, l) [B, H, S]
+    fp32 or None), contiguous tensors or strided views. CPU tensors take
+    the plain version; CUDA tensors launch the kernel."""
+    if q.device.type == "cpu":
+        o, m, l = grouped_reference(q, k, v, scale=scale)
+        return o, ((m, l) if with_stats else None)
+    o = _empty_like_rows(q)
+    ptrs, strides = _view_args(q, k, v, o)
+    b, h, s, _ = q.shape
+    stats = (tuple(torch.empty((b, h, s), dtype=torch.float32,
+                               device=q.device) for _ in range(2))
+             if with_stats else None)
+    err = _build.load("packed_flash_fwd").unite_grouped_fwd(
+        *ptrs, *((t.data_ptr() for t in stats) if stats else (None, None)),
+        strides, b, s, h, scale * INV_LN2, _stream(q))
+    _build.check(err, "grouped_fwd")
+    grouped_fwd.launches += 1
+    return o, stats
+
+
+grouped_fwd.launches = 0
+
+
+def grouped_dq(q, k, v, do, m, l, dq, delta, scale: float):
+    """K5 dQ: writes dq into ``dq`` and rowsum(e*dp)/l into ``delta``
+    [B, H, S] fp32, from the forward's m and l."""
+    if q.device.type == "cpu":
+        g, dl = _grouped_dq_reference(q, k, v, do, m, l, scale)
+        dq.copy_(g)
+        delta.copy_(dl)
+        return
+    ptrs, strides = _view_args(q, k, v, do, dq)
+    _stats(q, m, l, delta)
+    b, h, s, _ = q.shape
+    err = _build.load("grouped_attn_bwd").unite_grouped_dq(
+        *ptrs[:4], m.data_ptr(), l.data_ptr(), delta.data_ptr(), ptrs[4],
+        strides, b, s, h, scale * INV_LN2, scale, _stream(q))
+    _build.check(err, "grouped_dq")
+    grouped_dq.launches += 1
+
+
+grouped_dq.launches = 0
+
+
+def grouped_dkv(q, k, v, do, m, l, delta, dk, dv, scale: float):
+    """K5 dK/dV: writes dk and dv from the forward's m and l and the dQ
+    kernel's delta."""
+    if q.device.type == "cpu":
+        gk, gv = _grouped_dkv_reference(q, k, v, do, m, l, delta, scale)
+        dk.copy_(gk)
+        dv.copy_(gv)
+        return
+    ptrs, strides = _view_args(q, k, v, do, dk, dv)
+    _stats(q, m, l, delta)
+    b, h, s, _ = q.shape
+    err = _build.load("grouped_attn_bwd").unite_grouped_dkv(
+        *ptrs[:4], m.data_ptr(), l.data_ptr(), delta.data_ptr(), *ptrs[4:],
+        strides, b, s, h, scale * INV_LN2, scale, _stream(q))
+    _build.check(err, "grouped_dkv")
+    grouped_dkv.launches += 1
+
+
+grouped_dkv.launches = 0
+
+
+def grouped_bwd(q, k, v, do, m, l, scale: float):
+    """K5 backward: (dq, dk, dv), each laid out as its input, through the
+    dQ kernel then the dK/dV kernel."""
+    dq, dk, dv = (_empty_like_rows(x) for x in (q, k, v))
+    delta = torch.empty(m.shape, dtype=torch.float32, device=q.device)
+    grouped_dq(q, k, v, do, m, l, dq, delta, scale)
+    grouped_dkv(q, k, v, do, m, l, delta, dk, dv, scale)
+    return dq, dk, dv
+
+
 def _kernel_layout(t):
     """A cotangent as the flash kernels take it: ``t`` itself where its
     head lanes are contiguous and its rows 16-byte aligned, else a
@@ -662,6 +791,23 @@ def _kernel_layout(t):
                     if n > 1)):
         return t
     return t.contiguous()
+
+
+class _GroupedAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, scale):
+        train = any(ctx.needs_input_grad[:3])
+        o, stats = grouped_fwd(q, k, v, scale, with_stats=train)
+        if train:
+            ctx.save_for_backward(q, k, v, *stats)
+        ctx.scale = scale
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, m, l = ctx.saved_tensors
+        return grouped_bwd(q, k, v, _kernel_layout(do), m, l,
+                           ctx.scale) + (None,)
 
 
 class _FlashAttention(torch.autograd.Function):
@@ -689,21 +835,14 @@ def multi_head_attention(q, k, v, *, scale=None, return_probs: bool = False,
     ``multi_head_attention`` without its TPU knobs).
 
     Probabilities or dropout take the plain ``attention_reference``, as
-    ``attention_xla`` serves them in JAX. Otherwise S > 512 takes K6 (CPU
-    tensors its plain version); S <= 512 is JAX's grouped kernel K5, not
-    ported yet: CUDA tensors raise, CPU tensors take the plain attention."""
+    ``attention_xla`` serves them in JAX. Otherwise S <= 512 takes K5 and
+    longer sequences K6; CPU tensors take their plain versions."""
     scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
     drop = dropout_rate if not deterministic else 0.0
     if return_probs or drop > 0.0:
         return attention_reference(q, k, v, scale=scale,
                                    return_probs=return_probs,
                                    dropout_rate=drop, generator=generator)
-    if q.shape[2] > GROUPED_MAX_SEQ:
-        return _FlashAttention.apply(q, k, v, scale)
-    if q.device.type != "cpu":
-        raise NotImplementedError(
-            f"[B, H, S, D] attention at S = {q.shape[2]} <= {GROUPED_MAX_SEQ} "
-            "is unite_tpu's grouped kernel K5 (_grouped_fwd_kernel, "
-            "_grouped_bwd_kernel), not ported yet (ROADMAP queue 2); the "
-            "models take K1/K2 there through self_attention")
-    return attention_reference(q, k, v, scale=scale)
+    if q.shape[2] <= GROUPED_MAX_SEQ:
+        return _GroupedAttention.apply(q, k, v, scale)
+    return _FlashAttention.apply(q, k, v, scale)

@@ -3,13 +3,16 @@
 Mask convention: True = masked, False = visible. The teacher-attention mask
 samples N_vis patches per frame without replacement, proportional to the
 teacher's CLS attention, by the Gumbel top-k trick; the stage-3 committee
-deals the attention-sorted patches out to k members in turn.
+deals the attention-sorted patches out to k members in turn. The tube and
+random masks are drawn on the host by the data path (numpy, the same draws
+as the JAX package's generators).
 """
 
 from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
 
 
@@ -73,3 +76,55 @@ def greedy_committee_masks(attn, mask_ratio: float, k: int):
 def frame_mask_to_video(mask_bt, batch: int):
     """[B*T, N] per-frame mask -> [B, T*N] per-video mask."""
     return mask_bt.reshape(batch, -1)
+
+
+# ---------------------------------------------------------------------------
+# Host-side generators (data pipeline; parity with masking_generator.py)
+# ---------------------------------------------------------------------------
+
+
+class TubeMaskingGenerator:
+    """Same random per-frame mask tiled across frames (masking_generator.py:24-45)."""
+
+    def __init__(self, input_size, mask_ratio):
+        self.frames, self.height, self.width = input_size
+        self.num_patches_per_frame = self.height * self.width
+        self.num_masks_per_frame = int(mask_ratio * self.num_patches_per_frame)
+        self.total_patches = self.frames * self.num_patches_per_frame
+        self.total_masks = self.frames * self.num_masks_per_frame
+
+    def __repr__(self):
+        return "Tube masking: total {}, mask {}".format(
+            self.total_patches, self.total_masks
+        )
+
+    def __call__(self, rng=None):
+        rng = rng if rng is not None else np.random.default_rng()
+        # uniform random subset: patch i masked iff its permuted rank falls
+        # in the first num_masks slots
+        per_frame = (
+            rng.permutation(self.num_patches_per_frame)
+            < self.num_masks_per_frame
+        ).astype(np.float64)
+        return np.tile(per_frame, (self.frames, 1)).flatten()
+
+
+class RandomMaskingGenerator:
+    """IID mask over all T*H*W patches (masking_generator.py:48-69)."""
+
+    def __init__(self, input_size, mask_ratio):
+        if not isinstance(input_size, tuple):
+            input_size = (input_size,) * 3
+        self.frames, self.height, self.width = input_size
+        self.num_patches = self.frames * self.height * self.width
+        self.num_mask = int(mask_ratio * self.num_patches)
+
+    def __repr__(self):
+        return "Random masking: total {}, mask {}".format(
+            self.num_patches, self.num_mask
+        )
+
+    def __call__(self, rng=None):
+        rng = rng if rng is not None else np.random.default_rng()
+        return (rng.permutation(self.num_patches) < self.num_mask).astype(
+            np.float64)
