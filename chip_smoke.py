@@ -23,6 +23,20 @@ toolkit. In order:
    (both layouts), [64, 12, 512, 64] and [5, 12, 393, 64]; error, median
    time, the plain version's time, the bound, and one PyTorch call
    (``scaled_dot_product_attention``) as a yardstick;
+   then K7a (the int8 blocked matmul) bit for bit against its plain
+   version at the probe's 38400x768x3072, the int8 clip_l14 teacher's four
+   dense shapes at M = 37824 and two ragged shapes, K7b (bf16) within one
+   bf16 ulp at the probe and ragged shapes, with ``torch._int_mm`` and
+   ``torch.matmul`` as yardsticks; the probe
+   (``unite_torch.tools.quant_kernel_probe``); K1 at 16 heads at the
+   clip_l14 teacher's [192, 197, 3072] and K1/K2 at the ViT-L student's
+   [24, 320, 3072]; the int8 clip_l14 against the bf16 one (B=2, 196^2):
+   tap cosine > 0.98, CLS-row total variation < 0.05; one ViT-L/14 stage-1
+   step with the int8 teacher (full widths, depth 4) on the card in bf16
+   against the CPU in fp32; the cells ``stage1-l14-b24`` and
+   ``stage1-l14-int8-b24`` (``bench.py::bench_large``'s geometry, B=24, 2
+   warm-up and 5 timed steps, 48 K1 + 24 K2 a step, plus 96 K7a with the
+   int8 teacher, and a profiled step);
 4. one stage-1 step on the card in bf16 against the same step on the CPU in
    fp32 (B=2, same weights, same batch, injected visible tokens);
 5. the stage-1 path ``stage1-b16-b64``: the train step at full ViT-B/16
@@ -83,6 +97,7 @@ from types import SimpleNamespace
 ROOT = Path(__file__).resolve().parent
 PEAK_BYTES = 3.35e12   # H100 SXM HBM3, bytes/s
 PEAK_BF16 = 989e12     # H100 SXM dense bf16 tensor-core flop/s
+PEAK_INT8 = 1979e12    # H100 SXM dense int8 tensor-core op/s
 HEADS, SCALE = 12, 64 ** -0.5
 FWD_TOL = 1e-2         # a few bf16 ulps of |o| <= 1
 BWD_TOL = 2e-2         # times max |dqkv| of the plain version
@@ -90,6 +105,17 @@ STEP_RTOL = 2e-2       # bf16 card step against the fp32 CPU step
 STAGE2_TOKENS = 1568   # 8 frames x 196 patches, tubelet 1
 STAGE3_CLS_TOKENS = STAGE2_TOKENS + 1  # the same with the CLS token
 M075_TOKENS = 8 * 49   # stage 1 at mask 0.75: 49 of 196 patches a frame
+# bench.py::bench_large: the ViT-L student and the clip_l14 teacher at 196^2
+# (a 14x14 grid, 197 tokens a frame), taps 18-23, B=24 over 8 frames
+L14_RET = (18, 19, 20, 21, 22, 23)
+L14_B = 24
+L14_M = L14_B * 8 * 197  # the teacher's rows: 37824
+# K7a's (M, K, N) in the int8 teacher's four dense layers, and the probe's
+L14_DENSE = {"in_proj": (L14_M, 1024, 3072), "out_proj": (L14_M, 1024, 1024),
+             "mlp_c_fc": (L14_M, 1024, 4096), "mlp_c_proj": (L14_M, 4096, 1024)}
+PROBE_SHAPE = (38400, 768, 3072)
+RAGGED_MM = ((394, 768, 2304), (1, 1024, 1024))
+COS_MIN, TV_MAX = 0.98, 0.05  # int8 teacher bounds, tests/test_quant.py:68-72
 # configs/stage1_config.yaml key for key, with stage1.sh's overrides (the
 # dataset mapping, output dir and published weights left out): the stage-1
 # entry's command line without --config
@@ -146,18 +172,21 @@ def median_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def bound(nbytes: float, flops: float):
-    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, flops / PEAK_BF16 * 1e3
+def bound(nbytes: float, flops: float, peak: float = PEAK_BF16):
+    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, flops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def counters(A) -> dict:
     """Every kernel wrapper of the port, by kernel id."""
+    from unite_torch.ops import matmul as MM
+
     return {"K1": A.fused_qkv_fwd, "K2": A.fused_qkv_bwd,
             "K3": A.packed_flash_fwd, "K4a": A.packed_flash_dq,
             "K4b": A.packed_flash_dkv, "K5": A.grouped_fwd,
             "K5dq": A.grouped_dq, "K5dkv": A.grouped_dkv, "K6": A.flash_fwd,
-            "K6dq": A.flash_dq, "K6dkv": A.flash_dkv}
+            "K6dq": A.flash_dq, "K6dkv": A.flash_dkv,
+            "K7a": MM.int8_matmul, "K7b": MM.bf16_matmul}
 
 
 def lse_counters(A) -> dict:
@@ -170,6 +199,7 @@ def reset_counts(A) -> None:
         fn.launches = 0
     for fn in lse_counters(A).values():
         fn.lse_launches = 0
+    counters(A)["K7a"].by_shape.clear()
 
 
 def read_counts(A) -> dict:
@@ -185,70 +215,81 @@ def expect_counts(counts: dict, want: dict, what: str) -> None:
         raise AssertionError(f"{what}: launches {counts}, expected {full}")
 
 
-def check_kernels(torch, A):
-    """Phase 3: each kernel against its plain version, with timings."""
+def check_kernels(torch, A, heads: int = HEADS, batches=(512, 64),
+                  tag: str = ""):
+    """Phase 3: K1 at the teacher's [B, 197, 3*H*64] (forward only) and K1
+    and K2 at the student's [B, 320, 3*H*64] against their plain versions,
+    with timings. ViT-B/16 (12 heads) by default; ``tag`` "/l14" at the
+    ViT-L/14 path's 16 heads and batches (192 frames, 24 clips)."""
     import torch.nn.functional as F
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     results = {}
-    for label, (b, s) in (("teacher", (512, 197)), ("student", (64, 320))):
-        qkv = torch.randn((b, s, 3 * HEADS * 64), generator=gen,
+    for label, (b, s) in (("teacher", (batches[0], 197)),
+                          ("student", (batches[1], 320))):
+        qkv = torch.randn((b, s, 3 * heads * 64), generator=gen,
                           device="cuda").to(torch.bfloat16)
         with_lse = label == "student"  # the student trains, the teacher not
-        out, lse = A.fused_qkv_fwd(qkv, HEADS, SCALE, with_lse=with_lse)
+        out, lse = A.fused_qkv_fwd(qkv, heads, SCALE, with_lse=with_lse)
         torch.cuda.synchronize()
-        ref, ref_lse = A.qkv_attention_reference(qkv, HEADS, SCALE)
+        ref, ref_lse = A.qkv_attention_reference(qkv, heads, SCALE)
         err = (out.float() - ref.float()).abs()
         if not bool(torch.isfinite(out).all()) or err.max().item() > FWD_TOL:
-            raise AssertionError(f"K1 {label}: max abs err {err.max().item()}"
-                                 f" > {FWD_TOL}")
+            raise AssertionError(f"K1 {label}{tag}: max abs err "
+                                 f"{err.max().item()} > {FWD_TOL}")
         if with_lse:
             lse_err = (lse - ref_lse).abs().max().item()
             if lse_err > 1e-3:
-                raise AssertionError(f"K1 lse err {lse_err}")
-        ms = median_ms(lambda: A.fused_qkv_fwd(qkv, HEADS, SCALE, with_lse))
-        plain_ms = median_ms(lambda: A.qkv_attention_reference(qkv, HEADS,
+                raise AssertionError(f"K1{tag} lse err {lse_err}")
+        ms = median_ms(lambda: A.fused_qkv_fwd(qkv, heads, SCALE, with_lse))
+        plain_ms = median_ms(lambda: A.qkv_attention_reference(qkv, heads,
                                                                SCALE))
-        q, k, v = (t.contiguous() for t in A._split_heads(qkv, HEADS))
+        q, k, v = (t.contiguous() for t in A._split_heads(qkv, heads))
         lib_ms = median_ms(lambda: F.scaled_dot_product_attention(
             q, k, v, scale=SCALE))
-        nbytes = b * s * 4 * HEADS * 64 * 2 + (b * HEADS * s * 4 if with_lse
+        nbytes = b * s * 4 * heads * 64 * 2 + (b * heads * s * 4 if with_lse
                                                else 0)
-        bms, by = bound(nbytes, 4.0 * b * HEADS * s * s * 64)
-        results[f"K1/{label}"] = dict(
-            shape=[b, s, 3 * HEADS * 64], max_abs_err=err.max().item(),
+        bms, by = bound(nbytes, 4.0 * b * heads * s * s * 64)
+        key = f"K1/{label}{tag}"
+        results[key] = dict(
+            shape=[b, s, 3 * heads * 64], max_abs_err=err.max().item(),
             mean_abs_err=err.mean().item(), ms=ms, plain_ms=plain_ms,
             bound_ms=bms, bound_by=by, library_ms=lib_ms)
-        print(f"K1 fused_qkv_fwd {label} {results[f'K1/{label}']}",
-              flush=True)
+        print(f"K1 fused_qkv_fwd {label}{tag} {results[key]}", flush=True)
+        del q, k, v, ref, ref_lse
+        if not with_lse:
+            del qkv, out, lse
+            torch.cuda.empty_cache()
 
     # K2 at the student shape, from the student forward above
     do = torch.randn(out.shape, generator=gen, device="cuda").to(torch.bfloat16)
-    dqkv = A.fused_qkv_bwd(qkv, out, lse, do, HEADS, SCALE)
+    dqkv = A.fused_qkv_bwd(qkv, out, lse, do, heads, SCALE)
     torch.cuda.synchronize()
-    ref = A.qkv_attention_reference_bwd(qkv, do, HEADS, SCALE).float()
+    ref = A.qkv_attention_reference_bwd(qkv, do, heads, SCALE).float()
     err = (dqkv.float() - ref).abs()
     tol = BWD_TOL * ref.abs().max().item()
     if not bool(torch.isfinite(dqkv).all()) or err.max().item() > tol:
-        raise AssertionError(f"K2: max abs err {err.max().item()} > {tol}")
-    ms = median_ms(lambda: A.fused_qkv_bwd(qkv, out, lse, do, HEADS, SCALE))
+        raise AssertionError(f"K2{tag}: max abs err {err.max().item()} > "
+                             f"{tol}")
+    ms = median_ms(lambda: A.fused_qkv_bwd(qkv, out, lse, do, heads, SCALE))
     plain_ms = median_ms(lambda: A.qkv_attention_reference_bwd(
-        qkv, do, HEADS, SCALE))
+        qkv, do, heads, SCALE))
     q, k, v = (t.detach().contiguous().requires_grad_(True)
-               for t in A._split_heads(qkv, HEADS))
-    do_h = do.reshape(b, s, HEADS, 64).transpose(1, 2).contiguous()
+               for t in A._split_heads(qkv, heads))
+    do_h = do.reshape(b, s, heads, 64).transpose(1, 2).contiguous()
 
     def sdpa_fwd_bwd():
         F.scaled_dot_product_attention(q, k, v, scale=SCALE).backward(do_h)
 
     lib_ms = median_ms(sdpa_fwd_bwd)
-    nbytes = b * s * (3 + 1 + 1 + 3) * HEADS * 64 * 2 + b * HEADS * s * 4
-    bms, by = bound(nbytes, 10.0 * b * HEADS * s * s * 64)
-    results["K2/student"] = dict(
-        shape=[b, s, 3 * HEADS * 64], max_abs_err=err.max().item(),
+    nbytes = b * s * (3 + 1 + 1 + 3) * heads * 64 * 2 + b * heads * s * 4
+    bms, by = bound(nbytes, 10.0 * b * heads * s * s * 64)
+    key = f"K2/student{tag}"
+    results[key] = dict(
+        shape=[b, s, 3 * heads * 64], max_abs_err=err.max().item(),
         mean_abs_err=err.mean().item(), tol=tol, ms=ms, plain_ms=plain_ms,
         bound_ms=bms, bound_by=by, library_ms=lib_ms)
-    print(f"K2 fused_qkv_bwd student {results['K2/student']}", flush=True)
+    print(f"K2 fused_qkv_bwd student{tag} {results[key]}", flush=True)
     return results
 
 
@@ -359,22 +400,309 @@ def check_grouped_kernels(torch, A):
     return results
 
 
+def check_matmul_kernels(torch):
+    """K7a and K7b against their plain versions: K7a at the probe shape,
+    the four dense layers of the int8 clip_l14 teacher at M = 37824 and two
+    ragged shapes, bit for bit; K7b at the probe and the ragged shapes,
+    within one bf16 ulp of |plain| (plus the fp32 summation-order term that
+    matters near zero, ``bf16_tolerance``). Times at the probe and teacher
+    shapes, with ``torch._int_mm`` (cuBLASLt) and ``torch.matmul`` (cuBLAS)
+    as the yardsticks."""
+    from unite_torch.ops import matmul as MM
+    from unite_torch.tools.quant_kernel_probe import int_mm_operand
+
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    results = {}
+    shapes = ([("probe", PROBE_SHAPE)] + list(L14_DENSE.items())
+              + [(f"ragged{m}x{k}x{n}", (m, k, n)) for m, k, n in RAGGED_MM])
+    for label, (m, k, n) in shapes:
+        x8 = torch.randint(-128, 128, (m, k), generator=gen, device="cuda",
+                           dtype=torch.int8)
+        w8 = torch.randint(-128, 128, (n, k), generator=gen, device="cuda",
+                           dtype=torch.int8)
+        out = MM.int8_matmul(x8, w8)
+        torch.cuda.synchronize()
+        ref = MM.int8_matmul_reference(x8, w8)
+        err = (out.double() - ref.double()).abs().max().item()
+        if not torch.equal(out, ref):
+            raise AssertionError(f"K7a {label} [{m}x{k}x{n}]: not bit-equal to"
+                                 f" its plain version, max abs err {err}")
+        res = dict(shape=[m, k, n], max_abs_err=err, bit_equal=True)
+        if not label.startswith("ragged"):
+            w_lib = int_mm_operand(x8, w8)
+            res.update(
+                ms=median_ms(lambda: MM.int8_matmul(x8, w8)),
+                plain_ms=median_ms(lambda: MM.int8_matmul_reference(x8, w8),
+                                   iters=5),
+                library_ms=median_ms(lambda: torch._int_mm(x8, w_lib)),
+                library="torch._int_mm (cuBLASLt)",
+                library_equal=bool(torch.equal(torch._int_mm(x8, w_lib), ref)))
+            res["bound_ms"], res["bound_by"] = bound(
+                m * k + n * k + 4 * m * n, 2.0 * m * k * n, PEAK_INT8)
+        results[f"K7a/{label}"] = res
+        print(f"K7a int8_matmul {label} {res}", flush=True)
+        del x8, w8, out, ref
+        torch.cuda.empty_cache()
+
+    for label, (m, k, n) in ([("probe", PROBE_SHAPE)]
+                             + [(f"ragged{m}x{k}x{n}", (m, k, n))
+                                for m, k, n in RAGGED_MM]):
+        x = torch.randn((m, k), generator=gen, device="cuda").to(torch.bfloat16)
+        w = torch.randn((n, k), generator=gen, device="cuda").to(torch.bfloat16)
+        out = MM.bf16_matmul(x, w)
+        torch.cuda.synchronize()
+        ref = MM.bf16_matmul_reference(x, w)
+        err = (out.float() - ref.float()).abs()
+        tol = MM.bf16_tolerance(x, w, ref)
+        mag = ref.float().abs().clamp_min(2.0 ** -126)
+        ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
+        if not bool(torch.isfinite(out).all()) or bool((err > tol).any()):
+            raise AssertionError(f"K7b {label} [{m}x{k}x{n}]: max abs err "
+                                 f"{err.max().item()}, over its bound at "
+                                 f"{int((err > tol).sum())} elements")
+        res = dict(shape=[m, k, n], max_abs_err=err.max().item(),
+                   max_err_over_bound=(err / tol).max().item(),
+                   share_within_one_ulp=(err <= ulp).float().mean().item())
+        if label == "probe":
+            res.update(
+                ms=median_ms(lambda: MM.bf16_matmul(x, w)),
+                plain_ms=median_ms(lambda: MM.bf16_matmul_reference(x, w)),
+                library_ms=median_ms(lambda: torch.matmul(x, w.t())),
+                library="torch.matmul (cuBLAS)")
+            res["bound_ms"], res["bound_by"] = bound(
+                2 * (m * k + n * k + m * n), 2.0 * m * k * n)
+        results[f"K7b/{label}"] = res
+        print(f"K7b bf16_matmul {label} {res}", flush=True)
+        del x, w, out, ref, err, tol, mag, ulp
+        torch.cuda.empty_cache()
+    return results
+
+
+def run_probe(torch, A):
+    """The probe entry (``python -m unite_torch.tools.quant_kernel_probe``)
+    with the launch counts read around it: it must run K7b and K7a."""
+    from unite_torch.tools import quant_kernel_probe
+
+    reset_counts(A)
+    lines = quant_kernel_probe.main()
+    counts = read_counts(A)
+    if counts["K7a"] == 0 or counts["K7b"] == 0 or any(
+            v for key, v in counts.items() if key not in ("K7a", "K7b")):
+        raise AssertionError(f"probe launches {counts}")
+    return dict(lines=lines, launches=counts)
+
+
+def l14_models(torch, dtype, device: str, depth=None):
+    """``bench.py::bench_large``'s models: adaptation_umt_large_patch16_224
+    (8 frames, tubelet 1, taps 18-23 decoded at 1024 to 768) and clip_l14
+    at 196^2 with the CLS attention row and the same taps. With ``depth``
+    both are cut to that many blocks at full width, tapping the last two."""
+    from unite_torch import create_model
+    from unite_torch.models.adaptation import AdaptationVisionTransformer
+    from unite_torch.models.clip import CLIPVisionTransformer
+
+    skw = dict(num_frames=8, tubelet_size=1, clip_decoder_embed_dim=1024,
+               clip_output_dim=768, clip_norm_type="l2", dtype=dtype)
+    tkw = dict(input_resolution=196, clip_norm_type="l2", return_attn=True,
+               dtype=dtype)
+    if depth is None:
+        return (create_model("adaptation_umt_large_patch16_224", device=device,
+                             clip_return_layers=L14_RET, **skw),
+                create_model("clip_l14", device=device, return_index=L14_RET,
+                             **tkw))
+    ret = (depth - 2, depth - 1)
+    student = AdaptationVisionTransformer(
+        img_size=224, patch_size=16, encoder_embed_dim=1024,
+        encoder_depth=depth, encoder_num_heads=16, clip_return_layers=ret,
+        **skw)
+    teacher = CLIPVisionTransformer(patch_size=14, width=1024, layers=depth,
+                                   heads=16, output_dim=768, return_index=ret,
+                                   **tkw)
+    return student.to(device), teacher.to(device)
+
+
+def build_l14_step(torch, b: int, dtype, device: str, int8: bool,
+                   depth=None, states=None):
+    """The stage-1 step at ``bench.py::bench_large``'s configuration: mask
+    0.8 (320 visible tokens), AdamW lr 1.5e-4, wd 0.05, source_batch_size 0,
+    loss on the target rows, no clipping, teacher input 196. ``int8``: the
+    teacher's dense layers made int8 by ``quantize_clip_`` from its fp32
+    weights (``states``: the student's and the fp32 teacher's)."""
+    from unite_torch.engines.pretrain_umt import make_pretrain_train_step
+    from unite_torch.ops.quant import quantize_clip_
+    from unite_torch.optim.factory import create_optimizer
+    from unite_torch.train.train_state import TrainState
+
+    student, teacher = l14_models(torch, dtype, device, depth)
+    if states is not None:
+        student.load_state_dict(states[0])
+        teacher.load_state_dict(states[1])
+    if int8:
+        quantize_clip_(teacher)
+    tx, _ = create_optimizer("adamw", 1.5e-4, student, weight_decay=0.05,
+                             device=device)
+    step = make_pretrain_train_step(
+        student, teacher, num_patches=8 * 196, frames=8, mask_ratio=0.8,
+        source_batch_size=0, clip_loss_data="target", clip_grad=None,
+        clip_input_resolution=196, device=device)
+    return TrainState(student, tx), teacher, step
+
+
+def int8_teacher_vs_bf16(torch):
+    """The full-size int8 clip_l14 against the bf16 one with the same
+    random weights, B=2 over 8 frames of 196^2: the L2-normed taps' cosine
+    and the CLS attention row's total variation, within
+    tests/test_quant.py's bounds."""
+    import numpy as np
+
+    from unite_torch import create_model
+    from unite_torch.ops.normalize import normalize_videos
+    from unite_torch.ops.quant import quantize_clip_
+
+    torch.manual_seed(41)
+    kw = dict(device="cuda", dtype=torch.bfloat16, input_resolution=196,
+              return_attn=True, return_index=L14_RET)
+    bf16 = create_model("clip_l14", **kw).eval()
+    int8 = create_model("clip_l14", **kw).eval()
+    int8.load_state_dict(bf16.state_dict())
+    quantize_clip_(int8)
+    vids = np.random.default_rng(42).integers(0, 256, (2, 8, 196, 196, 3),
+                                              dtype=np.uint8)
+    x = normalize_videos(torch.from_numpy(vids).cuda())
+    with torch.no_grad():
+        z, attn = bf16(x)
+        zq, attnq = int8(x)
+    cos = (z.float() * zq.float()).sum(-1)
+    tv = 0.5 * (attn.float() - attnq.float()).abs().sum(-1)
+    res = dict(cos_min=cos.min().item(), cos_mean=cos.mean().item(),
+               tv_max=tv.max().item(), tv_mean=tv.mean().item(),
+               shape=list(zq.shape))
+    print(f"int8 clip_l14 vs bf16 clip_l14 (B=2, 196^2): {res}", flush=True)
+    if not (bool(torch.isfinite(zq).all()) and res["cos_min"] > COS_MIN
+            and res["tv_max"] < TV_MAX):
+        raise AssertionError(f"int8 teacher outside cos > {COS_MIN}, tv < "
+                             f"{TV_MAX}: {res}")
+    del bf16, int8
+    torch.cuda.empty_cache()
+    return res
+
+
+def l14_card_vs_cpu(torch, depth: int = 4):
+    """One stage-1 step with the int8 teacher on the card in bf16 against
+    the CPU in fp32: the large student and clip_l14 at full width (1024, 16
+    heads, patch 14 at 196^2) cut to ``depth`` blocks each, B=2, the same
+    weights and batch, injected visible tokens."""
+    torch.manual_seed(43)
+    states = tuple(m.state_dict() for m in l14_models(
+        torch, torch.float32, "cpu", depth))
+    cpu_state, cpu_teacher, cpu_step = build_l14_step(
+        torch, 2, torch.float32, "cpu", True, depth=depth, states=states)
+    gpu_state, gpu_teacher, gpu_step = build_l14_step(
+        torch, 2, torch.bfloat16, "cuda", True, depth=depth, states=states)
+    for k, v in cpu_teacher.state_dict().items():
+        if not torch.equal(v, gpu_teacher.state_dict()[k].cpu()):
+            raise AssertionError(f"int8 teacher weights differ: {k}")
+    batch = random_batch(torch, 2, 44, with_vis_idx=True)
+    m_gpu = {k: v.item() for k, v in gpu_step(gpu_state, batch).items()}
+    m_cpu = {k: v.item() for k, v in cpu_step(cpu_state, batch).items()}
+    rel = {k: abs(m_gpu[k] - m_cpu[k]) / abs(m_cpu[k])
+           for k in ("loss", "grad_norm")}
+    print(f"l14 step, int8 teacher, depth {depth} (card bf16 vs cpu fp32): "
+          f"card {m_gpu} cpu {m_cpu} rel {rel}", flush=True)
+    check_finite([(m_gpu["loss"], m_gpu["grad_norm"])])
+    if not all(r <= STEP_RTOL for r in rel.values()):
+        raise AssertionError(f"l14 int8 card step disagrees with the CPU: "
+                             f"{rel}")
+    return rel
+
+
+def l14_path(torch, A, int8: bool, warmup: int = 2, timed: int = 5):
+    """``stage1-l14-b24`` (bf16 teacher) or ``stage1-l14-int8-b24`` (int8
+    teacher): bench_large's step at full size, B=24; exact launch counts
+    (48 K1 + 24 K2 a step, and 96 K7a, 24 at each dense shape, with the
+    int8 teacher), clips/s, MFU, peak memory and a profiled step."""
+    from unite_torch.ops import matmul as MM
+
+    name = "stage1-l14-int8-b24" if int8 else "stage1-l14-b24"
+    torch.manual_seed(51)
+    state, teacher, step = build_l14_step(torch, L14_B, torch.bfloat16,
+                                          "cuda", int8)
+    gen = torch.Generator(device="cuda").manual_seed(52)
+    batch = random_batch(torch, L14_B, 53, with_vis_idx=False)
+    batch["videos"] = batch["videos"].pin_memory()
+    teacher_k1 = []
+    teacher.register_forward_pre_hook(
+        lambda *_: teacher_k1.append(-A.fused_qkv_fwd.launches))
+    teacher.register_forward_hook(
+        lambda *_: teacher_k1.append(A.fused_qkv_fwd.launches))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(A)
+    losses = [step(state, batch, gen) for _ in range(warmup)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(timed):
+        losses.append(step(state, batch, gen))
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = read_counts(A)
+    by_shape = dict(MM.int8_matmul.by_shape)
+    n = warmup + timed
+    vals = [(m["loss"].item(), m["grad_norm"].item()) for m in losses]
+    print(f"{name} losses/grad norms: {vals}", flush=True)
+    check_finite(vals)
+    want = {"K1": 48 * n, "K2": 24 * n}
+    if int8:
+        want["K7a"] = 96 * n
+    expect_counts(counts, want, f"{name}, {n} steps")
+    want_shapes = {s: 24 * n for s in L14_DENSE.values()} if int8 else {}
+    if by_shape != want_shapes:
+        raise AssertionError(f"{name}: K7a launches by shape {by_shape}, "
+                             f"expected {want_shapes}")
+    k1_teacher = sum(teacher_k1)
+    flops = step_flops(L14_B, width=1024, layers=24, out_dim=768,
+                       t_width=1024, t_layers=24, t_patch=14, t_out_dim=768)
+    res = dict(clips_per_s=L14_B * timed / dt, step_ms=dt / timed * 1e3,
+               model_tflop_per_step=flops / 1e12,
+               model_flops_util=flops * timed / dt / PEAK_BF16,
+               peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+               steps=n, launches=counts,
+               k7a_by_shape={"x".join(map(str, s)): c
+                             for s, c in by_shape.items()},
+               k1_teacher=k1_teacher, k1_student=counts["K1"] - k1_teacher,
+               k2_launches=counts["K2"])
+    print(f"{name} B={L14_B}: {res} on {card_line()}", flush=True)
+    res["profile"] = profile_step(torch, lambda: step(state, batch, gen),
+                                  f"chip_smoke_profile_{name}.json")
+    res["device_share_of_timed_step"] = (res["profile"]["device_ms"]
+                                         / res["step_ms"])
+    del state, teacher, step, batch, losses
+    torch.cuda.empty_cache()
+    return res
+
+
 def step_flops(b: int, frames: int = 8, width: int = 768, layers: int = 12,
                grid: int = 196, visible: int = 320, taps: int = 6,
-               out_dim: int = 512) -> float:
+               out_dim: int = 512, t_width=None, t_layers=None,
+               t_patch: int = 16, t_out_dim=None) -> float:
     """Model operations of one stage-1 step, from the shapes: the teacher's
-    forward (no gradient), the tap projection at the visible tokens, and the
-    student's forward and backward (three times its forward). Matrix
-    products and attention only; K2's recomputed scores are not counted."""
-    def layer(tokens, seq):  # qkv, proj, fc1, fc2 (12 w^2) + q.k^T and p.v
-        return tokens * (2 * 12 * width * width + 4 * seq * width)
+    forward (no gradient) at its own width, depth and patch, the tap
+    projection at the visible tokens, and the student's forward and
+    backward (three times its forward). Matrix products and attention only;
+    K2's recomputed scores are not counted. An int8 teacher's products
+    count the same operations as bf16 ones. The teacher defaults to the
+    student's geometry (clip_b16 with a ViT-B/16 student)."""
+    t_width, t_layers = t_width or width, t_layers or layers
+    t_out_dim = t_out_dim or out_dim
 
-    patch = 2 * 3 * 16 * 16 * width  # per patch
-    teacher_tokens = b * frames * (grid + 1)
-    teacher = (layers * layer(teacher_tokens, grid + 1)
-               + b * frames * grid * patch
-               + taps * b * visible * 2 * width * out_dim)
-    student = (layers * layer(b * visible, visible) + b * visible * patch
+    def layer(tokens, seq, w):  # qkv, proj, fc1, fc2 (12 w^2) + q.k^T, p.v
+        return tokens * (2 * 12 * w * w + 4 * seq * w)
+
+    teacher = (t_layers * layer(b * frames * (grid + 1), grid + 1, t_width)
+               + b * frames * grid * 2 * 3 * t_patch * t_patch * t_width
+               + taps * b * visible * 2 * t_width * t_out_dim)
+    student = (layers * layer(b * visible, visible, width)
+               + b * visible * 2 * 3 * 16 * 16 * width
                + taps * b * visible * 2 * width * out_dim)
     return float(teacher + 3 * student)
 
@@ -551,12 +879,15 @@ def profile_step(torch, run_step, dest_name: str) -> dict:
         (annotations if getattr(e, "is_user_annotation", False) else rows
          ).append((e.key, e.self_device_time_total / 1e3, e.count))
     rows.sort(key=lambda r: -r[1])
-    classes = {"attention (K1-K6)": 0.0, "matmul (cuBLAS)": 0.0,
+    classes = {"attention (K1-K6)": 0.0, "blocked matmul (K7)": 0.0,
+               "matmul (cuBLAS)": 0.0,
                "other (elementwise, norms, reductions, copies)": 0.0}
     for name, ms, _ in rows:
         low = name.lower()
         if "fused_qkv" in low or "flash_" in low or "grouped_" in low:
             classes["attention (K1-K6)"] += ms
+        elif "blocked_matmul" in low:
+            classes["blocked matmul (K7)"] += ms
         elif any(t in low for t in ("gemm", "xmma", "cutlass", "nvjet",
                                     "cublas")):
             classes["matmul (cuBLAS)"] += ms
@@ -1346,22 +1677,40 @@ def main() -> int:
                 if "registers" in line or "spill" in line:
                     print(f"  ptxas {p.name}: {line.strip()}")
 
+    def mark(what):
+        print(f"[{time.perf_counter() - t0:.0f} s] {what}", flush=True)
+
     kr = check_kernels(torch, A)
     kr.update(check_packed_kernels(torch, A))
     kr.update(check_flash_kernels(torch, A))
     kr.update(check_grouped_kernels(torch, A))
+    mark("K1-K6 checked")
+    kr.update(check_matmul_kernels(torch))
+    probe = run_probe(torch, A)
+    kr.update(check_kernels(torch, A, heads=16,
+                            batches=(L14_M // 197, L14_B), tag="/l14"))
+    int8_teacher = int8_teacher_vs_bf16(torch)
+    mark("K7, the probe, K1/K2 at 16 heads and the int8 teacher checked")
+    l14_rel = l14_card_vs_cpu(torch)
+    mark("l14 card vs cpu")
+    l14 = l14_path(torch, A, int8=False)
+    l14q = l14_path(torch, A, int8=True)
+    mark("l14 paths")
     card_vs_cpu(torch)
     mp = main_path(torch, A)
     m075_rel = card_vs_cpu(torch, mask_ratio=0.75)
     m075 = main_path(torch, A, mask_ratio=0.75)
     torch.cuda.empty_cache()
+    mark("stage-1 paths")
     entry = stage1_entry(torch, A, m075)
     torch.cuda.empty_cache()
+    mark("stage-1 entry")
     s2_rel = stage2_card_vs_cpu(torch)
     s2, state, eval_step = stage2_path(torch, A)
     ev = stage2_eval(torch, A, state, eval_step)
     del state, eval_step
     torch.cuda.empty_cache()
+    mark("stage-2 paths")
     s3_rel = {f"cls={cls}": stage3_card_vs_cpu(torch, cls)
               for cls in (False, True)}
     s3, state, _ = stage3_path(torch, A, cls=False)
@@ -1369,6 +1718,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     s3c, state, eval_step = stage3_path(torch, A, cls=True)
     ev3 = stage3_eval(torch, A, state, eval_step)
+    mark("stage-3 paths")
 
     kernels = []
     for key, name, src, rep, launches in (
@@ -1413,7 +1763,27 @@ def main() -> int:
              "unite_tpu/ops/attention.py:467", m075["launches"]["K5dq"]),
             ("K5dkv/m075", "grouped_dkv[stage-1 mask 0.75 B=64 S=392]",
              "unite_torch/csrc/grouped_attn_bwd.cu",
-             "unite_tpu/ops/attention.py:467", m075["launches"]["K5dkv"])):
+             "unite_tpu/ops/attention.py:467", m075["launches"]["K5dkv"]),
+            ("K1/teacher/l14", "fused_qkv_fwd[clip_l14 teacher B=192 S=197 "
+             "H=16]", "unite_torch/csrc/fused_qkv_fwd.cu",
+             "unite_tpu/ops/attention.py:678", l14["k1_teacher"]),
+            ("K1/student/l14", "fused_qkv_fwd[ViT-L student B=24 S=320 H=16]",
+             "unite_torch/csrc/fused_qkv_fwd.cu",
+             "unite_tpu/ops/attention.py:678", l14["k1_student"]),
+            ("K2/student/l14", "fused_qkv_bwd[ViT-L student B=24 S=320 H=16]",
+             "unite_torch/csrc/fused_qkv_bwd.cu",
+             "unite_tpu/ops/attention.py:773", l14["k2_launches"]),
+            ("K7a/probe", "int8_matmul[probe 38400x768x3072]",
+             "unite_torch/csrc/blocked_matmul.cu",
+             "tools/quant_kernel_probe.py:22", probe["launches"]["K7a"]),
+            *((f"K7a/{layer}", f"int8_matmul[int8 clip_l14 {layer} "
+               f"{m}x{k}x{n}]", "unite_torch/csrc/blocked_matmul.cu",
+               "tools/quant_kernel_probe.py:22",
+               l14q["k7a_by_shape"][f"{m}x{k}x{n}"])
+              for layer, (m, k, n) in L14_DENSE.items()),
+            ("K7b/probe", "bf16_matmul[probe 38400x768x3072]",
+             "unite_torch/csrc/blocked_matmul.cu",
+             "tools/quant_kernel_probe.py:53", probe["launches"]["K7b"])):
         r = kr[key]
         kernels.append({"name": name, "route": "cuda", "source": src,
                         "replaces": rep, "launches": launches,
@@ -1428,6 +1798,11 @@ def main() -> int:
                       "stage2_eval": ev, "stage2_card_vs_cpu_rel": s2_rel,
                       "stage3_step": s3, "stage3_cls_step": s3c,
                       "stage3_cls_eval": ev3, "stage3_card_vs_cpu": s3_rel,
+                      "stage1_l14_step": l14, "stage1_l14_int8_step": l14q,
+                      "l14_int8_card_vs_cpu_rel": l14_rel,
+                      "int8_teacher_vs_bf16": int8_teacher,
+                      "probe": probe, "matmul_checks": {
+                          k: r for k, r in kr.items() if k.startswith("K7")},
                       "yardsticks": {k: {x: r[x] for x in r if x.startswith(
                           "library")} for k, r in kr.items()}}))
     print(card_line())

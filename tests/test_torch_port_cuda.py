@@ -12,6 +12,8 @@ import pytest
 import torch
 
 import unite_torch.ops.attention as TA
+import unite_torch.ops.matmul as MM
+import unite_torch.ops.quant as Q
 
 HEADS, SCALE = 2, 64 ** -0.5
 
@@ -240,3 +242,97 @@ def test_model_route_takes_k5_in_training_at_392(cuda):
     ref = torch.cat([TA._merge_heads(r) for r in refs], dim=-1).float()
     assert (x.grad.float() - ref).abs().max().item() <= \
         2e-2 * ref.abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", [197, 320])
+def test_fused_qkv_kernels_at_16_heads(cuda, s):
+    # ViT-L/14 widths: 16 heads of 64 (qkv 3072 wide); 197 is the clip_l14
+    # teacher at 196^2, 320 the large student at mask 0.8
+    gen = torch.Generator(device=cuda).manual_seed(s + 16)
+    x = torch.randn((3, s, 3 * 16 * 64), generator=gen, device=cuda
+                    ).to(torch.bfloat16)
+    out, lse = TA.fused_qkv_fwd(x, 16, SCALE, with_lse=True)
+    ref, ref_lse = TA.qkv_attention_reference(x, 16, SCALE)
+    assert (out.float() - ref.float()).abs().max().item() <= 1e-2
+    assert (lse - ref_lse).abs().max().item() <= 1e-3
+    do = torch.randn(out.shape, generator=gen, device=cuda).to(torch.bfloat16)
+    dqkv = TA.fused_qkv_bwd(x, out, lse, do, 16, SCALE)
+    dref = TA.qkv_attention_reference_bwd(x, do, 16, SCALE).float()
+    assert (dqkv.float() - dref).abs().max().item() <= \
+        2e-2 * dref.abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [(1, 32, 8), (130, 96, 257), (394, 768, 2304),
+                                   (300, 4096, 1024)])
+def test_int8_matmul_matches_plain_bitwise_on_card(cuda, m, k, n):
+    # ragged M and N (odd N takes the scalar stores), one row, K = 4096
+    gen = torch.Generator(device=cuda).manual_seed(m + n)
+    x8 = torch.randint(-128, 128, (m, k), generator=gen, device=cuda,
+                       dtype=torch.int8)
+    w8 = torch.randint(-128, 128, (n, k), generator=gen, device=cuda,
+                       dtype=torch.int8)
+    before = MM.int8_matmul.launches
+    out = MM.int8_matmul(x8, w8)
+    assert MM.int8_matmul.launches == before + 1
+    assert out.dtype == torch.int32 and out.shape == (m, n)
+    assert torch.equal(out, MM.int8_matmul_reference(x8, w8))
+    assert torch.equal(out.cpu(), MM.int8_matmul_reference(x8.cpu(), w8.cpu()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [(1, 16, 8), (130, 96, 257), (394, 768, 2304)])
+def test_bf16_matmul_matches_plain_on_card(cuda, m, k, n):
+    gen = torch.Generator(device=cuda).manual_seed(m + k)
+    x = torch.randn((m, k), generator=gen, device=cuda).to(torch.bfloat16)
+    w = torch.randn((n, k), generator=gen, device=cuda).to(torch.bfloat16)
+    out = MM.bf16_matmul(x, w)
+    ref = MM.bf16_matmul_reference(x, w)
+    # one fp32 sum rounded once on both sides: one bf16 ulp of |ref|, plus
+    # the fp32 summation-order term near zero
+    assert ((out.float() - ref.float()).abs()
+            <= MM.bf16_tolerance(x, w, ref)).all()
+    # small integers: every partial sum is exact in fp32, so the one
+    # rounding at the end is the only one, and the results are equal
+    xi = torch.randint(-8, 9, (m, k), generator=gen, device=cuda).to(
+        torch.bfloat16)
+    wi = torch.randint(-8, 9, (n, k), generator=gen, device=cuda).to(
+        torch.bfloat16)
+    assert torch.equal(MM.bf16_matmul(xi, wi), MM.bf16_matmul_reference(xi, wi))
+
+
+@pytest.mark.cuda
+def test_matmul_kernels_refuse_what_they_do_not_take(cuda):
+    x8 = torch.zeros((4, 48), dtype=torch.int8, device=cuda)
+    with pytest.raises(ValueError, match="multiple of 32"):
+        MM.int8_matmul(x8, x8)  # K = 48: no fallback on the card
+    xb = torch.zeros((4, 24), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        MM.bf16_matmul(xb, xb)
+    x8 = torch.zeros((64, 64), dtype=torch.int8, device=cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        MM.int8_matmul(x8[:, :32], x8[:8, :32])
+    with pytest.raises(TypeError):
+        MM.int8_matmul(x8.float(), x8.float())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_int8_dense_on_card_equals_the_cpu(cuda, dtype):
+    # the quantizers and the dequantize pass are exactly rounded ops (the
+    # weight scale a true division) and K7a is exact, so the card's int8
+    # weights and dense layer equal the CPU's bit for bit
+    gen = torch.Generator().manual_seed(7)
+    w = torch.randn((192, 128), generator=gen)
+    x = (3 * torch.randn((2, 37, 128), generator=gen)).to(dtype)
+    b = torch.randn(192, generator=gen)
+    w_q, scale = Q.quantize_weight(w)
+    w_q_card, scale_card = Q.quantize_weight(w.to(cuda))
+    assert torch.equal(w_q_card.cpu(), w_q) and torch.equal(scale_card.cpu(),
+                                                            scale)
+    ref = Q.int8_dense(x, w_q, scale, b)
+    before = MM.int8_matmul.launches
+    out = Q.int8_dense(x.to(cuda), w_q_card, scale_card, b.to(cuda))
+    assert MM.int8_matmul.launches == before + 1
+    assert out.dtype == dtype and torch.equal(out.cpu(), ref)

@@ -19,6 +19,7 @@ from unite_torch.engines.selftrain import (make_selftrain_eval_step,
 from unite_torch.optim.factory import create_optimizer
 from unite_torch.train import run_stage1
 from unite_torch.train.args import stage1_parser
+from unite_torch.tools import quant_kernel_probe
 from unite_torch.train.run_stage3 import build_classifier
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -31,7 +32,8 @@ SLICE_MODULES = ("ops.attention", "models.adaptation", "engines.finetune",
                  "data.video_reader", "data.samplers", "data.transforms",
                  "data.datasets", "data.build", "data.sharding", "data.loader",
                  "utils.logging", "utils.checkpoint", "utils.torch_import",
-                 "train.common", "train.run_stage1")
+                 "train.common", "train.run_stage1", "ops.matmul", "ops.quant",
+                 "tools.quant_kernel_probe")
 # imported only where their paths are used (a YAML file, the PIL transform
 # path, the OpenCV reader, the logging flags)
 LAZY = ("yaml", "PIL", "cv2", "tensorboardX", "wandb")
@@ -111,10 +113,17 @@ def test_entry_points_refuse_the_cpu_unless_asked(monkeypatch, tmp_path):
     args.output_dir = str(tmp_path)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         run_stage1.main(args)
+    # the probe times the card's kernels: no CPU run even when asked
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        quant_kernel_probe.main()
+    with pytest.raises(RuntimeError, match="CUDA only"):
+        quant_kernel_probe.main(device="cpu")
 
 
 def test_create_model_names_the_models():
-    assert {"clip_b16", "adaptation_umt_base_patch16_224",
+    assert {"clip_b16", "clip_l14", "clip_l14_336",
+            "adaptation_umt_base_patch16_224",
+            "adaptation_umt_large_patch16_224",
             "vit_base_patch16_224", "vit_base_patch16_384",
             "vit_large_patch16_224", "vit_large_patch16_384"} <= set(
         unite_torch.list_models())

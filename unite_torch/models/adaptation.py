@@ -159,3 +159,11 @@ def adaptation_umt_base_patch16_224(**kwargs):
         img_size=224, patch_size=16, encoder_embed_dim=768, encoder_depth=12,
         encoder_num_heads=12, mlp_ratio=4, qkv_bias=True, norm_eps=1e-6,
         **kwargs)
+
+
+@register_model
+def adaptation_umt_large_patch16_224(**kwargs):
+    return AdaptationVisionTransformer(
+        img_size=224, patch_size=16, encoder_embed_dim=1024, encoder_depth=24,
+        encoder_num_heads=16, mlp_ratio=4, qkv_bias=True, norm_eps=1e-6,
+        **kwargs)

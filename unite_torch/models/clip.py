@@ -5,7 +5,10 @@ no bias, a class token and 2-D positional embedding, ``ln_pre``, residual
 blocks with QuickGELU and a full qkv bias, taps at ``return_index`` layers
 and, on request, the last layer's head-averaged CLS->patch attention row.
 With ``cls_features`` it is the image encoder of the stage-3 zero-shot
-teacher: the per-frame L2-normed ``ln_post(cls) @ proj``.
+teacher: the per-frame L2-normed ``ln_post(cls) @ proj``. With ``quantize``
+the four dense layers of each block (``in_proj``, ``out_proj``,
+``mlp.c_fc``, ``mlp.c_proj``) are int8 (``ops.quant``); their weights come
+from a state dict or from ``quantize_clip_`` on an fp32 tower.
 
 Parameter names are the OpenAI CLIP visual tower's (``conv1.weight`` in
 Conv3d shape, ``transformer.resblocks.N.attn.in_proj_weight``,
@@ -29,6 +32,7 @@ from unite_torch.models.layers import (
     patchify,
 )
 from unite_torch.ops.attention import self_attention
+from unite_torch.ops.quant import QuantLinear, int8_dense
 from unite_torch.utils.registry import register_model
 
 
@@ -37,15 +41,25 @@ def quick_gelu(x):
 
 
 class CLIPAttention(nn.Module):
-    """Self-attention with packed qkv and a full bias (torch MHA layout)."""
+    """Self-attention with packed qkv and a full bias (torch MHA layout).
+    With ``quantize`` the qkv weight is an int8 buffer ``in_proj_weight``
+    with its fp32 scale ``in_proj_weight_scale``, and ``out_proj`` is a
+    ``QuantLinear``."""
 
-    def __init__(self, width: int, num_heads: int, dtype=torch.float32):
+    def __init__(self, width: int, num_heads: int, dtype=torch.float32,
+                 quantize: bool = False):
         super().__init__()
-        self.num_heads, self.dtype = num_heads, dtype
-        self.in_proj_weight = nn.Parameter(torch.empty(3 * width, width))
-        nn.init.xavier_uniform_(self.in_proj_weight)
+        self.num_heads, self.dtype, self.quantize = num_heads, dtype, quantize
+        if quantize:
+            self.register_buffer("in_proj_weight", torch.zeros(
+                3 * width, width, dtype=torch.int8))
+            self.register_buffer("in_proj_weight_scale", torch.ones(3 * width))
+        else:
+            self.in_proj_weight = nn.Parameter(torch.empty(3 * width, width))
+            nn.init.xavier_uniform_(self.in_proj_weight)
         self.in_proj_bias = nn.Parameter(torch.zeros(3 * width))
-        self.out_proj = Linear(width, width, dtype=dtype)
+        self.out_proj = (QuantLinear if quantize else Linear)(width, width,
+                                                              dtype=dtype)
 
     def forward(self, x, cls_probs: bool = False):
         """With ``cls_probs`` also returns the head-averaged CLS-query
@@ -57,8 +71,12 @@ class CLIPAttention(nn.Module):
         b, n, c = x.shape
         d = c // self.num_heads
         scale = d ** -0.5
-        qkv = F.linear(x.to(self.dtype), self.in_proj_weight.to(self.dtype),
-                       self.in_proj_bias.to(self.dtype))
+        if self.quantize:
+            qkv = int8_dense(x, self.in_proj_weight, self.in_proj_weight_scale,
+                             self.in_proj_bias, out_dtype=self.dtype)
+        else:
+            qkv = F.linear(x.to(self.dtype), self.in_proj_weight.to(self.dtype),
+                           self.in_proj_bias.to(self.dtype))
         out = self.out_proj(self_attention(qkv, self.num_heads, scale,
                                            fwd_only=True))
         if not cls_probs:
@@ -70,10 +88,11 @@ class CLIPAttention(nn.Module):
 
 
 class CLIPMlp(nn.Module):
-    def __init__(self, width: int, dtype=torch.float32):
+    def __init__(self, width: int, dtype=torch.float32, quantize: bool = False):
         super().__init__()
-        self.c_fc = Linear(width, 4 * width, dtype=dtype)
-        self.c_proj = Linear(4 * width, width, dtype=dtype)
+        dense = QuantLinear if quantize else Linear
+        self.c_fc = dense(width, 4 * width, dtype=dtype)
+        self.c_proj = dense(4 * width, width, dtype=dtype)
 
     def forward(self, x):
         return self.c_proj(quick_gelu(self.c_fc(x)))
@@ -82,11 +101,12 @@ class CLIPMlp(nn.Module):
 class CLIPBlock(nn.Module):
     """Pre-norm residual attention block with a QuickGELU MLP (eps 1e-5)."""
 
-    def __init__(self, width: int, num_heads: int, dtype=torch.float32):
+    def __init__(self, width: int, num_heads: int, dtype=torch.float32,
+                 quantize: bool = False):
         super().__init__()
-        self.attn = CLIPAttention(width, num_heads, dtype)
+        self.attn = CLIPAttention(width, num_heads, dtype, quantize)
         self.ln_1 = LayerNorm(width, 1e-5)
-        self.mlp = CLIPMlp(width, dtype)
+        self.mlp = CLIPMlp(width, dtype, quantize)
         self.ln_2 = LayerNorm(width, 1e-5)
 
     def forward(self, x, cls_probs: bool = False):
@@ -101,10 +121,10 @@ class CLIPBlock(nn.Module):
 
 class CLIPTransformer(nn.Module):
     def __init__(self, width: int, layers: int, heads: int,
-                 dtype=torch.float32):
+                 dtype=torch.float32, quantize: bool = False):
         super().__init__()
         self.resblocks = nn.ModuleList(
-            CLIPBlock(width, heads, dtype) for _ in range(layers))
+            CLIPBlock(width, heads, dtype, quantize) for _ in range(layers))
 
 
 class CLIPVisionTransformer(nn.Module):
@@ -115,7 +135,7 @@ class CLIPVisionTransformer(nn.Module):
                  output_dim: int = 512, clip_norm_type: str = "l2",
                  kernel_size: int = 1, return_attn: bool = False,
                  return_index: Sequence[int] = (6, 7, 8, 9, 10, 11),
-                 dtype=torch.float32):
+                 dtype=torch.float32, quantize: bool = False):
         super().__init__()
         if clip_norm_type not in ("l2", "none"):
             raise NotImplementedError(clip_norm_type)
@@ -123,7 +143,7 @@ class CLIPVisionTransformer(nn.Module):
         self.width, self.kernel_size = width, kernel_size
         self.clip_norm_type, self.return_attn = clip_norm_type, return_attn
         self.return_index = tuple(int(i) for i in return_index)
-        self.dtype = dtype
+        self.dtype, self.quantize = dtype, quantize
         hw = (input_resolution // patch_size) ** 2
         std = width ** -0.5
         self.conv1 = TubeletProjection(3, width, kernel_size, patch_size,
@@ -131,7 +151,8 @@ class CLIPVisionTransformer(nn.Module):
         self.class_embedding = nn.Parameter(torch.randn(width) * std)
         self.positional_embedding = nn.Parameter(torch.randn(hw + 1, width) * std)
         self.ln_pre = LayerNorm(width, 1e-5)
-        self.transformer = CLIPTransformer(width, layers, heads, dtype)
+        self.transformer = CLIPTransformer(width, layers, heads, dtype,
+                                           quantize)
         self.ln_post = LayerNorm(width, 1e-5)
         self.proj = nn.Parameter(torch.randn(width, output_dim) * std)
 
@@ -204,3 +225,19 @@ def clip_b16(**kwargs):
     """CLIP ViT-B/16 teacher."""
     return CLIPVisionTransformer(patch_size=16, width=768, layers=12,
                                  heads=12, output_dim=512, **kwargs)
+
+
+@register_model
+def clip_l14(**kwargs):
+    """CLIP ViT-L/14 teacher (the stage-1 ViT-L geometry runs it at
+    ``input_resolution`` 196: a 14x14 grid, 197 tokens a frame)."""
+    return CLIPVisionTransformer(patch_size=14, width=1024, layers=24,
+                                 heads=16, output_dim=768, **kwargs)
+
+
+@register_model
+def clip_l14_336(**kwargs):
+    """CLIP ViT-L/14 at 336^2: 577 tokens a frame."""
+    return CLIPVisionTransformer(input_resolution=336, patch_size=14,
+                                 width=1024, layers=24, heads=16,
+                                 output_dim=768, **kwargs)

@@ -24,7 +24,7 @@ from typing import Dict
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "unite_torch_kernels"
 SOURCES = ("fused_qkv_fwd", "fused_qkv_bwd", "packed_flash_fwd",
-           "packed_flash_bwd", "grouped_attn_bwd")
+           "packed_flash_bwd", "grouped_attn_bwd", "blocked_matmul")
 HEADERS = ("fused_qkv_common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -95,6 +95,8 @@ def _declare(lib: ctypes.CDLL) -> None:
         "unite_grouped_fwd": [p] * 6 + [ll, i, i, i, f, p],
         "unite_grouped_dq": [p] * 8 + [ll, i, i, i, f, f, p],
         "unite_grouped_dkv": [p] * 9 + [ll, i, i, i, f, f, p],
+        "unite_int8_matmul": [p, p, p, i, i, i, p],
+        "unite_bf16_matmul": [p, p, p, i, i, i, p],
     }
     for name, argtypes in signatures.items():
         if hasattr(lib, name):

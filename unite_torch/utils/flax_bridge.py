@@ -9,7 +9,12 @@ student's ``cls_token`` and learnable ``pos_embed`` keep their names
 (``encoder.cls_token``). CLIP takes the OpenAI visual tower's keys, the
 inverse of unite_tpu/utils/torch_import.py::clip_key_to_flax, and the text
 tower's (``token_embedding.weight``, ``ln_final``, ``attn.in_proj_*``), the
-inverse of unite_tpu/models/clip_text.py::text_state_to_flax_params.
+inverse of unite_tpu/models/clip_text.py::text_state_to_flax_params. An
+int8 CLIP tree (unite_tpu ``quantize_clip_params``) maps its dense layers'
+``kernel_q`` [in, out] int8 to the int8 ``weight`` [out, in] and
+``kernel_scale`` to ``weight_scale`` (``in_proj_weight`` and
+``in_proj_weight_scale`` for the packed qkv), the keys of
+``CLIPVisionTransformer(quantize=True)``; int8 leaves keep their type.
 """
 
 from __future__ import annotations
@@ -29,7 +34,9 @@ def flatten(tree: dict, prefix: Tuple[str, ...] = ()) -> Dict[Tuple[str, ...], n
         if isinstance(v, dict):
             flat.update(flatten(v, prefix + (k,)))
         else:
-            flat[prefix + (k,)] = np.asarray(v, np.float32)
+            arr = np.asarray(v)
+            flat[prefix + (k,)] = (arr if arr.dtype == np.int8
+                                   else np.asarray(arr, np.float32))
     return flat
 
 
@@ -62,6 +69,21 @@ def student_key(path: Tuple[str, ...], arr: np.ndarray, patch_size: int,
     return ".".join(parts), arr
 
 
+def _dense_leaf(stem: str, path: Tuple[str, ...],
+                arr: np.ndarray) -> Tuple[str, np.ndarray]:
+    """A CLIP dense layer's leaf: fp32 ``kernel`` or int8 ``kernel_q``
+    [in, out] -> ``weight`` [out, in]; ``kernel_scale`` -> ``weight_scale``;
+    ``bias``. Anything else raises, so no leaf lands on another's key."""
+    leaf = path[-1]
+    if leaf in ("kernel", "kernel_q"):
+        return stem + "weight", arr.T
+    if leaf == "kernel_scale":
+        return stem + "weight_scale", arr
+    if leaf == "bias":
+        return stem + "bias", arr
+    raise ValueError(f"unhandled CLIP param: {'/'.join(path)}")
+
+
 def clip_key(path: Tuple[str, ...], arr: np.ndarray,
              patch_size: int) -> Tuple[str, np.ndarray]:
     if path == ("conv1", "proj", "kernel"):
@@ -80,28 +102,22 @@ def clip_key(path: Tuple[str, ...], arr: np.ndarray,
     if rest[0] in ("attn_in_proj", "attn_out_proj"):  # the text tower
         rest = ("attn", rest[0][len("attn_"):]) + rest[1:]
     if rest[0] == "attn" and rest[1] == "in_proj":
-        return (base + "attn.in_proj_" + ("weight" if rest[2] == "kernel"
-                                          else "bias"),
-                arr.T if rest[2] == "kernel" else arr)
+        return _dense_leaf(base + "attn.in_proj_", path, arr)
     if rest[0] == "attn" and rest[1] == "out_proj":
-        return (base + "attn.out_proj." + ("weight" if rest[2] == "kernel"
-                                           else "bias"),
-                arr.T if rest[2] == "kernel" else arr)
+        return _dense_leaf(base + "attn.out_proj.", path, arr)
     if rest[0] in ("ln_1", "ln_2"):
         return base + f"{rest[0]}.{'weight' if rest[1] == 'scale' else 'bias'}", arr
     if rest[0] in ("mlp_c_fc", "mlp_c_proj"):
-        name = rest[0][len("mlp_"):]
-        if rest[1] == "kernel":
-            return base + f"mlp.{name}.weight", arr.T
-        return base + f"mlp.{name}.bias", arr
+        return _dense_leaf(base + f"mlp.{rest[0][len('mlp_'):]}.", path, arr)
     raise ValueError(f"unhandled CLIP param: {'/'.join(path)}")
 
 
 def flax_to_state_dict(params: dict, *, kind: str = "student",
                        patch_size: int = 16) -> Dict[str, torch.Tensor]:
-    """Nested flax params -> flat state dict of fp32 CPU tensors in the
-    port's names. ``kind`` is "student" (adaptation students, ViTs) or
-    "clip" (the visual and the text tower)."""
+    """Nested flax params -> flat state dict of fp32 (int8 for quantized
+    weights) CPU tensors in the port's names. ``kind`` is "student"
+    (adaptation students, ViTs) or "clip" (the visual and the text
+    tower)."""
     if kind not in ("student", "clip"):
         raise ValueError(f"kind must be 'student' or 'clip', got {kind!r}")
     state = {}

@@ -1,7 +1,8 @@
 """Model registry: string name -> model factory (unite_tpu/utils/registry.py).
 
 ``create_model`` builds the module with its parameters in fp32 and its
-compute in ``dtype``, and places it on ``device`` (CUDA when None)."""
+compute in ``dtype``, and places it on ``device`` (CUDA when None; on
+"meta" it is built there, shapes only)."""
 
 from __future__ import annotations
 
@@ -31,6 +32,9 @@ def create_model(name: str, *, device=None, dtype=torch.float32, **kwargs):
         raise KeyError(
             f"unknown model {name!r}; available: {sorted(_MODEL_REGISTRY)}")
     dev = resolve_device(device)
+    if dev.type == "meta":  # shapes only: nothing is allocated or initialized
+        with dev:
+            return _MODEL_REGISTRY[name](dtype=dtype, **kwargs)
     return _MODEL_REGISTRY[name](dtype=dtype, **kwargs).to(dev)
 
 
