@@ -9,7 +9,8 @@ toolkit. In order:
 1. card: ``nvidia-smi`` name and power limit, CUDA version; TF32 off;
 2. build: every kernel under ``unite_torch/csrc`` compiled by ``nvcc`` for
    sm_90a into ``build/unite_torch_kernels/`` (one process per source, in
-   parallel);
+   parallel), with each kernel's ptxas line (registers, spills); the
+   wgmma forward of K3/K6 (csrc/flash_fwd_wgmma.cu) must not spill;
 3. kernels against their plain versions at the main-path shapes: K1 (fused
    qkv attention forward) at the teacher's [512, 197, 2304] and the
    student's [64, 320, 2304], K2 (its backward) at [64, 320, 2304]; K3
@@ -22,7 +23,10 @@ toolkit. In order:
    and dK/dV kernels) at the stage-1 mask-0.75 student's [64, 12, 392, 64]
    (both layouts), [64, 12, 512, 64] and [5, 12, 393, 64]; error, median
    time, the plain version's time, the bound, and one PyTorch call
-   (``scaled_dot_product_attention``) as a yardstick;
+   (``scaled_dot_product_attention``) as a yardstick; the K3/K6 forward
+   at every length of ``SWEEP_LENGTHS`` (around its 128-row tiles) at 2
+   and 12 heads, on contiguous tensors, strided qkv views and the packed
+   lanes, with and without the lse;
    then K7a (the int8 blocked matmul) bit for bit against its plain
    version at the probe's 38400x768x3072, the int8 clip_l14 teacher's four
    dense shapes at M = 37824 and two ragged shapes, K7b (bf16) within one
@@ -104,6 +108,8 @@ BWD_TOL = 2e-2         # times max |dqkv| of the plain version
 STEP_RTOL = 2e-2       # bf16 card step against the fp32 CPU step
 STAGE2_TOKENS = 1568   # 8 frames x 196 patches, tubelet 1
 STAGE3_CLS_TOKENS = STAGE2_TOKENS + 1  # the same with the CLS token
+# the K3/K6 forward's lengths: around its 128-row tiles, and the paths' own
+SWEEP_LENGTHS = (1, 7, 64, 127, 128, 129, 577, 1568, 1569, 2048)
 M075_TOKENS = 8 * 49   # stage 1 at mask 0.75: 49 of 196 patches a frame
 # bench.py::bench_large: the ViT-L student and the clip_l14 teacher at 196^2
 # (a 14x14 grid, 197 tokens a frame), taps 18-23, B=24 over 8 frames
@@ -1172,6 +1178,71 @@ def stage2_eval(torch, A, state, eval_step, b: int = 32, warmup: int = 2,
     return res
 
 
+def check_ptxas(paths) -> dict:
+    """Print each kernel's ptxas lines (registers, spills, and any product
+    that ptxas serialized) and return the wgmma forward's; raise if that
+    kernel spills."""
+    import re
+
+    wgmma = {}
+    for name, path in paths.items():
+        log = path.with_suffix(".log")
+        if not log.exists():
+            continue
+        for line in log.read_text().splitlines():
+            if any(w in line for w in ("registers", "spill", "serialized")):
+                print(f"  ptxas {path.name}: {line.strip()}")
+                if name == "flash_fwd_wgmma":
+                    wgmma.setdefault("lines", []).append(line.strip())
+    lines = " ".join(wgmma.get("lines", []))
+    regs = re.search(r"Used (\d+) registers", lines)
+    spills = [int(x) for x in re.findall(r"(\d+) bytes spill", lines)]
+    if regs is None or not spills or any(spills):
+        raise AssertionError(f"flash_fwd_wgmma ptxas: {lines or 'no report'}")
+    return {"registers": int(regs.group(1)), "spill_bytes": sum(spills),
+            "serialized": "serialized" in lines}
+
+
+def check_flash_lengths(torch, A):
+    """Phase 3: the K3/K6 forward (csrc/flash_fwd_wgmma.cu) against its
+    plain version at every length of ``SWEEP_LENGTHS`` (B=2, 2 and 12
+    heads), on contiguous [B, H, S, 64] tensors and strided qkv views (K6)
+    and on the packed lanes of qkv (K3), with and without the lse; the two
+    outputs must be equal. Returns the largest errors by length."""
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    worst = {}
+    for s in SWEEP_LENGTHS:
+        for h in (2, HEADS):
+            qkv = torch.randn((2, s, 3 * h * 64), generator=gen,
+                              device="cuda").to(torch.bfloat16)
+            views = A._split_heads(qkv, h)
+            dense = [t.contiguous() for t in views]
+            ref, ref_lse = A.flash_reference(*dense, scale=SCALE)
+            runs = {layout: (lambda lse, x=x: A.flash_fwd(*x, SCALE, lse))
+                    for layout, x in (("contiguous", dense), ("views", views))}
+            runs["packed"] = lambda lse: A.packed_flash_fwd(qkv, h, SCALE, lse)
+            for layout, run in runs.items():
+                out, lse = run(True)
+                out_nl, _ = run(False)
+                torch.cuda.synchronize()
+                want = ref if layout != "packed" else A._merge_heads(ref)
+                e = (out.float() - want.float()).abs().max().item()
+                le = (lse - ref_lse).abs().max().item()
+                if (not bool(torch.isfinite(out).all()) or e > FWD_TOL
+                        or le > 1e-3 or not torch.equal(out_nl, out)):
+                    raise AssertionError(
+                        f"K3/K6 forward S={s} H={h} {layout}: max abs err {e}"
+                        f" (tol {FWD_TOL}), lse err {le}, equal without lse "
+                        f"{torch.equal(out_nl, out)}")
+                w = worst.setdefault(s, {"max_abs_err": 0.0, "lse_err": 0.0})
+                w["max_abs_err"] = max(w["max_abs_err"], e)
+                w["lse_err"] = max(w["lse_err"], le)
+            del qkv, views, dense, ref, ref_lse, out, lse, out_nl
+    print(f"K3/K6 forward lengths {list(SWEEP_LENGTHS)} x heads (2, {HEADS}) "
+          f"x (contiguous, views, packed) x lse: {worst}", flush=True)
+    return worst
+
+
 def check_flash_kernels(torch, A):
     """Phase 3, stage 3: K6 against its plain version at the stage-3 CLS
     train shape [5, 12, 1569, 64], the CLS eval shape [32, 12, 1569, 64]
@@ -1670,12 +1741,7 @@ def main() -> int:
     t0 = time.perf_counter()
     paths = _build.build_all()
     print(f"build: {time.perf_counter() - t0:.1f} s", flush=True)
-    for p in paths.values():
-        log = p.with_suffix(".log")
-        if log.exists():
-            for line in log.read_text().splitlines():
-                if "registers" in line or "spill" in line:
-                    print(f"  ptxas {p.name}: {line.strip()}")
+    ptxas = check_ptxas(paths)
 
     def mark(what):
         print(f"[{time.perf_counter() - t0:.0f} s] {what}", flush=True)
@@ -1683,6 +1749,7 @@ def main() -> int:
     kr = check_kernels(torch, A)
     kr.update(check_packed_kernels(torch, A))
     kr.update(check_flash_kernels(torch, A))
+    lengths = check_flash_lengths(torch, A)
     kr.update(check_grouped_kernels(torch, A))
     mark("K1-K6 checked")
     kr.update(check_matmul_kernels(torch))
@@ -1732,10 +1799,10 @@ def main() -> int:
              "unite_torch/csrc/fused_qkv_bwd.cu",
              "unite_tpu/ops/attention.py:773", mp["k2_launches"]),
             ("K3/train", "packed_flash_fwd[train B=8 S=1568]",
-             "unite_torch/csrc/packed_flash_fwd.cu",
+             "unite_torch/csrc/flash_fwd_wgmma.cu",
              "unite_tpu/ops/attention.py:913", s2["k3_launches"]),
             ("K3/eval", "packed_flash_fwd[eval B=32 S=1568]",
-             "unite_torch/csrc/packed_flash_fwd.cu",
+             "unite_torch/csrc/flash_fwd_wgmma.cu",
              "unite_tpu/ops/attention.py:913", ev["k3_launches"]),
             ("K4a", "packed_flash_dq[train B=8 S=1568]",
              "unite_torch/csrc/packed_flash_bwd.cu",
@@ -1744,10 +1811,10 @@ def main() -> int:
              "unite_torch/csrc/packed_flash_bwd.cu",
              "unite_tpu/ops/attention.py:1014", s2["k4_dkv_launches"]),
             ("K6/train", "flash_fwd[stage-3 CLS train B=5 S=1569]",
-             "unite_torch/csrc/packed_flash_fwd.cu",
+             "unite_torch/csrc/flash_fwd_wgmma.cu",
              "unite_tpu/ops/attention.py:148", s3c["launches"]["K6"]),
             ("K6/eval", "flash_fwd[stage-3 CLS eval B=32 S=1569]",
-             "unite_torch/csrc/packed_flash_fwd.cu",
+             "unite_torch/csrc/flash_fwd_wgmma.cu",
              "unite_tpu/ops/attention.py:148", ev3["k6_launches"]),
             ("K6dq/train", "flash_dq[stage-3 CLS train B=5 S=1569]",
              "unite_torch/csrc/packed_flash_bwd.cu",
@@ -1801,7 +1868,8 @@ def main() -> int:
                       "stage1_l14_step": l14, "stage1_l14_int8_step": l14q,
                       "l14_int8_card_vs_cpu_rel": l14_rel,
                       "int8_teacher_vs_bf16": int8_teacher,
-                      "probe": probe, "matmul_checks": {
+                      "probe": probe, "flash_fwd_lengths": lengths,
+                      "flash_fwd_ptxas": ptxas, "matmul_checks": {
                           k: r for k, r in kr.items() if k.startswith("K7")},
                       "yardsticks": {k: {x: r[x] for x in r if x.startswith(
                           "library")} for k, r in kr.items()}}))

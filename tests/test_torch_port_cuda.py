@@ -135,6 +135,53 @@ def test_flash_kernels_match_plain_on_card(cuda, s, strided):
         assert (a.float() - r.float()).abs().max().item() <= tol, name
 
 
+def _max_err(a, b):
+    return (a.float() - b.float()).abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("heads", [2, 12])
+@pytest.mark.parametrize("s", [1, 7, 64, 127, 128, 129, 577, 1568, 1569, 2048])
+def test_flash_forward_lengths_on_card(cuda, s, heads):
+    # csrc/flash_fwd_wgmma.cu (K3 and K6) around its 128-row q and k/v
+    # tiles, on contiguous tensors, strided qkv views and the packed lanes;
+    # each call counts one launch, the lse only when asked for, and repeats
+    # bit for bit
+    gen = torch.Generator(device=cuda).manual_seed(s * heads)
+    qkv = torch.randn((2, s, 3 * heads * 64), generator=gen, device=cuda
+                      ).to(torch.bfloat16)
+    views = TA._split_heads(qkv, heads)
+    dense = [t.contiguous() for t in views]
+    ref, ref_lse = TA.flash_reference(*dense, scale=SCALE)
+
+    def counts(fn):
+        return fn.launches, fn.lse_launches
+
+    for layout, (q, k, v) in (("contiguous", dense), ("views", views)):
+        c0 = counts(TA.flash_fwd)
+        out, lse = TA.flash_fwd(q, k, v, SCALE, with_lse=True)
+        assert counts(TA.flash_fwd) == (c0[0] + 1, c0[1] + 1)
+        again, _ = TA.flash_fwd(q, k, v, SCALE, with_lse=True)
+        out_nl, none = TA.flash_fwd(q, k, v, SCALE)
+        assert counts(TA.flash_fwd) == (c0[0] + 3, c0[1] + 2)
+        assert out.stride() == TA._empty_like_rows(q).stride()
+        assert _max_err(out, ref) <= 1e-2, layout
+        assert _max_err(lse, ref_lse) <= 1e-3, layout
+        assert torch.equal(again, out) and torch.equal(out_nl, out), layout
+        assert none is None
+
+    pref, plse = TA.packed_flash_reference(qkv, heads, SCALE)
+    c0 = counts(TA.packed_flash_fwd)
+    out, lse = TA.packed_flash_fwd(qkv, heads, SCALE, with_lse=True)
+    assert counts(TA.packed_flash_fwd) == (c0[0] + 1, c0[1] + 1)
+    again, _ = TA.packed_flash_fwd(qkv, heads, SCALE, with_lse=True)
+    out_nl, none = TA.packed_flash_fwd(qkv, heads, SCALE)
+    assert counts(TA.packed_flash_fwd) == (c0[0] + 3, c0[1] + 2)
+    assert _max_err(out, pref) <= 1e-2 and _max_err(lse, plse) <= 1e-3
+    assert torch.equal(again, out) and torch.equal(out_nl, out)
+    assert none is None
+
+
 @pytest.mark.cuda
 def test_autograd_through_multi_head_attention(cuda):
     (q, k, v), _ = _flash_inputs(cuda, 2, 600, 2, strided=False)

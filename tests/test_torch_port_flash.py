@@ -18,6 +18,8 @@ JAX forward in fp32; the route predicate equals JAX's ``use_fused_qkv``
 for every length from 1 to 2048.
 """
 
+import ctypes
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -278,3 +280,38 @@ def test_clip_image_encoder_mode_matches_jax():
     np.testing.assert_allclose(got.numpy(), _np(ref), rtol=1e-5, atol=1e-5)
     np.testing.assert_allclose(np.linalg.norm(got.numpy(), axis=-1), 1.0,
                                rtol=1e-5)
+
+
+def test_forward_kernel_builds_from_the_wgmma_source(monkeypatch):
+    # K3 and K6 launch unite_flash_fwd from csrc/flash_fwd_wgmma.cu (with
+    # the Hopper header); the mma.sync source keeps only K5's entry
+    from types import SimpleNamespace
+
+    from unite_torch.ops import _build
+
+    assert "flash_fwd_wgmma" in _build.SOURCES
+    assert "hopper.cuh" in _build.HEADERS
+    for part in [f"{n}.cu" for n in _build.SOURCES] + list(_build.HEADERS):
+        assert (_build.CSRC / part).is_file(), part
+    entry = 'extern "C" int unite_flash_fwd('
+    assert entry in (_build.CSRC / "flash_fwd_wgmma.cu").read_text()
+    old = (_build.CSRC / "packed_flash_fwd.cu").read_text()
+    assert "unite_flash_fwd" not in old and "unite_grouped_fwd" in old
+    lib = SimpleNamespace(unite_flash_fwd=SimpleNamespace())
+    _build._declare(lib)
+    assert lib.unite_flash_fwd.restype is ctypes.c_int
+    assert len(lib.unite_flash_fwd.argtypes) == 11
+    calls = []
+
+    def load(name):
+        return SimpleNamespace(unite_flash_fwd=lambda *a: calls.append(
+            (name, a)) or 0)
+
+    monkeypatch.setattr(_build, "load", load)
+    strides = TA._strides_arg((1,) * 12)
+    TA._launch_fwd([16, 32, 48, 64], strides, None, (1, 2, 3), 0.125, 0)
+    (name, args), = calls
+    assert name == "flash_fwd_wgmma"
+    assert args[:6] == (16, 32, 48, 64, None, strides)
+    assert args[6:9] == (1, 3, 2)  # B, S, H
+    np.testing.assert_allclose(args[9], 0.125 * TA.INV_LN2)

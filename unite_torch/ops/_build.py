@@ -2,7 +2,7 @@
 
 Each ``csrc/*.cu`` source is compiled by ``nvcc`` for ``sm_90a`` into a
 shared library with a plain C interface, loaded with ``ctypes``. Libraries
-are named by a hash of their source, the shared header and the flags, and
+are named by a hash of their source, the shared headers and the flags, and
 live in ``build/unite_torch_kernels/`` at the repository root: a changed
 source builds anew at its next use, an unchanged one loads at once. All
 missing libraries are compiled in parallel, one ``nvcc`` per source.
@@ -23,9 +23,10 @@ from typing import Dict
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "unite_torch_kernels"
-SOURCES = ("fused_qkv_fwd", "fused_qkv_bwd", "packed_flash_fwd",
-           "packed_flash_bwd", "grouped_attn_bwd", "blocked_matmul")
-HEADERS = ("fused_qkv_common.cuh",)
+SOURCES = ("fused_qkv_fwd", "fused_qkv_bwd", "flash_fwd_wgmma",
+           "packed_flash_fwd", "packed_flash_bwd", "grouped_attn_bwd",
+           "blocked_matmul")
+HEADERS = ("fused_qkv_common.cuh", "hopper.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -10,7 +10,7 @@ package's dispatch (models/layers.py:174-190, models/clip.py:82-108):
   ``deterministic``), at widths that are a multiple of 128, take the
   fused-qkv kernels, csrc/fused_qkv_fwd.cu (K1) and csrc/fused_qkv_bwd.cu
   (K2); longer sequences with a divisor query block (1568, 1000, 600, ...)
-  take the packed flash kernels, csrc/packed_flash_fwd.cu (K3) and the dQ
+  take the packed flash kernels, csrc/flash_fwd_wgmma.cu (K3) and the dQ
   and dK/dV kernels of csrc/packed_flash_bwd.cu (K4);
 * everywhere else q, k and v become strided [B, H, S, D] views of qkv and
   ``multi_head_attention`` runs on them: up to 512 tokens the grouped
@@ -444,9 +444,10 @@ def _empty_like_rows(x):
 
 
 def _launch_fwd(ptrs, strides, lse, dims, scale: float, stream):
-    """The strided forward kernel (K3 or K6): pointers of q, k, v, o."""
+    """The strided forward kernel (K3 or K6, csrc/flash_fwd_wgmma.cu):
+    pointers of q, k, v, o."""
     b, h, s = dims
-    err = _build.load("packed_flash_fwd").unite_flash_fwd(
+    err = _build.load("flash_fwd_wgmma").unite_flash_fwd(
         *ptrs, lse.data_ptr() if lse is not None else None, strides, b, s, h,
         scale * INV_LN2, stream)
     _build.check(err, "flash_fwd")

@@ -84,14 +84,39 @@ def build_teacher(args, device=None):
         return_index=tuple(args.clip_return_layers))
 
 
+def own_student_state(payload: dict) -> dict:
+    """The student's state from one of the port's own checkpoints, as
+    unite_tpu's load_student takes its .msgpack files (run_stage1.py:117-124):
+    a stage-1 student as it is, a stage-3 tree's student (nested under
+    ``model``, or the ``model.`` keys of its module dict) unwrapped, and a
+    bare stage-2 ViT nested under ``encoder.``."""
+    state = payload["model"]
+    if isinstance(state.get("model"), dict):
+        state = state["model"]
+    elif any(k.startswith("model.") for k in state):
+        state = {k[len("model."):]: v for k, v in state.items()
+                 if k.startswith("model.")}
+    if not any(k.startswith("encoder.") for k in state):
+        state = ti.wrap_encoder_prefix(state)
+    return state
+
+
 def load_student(args, student) -> None:
-    """run_stage1.py:518-602 import chain for published UMT weights: keys
-    wrapped in ``encoder.``, ``backbone.`` stripped, the decoders from
-    --clip_decoder_init, the positional embedding resampled to this
-    geometry."""
+    """run_stage1.py:518-602 import chain. The port's own checkpoints
+    (``utils/checkpoint.py``: ``epoch`` and ``optimizer`` beside ``model``)
+    load through ``own_student_state`` with nothing else done to them, as
+    unite_tpu loads its own; published UMT weights get their keys wrapped
+    in ``encoder.`` (``backbone.`` stripped after that), the decoders from
+    --clip_decoder_init, and the positional embedding resampled to this
+    geometry. Both kinds of file end in .pth, so the payload decides."""
     if not args.student_init:
         return
-    state = ti.load_torch_state(args.student_init, args.model_key)
+    payload = ck.load_checkpoint(args.student_init)
+    if isinstance(payload, dict) and {"model", "epoch", "optimizer"} <= set(
+            payload):
+        ti.merge_state(student, own_student_state(payload))
+        return
+    state = ti.select_state(payload, args.model_key)
     state = ti.wrap_encoder_prefix(state)
     state = ti.strip_prefixes(state, ("backbone.",))
     if args.clip_decoder_init:

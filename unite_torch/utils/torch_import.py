@@ -25,31 +25,19 @@ import torch
 
 def load_torch_state(path: str, model_key: str = "model|module") -> Dict[str, torch.Tensor]:
     """torch.load + model-key search; values stay torch tensors (CPU)."""
-    ckpt = torch.load(path, map_location="cpu", weights_only=False)
+    return select_state(torch.load(path, map_location="cpu",
+                                   weights_only=False), model_key)
+
+
+def select_state(ckpt, model_key: str = "model|module") -> Dict[str, torch.Tensor]:
+    """The state dict of a loaded checkpoint: the first of the '|'-separated
+    ``model_key`` entries that it holds, else the checkpoint itself."""
     if isinstance(ckpt, dict):
         for key in model_key.split("|"):
             if key in ckpt:
                 print(f"Load state_dict by model_key = {key}")
                 return dict(ckpt[key])
     return dict(ckpt)
-
-
-def strip_prefixes(state: dict, strip=("backbone.",)) -> dict:
-    """Remove leading prefixes (run_stage1.py:536-542 / run_stage2.py:384-393)."""
-    out = {}
-    for k, v in state.items():
-        for p in strip:
-            if k.startswith(p):
-                k = k[len(p):]
-                break
-        out[k] = v
-    return out
-
-
-def wrap_encoder_prefix(state: dict) -> dict:
-    """Prefix every key with ``encoder.`` (stage-1 semantics when the ckpt
-    came from a bare-encoder model, run_stage1.py:525-527)."""
-    return {f"encoder.{k}": v for k, v in state.items()}
 
 
 def strip_prefixes(state: dict, strip=("backbone.",)) -> dict:
