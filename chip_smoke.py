@@ -10,10 +10,14 @@ toolkit. In order:
 2. build: every kernel under ``unite_torch/csrc`` compiled by ``nvcc`` for
    sm_90a into ``build/unite_torch_kernels/`` (one process per source, in
    parallel), with each kernel's ptxas line (registers, spills); the
-   wgmma forward of K3/K6 (csrc/flash_fwd_wgmma.cu) must not spill;
+   wgmma forwards of K3/K6 (csrc/flash_fwd_wgmma.cu) and of K1/K5
+   (csrc/short_attn_wgmma.cu) must not spill, and a serialized product is
+   reported;
 3. kernels against their plain versions at the main-path shapes: K1 (fused
-   qkv attention forward) at the teacher's [512, 197, 2304] and the
-   student's [64, 320, 2304], K2 (its backward) at [64, 320, 2304]; K3
+   qkv attention forward, csrc/short_attn_wgmma.cu) at the teacher's
+   [512, 197, 2304] and the student's [64, 320, 2304], with and without the
+   lse, timed beside SDPA and the K3/K6 forward on the same lanes, K2 (its
+   backward) at [64, 320, 2304]; K3
    (packed flash forward) at the stage-2 train step's [8, 1568, 2304] with
    lse and the eval step's [32, 1568, 2304] without, K4's dQ and dK/dV
    kernels at [8, 1568, 2304]; K6 (the [B, H, S, D] flash forward, dQ and
@@ -26,7 +30,10 @@ toolkit. In order:
    (``scaled_dot_product_attention``) as a yardstick; the K3/K6 forward
    at every length of ``SWEEP_LENGTHS`` (around its 128-row tiles) at 2
    and 12 heads, on contiguous tensors, strided qkv views and the packed
-   lanes, with and without the lse;
+   lanes, with and without the lse; the short forward (K1 and K5's
+   forward) at every length of ``SHORT_LENGTHS`` at 2, 12 and 16 heads
+   (K1 on packed lanes, K5 on views and contiguous tensors, with and
+   without statistics, bit for bit on repeats) and with k = -q;
    then K7a (the int8 blocked matmul) bit for bit against its plain
    version at the probe's 38400x768x3072, the int8 clip_l14 teacher's four
    dense shapes at M = 37824 and two ragged shapes, K7b (bf16) within one
@@ -95,6 +102,7 @@ import statistics
 import subprocess
 import sys
 import time
+from functools import partial
 from pathlib import Path
 from types import SimpleNamespace
 
@@ -110,6 +118,11 @@ STAGE2_TOKENS = 1568   # 8 frames x 196 patches, tubelet 1
 STAGE3_CLS_TOKENS = STAGE2_TOKENS + 1  # the same with the CLS token
 # the K3/K6 forward's lengths: around its 128-row tiles, and the paths' own
 SWEEP_LENGTHS = (1, 7, 64, 127, 128, 129, 577, 1568, 1569, 2048)
+# the short forward's lengths (K1 and K5, csrc/short_attn_wgmma.cu): around
+# its 64-row q tiles and 64-key chunks, one sweep up to 320 keys and two
+# above, and the paths' own (197, 320, 392)
+SHORT_LENGTHS = (1, 7, 8, 9, 63, 64, 65, 127, 128, 129, 196, 197, 208, 255,
+                 256, 257, 314, 320, 384, 385, 392, 511, 512)
 M075_TOKENS = 8 * 49   # stage 1 at mask 0.75: 49 of 196 patches a frame
 # bench.py::bench_large: the ViT-L student and the clip_l14 teacher at 196^2
 # (a 14x14 grid, 197 tokens a frame), taps 18-23, B=24 over 8 frames
@@ -178,6 +191,25 @@ def median_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
+def device_ms(fn, iters: int = 30, warmup: int = 3) -> float:
+    """Mean time of ``iters`` launches queued back to back between two CUDA
+    events: the device's time, with the wrapper's host time hidden behind
+    the launches before it (``median_ms`` times single launches, host time
+    inside)."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(iters):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / iters
+
+
 def bound(nbytes: float, flops: float, peak: float = PEAK_BF16):
     t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, flops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -237,30 +269,45 @@ def check_kernels(torch, A, heads: int = HEADS, batches=(512, 64),
                           device="cuda").to(torch.bfloat16)
         with_lse = label == "student"  # the student trains, the teacher not
         out, lse = A.fused_qkv_fwd(qkv, heads, SCALE, with_lse=with_lse)
+        # the other variant too: the same output, and the lse where asked
+        other, other_lse = A.fused_qkv_fwd(qkv, heads, SCALE,
+                                           with_lse=not with_lse)
         torch.cuda.synchronize()
         ref, ref_lse = A.qkv_attention_reference(qkv, heads, SCALE)
         err = (out.float() - ref.float()).abs()
-        if not bool(torch.isfinite(out).all()) or err.max().item() > FWD_TOL:
+        if not bool(torch.isfinite(out).all()) or err.max().item() > FWD_TOL \
+                or not torch.equal(other, out):
             raise AssertionError(f"K1 {label}{tag}: max abs err "
-                                 f"{err.max().item()} > {FWD_TOL}")
-        if with_lse:
-            lse_err = (lse - ref_lse).abs().max().item()
-            if lse_err > 1e-3:
-                raise AssertionError(f"K1{tag} lse err {lse_err}")
-        ms = median_ms(lambda: A.fused_qkv_fwd(qkv, heads, SCALE, with_lse))
+                                 f"{err.max().item()} > {FWD_TOL}, or the "
+                                 "outputs with and without lse differ")
+        lse_err = (next(x for x in (lse, other_lse) if x is not None)
+                   - ref_lse).abs().max().item()
+        if lse_err > 1e-3:
+            raise AssertionError(f"K1 {label}{tag} lse err {lse_err}")
+        del other, other_lse
+        run = partial(A.fused_qkv_fwd, qkv, heads, SCALE, with_lse)
+        ms = median_ms(run)
+        dev_ms = device_ms(run)
         plain_ms = median_ms(lambda: A.qkv_attention_reference(qkv, heads,
                                                                SCALE))
         q, k, v = (t.contiguous() for t in A._split_heads(qkv, heads))
-        lib_ms = median_ms(lambda: F.scaled_dot_product_attention(
-            q, k, v, scale=SCALE))
+        sdpa = partial(F.scaled_dot_product_attention, q, k, v, scale=SCALE)
+        lib_ms = median_ms(sdpa)
+        lib_dev_ms = device_ms(sdpa)
+        # the K3/K6 forward (csrc/flash_fwd_wgmma.cu) on the same lanes: the
+        # yardstick of the short forward's design
+        flash = partial(A.packed_flash_fwd, qkv, heads, SCALE, with_lse)
+        flash_ms, flash_dev_ms = median_ms(flash), device_ms(flash)
         nbytes = b * s * 4 * heads * 64 * 2 + (b * heads * s * 4 if with_lse
                                                else 0)
         bms, by = bound(nbytes, 4.0 * b * heads * s * s * 64)
         key = f"K1/{label}{tag}"
         results[key] = dict(
             shape=[b, s, 3 * heads * 64], max_abs_err=err.max().item(),
-            mean_abs_err=err.mean().item(), ms=ms, plain_ms=plain_ms,
-            bound_ms=bms, bound_by=by, library_ms=lib_ms)
+            mean_abs_err=err.mean().item(), lse_err=lse_err, ms=ms,
+            device_ms=dev_ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+            library_ms=lib_ms, library_device_ms=lib_dev_ms,
+            flash_fwd_ms=flash_ms, flash_fwd_device_ms=flash_dev_ms)
         print(f"K1 fused_qkv_fwd {label}{tag} {results[key]}", flush=True)
         del q, k, v, ref, ref_lse
         if not with_lse:
@@ -349,10 +396,11 @@ def check_grouped_kernels(torch, A):
 
     qkv, (q, k, v), dense, do, m, l = timed
     b, h, s, _ = q.shape
-    ms = median_ms(lambda: A.grouped_fwd(q, k, v, SCALE, True))
+    run = partial(A.grouped_fwd, q, k, v, SCALE, True)
+    ms, dev_ms = median_ms(run), device_ms(run)
     plain_ms = median_ms(lambda: A.grouped_reference(q, k, v, scale=SCALE))
-    lib_ms = median_ms(lambda: F.scaled_dot_product_attention(*dense,
-                                                              scale=SCALE))
+    sdpa = partial(F.scaled_dot_product_attention, *dense, scale=SCALE)
+    lib_ms, lib_dev_ms = median_ms(sdpa), device_ms(sdpa)
     dq, dk, dv = (A._empty_like_rows(t) for t in (q, k, v))
     delta = torch.empty((b, h, s), dtype=torch.float32, device="cuda")
     ms_dq = median_ms(lambda: A.grouped_dq(q, k, v, do, m, l, dq, delta,
@@ -379,8 +427,9 @@ def check_grouped_kernels(torch, A):
     results["K5/m075"] = dict(
         shape=[b, h, s, 64], max_abs_err=max(v for k, v in errs.items()
                                              if k.startswith("fwd/")),
-        errors_by_shape=by_shape, ms=ms, plain_ms=plain_ms, bound_ms=bms,
-        bound_by=by, library_ms=lib_ms,
+        errors_by_shape=by_shape, ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
+        bound_ms=bms, bound_by=by, library_ms=lib_ms,
+        library_device_ms=lib_dev_ms,
         library="scaled_dot_product_attention forward")
     print(f"K5 grouped_fwd m075 {results['K5/m075']}", flush=True)
     # dq reads q, k, v, do, m, l and writes dq and delta; dkv reads q, k, v,
@@ -890,7 +939,8 @@ def profile_step(torch, run_step, dest_name: str) -> dict:
                "other (elementwise, norms, reductions, copies)": 0.0}
     for name, ms, _ in rows:
         low = name.lower()
-        if "fused_qkv" in low or "flash_" in low or "grouped_" in low:
+        if any(k in low for k in ("fused_qkv", "flash_", "grouped_",
+                                  "short_attn")):
             classes["attention (K1-K6)"] += ms
         elif "blocked_matmul" in low:
             classes["blocked matmul (K7)"] += ms
@@ -1178,13 +1228,18 @@ def stage2_eval(torch, A, state, eval_step, b: int = 32, warmup: int = 2,
     return res
 
 
+# the wgmma sources: neither may spill; a serialized product is reported
+WGMMA_SOURCES = ("flash_fwd_wgmma", "short_attn_wgmma")
+
+
 def check_ptxas(paths) -> dict:
     """Print each kernel's ptxas lines (registers, spills, and any product
-    that ptxas serialized) and return the wgmma forward's; raise if that
-    kernel spills."""
+    that ptxas serialized) and return, for each wgmma source, its kernels'
+    registers, spilled bytes and whether any product was serialized; raise
+    if a kernel of a wgmma source spills or has no report."""
     import re
 
-    wgmma = {}
+    lines = {name: [] for name in WGMMA_SOURCES}
     for name, path in paths.items():
         log = path.with_suffix(".log")
         if not log.exists():
@@ -1192,15 +1247,21 @@ def check_ptxas(paths) -> dict:
         for line in log.read_text().splitlines():
             if any(w in line for w in ("registers", "spill", "serialized")):
                 print(f"  ptxas {path.name}: {line.strip()}")
-                if name == "flash_fwd_wgmma":
-                    wgmma.setdefault("lines", []).append(line.strip())
-    lines = " ".join(wgmma.get("lines", []))
-    regs = re.search(r"Used (\d+) registers", lines)
-    spills = [int(x) for x in re.findall(r"(\d+) bytes spill", lines)]
-    if regs is None or not spills or any(spills):
-        raise AssertionError(f"flash_fwd_wgmma ptxas: {lines or 'no report'}")
-    return {"registers": int(regs.group(1)), "spill_bytes": sum(spills),
-            "serialized": "serialized" in lines}
+                if name in lines:
+                    lines[name].append(line.strip())
+    report = {}
+    for name, found in lines.items():
+        text = " ".join(found)
+        regs = [int(x) for x in re.findall(r"Used (\d+) registers", text)]
+        spills = [int(x) for x in re.findall(r"(\d+) bytes spill", text)]
+        if not regs or not spills or any(spills):
+            raise AssertionError(f"{name} ptxas: {text or 'no report'}")
+        report[name] = {"registers": max(regs), "kernels": len(regs),
+                        "spill_bytes": sum(spills),
+                        "serialized": "serialized" in text}
+        if report[name]["serialized"]:
+            print(f"  ptxas {name}: a wgmma product is serialized", flush=True)
+    return report
 
 
 def check_flash_lengths(torch, A):
@@ -1240,6 +1301,83 @@ def check_flash_lengths(torch, A):
             del qkv, views, dense, ref, ref_lse, out, lse, out_nl
     print(f"K3/K6 forward lengths {list(SWEEP_LENGTHS)} x heads (2, {HEADS}) "
           f"x (contiguous, views, packed) x lse: {worst}", flush=True)
+    return worst
+
+
+def check_short_lengths(torch, A):
+    """Phase 3: the short forward (csrc/short_attn_wgmma.cu) against its
+    plain versions at every length of ``SHORT_LENGTHS`` (B=2; 2, 12 and 16
+    heads): K1 on the packed lanes of qkv with and without the lse, K5 on
+    strided qkv views and contiguous tensors with and without m and l; each
+    repeated launch equal bit for bit. Then k = -q at 197, 320, 392 (K1 and
+    K5) and 768 (K1), where every real score is negative, so a zero-filled
+    key past S entering the row max would show. Returns the largest errors
+    by length."""
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    worst = {}
+
+    def note(s, **errs):
+        w = worst.setdefault(s, dict.fromkeys(errs, 0.0))
+        for k, e in errs.items():
+            w[k] = max(w.get(k, 0.0), e)
+
+    def err(a, b):
+        return (a.float() - b.float()).abs().max().item()
+
+    def k1(qkv, h, s):
+        ref, ref_lse = A.qkv_attention_reference(qkv, h, SCALE)
+        out, lse = A.fused_qkv_fwd(qkv, h, SCALE, with_lse=True)
+        again, _ = A.fused_qkv_fwd(qkv, h, SCALE, with_lse=True)
+        out_nl, none = A.fused_qkv_fwd(qkv, h, SCALE)
+        torch.cuda.synchronize()
+        e, le = err(out, ref), err(lse, ref_lse)
+        if (not bool(torch.isfinite(out).all()) or e > FWD_TOL or le > 1e-3
+                or none is not None or not torch.equal(again, out)
+                or not torch.equal(out_nl, out)):
+            raise AssertionError(f"K1 S={s} H={h}: max abs err {e} (tol "
+                                 f"{FWD_TOL}), lse err {le}, repeats equal "
+                                 f"{torch.equal(again, out)}, without lse "
+                                 f"{torch.equal(out_nl, out)}")
+        note(s, k1_err=e, k1_lse_err=le)
+
+    def k5(q, k, v, s, layout):
+        ref, ref_m, ref_l = A.grouped_reference(q, k, v, scale=SCALE)
+        out, (m, l) = A.grouped_fwd(q, k, v, SCALE, with_stats=True)
+        again, (m2, l2) = A.grouped_fwd(q, k, v, SCALE, with_stats=True)
+        out_ns, none = A.grouped_fwd(q, k, v, SCALE)
+        torch.cuda.synchronize()
+        e, me = err(out, ref), err(m, ref_m)
+        lr = ((l - ref_l).abs() / ref_l).max().item()
+        same = (torch.equal(again, out) and torch.equal(out_ns, out)
+                and torch.equal(m2, m) and torch.equal(l2, l))
+        if (not bool(torch.isfinite(out).all()) or e > FWD_TOL or me > 1e-3
+                or lr > 1e-4 or none is not None or not same):
+            raise AssertionError(f"K5 S={s} {layout}: max abs err {e} (tol "
+                                 f"{FWD_TOL}), m err {me}, l rel err {lr}, "
+                                 f"repeats equal {same}")
+        note(s, k5_err=e, k5_m_err=me, k5_l_rel_err=lr)
+
+    for s in SHORT_LENGTHS:
+        for h in (2, HEADS, 16):
+            qkv = torch.randn((2, s, 3 * h * 64), generator=gen,
+                              device="cuda").to(torch.bfloat16)
+            k1(qkv, h, s)
+            views = A._split_heads(qkv, h)
+            k5(*views, s, "views")
+            k5(*(t.contiguous() for t in views), s, "contiguous")
+            del qkv, views
+    for s in (197, 320, M075_TOKENS, A.FUSED_QKV_MAX_SEQ):
+        q = torch.randn((2, s, 2, 64), generator=gen, device="cuda").abs()
+        v = torch.randn((2, s, 2, 64), generator=gen, device="cuda")
+        qkv = torch.cat([q, -q, v], dim=2).reshape(2, s, 6 * 64).to(
+            torch.bfloat16)
+        k1(qkv, 2, f"{s} k=-q")
+        if s <= A.GROUPED_MAX_SEQ:
+            k5(*(t.contiguous() for t in A._split_heads(qkv, 2)),
+               f"{s} k=-q", "contiguous")
+    print(f"short forward lengths {list(SHORT_LENGTHS)} x heads (2, {HEADS}, "
+          f"16) x (K1 packed, K5 views, K5 contiguous) x statistics, and "
+          f"k = -q: {worst}", flush=True)
     return worst
 
 
@@ -1750,6 +1888,7 @@ def main() -> int:
     kr.update(check_packed_kernels(torch, A))
     kr.update(check_flash_kernels(torch, A))
     lengths = check_flash_lengths(torch, A)
+    short_lengths = check_short_lengths(torch, A)
     kr.update(check_grouped_kernels(torch, A))
     mark("K1-K6 checked")
     kr.update(check_matmul_kernels(torch))
@@ -1790,10 +1929,10 @@ def main() -> int:
     kernels = []
     for key, name, src, rep, launches in (
             ("K1/teacher", "fused_qkv_fwd[teacher S=197]",
-             "unite_torch/csrc/fused_qkv_fwd.cu",
+             "unite_torch/csrc/short_attn_wgmma.cu",
              "unite_tpu/ops/attention.py:678", mp["k1_teacher"]),
             ("K1/student", "fused_qkv_fwd[student S=320]",
-             "unite_torch/csrc/fused_qkv_fwd.cu",
+             "unite_torch/csrc/short_attn_wgmma.cu",
              "unite_tpu/ops/attention.py:678", mp["k1_student"]),
             ("K2/student", "fused_qkv_bwd[student S=320]",
              "unite_torch/csrc/fused_qkv_bwd.cu",
@@ -1823,7 +1962,7 @@ def main() -> int:
              "unite_torch/csrc/packed_flash_bwd.cu",
              "unite_tpu/ops/attention.py:270", s3c["launches"]["K6dkv"]),
             ("K5/m075", "grouped_fwd[stage-1 mask 0.75 B=64 S=392]",
-             "unite_torch/csrc/packed_flash_fwd.cu",
+             "unite_torch/csrc/short_attn_wgmma.cu",
              "unite_tpu/ops/attention.py:441", m075["launches"]["K5"]),
             ("K5dq/m075", "grouped_dq[stage-1 mask 0.75 B=64 S=392]",
              "unite_torch/csrc/grouped_attn_bwd.cu",
@@ -1832,10 +1971,10 @@ def main() -> int:
              "unite_torch/csrc/grouped_attn_bwd.cu",
              "unite_tpu/ops/attention.py:467", m075["launches"]["K5dkv"]),
             ("K1/teacher/l14", "fused_qkv_fwd[clip_l14 teacher B=192 S=197 "
-             "H=16]", "unite_torch/csrc/fused_qkv_fwd.cu",
+             "H=16]", "unite_torch/csrc/short_attn_wgmma.cu",
              "unite_tpu/ops/attention.py:678", l14["k1_teacher"]),
             ("K1/student/l14", "fused_qkv_fwd[ViT-L student B=24 S=320 H=16]",
-             "unite_torch/csrc/fused_qkv_fwd.cu",
+             "unite_torch/csrc/short_attn_wgmma.cu",
              "unite_tpu/ops/attention.py:678", l14["k1_student"]),
             ("K2/student/l14", "fused_qkv_bwd[ViT-L student B=24 S=320 H=16]",
              "unite_torch/csrc/fused_qkv_bwd.cu",
@@ -1869,10 +2008,12 @@ def main() -> int:
                       "l14_int8_card_vs_cpu_rel": l14_rel,
                       "int8_teacher_vs_bf16": int8_teacher,
                       "probe": probe, "flash_fwd_lengths": lengths,
-                      "flash_fwd_ptxas": ptxas, "matmul_checks": {
+                      "short_fwd_lengths": short_lengths,
+                      "wgmma_ptxas": ptxas, "matmul_checks": {
                           k: r for k, r in kr.items() if k.startswith("K7")},
                       "yardsticks": {k: {x: r[x] for x in r if x.startswith(
-                          "library")} for k, r in kr.items()}}))
+                          ("library", "flash_fwd", "device"))}
+                          for k, r in kr.items()}}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

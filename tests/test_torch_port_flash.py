@@ -284,7 +284,8 @@ def test_clip_image_encoder_mode_matches_jax():
 
 def test_forward_kernel_builds_from_the_wgmma_source(monkeypatch):
     # K3 and K6 launch unite_flash_fwd from csrc/flash_fwd_wgmma.cu (with
-    # the Hopper header); the mma.sync source keeps only K5's entry
+    # the Hopper header); the short-sequence source holds the K1 and K5
+    # forward entries, and the mma.sync forward sources are gone
     from types import SimpleNamespace
 
     from unite_torch.ops import _build
@@ -295,8 +296,12 @@ def test_forward_kernel_builds_from_the_wgmma_source(monkeypatch):
         assert (_build.CSRC / part).is_file(), part
     entry = 'extern "C" int unite_flash_fwd('
     assert entry in (_build.CSRC / "flash_fwd_wgmma.cu").read_text()
-    old = (_build.CSRC / "packed_flash_fwd.cu").read_text()
-    assert "unite_flash_fwd" not in old and "unite_grouped_fwd" in old
+    short = (_build.CSRC / "short_attn_wgmma.cu").read_text()
+    assert "unite_flash_fwd" not in short
+    assert 'extern "C" int unite_short_grouped_fwd(' in short
+    for gone in ("packed_flash_fwd", "fused_qkv_fwd"):
+        assert gone not in _build.SOURCES
+        assert not (_build.CSRC / f"{gone}.cu").exists()
     lib = SimpleNamespace(unite_flash_fwd=SimpleNamespace())
     _build._declare(lib)
     assert lib.unite_flash_fwd.restype is ctypes.c_int

@@ -53,8 +53,6 @@
 // consumers also overlap each other's work.
 // The tiles of a (batch, head) are neighbours in the grid, so k and v come
 // from L2 after the first tile reads them.
-#include <stdio.h>
-
 #include "fused_qkv_common.cuh"
 #include "hopper.cuh"
 
@@ -102,17 +100,12 @@ __device__ __forceinline__ Smem carve(uint8_t* raw) {
   return s;
 }
 
-// The box of `map` at (row, h, b): `perm` holds, 2 bits each, the map
-// dimension (1..3) of the row, head and batch coordinates.
+// One 128-row tile of a view's map at (row, h, b) (tma_load_view).
 __device__ __forceinline__ void load_box(void* dst, const CUtensorMap* map,
                                          uint64_t* bar, int perm, int row,
                                          int h, int b) {
-  const int pr = perm & 3, ph = (perm >> 2) & 3;
-  const int c1 = pr == 1 ? row : ph == 1 ? h : b;
-  const int c2 = pr == 2 ? row : ph == 2 ? h : b;
-  const int c3 = pr == 3 ? row : ph == 3 ? h : b;
   mbar_expect_tx(bar, TILE_BYTES);
-  tma_load_4d(dst, map, bar, 0, c1, c2, c3);
+  tma_load_view(dst, map, bar, perm, row, h, b);
 }
 
 constexpr uint64_t TILE_UNITS = TILE_BYTES >> 4;  // a tile in descriptor units
@@ -393,62 +386,6 @@ __global__ void __launch_bounds__(THREADS, 1)
   }
 }
 
-// The 4-D map (64 lanes, then the row, head and batch dimensions) of a
-// [B, H, S, 64] bf16 view with element strides st = (batch, head, row), in
-// 128-row boxes with 128-byte swizzle. cuTensorMapEncodeTiled's
-// documentation gives each stride as at least the span of the dimensions
-// inside it, which K3's lane slices
-// (head stride 64, row stride 3*H*64) break in (row, head, batch) order:
-// so dimensions of extent > 1 go in order of stride, and one of extent 1
-// goes after them with the stride of a packed layout (its own stride may
-// be anything). *perm gets, 2 bits each, the map dimension of the row,
-// head and batch coordinates.
-int encode_view(CUtensorMap* map, const void* base, const long long* st,
-                int B, int H, int S, int* perm) {
-  const EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return (int)cudaErrorNotSupported;
-  struct Dim {
-    long long extent, stride;
-    int which;  // 0 row, 1 head, 2 batch
-  } d[3] = {{S, st[2], 0}, {H, st[1], 1}, {B, st[0], 2}};
-  auto before = [](const Dim& x, const Dim& y) {
-    if ((x.extent == 1) != (y.extent == 1)) return y.extent == 1;
-    return x.extent > 1 && x.stride < y.stride;
-  };
-  for (int i = 1; i < 3; ++i)
-    for (int j = i; j > 0 && before(d[j], d[j - 1]); --j) {
-      const Dim tmp = d[j];
-      d[j] = d[j - 1];
-      d[j - 1] = tmp;
-    }
-  cuuint64_t dims[4] = {64, 0, 0, 0}, strides[3];
-  cuuint32_t box[4] = {64, 1, 1, 1}, elem[4] = {1, 1, 1, 1};
-  cuuint64_t span = 64 * sizeof(bf16);
-  *perm = 0;
-  for (int i = 0; i < 3; ++i) {
-    dims[i + 1] = (cuuint64_t)d[i].extent;
-    strides[i] = d[i].extent > 1 ? (cuuint64_t)d[i].stride * sizeof(bf16) : span;
-    span = strides[i] * dims[i + 1];
-    if (d[i].which == 0) box[i + 1] = 128;
-    *perm |= (i + 1) << (2 * d[i].which);
-  }
-  const CUresult r = encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
-      strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  if (r != CUDA_SUCCESS) {
-    fprintf(stderr,
-            "unite_flash_fwd: cuTensorMapEncodeTiled failed (%d) for dims "
-            "(64, %llu, %llu, %llu), strides (%llu, %llu, %llu) bytes\n",
-            (int)r, (unsigned long long)dims[1], (unsigned long long)dims[2],
-            (unsigned long long)dims[3], (unsigned long long)strides[0],
-            (unsigned long long)strides[1], (unsigned long long)strides[2]);
-    return (int)cudaErrorInvalidValue;
-  }
-  return 0;
-}
-
 }  // namespace
 
 // q, k, v -> o, each a [B, H, S, 64] bf16 view whose (batch, head, row)
@@ -465,7 +402,7 @@ extern "C" int unite_flash_fwd(const void* q, const void* k, const void* v,
   const void* ptrs[3] = {q, k, v};
   for (int i = 0; i < 3; ++i) {
     const int err = encode_view(&maps[i], ptrs[i], strides + 3 * i, B, H, S,
-                                &perm[i]);
+                                BLOCK_K, &perm[i], "unite_flash_fwd");
     if (err != 0) return err;
   }
   cudaError_t err = cudaFuncSetAttribute(

@@ -18,8 +18,8 @@
 // This differs from the flash backward (K2, K4, K6) in where it normalises:
 // those round p = e/l before the products, here e stays unnormalised and
 // 1/l multiplies the [S, D] side, so K5 cannot reuse their kernels. m and l
-// come from the K5 forward (unite_grouped_fwd), which takes the exact row
-// max; e is recomputed against it, as the TPU kernel recomputes it.
+// come from the K5 forward (unite_short_grouped_fwd), which takes the exact
+// row max; e is recomputed against it, as the TPU kernel recomputes it.
 //
 // Design. The TPU kernel keeps G heads' [S, S] tiles in VMEM. A block here
 // cannot: a fused (batch, head) block holding q, k, v and do at S = 512
@@ -276,7 +276,8 @@ __global__ void __launch_bounds__(THREADS, 2)
 
 // dq and delta. q, k, v, do and dq are [B, H, S, 64] bf16 views whose
 // (batch, head, row) strides are strides[3i..3i+2] in that order; m and l
-// (in, from unite_grouped_fwd) and delta (out) [B, H, S] fp32 contiguous.
+// (in, from unite_short_grouped_fwd) and delta (out) [B, H, S] fp32
+// contiguous.
 // c = scale*log2(e). Launches on `stream`; returns cudaGetLastError().
 extern "C" int unite_grouped_dq(const void* q, const void* k, const void* v,
                                 const void* dout, const void* m,

@@ -20,6 +20,7 @@
 #include <cuda.h>  // CUtensorMap and its enums (types only)
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <stdio.h>
 
 namespace hopper {
 
@@ -91,6 +92,76 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
       :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
          "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
       : "memory");
+}
+
+// The map coordinates (c1, c2, c3) of element (row, h, b) of a
+// [B, H, S, 64] view's map (encode_view): `perm` holds, 2 bits each, the
+// map dimension (1..3) of the row, head and batch coordinates.
+__device__ __forceinline__ void view_coords(int perm, int row, int h, int b,
+                                            int& c1, int& c2, int& c3) {
+  const int pr = perm & 3, ph = (perm >> 2) & 3;
+  c1 = pr == 1 ? row : ph == 1 ? h : b;
+  c2 = pr == 2 ? row : ph == 2 ? h : b;
+  c3 = pr == 3 ? row : ph == 3 ? h : b;
+}
+
+// A box of a view's map at (row, h, b). The caller has announced the box's
+// bytes to `bar`.
+__device__ __forceinline__ void tma_load_view(void* dst, const CUtensorMap* map,
+                                              uint64_t* bar, int perm, int row,
+                                              int h, int b) {
+  int c1, c2, c3;
+  view_coords(perm, row, h, b, c1, c2, c3);
+  tma_load_4d(dst, map, bar, 0, c1, c2, c3);
+}
+
+// One box of a 4-D map from shared memory (the box's layout and swizzle as
+// a load of the map would write it); elements outside the tensor are not
+// written. Completes as a bulk group of the issuing thread.
+__device__ __forceinline__ void tma_store_4d(const CUtensorMap* map,
+                                             const void* src, int c0, int c1,
+                                             int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group"
+      " [%0, {%2, %3, %4, %5}], [%1];\n"
+      :: "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(src)), "r"(c0),
+         "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most N of this thread's bulk groups still read shared
+// memory (READ) or are still in flight at all.
+template <int N, bool READ>
+__device__ __forceinline__ void bulk_wait() {
+  if (READ)
+    asm volatile("cp.async.bulk.wait_group.read %0;\n" :: "n"(N) : "memory");
+  else
+    asm volatile("cp.async.bulk.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// Make this thread's ordinary writes to shared memory visible to the
+// asynchronous proxy (TMA, wgmma) before they are read there.
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// A barrier of `threads` threads (a multiple of 32) on hardware barrier
+// `id` (1..15; 0 is __syncthreads').
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(threads) : "memory");
+}
+
+// tma_store_4d of a view's box at (row, h, b).
+__device__ __forceinline__ void tma_store_view(const CUtensorMap* map,
+                                               const void* src, int perm,
+                                               int row, int h, int b) {
+  int c1, c2, c3;
+  view_coords(perm, row, h, b, c1, c2, c3);
+  tma_store_4d(map, src, 0, c1, c2, c3);
 }
 
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
@@ -199,6 +270,95 @@ __device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64], uint64_t a,
       : "l"(a), "l"(b), "r"(accumulate));
 }
 
+// d (+)= A . B, 64 x 256 x 16, both operands K-major in shared memory
+// (the accumulator as in the 64 x 128 product, i < 32).
+__device__ __forceinline__ void wgmma_m64n256k16_ss(float (&d)[128], uint64_t a,
+                                                    uint64_t b,
+                                                    int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39,"
+      " %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55,"
+      " %56, %57, %58, %59, %60, %61, %62, %63,"
+      " %64, %65, %66, %67, %68, %69, %70, %71,"
+      " %72, %73, %74, %75, %76, %77, %78, %79,"
+      " %80, %81, %82, %83, %84, %85, %86, %87,"
+      " %88, %89, %90, %91, %92, %93, %94, %95,"
+      " %96, %97, %98, %99, %100, %101, %102, %103,"
+      " %104, %105, %106, %107, %108, %109, %110, %111,"
+      " %112, %113, %114, %115, %116, %117, %118, %119,"
+      " %120, %121, %122, %123, %124, %125, %126, %127},"
+      " %128, %129, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
+        "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
+        "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
+        "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
+        "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// d (+)= A . B, 64 x 64 x 16, both operands K-major in shared memory
+// (the accumulator as in the 64 x 128 product, i < 8).
+__device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t a,
+                                                   uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31},"
+      " %32, %33, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
 // d (+)= A . B, 64 x 64 x 16, A from registers (the mma.m16n8k16 A
 // fragment of each warp's 16 rows: a[0] row g, depth 2t..2t+1; a[1] row
 // g + 8; a[2], a[3] the same at depth 8 + 2t), B in shared memory,
@@ -228,6 +388,81 @@ __device__ __forceinline__ void wgmma_m64n64k16_rs_tb(float (&d)[32],
         "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
         "r"(accumulate));
+}
+
+// d (+)= A . B, 64 x 8 x 16, A from registers (as in the 64 x 64 product),
+// B K-major in shared memory.
+__device__ __forceinline__ void wgmma_m64n8k16_rs(float (&d)[4],
+                                                  const uint32_t (&a)[4],
+                                                  uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %9, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, %8, p, 1, 1, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+}
+
+// The 4-D map (64 lanes, then the row, head and batch dimensions) of a
+// [B, H, S, 64] bf16 view with element strides st = (batch, head, row), in
+// boxes of `box_rows` rows with 128-byte swizzle. cuTensorMapEncodeTiled's
+// documentation gives each stride as at least the span of the dimensions
+// inside it, which lane slices of a packed qkv (head stride 64, row stride
+// 3*H*64) break in (row, head, batch) order: so dimensions of extent > 1 go
+// in order of stride, and one of extent 1 goes after them with the stride
+// of a packed layout (its own stride may be anything). *perm gets, 2 bits
+// each, the map dimension of the row, head and batch coordinates. Returns
+// a CUDA error code; `who` names the caller in the message of a failure.
+inline int encode_view(CUtensorMap* map, const void* base, const long long* st,
+                       int B, int H, int S, int box_rows, int* perm,
+                       const char* who) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return (int)cudaErrorNotSupported;
+  struct Dim {
+    long long extent, stride;
+    int which;  // 0 row, 1 head, 2 batch
+  } d[3] = {{S, st[2], 0}, {H, st[1], 1}, {B, st[0], 2}};
+  auto before = [](const Dim& x, const Dim& y) {
+    if ((x.extent == 1) != (y.extent == 1)) return y.extent == 1;
+    return x.extent > 1 && x.stride < y.stride;
+  };
+  for (int i = 1; i < 3; ++i)
+    for (int j = i; j > 0 && before(d[j], d[j - 1]); --j) {
+      const Dim tmp = d[j];
+      d[j] = d[j - 1];
+      d[j - 1] = tmp;
+    }
+  const cuuint64_t elem_bytes = 2;  // bf16
+  cuuint64_t dims[4] = {64, 0, 0, 0}, strides[3];
+  cuuint32_t box[4] = {64, 1, 1, 1}, elem[4] = {1, 1, 1, 1};
+  cuuint64_t span = 64 * elem_bytes;
+  *perm = 0;
+  for (int i = 0; i < 3; ++i) {
+    dims[i + 1] = (cuuint64_t)d[i].extent;
+    strides[i] = d[i].extent > 1 ? (cuuint64_t)d[i].stride * elem_bytes : span;
+    span = strides[i] * dims[i + 1];
+    if (d[i].which == 0) box[i + 1] = (cuuint32_t)box_rows;
+    *perm |= (i + 1) << (2 * d[i].which);
+  }
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
+      strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  if (r != CUDA_SUCCESS) {
+    fprintf(stderr,
+            "%s: cuTensorMapEncodeTiled failed (%d) for dims "
+            "(64, %llu, %llu, %llu), strides (%llu, %llu, %llu) bytes\n",
+            who, (int)r, (unsigned long long)dims[1],
+            (unsigned long long)dims[2], (unsigned long long)dims[3],
+            (unsigned long long)strides[0], (unsigned long long)strides[1],
+            (unsigned long long)strides[2]);
+    return (int)cudaErrorInvalidValue;
+  }
+  return 0;
 }
 
 // ------------------------------------------------------------- registers

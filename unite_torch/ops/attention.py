@@ -8,18 +8,20 @@ package's dispatch (models/layers.py:174-190, models/clip.py:82-108):
   returns [B, S, H*D] with the head split and merge done inside the kernels:
   S <= 384 in training and S <= 512 forward-only (``fwd_only``, JAX's
   ``deterministic``), at widths that are a multiple of 128, take the
-  fused-qkv kernels, csrc/fused_qkv_fwd.cu (K1) and csrc/fused_qkv_bwd.cu
-  (K2); longer sequences with a divisor query block (1568, 1000, 600, ...)
-  take the packed flash kernels, csrc/flash_fwd_wgmma.cu (K3) and the dQ
-  and dK/dV kernels of csrc/packed_flash_bwd.cu (K4);
+  fused-qkv kernels, the short-sequence forward csrc/short_attn_wgmma.cu
+  (K1) and csrc/fused_qkv_bwd.cu (K2); longer sequences with a divisor
+  query block (1568, 1000, 600, ...) take the packed flash kernels,
+  csrc/flash_fwd_wgmma.cu (K3) and the dQ and dK/dV kernels of
+  csrc/packed_flash_bwd.cu (K4);
 * everywhere else q, k and v become strided [B, H, S, D] views of qkv and
   ``multi_head_attention`` runs on them: up to 512 tokens the grouped
   kernels K5 (training at 385-512 tokens, 392 = stage 1 at mask 0.75, and
   widths that are not a multiple of 128), the forward in
-  csrc/packed_flash_fwd.cu and the dQ and dK/dV kernels in
-  csrc/grouped_attn_bwd.cu; above 512 tokens (1569 = 1568 patches + CLS,
-  577, 785, ...) the blocked flash kernels K6, the same CUDA kernels as
-  K3/K4, which take per-tensor strides. Each has its own launch counter.
+  csrc/short_attn_wgmma.cu (K1's kernel body with K5's statistics) and the
+  dQ and dK/dV kernels in csrc/grouped_attn_bwd.cu; above 512 tokens (1569
+  = 1568 patches + CLS, 577, 785, ...) the blocked flash kernels K6, the
+  same CUDA kernels as K3/K4, which take per-tensor strides. Each has its
+  own launch counter.
 
 Beside each kernel is its plain version, with the TPU kernel's math and
 rounding points; a wrapper uses it only for a tensor on the CPU. A CUDA
@@ -49,9 +51,9 @@ HEAD_DIM = 64
 # JAX's training cap FUSED_QKV_MAX_SEQ = 384 enters only use_fused_qkv.
 FUSED_QKV_FWD_MAX_SEQ = 512
 FUSED_QKV_TRAIN_MAX_SEQ = 384
-# K1/K2 hold one head's whole K and V (forward, dq) or Q and dO (dkv) in
-# shared memory: 2*S*72*2 bytes, plus 8*S for the row statistics, under
-# 227 KB. The route never sends them more than 512; this is their guard.
+# K1/K2 (and K5's forward) hold one head's whole K and V (forward, dq) or Q
+# and dO (dkv) in shared memory, under 227 KB. The route never sends them
+# more than 512; this is their guard.
 FUSED_QKV_MAX_SEQ = 768
 # [B, H, S, D] attention: unite_tpu's grouped kernel K5 up to here, K6 beyond
 GROUPED_MAX_SEQ = 512
@@ -494,10 +496,10 @@ def fused_qkv_fwd(qkv, heads: int, scale: float, with_lse: bool = False):
     _check_cuda(qkv, heads)
     _check_resident(qkv)
     out, lse = _fwd_outputs(qkv, heads, with_lse)
-    lib = _build.load("fused_qkv_fwd")
-    err = lib.unite_fused_qkv_fwd(
-        qkv.data_ptr(), out.data_ptr(), lse.data_ptr() if with_lse else None,
-        qkv.shape[0], qkv.shape[1], heads, scale * INV_LN2, _stream(qkv))
+    ptrs, strides = _packed_args(heads, (qkv, (0, 1, 2)), (out, (0,)))
+    err = _build.load("short_attn_wgmma").unite_short_qkv_fwd(
+        *ptrs, lse.data_ptr() if with_lse else None, strides, qkv.shape[0],
+        qkv.shape[1], heads, scale * INV_LN2, _stream(qkv))
     _build.check(err, "fused_qkv_fwd")
     fused_qkv_fwd.launches += 1
     return out, lse
@@ -713,13 +715,18 @@ def grouped_fwd(q, k, v, scale: float, with_stats: bool = False):
     if q.device.type == "cpu":
         o, m, l = grouped_reference(q, k, v, scale=scale)
         return o, ((m, l) if with_stats else None)
+    if q.shape[2] > FUSED_QKV_MAX_SEQ:
+        raise ValueError(
+            f"sequence {q.shape[2]} > {FUSED_QKV_MAX_SEQ}: one head's K/V no "
+            "longer fit in shared memory for K5; longer sequences take K6 "
+            "(multi_head_attention routes them there)")
     o = _empty_like_rows(q)
     ptrs, strides = _view_args(q, k, v, o)
     b, h, s, _ = q.shape
     stats = (tuple(torch.empty((b, h, s), dtype=torch.float32,
                                device=q.device) for _ in range(2))
              if with_stats else None)
-    err = _build.load("packed_flash_fwd").unite_grouped_fwd(
+    err = _build.load("short_attn_wgmma").unite_short_grouped_fwd(
         *ptrs, *((t.data_ptr() for t in stats) if stats else (None, None)),
         strides, b, s, h, scale * INV_LN2, _stream(q))
     _build.check(err, "grouped_fwd")
