@@ -10,9 +10,9 @@ toolkit. In order:
 2. build: every kernel under ``unite_torch/csrc`` compiled by ``nvcc`` for
    sm_90a into ``build/unite_torch_kernels/`` (one process per source, in
    parallel), with each kernel's ptxas line (registers, spills); the
-   wgmma forwards of K3/K6 (csrc/flash_fwd_wgmma.cu) and of K1/K5
-   (csrc/short_attn_wgmma.cu) must not spill, and a serialized product is
-   reported;
+   wgmma kernels of K3/K6 (csrc/flash_fwd_wgmma.cu), K1/K5
+   (csrc/short_attn_wgmma.cu) and K7 (csrc/blocked_matmul_wgmma.cu) must
+   not spill, and a serialized product is reported;
 3. kernels against their plain versions at the main-path shapes: K1 (fused
    qkv attention forward, csrc/short_attn_wgmma.cu) at the teacher's
    [512, 197, 2304] and the student's [64, 320, 2304], with and without the
@@ -34,11 +34,15 @@ toolkit. In order:
    forward) at every length of ``SHORT_LENGTHS`` at 2, 12 and 16 heads
    (K1 on packed lanes, K5 on views and contiguous tensors, with and
    without statistics, bit for bit on repeats) and with k = -q;
-   then K7a (the int8 blocked matmul) bit for bit against its plain
-   version at the probe's 38400x768x3072, the int8 clip_l14 teacher's four
-   dense shapes at M = 37824 and two ragged shapes, K7b (bf16) within one
-   bf16 ulp at the probe and ragged shapes, with ``torch._int_mm`` and
-   ``torch.matmul`` as yardsticks; the probe
+   then K7 (csrc/blocked_matmul_wgmma.cu) at every shape of
+   ``MATMUL_SWEEP`` and every tile shape (K7a, the int8 blocked matmul, bit
+   for bit, also with -128s at K = 131040; K7b, bf16, within
+   ``bf16_tolerance`` and equal on small integers); K7a bit for bit
+   against its plain version at the probe's 38400x768x3072, the int8
+   clip_l14 teacher's four dense shapes at M = 37824 and two ragged shapes,
+   K7b within one bf16 ulp at the probe and ragged shapes, timed (single
+   launches, and device time at every tile shape) beside ``torch._int_mm``
+   and ``torch.matmul``; the probe
    (``unite_torch.tools.quant_kernel_probe``); K1 at 16 heads at the
    clip_l14 teacher's [192, 197, 3072] and K1/K2 at the ViT-L student's
    [24, 320, 3072]; the int8 clip_l14 against the bf16 one (B=2, 196^2):
@@ -134,6 +138,15 @@ L14_DENSE = {"in_proj": (L14_M, 1024, 3072), "out_proj": (L14_M, 1024, 1024),
              "mlp_c_fc": (L14_M, 1024, 4096), "mlp_c_proj": (L14_M, 4096, 1024)}
 PROBE_SHAPE = (38400, 768, 3072)
 RAGGED_MM = ((394, 768, 2304), (1, 1024, 1024))
+# K7's sweep (tests/test_torch_port_cuda.py's shapes): ragged M and N (N % 4
+# and N % 8 != 0 take the direct store), K of 32, 96 and 800 (not a multiple
+# of the 128-byte box), one row, M below and above one wave of 128-row
+# tiles, and the teacher's four dense layers at a small M
+MATMUL_SWEEP = ((1, 32, 8), (130, 96, 257), (394, 768, 2304),
+                (300, 4096, 1024), (129, 32, 7), (257, 96, 12), (200, 800, 20),
+                (1, 800, 4), (1, 1024, 1), (128 * 60, 64, 256),
+                (128 * 70 + 3, 64, 256), (200, 1024, 3072),
+                (200, 1024, 1024), (200, 1024, 4096), (200, 4096, 1024))
 COS_MIN, TV_MAX = 0.98, 0.05  # int8 teacher bounds, tests/test_quant.py:68-72
 # configs/stage1_config.yaml key for key, with stage1.sh's overrides (the
 # dataset mapping, output dir and published weights left out): the stage-1
@@ -455,14 +468,74 @@ def check_grouped_kernels(torch, A):
     return results
 
 
+def tile_name(tile) -> str:
+    return "default" if tile is None else f"{tile[0]}x{tile[1]}"
+
+
+def check_matmul_sweep(torch):
+    """K7 (csrc/blocked_matmul_wgmma.cu) at every shape of ``MATMUL_SWEEP``
+    and every tile shape (and the default): K7a bit for bit, K7b within
+    ``bf16_tolerance`` and equal on small integers; -128 everywhere at the
+    largest K the card takes (131040), on both store routes; repeats
+    equal."""
+    from unite_torch.ops import matmul as MM
+
+    gen = torch.Generator(device="cuda").manual_seed(37)
+    worst = 0.0
+    for m, k, n in MATMUL_SWEEP:
+        x8 = torch.randint(-128, 128, (m, k), generator=gen, device="cuda",
+                           dtype=torch.int8)
+        w8 = torch.randint(-128, 128, (n, k), generator=gen, device="cuda",
+                           dtype=torch.int8)
+        x = torch.randn((m, k), generator=gen, device="cuda").to(
+            torch.bfloat16)
+        w = torch.randn((n, k), generator=gen, device="cuda").to(
+            torch.bfloat16)
+        xi, wi = ((t.to(torch.int32) // 16).to(torch.bfloat16)
+                  for t in (x8, w8))
+        ref8 = MM.int8_matmul_reference(x8, w8)
+        ref = MM.bf16_matmul_reference(x, w)
+        tol = MM.bf16_tolerance(x, w, ref)
+        refi = MM.bf16_matmul_reference(xi, wi)
+        for tile in (None,) + MM.TILES:
+            what = f"[{m}x{k}x{n}] tile {tile_name(tile)}"
+            if not torch.equal(MM.int8_matmul(x8, w8, tile=tile), ref8):
+                raise AssertionError(f"K7a {what}: not bit-equal")
+            out = MM.bf16_matmul(x, w, tile=tile)
+            ratio = ((out.float() - ref.float()).abs() / tol).max().item()
+            if not ratio <= 1.0:
+                raise AssertionError(f"K7b {what}: error {ratio} x its bound")
+            if not torch.equal(MM.bf16_matmul(xi, wi, tile=tile), refi):
+                raise AssertionError(f"K7b {what}: not equal on integers")
+            worst = max(worst, ratio)
+    k = MM.INT8_MAX_K // 32 * 32
+    for n in (12, 5):  # the TMA store and the direct store
+        x8 = torch.full((3, k), -128, dtype=torch.int8, device="cuda")
+        w8 = torch.full((n, k), -128, dtype=torch.int8, device="cuda")
+        out = MM.int8_matmul(x8, w8)
+        if not (torch.equal(out, MM.int8_matmul_reference(x8, w8))
+                and bool(out.eq(k * 128 * 128).all())):
+            raise AssertionError(f"K7a: -128s at K = {k}, N = {n} not exact")
+    x8, w8 = x8[:, :768].contiguous(), w8[:, :768].contiguous()
+    if not torch.equal(MM.int8_matmul(x8, w8), MM.int8_matmul(x8, w8)):
+        raise AssertionError("K7a: two calls differ")
+    res = dict(shapes=len(MATMUL_SWEEP), tiles=len(MM.TILES) + 1,
+               k7b_max_err_over_bound=worst, largest_k=k,
+               stores={"K7a": dict(MM.int8_matmul.stores),
+                       "K7b": dict(MM.bf16_matmul.stores)})
+    print(f"K7 sweep: {res}", flush=True)
+    return res
+
+
 def check_matmul_kernels(torch):
     """K7a and K7b against their plain versions: K7a at the probe shape,
     the four dense layers of the int8 clip_l14 teacher at M = 37824 and two
     ragged shapes, bit for bit; K7b at the probe and the ragged shapes,
     within one bf16 ulp of |plain| (plus the fp32 summation-order term that
     matters near zero, ``bf16_tolerance``). Times at the probe and teacher
-    shapes, with ``torch._int_mm`` (cuBLASLt) and ``torch.matmul`` (cuBLAS)
-    as the yardsticks."""
+    shapes: single launches, device time (back-to-back launches) at the
+    default tile and at every tile shape, with ``torch._int_mm``
+    (cuBLASLt) and ``torch.matmul`` (cuBLAS) as the yardsticks."""
     from unite_torch.ops import matmul as MM
     from unite_torch.tools.quant_kernel_probe import int_mm_operand
 
@@ -487,9 +560,14 @@ def check_matmul_kernels(torch):
             w_lib = int_mm_operand(x8, w8)
             res.update(
                 ms=median_ms(lambda: MM.int8_matmul(x8, w8)),
+                device_ms=device_ms(lambda: MM.int8_matmul(x8, w8)),
+                tiles_device_ms={tile_name(t): device_ms(
+                    partial(MM.int8_matmul, x8, w8, tile=t))
+                    for t in MM.TILES},
                 plain_ms=median_ms(lambda: MM.int8_matmul_reference(x8, w8),
                                    iters=5),
                 library_ms=median_ms(lambda: torch._int_mm(x8, w_lib)),
+                library_device_ms=device_ms(lambda: torch._int_mm(x8, w_lib)),
                 library="torch._int_mm (cuBLASLt)",
                 library_equal=bool(torch.equal(torch._int_mm(x8, w_lib), ref)))
             res["bound_ms"], res["bound_by"] = bound(
@@ -521,8 +599,13 @@ def check_matmul_kernels(torch):
         if label == "probe":
             res.update(
                 ms=median_ms(lambda: MM.bf16_matmul(x, w)),
+                device_ms=device_ms(lambda: MM.bf16_matmul(x, w)),
+                tiles_device_ms={tile_name(t): device_ms(
+                    partial(MM.bf16_matmul, x, w, tile=t))
+                    for t in MM.TILES},
                 plain_ms=median_ms(lambda: MM.bf16_matmul_reference(x, w)),
                 library_ms=median_ms(lambda: torch.matmul(x, w.t())),
+                library_device_ms=device_ms(lambda: torch.matmul(x, w.t())),
                 library="torch.matmul (cuBLAS)")
             res["bound_ms"], res["bound_by"] = bound(
                 2 * (m * k + n * k + m * n), 2.0 * m * k * n)
@@ -1229,7 +1312,7 @@ def stage2_eval(torch, A, state, eval_step, b: int = 32, warmup: int = 2,
 
 
 # the wgmma sources: neither may spill; a serialized product is reported
-WGMMA_SOURCES = ("flash_fwd_wgmma", "short_attn_wgmma")
+WGMMA_SOURCES = ("flash_fwd_wgmma", "short_attn_wgmma", "blocked_matmul_wgmma")
 
 
 def check_ptxas(paths) -> dict:
@@ -1891,6 +1974,7 @@ def main() -> int:
     short_lengths = check_short_lengths(torch, A)
     kr.update(check_grouped_kernels(torch, A))
     mark("K1-K6 checked")
+    matmul_sweep = check_matmul_sweep(torch)
     kr.update(check_matmul_kernels(torch))
     probe = run_probe(torch, A)
     kr.update(check_kernels(torch, A, heads=16,
@@ -1980,15 +2064,15 @@ def main() -> int:
              "unite_torch/csrc/fused_qkv_bwd.cu",
              "unite_tpu/ops/attention.py:773", l14["k2_launches"]),
             ("K7a/probe", "int8_matmul[probe 38400x768x3072]",
-             "unite_torch/csrc/blocked_matmul.cu",
+             "unite_torch/csrc/blocked_matmul_wgmma.cu",
              "tools/quant_kernel_probe.py:22", probe["launches"]["K7a"]),
             *((f"K7a/{layer}", f"int8_matmul[int8 clip_l14 {layer} "
-               f"{m}x{k}x{n}]", "unite_torch/csrc/blocked_matmul.cu",
+               f"{m}x{k}x{n}]", "unite_torch/csrc/blocked_matmul_wgmma.cu",
                "tools/quant_kernel_probe.py:22",
                l14q["k7a_by_shape"][f"{m}x{k}x{n}"])
               for layer, (m, k, n) in L14_DENSE.items()),
             ("K7b/probe", "bf16_matmul[probe 38400x768x3072]",
-             "unite_torch/csrc/blocked_matmul.cu",
+             "unite_torch/csrc/blocked_matmul_wgmma.cu",
              "tools/quant_kernel_probe.py:53", probe["launches"]["K7b"])):
         r = kr[key]
         kernels.append({"name": name, "route": "cuda", "source": src,
@@ -2009,7 +2093,8 @@ def main() -> int:
                       "int8_teacher_vs_bf16": int8_teacher,
                       "probe": probe, "flash_fwd_lengths": lengths,
                       "short_fwd_lengths": short_lengths,
-                      "wgmma_ptxas": ptxas, "matmul_checks": {
+                      "wgmma_ptxas": ptxas, "matmul_sweep": matmul_sweep,
+                      "matmul_checks": {
                           k: r for k, r in kr.items() if k.startswith("K7")},
                       "yardsticks": {k: {x: r[x] for x in r if x.startswith(
                           ("library", "flash_fwd", "device"))}

@@ -310,11 +310,22 @@ def test_fused_qkv_kernels_at_16_heads(cuda, s):
         2e-2 * dref.abs().max().item()
 
 
+# K7's card shapes: ragged M and N (N % 4 != 0 and N % 8 != 0 take the
+# direct store, the others the TMA store), K not a multiple of the kernel's
+# 128-byte box (32, 96, 800 elements), one row, M below and above one wave
+# of 128-row tiles on 132 SMs (N = 256: two tiles a band), and the int8
+# clip_l14 teacher's four dense layers at a small M; K = 0, an empty sum
+MATMUL_SHAPES = [(1, 32, 8), (130, 96, 257), (394, 768, 2304),
+                 (300, 4096, 1024), (129, 32, 7), (257, 96, 12),
+                 (200, 800, 20), (1, 800, 4), (1, 1024, 1),
+                 (128 * 60, 64, 256), (128 * 70 + 3, 64, 256),
+                 (200, 1024, 3072), (200, 1024, 1024), (200, 1024, 4096),
+                 (200, 4096, 1024), (3, 0, 8)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("m,k,n", [(1, 32, 8), (130, 96, 257), (394, 768, 2304),
-                                   (300, 4096, 1024)])
+@pytest.mark.parametrize("m,k,n", MATMUL_SHAPES)
 def test_int8_matmul_matches_plain_bitwise_on_card(cuda, m, k, n):
-    # ragged M and N (odd N takes the scalar stores), one row, K = 4096
     gen = torch.Generator(device=cuda).manual_seed(m + n)
     x8 = torch.randint(-128, 128, (m, k), generator=gen, device=cuda,
                        dtype=torch.int8)
@@ -329,7 +340,7 @@ def test_int8_matmul_matches_plain_bitwise_on_card(cuda, m, k, n):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("m,k,n", [(1, 16, 8), (130, 96, 257), (394, 768, 2304)])
+@pytest.mark.parametrize("m,k,n", [(1, 16, 8)] + MATMUL_SHAPES)
 def test_bf16_matmul_matches_plain_on_card(cuda, m, k, n):
     gen = torch.Generator(device=cuda).manual_seed(m + k)
     x = torch.randn((m, k), generator=gen, device=cuda).to(torch.bfloat16)
@@ -347,6 +358,52 @@ def test_bf16_matmul_matches_plain_on_card(cuda, m, k, n):
     wi = torch.randint(-8, 9, (n, k), generator=gen, device=cuda).to(
         torch.bfloat16)
     assert torch.equal(MM.bf16_matmul(xi, wi), MM.bf16_matmul_reference(xi, wi))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile", MM.TILES)
+@pytest.mark.parametrize("m,k,n", [(394, 768, 2304), (130, 96, 257),
+                                   (300, 4096, 1024)])
+def test_matmul_tiles_match_plain_on_card(cuda, tile, m, k, n):
+    # every tile shape of the kernel, bit for bit (K7a) and on small
+    # integers (K7b, whose fp32 partial sums are then exact)
+    gen = torch.Generator(device=cuda).manual_seed(m * k)
+    x8 = torch.randint(-128, 128, (m, k), generator=gen, device=cuda,
+                       dtype=torch.int8)
+    w8 = torch.randint(-128, 128, (n, k), generator=gen, device=cuda,
+                       dtype=torch.int8)
+    assert torch.equal(MM.int8_matmul(x8, w8, tile=tile),
+                       MM.int8_matmul_reference(x8, w8))
+    # small integers in [-8, 7]: every fp32 partial sum is exact
+    xi, wi = ((t.to(torch.int32) // 16).to(torch.bfloat16) for t in (x8, w8))
+    assert torch.equal(MM.bf16_matmul(xi, wi, tile=tile),
+                       MM.bf16_matmul_reference(xi, wi))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [12, 5])
+def test_int8_matmul_exact_at_the_largest_k_on_card(cuda, n):
+    # -128 everywhere at the largest K the card takes: every sum is
+    # 131040 * 2^14 = 2146959360, just below 2^31 (both store routes)
+    k = MM.INT8_MAX_K // 32 * 32
+    assert k == 131040
+    x8 = torch.full((3, k), -128, dtype=torch.int8, device=cuda)
+    w8 = torch.full((n, k), -128, dtype=torch.int8, device=cuda)
+    out = MM.int8_matmul(x8, w8)
+    assert torch.equal(out, MM.int8_matmul_reference(x8, w8))
+    assert out.eq(k * 128 * 128).all()
+
+
+@pytest.mark.cuda
+def test_matmul_repeats_are_equal_on_card(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    x8 = torch.randint(-128, 128, (394, 768), generator=gen, device=cuda,
+                       dtype=torch.int8)
+    w8 = torch.randint(-128, 128, (2304, 768), generator=gen, device=cuda,
+                       dtype=torch.int8)
+    assert torch.equal(MM.int8_matmul(x8, w8), MM.int8_matmul(x8, w8))
+    x, w = x8.to(torch.bfloat16), w8.to(torch.bfloat16)
+    assert torch.equal(MM.bf16_matmul(x, w), MM.bf16_matmul(x, w))
 
 
 @pytest.mark.cuda

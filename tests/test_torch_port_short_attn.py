@@ -43,7 +43,9 @@ def test_short_source_is_built_and_declared():
 
 @pytest.fixture
 def entry(monkeypatch):
-    """Record the calls that reach the kernel's C entry points."""
+    """Record the calls that reach the kernel's C entry points. The
+    wrappers' launch counters start at 0 and are restored afterwards, so
+    that no other test in the process sees these launches."""
     calls = []
 
     def load(name):
@@ -53,6 +55,8 @@ def entry(monkeypatch):
 
     monkeypatch.setattr(_build, "load", load)
     monkeypatch.setattr(TA, "_stream", lambda t: 0)
+    for fn in (TA.fused_qkv_fwd, TA.grouped_fwd):
+        monkeypatch.setattr(fn, "launches", 0)
     return calls
 
 

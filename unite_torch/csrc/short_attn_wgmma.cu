@@ -514,18 +514,6 @@ __global__ void __launch_bounds__(THREADS, 1)
   }
 }
 
-int sm_count() {
-  static const int count = [] {
-    int dev = 0, n = 0;
-    if (cudaGetDevice(&dev) != cudaSuccess ||
-        cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) !=
-            cudaSuccess)
-      return 132;
-    return n;
-  }();
-  return count;
-}
-
 template <int NC, bool MULTI, bool GROUPED>
 int launch(const CUtensorMap (&maps)[4], float* st0, float* st1, int B,
            int S, int H, int rows, float c, int perms, cudaStream_t stream) {

@@ -24,7 +24,7 @@ from typing import Dict
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "unite_torch_kernels"
 SOURCES = ("short_attn_wgmma", "fused_qkv_bwd", "flash_fwd_wgmma",
-           "packed_flash_bwd", "grouped_attn_bwd", "blocked_matmul")
+           "packed_flash_bwd", "grouped_attn_bwd", "blocked_matmul_wgmma")
 HEADERS = ("fused_qkv_common.cuh", "hopper.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -97,6 +97,8 @@ def _declare(lib: ctypes.CDLL) -> None:
         "unite_grouped_dkv": [p] * 9 + [ll, i, i, i, f, f, p],
         "unite_int8_matmul": [p, p, p, i, i, i, p],
         "unite_bf16_matmul": [p, p, p, i, i, i, p],
+        "unite_int8_matmul_tile": [p, p, p, i, i, i, i, i, p],
+        "unite_bf16_matmul_tile": [p, p, p, i, i, i, i, i, p],
     }
     for name, argtypes in signatures.items():
         if hasattr(lib, name):

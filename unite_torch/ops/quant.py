@@ -10,9 +10,9 @@ of each block (``CLIP_QUANT_DENSE_NAMES``: the qkv ``in_proj``,
 * per-token dynamic symmetric activation scales, one abs-max pass a call
   (``int8_dense``).
 
-The int8 product is K7a (``ops.matmul.int8_matmul``, csrc/blocked_matmul.cu)
-on the card and its exact plain version on the CPU; the quantize and
-dequantize passes around it are eager PyTorch. Every step repeats the JAX
+The int8 product is K7a (``ops.matmul.int8_matmul``,
+csrc/blocked_matmul_wgmma.cu) on the card and its exact plain version on
+the CPU; the quantize and dequantize passes around it are eager PyTorch. Every step repeats the JAX
 package's arithmetic in the same order, so on the CPU the port's int8
 product equals JAX's bit for bit in fp32 and in bf16.
 
