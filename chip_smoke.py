@@ -10,7 +10,8 @@ toolkit. In order:
 2. build: every kernel under ``unite_torch/csrc`` compiled by ``nvcc`` for
    sm_90a into ``build/unite_torch_kernels/`` (one process per source, in
    parallel), with each kernel's ptxas line (registers, spills); the
-   wgmma kernels of K3/K6 (csrc/flash_fwd_wgmma.cu), K1/K5
+   wgmma kernels of the K3/K6 forward (csrc/flash_fwd_wgmma.cu), the
+   K4/K6 backward (csrc/flash_bwd_wgmma.cu), K1/K5
    (csrc/short_attn_wgmma.cu) and K7 (csrc/blocked_matmul_wgmma.cu) must
    not spill, and a serialized product is reported;
 3. kernels against their plain versions at the main-path shapes: K1 (fused
@@ -27,10 +28,14 @@ toolkit. In order:
    and dK/dV kernels) at the stage-1 mask-0.75 student's [64, 12, 392, 64]
    (both layouts), [64, 12, 512, 64] and [5, 12, 393, 64]; error, median
    time, the plain version's time, the bound, and one PyTorch call
-   (``scaled_dot_product_attention``) as a yardstick; the K3/K6 forward
+   (``scaled_dot_product_attention``) as a yardstick, and for the K4/K6
+   backward also the device time of back-to-back launches beside SDPA's
+   backward queued the same way; the K3/K6 forward
    at every length of ``SWEEP_LENGTHS`` (around its 128-row tiles) at 2
    and 12 heads, on contiguous tensors, strided qkv views and the packed
-   lanes, with and without the lse; the short forward (K1 and K5's
+   lanes, with and without the lse; the K4/K6 backward at the same lengths
+   and heads on the packed lanes, strided views and contiguous tensors,
+   each repeat equal bit for bit; the short forward (K1 and K5's
    forward) at every length of ``SHORT_LENGTHS`` at 2, 12 and 16 heads
    (K1 on packed lanes, K5 on views and contiguous tensors, with and
    without statistics, bit for bit on repeats) and with k = -q;
@@ -1124,20 +1129,29 @@ def check_packed_kernels(torch, A):
 
     fwd_bwd_ms = median_ms(sdpa_fwd_bwd)
     o_lib = F.scaled_dot_product_attention(q, k, v, scale=SCALE)
-    bwd_ms = median_ms(lambda: torch.autograd.grad(o_lib, (q, k, v), do_h,
-                                                   retain_graph=True))
+
+    def sdpa_bwd():
+        torch.autograd.grad(o_lib, (q, k, v), do_h, retain_graph=True)
+
+    bwd_ms, bwd_dev_ms = median_ms(sdpa_bwd), device_ms(sdpa_bwd)
+    dev_dq = device_ms(lambda: A.packed_flash_dq(qkv, out, lse, do, buf, delta,
+                                                 HEADS, SCALE))
+    dev_dkv = device_ms(lambda: A.packed_flash_dkv(qkv, do, lse, delta, buf,
+                                                   HEADS, SCALE))
     tok = b * s * hd * 2  # bytes of one [B, S, H*D] bf16 tensor
     stat = b * HEADS * s * 4  # one fp32 row statistic
     # K4a reads qkv, o, do, lse and writes dq, delta: 3 products (s, dp,
     # dq); K4b reads qkv, do, lse, delta and writes dk, dv: 4 products
-    for key, name, ms, plain, nbytes, flops, e in (
-            ("K4a", "dq", ms_dq, plain_dq, 6 * tok + 2 * stat, 6.0, errs["dq"]),
-            ("K4b", "dkv", ms_dkv, plain_dkv, 6 * tok + 2 * stat, 8.0,
+    for key, name, ms, dev, plain, nbytes, flops, e in (
+            ("K4a", "dq", ms_dq, dev_dq, plain_dq, 6 * tok + 2 * stat, 6.0,
+             errs["dq"]),
+            ("K4b", "dkv", ms_dkv, dev_dkv, plain_dkv, 6 * tok + 2 * stat, 8.0,
              max(errs["dk"], errs["dv"]))):
         bms, by = bound(nbytes, flops * b * HEADS * s * s * 64)
         results[key] = dict(
             shape=[b, s, 3 * hd], max_abs_err=e[0], tol=e[1], ms=ms,
-            plain_ms=plain, bound_ms=bms, bound_by=by, library_ms=bwd_ms,
+            device_ms=dev, plain_ms=plain, bound_ms=bms, bound_by=by,
+            library_ms=bwd_ms, library_device_ms=bwd_dev_ms,
             library="scaled_dot_product_attention backward (dq, dk, dv: "
                     "K4a and K4b together)",
             library_fwd_bwd_ms=fwd_bwd_ms)
@@ -1311,8 +1325,9 @@ def stage2_eval(torch, A, state, eval_step, b: int = 32, warmup: int = 2,
     return res
 
 
-# the wgmma sources: neither may spill; a serialized product is reported
-WGMMA_SOURCES = ("flash_fwd_wgmma", "short_attn_wgmma", "blocked_matmul_wgmma")
+# the wgmma sources: none may spill; a serialized product is reported
+WGMMA_SOURCES = ("flash_fwd_wgmma", "flash_bwd_wgmma", "short_attn_wgmma",
+                 "blocked_matmul_wgmma")
 
 
 def check_ptxas(paths) -> dict:
@@ -1384,6 +1399,62 @@ def check_flash_lengths(torch, A):
             del qkv, views, dense, ref, ref_lse, out, lse, out_nl
     print(f"K3/K6 forward lengths {list(SWEEP_LENGTHS)} x heads (2, {HEADS}) "
           f"x (contiguous, views, packed) x lse: {worst}", flush=True)
+    return worst
+
+
+def check_flash_bwd_lengths(torch, A):
+    """Phase 3: the flash backward (csrc/flash_bwd_wgmma.cu: K4a/K4b and
+    K6's dq and dk/dv) against its plain versions at every length of
+    ``SWEEP_LENGTHS`` (B=2, 2 and 12 heads), on the packed lane slices of
+    qkv (K4), strided qkv views with o and do laid out as the models lay
+    them out, and contiguous tensors (K6), from the plain forward's o and
+    lse2, within ``BWD_TOL`` times the largest |dq|, |dk| or |dv| of the
+    plain version (at S = 1, dq and dk are 0 up to rounding noise, so no
+    tolerance relative to them alone holds); a repeat must be equal bit for
+    bit (no atomics). Returns the largest errors over that scale, by
+    length."""
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    worst = {}
+    for s in SWEEP_LENGTHS:
+        for h in (2, HEADS):
+            qkv = torch.randn((2, s, 3 * h * 64), generator=gen,
+                              device="cuda").to(torch.bfloat16)
+            views = A._split_heads(qkv, h)
+            dense = [t.contiguous() for t in views]
+            o, lse = A.flash_reference(*dense, scale=SCALE)
+            do = torch.randn(o.shape, generator=gen, device="cuda").to(
+                torch.bfloat16)
+            refs = A.flash_reference_bwd(*dense, o, lse, do, scale=SCALE)
+            o_rows, do_rows = (A._empty_like_rows(views[0]).copy_(x)
+                               for x in (o, do))
+            runs = {"contiguous": lambda: A.flash_bwd(*dense, o, lse, do,
+                                                      SCALE),
+                    "views": lambda: A.flash_bwd(*views, o_rows, lse,
+                                                 do_rows, SCALE)}
+            out_p, do_p = A._merge_heads(o), A._merge_heads(do)
+            runs["packed"] = lambda: [
+                A._heads_of(x, h) for x in A.packed_flash_bwd(
+                    qkv, out_p, lse, do_p, h, SCALE).chunk(3, dim=-1)]
+            top = max(r.float().abs().max().item() for r in refs)
+            tol = BWD_TOL * top
+            for layout, run in runs.items():
+                got, again = run(), run()
+                torch.cuda.synchronize()
+                for name, a, r, a2 in zip(("dq", "dk", "dv"), got, refs,
+                                          again):
+                    e = (a.float() - r.float()).abs().max().item()
+                    if (not bool(torch.isfinite(a).all()) or e > tol
+                            or not torch.equal(a, a2)):
+                        raise AssertionError(
+                            f"flash backward S={s} H={h} {layout} {name}: max "
+                            f"abs err {e} (tol {tol}), repeat equal "
+                            f"{torch.equal(a, a2)}")
+                    w = worst.setdefault(s, {})
+                    w[name] = max(w.get(name, 0.0), e / top)
+            del qkv, views, dense, o, lse, do, refs, o_rows, do_rows, got
+    print(f"flash backward lengths {list(SWEEP_LENGTHS)} x heads (2, "
+          f"{HEADS}) x (packed, views, contiguous): max abs err / max |ref| "
+          f"{worst}", flush=True)
     return worst
 
 
@@ -1544,23 +1615,32 @@ def check_flash_kernels(torch, A):
                                                            lse, SCALE))
         plain_dkv = median_ms(lambda: A._flash_dkv_reference(q, k, v, do, lse,
                                                              delta, SCALE))
+        dev_dq = device_ms(lambda: A.flash_dq(q, k, v, out, do, lse, dq,
+                                              delta, SCALE))
+        dev_dkv = device_ms(lambda: A.flash_dkv(q, k, v, do, lse, delta, dk,
+                                                dv, SCALE))
         leaves = [t.detach().requires_grad_(True) for t in dense]
         o_lib = F.scaled_dot_product_attention(*leaves, scale=SCALE)
-        bwd_ms = median_ms(lambda: torch.autograd.grad(o_lib, leaves, do,
-                                                       retain_graph=True))
+
+        def sdpa_bwd():
+            torch.autograd.grad(o_lib, leaves, do, retain_graph=True)
+
+        bwd_ms, bwd_dev_ms = median_ms(sdpa_bwd), device_ms(sdpa_bwd)
 
         def sdpa_fwd_bwd():
             F.scaled_dot_product_attention(*leaves, scale=SCALE).backward(do)
 
         fwd_bwd_ms = median_ms(sdpa_fwd_bwd)
-        for key, ms_k, plain, nbytes, flops, e in (
-                ("dq", ms_dq, plain_dq, 6 * tok + 2 * stat, 6.0, berr["dq"]),
-                ("dkv", ms_dkv, plain_dkv, 6 * tok + 2 * stat, 8.0,
+        for key, ms_k, dev, plain, nbytes, flops, e in (
+                ("dq", ms_dq, dev_dq, plain_dq, 6 * tok + 2 * stat, 6.0,
+                 berr["dq"]),
+                ("dkv", ms_dkv, dev_dkv, plain_dkv, 6 * tok + 2 * stat, 8.0,
                  max(berr["dk"], berr["dv"]))):
             bms, by = bound(nbytes, flops * b * h * s * s * 64)
             results[f"K6{key}/{label}"] = dict(
                 shape=[b, h, s, 64], max_abs_err=e[0], tol=e[1], ms=ms_k,
-                plain_ms=plain, bound_ms=bms, bound_by=by, library_ms=bwd_ms,
+                device_ms=dev, plain_ms=plain, bound_ms=bms, bound_by=by,
+                library_ms=bwd_ms, library_device_ms=bwd_dev_ms,
                 library="scaled_dot_product_attention backward (dq, dk, dv: "
                         "the dq and dk/dv kernels together)",
                 library_fwd_bwd_ms=fwd_bwd_ms)
@@ -1971,6 +2051,7 @@ def main() -> int:
     kr.update(check_packed_kernels(torch, A))
     kr.update(check_flash_kernels(torch, A))
     lengths = check_flash_lengths(torch, A)
+    bwd_lengths = check_flash_bwd_lengths(torch, A)
     short_lengths = check_short_lengths(torch, A)
     kr.update(check_grouped_kernels(torch, A))
     mark("K1-K6 checked")
@@ -2028,10 +2109,10 @@ def main() -> int:
              "unite_torch/csrc/flash_fwd_wgmma.cu",
              "unite_tpu/ops/attention.py:913", ev["k3_launches"]),
             ("K4a", "packed_flash_dq[train B=8 S=1568]",
-             "unite_torch/csrc/packed_flash_bwd.cu",
+             "unite_torch/csrc/flash_bwd_wgmma.cu",
              "unite_tpu/ops/attention.py:983", s2["k4_dq_launches"]),
             ("K4b", "packed_flash_dkv[train B=8 S=1568]",
-             "unite_torch/csrc/packed_flash_bwd.cu",
+             "unite_torch/csrc/flash_bwd_wgmma.cu",
              "unite_tpu/ops/attention.py:1014", s2["k4_dkv_launches"]),
             ("K6/train", "flash_fwd[stage-3 CLS train B=5 S=1569]",
              "unite_torch/csrc/flash_fwd_wgmma.cu",
@@ -2040,10 +2121,10 @@ def main() -> int:
              "unite_torch/csrc/flash_fwd_wgmma.cu",
              "unite_tpu/ops/attention.py:148", ev3["k6_launches"]),
             ("K6dq/train", "flash_dq[stage-3 CLS train B=5 S=1569]",
-             "unite_torch/csrc/packed_flash_bwd.cu",
+             "unite_torch/csrc/flash_bwd_wgmma.cu",
              "unite_tpu/ops/attention.py:231", s3c["launches"]["K6dq"]),
             ("K6dkv/train", "flash_dkv[stage-3 CLS train B=5 S=1569]",
-             "unite_torch/csrc/packed_flash_bwd.cu",
+             "unite_torch/csrc/flash_bwd_wgmma.cu",
              "unite_tpu/ops/attention.py:270", s3c["launches"]["K6dkv"]),
             ("K5/m075", "grouped_fwd[stage-1 mask 0.75 B=64 S=392]",
              "unite_torch/csrc/short_attn_wgmma.cu",
@@ -2092,6 +2173,7 @@ def main() -> int:
                       "l14_int8_card_vs_cpu_rel": l14_rel,
                       "int8_teacher_vs_bf16": int8_teacher,
                       "probe": probe, "flash_fwd_lengths": lengths,
+                      "flash_bwd_lengths": bwd_lengths,
                       "short_fwd_lengths": short_lengths,
                       "wgmma_ptxas": ptxas, "matmul_sweep": matmul_sweep,
                       "matmul_checks": {

@@ -182,6 +182,81 @@ def test_flash_forward_lengths_on_card(cuda, s, heads):
     assert none is None
 
 
+def _bwd_within(got, refs, what):
+    """Each gradient within 2e-2 of the largest |dq|, |dk| or |dv| of the
+    plain version (at S = 1, dq and dk are 0 up to rounding noise)."""
+    tol = 2e-2 * max(r.float().abs().max().item() for r in refs)
+    for name, a, r in zip(("dq", "dk", "dv"), got, refs):
+        assert bool(torch.isfinite(a).all()), (what, name)
+        assert _max_err(a, r) <= tol, (what, name, _max_err(a, r), tol)
+
+
+def _bwd_inputs(cuda, b, s, heads, seed):
+    """qkv, its strided views and their contiguous copies, with the plain
+    forward's o and lse2 and a cotangent do."""
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    qkv = torch.randn((b, s, 3 * heads * 64), generator=gen, device=cuda
+                      ).to(torch.bfloat16)
+    views = TA._split_heads(qkv, heads)
+    dense = [t.contiguous() for t in views]
+    o, lse = TA.flash_reference(*dense, scale=SCALE)
+    do = torch.randn(o.shape, generator=gen, device=cuda).to(torch.bfloat16)
+    return qkv, views, dense, o, lse, do
+
+
+def _flash_bwd_layouts(views, dense, o, lse, do):
+    """K6's backward on contiguous tensors and on strided qkv views (o and
+    do laid out as the models lay them out): the counters move by one dq
+    and one dk/dv launch a call, and a repeat is equal bit for bit."""
+    o_rows, do_rows = (TA._empty_like_rows(views[0]).copy_(x)
+                       for x in (o, do))
+    results = {}
+    for layout, args in (("contiguous", (*dense, o, lse, do)),
+                         ("views", (*views, o_rows, lse, do_rows))):
+        c0 = (TA.flash_dq.launches, TA.flash_dkv.launches)
+        got = TA.flash_bwd(*args, SCALE)
+        again = TA.flash_bwd(*args, SCALE)
+        assert (TA.flash_dq.launches, TA.flash_dkv.launches) == (
+            c0[0] + 2, c0[1] + 2)
+        for a, b in zip(got, again):
+            assert torch.equal(a, b), layout
+        results[layout] = got
+    return results
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("heads", [2, 12])
+@pytest.mark.parametrize("s", [1, 7, 64, 127, 128, 129, 577, 1568, 1569, 2048])
+def test_flash_backward_lengths_on_card(cuda, s, heads):
+    # csrc/flash_bwd_wgmma.cu (K4a/K4b and K6's dq and dk/dv) around its
+    # 128-row resident and 64-row streamed tiles, on contiguous tensors,
+    # strided qkv views and the packed lanes, from the plain forward's o
+    # and lse2; no atomics, so repeats are equal bit for bit
+    qkv, views, dense, o, lse, do = _bwd_inputs(cuda, 2, s, heads,
+                                                200 + s * heads)
+    refs = TA.flash_reference_bwd(*dense, o, lse, do, scale=SCALE)
+    for layout, got in _flash_bwd_layouts(views, dense, o, lse, do).items():
+        _bwd_within(got, refs, layout)
+    out, g = TA._merge_heads(o), TA._merge_heads(do)
+    c0 = (TA.packed_flash_dq.launches, TA.packed_flash_dkv.launches)
+    dqkv = TA.packed_flash_bwd(qkv, out, lse, g, heads, SCALE)
+    again = TA.packed_flash_bwd(qkv, out, lse, g, heads, SCALE)
+    assert (TA.packed_flash_dq.launches, TA.packed_flash_dkv.launches) == (
+        c0[0] + 2, c0[1] + 2)
+    assert torch.equal(dqkv, again)
+    _bwd_within([TA._heads_of(x, heads) for x in dqkv.chunk(3, dim=-1)],
+                refs, "packed")
+
+
+@pytest.mark.cuda
+def test_flash_backward_at_16_heads_on_card(cuda):
+    # the clip_l14_336 teacher's [40, 16, 577, 64] (577 = 4*128 + 65)
+    _, views, dense, o, lse, do = _bwd_inputs(cuda, 40, 577, 16, 577)
+    refs = TA.flash_reference_bwd(*dense, o, lse, do, scale=SCALE)
+    for layout, got in _flash_bwd_layouts(views, dense, o, lse, do).items():
+        _bwd_within(got, refs, layout)
+
+
 @pytest.mark.cuda
 def test_autograd_through_multi_head_attention(cuda):
     (q, k, v), _ = _flash_inputs(cuda, 2, 600, 2, strided=False)

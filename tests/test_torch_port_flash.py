@@ -320,3 +320,160 @@ def test_forward_kernel_builds_from_the_wgmma_source(monkeypatch):
     assert args[:6] == (16, 32, 48, 64, None, strides)
     assert args[6:9] == (1, 3, 2)  # B, S, H
     np.testing.assert_allclose(args[9], 0.125 * TA.INV_LN2)
+
+
+# ------------------------------------------------- the backward's C entries
+
+BWD_ENTRIES = ("unite_flash_dq", "unite_flash_dkv")
+BWD_COUNTERS = ("packed_flash_dq", "packed_flash_dkv", "flash_dq",
+                "flash_dkv")
+
+
+def test_backward_kernels_build_from_the_wgmma_source():
+    # K4a/K4b and K6's dq and dk/dv launch the two entries of
+    # csrc/flash_bwd_wgmma.cu (with the Hopper header); the mma.sync source
+    # is gone, and no other source declares them
+    from types import SimpleNamespace
+
+    from unite_torch.ops import _build
+
+    assert "flash_bwd_wgmma" in _build.SOURCES
+    assert "packed_flash_bwd" not in _build.SOURCES
+    assert not (_build.CSRC / "packed_flash_bwd.cu").exists()
+    text = (_build.CSRC / "flash_bwd_wgmma.cu").read_text()
+    assert '#include "hopper.cuh"' in text
+    # the profile's attention class matches the kernels' names
+    assert "flash_dq_wgmma_kernel(" in text and "flash_dkv_wgmma_kernel(" in text
+    for name in BWD_ENTRIES:
+        assert f'extern "C" int {name}(' in text
+        others = [n for n in _build.SOURCES if n != "flash_bwd_wgmma"
+                  and name in (_build.CSRC / f"{n}.cu").read_text()]
+        assert others == [], (name, others)
+    lib = SimpleNamespace(**{name: SimpleNamespace() for name in BWD_ENTRIES})
+    _build._declare(lib)
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    for name in BWD_ENTRIES:
+        fn = getattr(lib, name)
+        assert fn.restype is ctypes.c_int
+        assert fn.argtypes[:8] == [p] * 8  # 6 views, lse, delta
+        assert fn.argtypes[9:] == [i, i, i, f, f, p]  # B, S, H, c, scale
+
+
+@pytest.fixture
+def bwd_entry(monkeypatch):
+    """Record the calls that reach the backward's C entries, with the
+    wrappers' counters started afresh."""
+    from types import SimpleNamespace
+
+    from unite_torch.ops import _build
+
+    calls = []
+
+    def load(name):
+        return SimpleNamespace(**{
+            e: (lambda *a, e=e: calls.append((name, e, a)) or 0)
+            for e in BWD_ENTRIES})
+
+    monkeypatch.setattr(_build, "load", load)
+    monkeypatch.setattr(TA, "_stream", lambda t: 7)
+    for name in BWD_COUNTERS:
+        monkeypatch.setattr(getattr(TA, name), "launches", 0)
+    return calls
+
+
+def _arena(dtype):
+    """Slices of one meta buffer: tensors that take no memory, each with
+    its own data pointer."""
+    buf = torch.empty(1 << 30, dtype=dtype, device="meta")
+    at = [64]
+
+    def take(*shape):
+        n = int(np.prod(shape))
+        t = buf[at[0]:at[0] + n].view(*shape)
+        at[0] += n + 64
+        return t
+    return take
+
+
+def _check_call(call, entry, ptrs, strides, b, s, h):
+    lib, name, args = call
+    assert (lib, name) == ("flash_bwd_wgmma", entry)
+    assert args[:8] == tuple(ptrs)
+    assert list(args[8]) == list(strides)
+    assert args[9:12] == (b, s, h)
+    assert args[12:] == (SCALE * TA.INV_LN2, SCALE, 7)  # c, scale, stream
+
+
+@pytest.mark.parametrize("b,s,h", [(8, 1568, 12), (2, 600, 3)])
+def test_packed_backward_passes_the_lane_slices(bwd_entry, b, s, h):
+    # K4a and K4b: q, k, v are the lane slices of qkv, o and do those of
+    # out and do, and dq, dk, dv those of dqkv, with the packed strides
+    bf, f32 = _arena(torch.bfloat16), _arena(torch.float32)
+    hd = h * 64
+    qkv, dqkv = bf(b, s, 3 * hd), bf(b, s, 3 * hd)
+    out, do = bf(b, s, hd), bf(b, s, hd)
+    lse, delta = f32(b, h, s), f32(b, h, s)
+
+    def lanes(t, *parts):
+        return [t.data_ptr() + 2 * i * hd for i in parts]
+
+    wide, narrow = (s * 3 * hd, 64, 3 * hd), (s * hd, 64, hd)
+    TA.packed_flash_dq(qkv, out, lse, do, dqkv, delta, h, SCALE)
+    TA.packed_flash_dkv(qkv, do, lse, delta, dqkv, h, SCALE)
+    dq, dkv = bwd_entry
+    _check_call(dq, "unite_flash_dq",
+                lanes(qkv, 0, 1, 2) + [out.data_ptr(), do.data_ptr(),
+                                       lse.data_ptr(), delta.data_ptr()]
+                + lanes(dqkv, 0), wide * 3 + narrow * 2 + wide, b, s, h)
+    _check_call(dkv, "unite_flash_dkv",
+                lanes(qkv, 0, 1, 2) + [do.data_ptr(), lse.data_ptr(),
+                                       delta.data_ptr()] + lanes(dqkv, 1, 2),
+                wide * 3 + narrow + wide * 2, b, s, h)
+    assert (TA.packed_flash_dq.launches, TA.packed_flash_dkv.launches,
+            TA.flash_dq.launches, TA.flash_dkv.launches) == (1, 1, 0, 0)
+    # the full backward: dq first, then dk/dv from the delta it wrote
+    bwd_entry.clear()
+    TA.packed_flash_bwd(qkv, out, lse, do, h, SCALE)
+    (_, e0, a0), (_, e1, a1) = bwd_entry
+    assert (e0, e1) == BWD_ENTRIES and a0[6] == a1[5]
+    assert (TA.packed_flash_dq.launches, TA.packed_flash_dkv.launches) == (2, 2)
+
+
+@pytest.mark.parametrize("strided", [False, True])
+@pytest.mark.parametrize("b,s,h", [(5, 1569, 12), (40, 577, 16)])
+def test_flash_backward_passes_the_views(bwd_entry, strided, b, s, h):
+    # K6 dq and dk/dv: each view's pointer and (batch, head, row) strides,
+    # on contiguous tensors and on the strided views of a qkv projection
+    bf, f32 = _arena(torch.bfloat16), _arena(torch.float32)
+    if strided:
+        q, k, v = TA._split_heads(bf(b, s, 3 * h * 64), h)
+        o, do, dq, dk, dv = (bf(b, s, h, 64).transpose(1, 2)
+                             for _ in range(5))
+    else:
+        q, k, v, o, do, dq, dk, dv = (bf(b, h, s, 64) for _ in range(8))
+    lse, delta = f32(b, h, s), f32(b, h, s)
+
+    def args(*views):
+        return ([t.data_ptr() for t in views],
+                [x for t in views for x in t.stride()[:3]])
+
+    TA.flash_dq(q, k, v, o, do, lse, dq, delta, SCALE)
+    TA.flash_dkv(q, k, v, do, lse, delta, dk, dv, SCALE)
+    call_dq, call_dkv = bwd_entry
+    p, st = args(q, k, v, o, do, dq)
+    _check_call(call_dq, "unite_flash_dq",
+                p[:5] + [lse.data_ptr(), delta.data_ptr(), p[5]], st, b, s, h)
+    p, st = args(q, k, v, do, dk, dv)
+    _check_call(call_dkv, "unite_flash_dkv",
+                p[:4] + [lse.data_ptr(), delta.data_ptr()] + p[4:], st, b, s,
+                h)
+    assert (TA.flash_dq.launches, TA.flash_dkv.launches,
+            TA.packed_flash_dq.launches, TA.packed_flash_dkv.launches) == (
+                1, 1, 0, 0)
+    # flash_bwd: the outputs laid out as their inputs, one delta between
+    bwd_entry.clear()
+    TA.flash_bwd(q, k, v, o, lse, do, SCALE)
+    (_, e0, a0), (_, e1, a1) = bwd_entry
+    assert (e0, e1) == BWD_ENTRIES and a0[6] == a1[5]
+    assert list(a0[8])[15:] == list(TA._empty_like_rows(q).stride()[:3])
+    assert (TA.flash_dq.launches, TA.flash_dkv.launches) == (2, 2)

@@ -1,7 +1,7 @@
-// Shared pieces of the attention kernels: fused-qkv (K2), the strided flash
-// kernels (K4 on the packed layout, K6's backward on [B, H, S, D]) and K5's
-// backward; the wgmma forwards (K1, K3, K5 and K6) take the views, packing
-// and quad reductions from here.
+// Shared pieces of the attention kernels: the mma.sync backwards, fused-qkv
+// (K2) and K5's; the wgmma kernels (the forwards K1, K3, K5 and K6, and the
+// flash backward K4 and K6's) take the views, packing and quad reductions
+// from here.
 //
 // Layout: qkv is the qkv projection's natural [B, S, 3*H*D] row-major bf16
 // output. Head h reads q at lanes [h*D, (h+1)*D), k at +H*D, v at +2*H*D;
@@ -11,8 +11,8 @@
 // Tiles of the mma.sync kernels are products on the tensor cores through
 // mma.sync m16n8k16 (bf16 operands, fp32 accumulation). Each warp owns 16
 // rows at a time; a K2 block holds one (batch, head) and its warps walk
-// that head's 16-row tiles, a K4 block one 128-row tile of a (batch, head)
-// that streams the other operands through shared memory.
+// that head's 16-row tiles, a K5 block one tile of a (batch, head) that
+// streams the other operands through shared memory.
 // Right operands come from shared memory through ldmatrix (x4, transposed
 // for the p.v-type products). Fragment layouts (PTX ISA, lane = 4*g + t):
 //   A 16x16: a0 (g, 2t..2t+1)   a1 (g+8, 2t..)   a2 (g, 8+2t..)   a3 (g+8, 8+2t..)

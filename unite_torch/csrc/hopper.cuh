@@ -129,6 +129,19 @@ __device__ __forceinline__ void tma_store_4d(const CUtensorMap* map,
       : "memory");
 }
 
+// One box of a 1-D map at element coordinate c0 (a multiple of 16 bytes:
+// encode_1d_f32) into shared memory; completion is reported to `bar` in
+// bytes. Elements past the end arrive as zeros and count as bytes.
+__device__ __forceinline__ void tma_load_1d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0) {
+  asm volatile(
+      "cp.async.bulk.tensor.1d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3}], [%2];\n"
+      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
+         "r"(smem_u32(bar)), "r"(c0)
+      : "memory");
+}
+
 // One box of a 2-D map at element coordinates (c0 innermost, c1) into
 // shared memory; completion is reported to `bar` in bytes. Elements outside
 // the tensor arrive as zeros and count as bytes.
@@ -527,6 +540,34 @@ __device__ __forceinline__ void wgmma_m64n64k16_rs_tb(float (&d)[32],
         "r"(accumulate));
 }
 
+// d (+)= A . B, 64 x 64 x 16, A from registers (as in the transposed
+// product), B K-major in shared memory.
+__device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32],
+                                                   const uint32_t (&a)[4],
+                                                   uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31},"
+      " {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
+        "r"(accumulate));
+}
+
 // d (+)= A . B, 64 x 8 x 16, A from registers (as in the 64 x 64 product),
 // B K-major in shared memory.
 __device__ __forceinline__ void wgmma_m64n8k16_rs(float (&d)[4],
@@ -627,6 +668,33 @@ inline int encode_2d(CUtensorMap* map, CUtensorMapDataType type,
             "%s: cuTensorMapEncodeTiled failed (%d) for dims (%lld, %lld), "
             "box (%d, %d), %d-byte elements\n",
             who, (int)r, inner, rows, box_inner, box_rows, elem_bytes);
+    return (int)cudaErrorInvalidValue;
+  }
+  return 0;
+}
+
+// The 1-D map of `n` contiguous fp32 values in boxes of `box` (a multiple
+// of 4, at most 256), unswizzled. A box must start at a 16-byte aligned
+// element (at an unaligned one the load stops the kernel with an illegal
+// instruction), so a caller that wants rows of a [B, H, S] statistic at any
+// S loads from the aligned element at or before the first it needs.
+// Returns a CUDA error code; `who` names the caller in the message of a
+// failure.
+inline int encode_1d_f32(CUtensorMap* map, const void* base, long long n,
+                         int box, const char* who) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return (int)cudaErrorNotSupported;
+  const cuuint64_t dims[1] = {(cuuint64_t)n};
+  const cuuint64_t strides[1] = {(cuuint64_t)n * 4};  // unused at rank 1
+  const cuuint32_t boxes[1] = {(cuuint32_t)box}, elem[1] = {1};
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 1, const_cast<void*>(base), dims,
+      strides, boxes, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  if (r != CUDA_SUCCESS) {
+    fprintf(stderr, "%s: cuTensorMapEncodeTiled failed (%d) for %lld fp32 "
+            "values in boxes of %d\n", who, (int)r, n, box);
     return (int)cudaErrorInvalidValue;
   }
   return 0;

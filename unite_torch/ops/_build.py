@@ -24,7 +24,7 @@ from typing import Dict
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "unite_torch_kernels"
 SOURCES = ("short_attn_wgmma", "fused_qkv_bwd", "flash_fwd_wgmma",
-           "packed_flash_bwd", "grouped_attn_bwd", "blocked_matmul_wgmma")
+           "flash_bwd_wgmma", "grouped_attn_bwd", "blocked_matmul_wgmma")
 HEADERS = ("fused_qkv_common.cuh", "hopper.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

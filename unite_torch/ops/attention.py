@@ -12,7 +12,7 @@ package's dispatch (models/layers.py:174-190, models/clip.py:82-108):
   (K1) and csrc/fused_qkv_bwd.cu (K2); longer sequences with a divisor
   query block (1568, 1000, 600, ...) take the packed flash kernels,
   csrc/flash_fwd_wgmma.cu (K3) and the dQ and dK/dV kernels of
-  csrc/packed_flash_bwd.cu (K4);
+  csrc/flash_bwd_wgmma.cu (K4);
 * everywhere else q, k and v become strided [B, H, S, D] views of qkv and
   ``multi_head_attention`` runs on them: up to 512 tokens the grouped
   kernels K5 (training at 385-512 tokens, 392 = stage 1 at mask 0.75, and
@@ -456,20 +456,22 @@ def _launch_fwd(ptrs, strides, lse, dims, scale: float, stream):
 
 
 def _launch_dq(ptrs, strides, lse, delta, dims, scale: float, stream):
-    """The strided dQ kernel: pointers of q, k, v, o, do, dq."""
+    """The strided dQ kernel (K4a or K6 dq, csrc/flash_bwd_wgmma.cu):
+    pointers of q, k, v, o, do, dq."""
     b, h, s = dims
     q, k, v, o, do, dq = ptrs
-    err = _build.load("packed_flash_bwd").unite_flash_dq(
+    err = _build.load("flash_bwd_wgmma").unite_flash_dq(
         q, k, v, o, do, lse.data_ptr(), delta.data_ptr(), dq, strides, b, s,
         h, scale * INV_LN2, scale, stream)
     _build.check(err, "flash_dq")
 
 
 def _launch_dkv(ptrs, strides, lse, delta, dims, scale: float, stream):
-    """The strided dK/dV kernel: pointers of q, k, v, do, dk, dv."""
+    """The strided dK/dV kernel (K4b or K6 dkv, csrc/flash_bwd_wgmma.cu):
+    pointers of q, k, v, do, dk, dv."""
     b, h, s = dims
     q, k, v, do, dk, dv = ptrs
-    err = _build.load("packed_flash_bwd").unite_flash_dkv(
+    err = _build.load("flash_bwd_wgmma").unite_flash_dkv(
         q, k, v, do, lse.data_ptr(), delta.data_ptr(), dk, dv, strides, b, s,
         h, scale * INV_LN2, scale, stream)
     _build.check(err, "flash_dkv")
