@@ -11,14 +11,18 @@ toolkit. In order:
    sm_90a into ``build/unite_torch_kernels/`` (one process per source, in
    parallel), with each kernel's ptxas line (registers, spills); the
    wgmma kernels of the K3/K6 forward (csrc/flash_fwd_wgmma.cu), the
-   K4/K6 backward (csrc/flash_bwd_wgmma.cu), K1/K5
-   (csrc/short_attn_wgmma.cu) and K7 (csrc/blocked_matmul_wgmma.cu) must
+   K4/K6 backward (csrc/flash_bwd_wgmma.cu), the short forward K1/K5
+   (csrc/short_attn_wgmma.cu), the short backward K2/K5
+   (csrc/short_bwd_wgmma.cu) and K7 (csrc/blocked_matmul_wgmma.cu) must
    not spill, and a serialized product is reported;
 3. kernels against their plain versions at the main-path shapes: K1 (fused
    qkv attention forward, csrc/short_attn_wgmma.cu) at the teacher's
    [512, 197, 2304] and the student's [64, 320, 2304], with and without the
    lse, timed beside SDPA and the K3/K6 forward on the same lanes, K2 (its
-   backward) at [64, 320, 2304]; K3
+   backward, csrc/short_bwd_wgmma.cu) at [64, 320, 2304], each of
+   ``BWD_REPEATS`` repeats equal bit for bit, timed beside SDPA's backward
+   alone (and forward plus backward) and the K4 backward on the same
+   lanes; K3
    (packed flash forward) at the stage-2 train step's [8, 1568, 2304] with
    lse and the eval step's [32, 1568, 2304] without, K4's dQ and dK/dV
    kernels at [8, 1568, 2304]; K6 (the [B, H, S, D] flash forward, dQ and
@@ -26,11 +30,11 @@ toolkit. In order:
    [32, 12, 1569, 64] and the clip_l14_336 teacher's [40, 16, 577, 64], on
    contiguous tensors and on strided qkv views; K5 (the grouped forward, dQ
    and dK/dV kernels) at the stage-1 mask-0.75 student's [64, 12, 392, 64]
-   (both layouts), [64, 12, 512, 64] and [5, 12, 393, 64]; error, median
+   (both layouts, backward repeats equal bit for bit), [64, 12, 512, 64] and [5, 12, 393, 64]; error, median
    time, the plain version's time, the bound, and one PyTorch call
-   (``scaled_dot_product_attention``) as a yardstick, and for the K4/K6
-   backward also the device time of back-to-back launches beside SDPA's
-   backward queued the same way; the K3/K6 forward
+   (``scaled_dot_product_attention``) as a yardstick, and for K2, the
+   K4/K6 backward and K5's backward also the device time of back-to-back
+   launches beside SDPA's backward queued the same way; the K3/K6 forward
    at every length of ``SWEEP_LENGTHS`` (around its 128-row tiles) at 2
    and 12 heads, on contiguous tensors, strided qkv views and the packed
    lanes, with and without the lse; the K4/K6 backward at the same lengths
@@ -38,7 +42,10 @@ toolkit. In order:
    each repeat equal bit for bit; the short forward (K1 and K5's
    forward) at every length of ``SHORT_LENGTHS`` at 2, 12 and 16 heads
    (K1 on packed lanes, K5 on views and contiguous tensors, with and
-   without statistics, bit for bit on repeats) and with k = -q;
+   without statistics, bit for bit on repeats) and with k = -q; the
+   short backward (K2 and K5's backward) at the same lengths, K2 also at
+   768 (2, 12 and 16 heads on the packed lanes; K5 at 2 and 12 heads on
+   views and contiguous tensors), each repeat equal bit for bit;
    then K7 (csrc/blocked_matmul_wgmma.cu) at every shape of
    ``MATMUL_SWEEP`` and every tile shape (K7a, the int8 blocked matmul, bit
    for bit, also with -128s at K = 131040; K7b, bf16, within
@@ -123,6 +130,10 @@ HEADS, SCALE = 12, 64 ** -0.5
 FWD_TOL = 1e-2         # a few bf16 ulps of |o| <= 1
 BWD_TOL = 2e-2         # times max |dqkv| of the plain version
 STEP_RTOL = 2e-2       # bf16 card step against the fp32 CPU step
+# launches of K2 and K5's backward at the main-path shapes that must each
+# equal the first bit for bit: persistent blocks there walk many tiles across
+# heads, where a race between a ring slot's reads and its next TMA write shows
+BWD_REPEATS = 5
 STAGE2_TOKENS = 1568   # 8 frames x 196 patches, tubelet 1
 STAGE3_CLS_TOKENS = STAGE2_TOKENS + 1  # the same with the CLS token
 # the K3/K6 forward's lengths: around its 128-row tiles, and the paths' own
@@ -275,8 +286,9 @@ def check_kernels(torch, A, heads: int = HEADS, batches=(512, 64),
                   tag: str = ""):
     """Phase 3: K1 at the teacher's [B, 197, 3*H*64] (forward only) and K1
     and K2 at the student's [B, 320, 3*H*64] against their plain versions,
-    with timings. ViT-B/16 (12 heads) by default; ``tag`` "/l14" at the
-    ViT-L/14 path's 16 heads and batches (192 frames, 24 clips)."""
+    with timings; K2's repeats equal bit for bit. ViT-B/16 (12 heads) by
+    default; ``tag`` "/l14" at the ViT-L/14 path's 16 heads and batches
+    (192 frames, 24 clips)."""
     import torch.nn.functional as F
 
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -342,9 +354,19 @@ def check_kernels(torch, A, heads: int = HEADS, batches=(512, 64),
     if not bool(torch.isfinite(dqkv).all()) or err.max().item() > tol:
         raise AssertionError(f"K2{tag}: max abs err {err.max().item()} > "
                              f"{tol}")
-    ms = median_ms(lambda: A.fused_qkv_bwd(qkv, out, lse, do, heads, SCALE))
+    run = partial(A.fused_qkv_bwd, qkv, out, lse, do, heads, SCALE)
+    for i in range(BWD_REPEATS):
+        if not torch.equal(run(), dqkv):
+            raise AssertionError(f"K2{tag}: repeat {i + 1} of "
+                                 f"{BWD_REPEATS} differs from the first")
+    ms, dev_ms = median_ms(run), device_ms(run)
     plain_ms = median_ms(lambda: A.qkv_attention_reference_bwd(
         qkv, do, heads, SCALE))
+    # the K4 backward (csrc/flash_bwd_wgmma.cu) on the same lanes: the
+    # yardstick of the short backward's design (its rounding points differ,
+    # so time only)
+    flash = partial(A.packed_flash_bwd, qkv, out, lse, do, heads, SCALE)
+    flash_ms, flash_dev_ms = median_ms(flash), device_ms(flash)
     q, k, v = (t.detach().contiguous().requires_grad_(True)
                for t in A._split_heads(qkv, heads))
     do_h = do.reshape(b, s, heads, 64).transpose(1, 2).contiguous()
@@ -352,15 +374,28 @@ def check_kernels(torch, A, heads: int = HEADS, batches=(512, 64),
     def sdpa_fwd_bwd():
         F.scaled_dot_product_attention(q, k, v, scale=SCALE).backward(do_h)
 
-    lib_ms = median_ms(sdpa_fwd_bwd)
+    fwd_bwd_ms = median_ms(sdpa_fwd_bwd)
+    o_lib = F.scaled_dot_product_attention(q, k, v, scale=SCALE)
+
+    def sdpa_bwd():
+        torch.autograd.grad(o_lib, (q, k, v), do_h, retain_graph=True)
+
+    lib_ms, lib_dev_ms = median_ms(sdpa_bwd), device_ms(sdpa_bwd)
+    # reads qkv, o, do and lse2, writes dqkv (and delta, read back): the
+    # function's 10 S^2*D flops a head (the kernels do 7: s and dp twice)
     nbytes = b * s * (3 + 1 + 1 + 3) * heads * 64 * 2 + b * heads * s * 4
     bms, by = bound(nbytes, 10.0 * b * heads * s * s * 64)
     key = f"K2/student{tag}"
     results[key] = dict(
         shape=[b, s, 3 * heads * 64], max_abs_err=err.max().item(),
-        mean_abs_err=err.mean().item(), tol=tol, ms=ms, plain_ms=plain_ms,
-        bound_ms=bms, bound_by=by, library_ms=lib_ms)
+        mean_abs_err=err.mean().item(), tol=tol, ms=ms, device_ms=dev_ms,
+        plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=lib_ms,
+        library_device_ms=lib_dev_ms,
+        library="scaled_dot_product_attention backward (dq, dk, dv)",
+        library_fwd_bwd_ms=fwd_bwd_ms, flash_bwd_ms=flash_ms,
+        flash_bwd_device_ms=flash_dev_ms)
     print(f"K2 fused_qkv_bwd student{tag} {results[key]}", flush=True)
+    del q, k, v, do_h, o_lib, dqkv, ref
     return results
 
 
@@ -368,8 +403,9 @@ def check_grouped_kernels(torch, A):
     """Phase 3, stage 1 at mask 0.75: K5 against its plain version at the
     student's [64, 12, 392, 64] (contiguous tensors and the strided views of
     a qkv projection that the models pass), the route's edge
-    [64, 12, 512, 64] and a ragged [5, 12, 393, 64], forward and backward;
-    times on the views at 392."""
+    [64, 12, 512, 64] and a ragged [5, 12, 393, 64], forward and backward,
+    the backward's repeats at 392 equal bit for bit; times on the views at
+    392."""
     import torch.nn.functional as F
 
     gen = torch.Generator(device="cuda").manual_seed(21)
@@ -405,6 +441,12 @@ def check_grouped_kernels(torch, A):
                     raise AssertionError(f"K5 {label} {layout} {name}: max "
                                          f"abs err {e} > {tol}")
                 errs[f"{name}/{label}/{layout}"] = (e, tol)
+            for i in range(BWD_REPEATS if label == "m075" else 0):
+                again = A.grouped_bwd(*qkv_t, do, m, l, SCALE)
+                if not all(torch.equal(a, a2) for a, a2 in zip(grads, again)):
+                    raise AssertionError(
+                        f"K5 {label} {layout} backward: repeat {i + 1} of "
+                        f"{BWD_REPEATS} differs from the first")
         print(f"K5 {label} [{b}, {HEADS}, {s}, 64] agrees with its plain "
               "version", flush=True)
         del ref, refs, out, grads
@@ -429,10 +471,17 @@ def check_grouped_kernels(torch, A):
                                                          SCALE))
     plain_dkv = median_ms(lambda: A._grouped_dkv_reference(q, k, v, do, m, l,
                                                            delta, SCALE))
+    dev_dq = device_ms(lambda: A.grouped_dq(q, k, v, do, m, l, dq, delta,
+                                            SCALE))
+    dev_dkv = device_ms(lambda: A.grouped_dkv(q, k, v, do, m, l, delta, dk,
+                                              dv, SCALE))
     leaves = [t.detach().requires_grad_(True) for t in dense]
     o_lib = F.scaled_dot_product_attention(*leaves, scale=SCALE)
-    bwd_ms = median_ms(lambda: torch.autograd.grad(o_lib, leaves, do,
-                                                   retain_graph=True))
+
+    def sdpa_bwd():
+        torch.autograd.grad(o_lib, leaves, do, retain_graph=True)
+
+    bwd_ms, bwd_dev_ms = median_ms(sdpa_bwd), device_ms(sdpa_bwd)
 
     def sdpa_fwd_bwd():
         F.scaled_dot_product_attention(*leaves, scale=SCALE).backward(do)
@@ -453,16 +502,18 @@ def check_grouped_kernels(torch, A):
     # dq reads q, k, v, do, m, l and writes dq and delta; dkv reads q, k, v,
     # do, m, l, delta and writes dk and dv: the function's 6 and 8 S^2*D
     # flops a head (the convention of K4 and K6)
-    for key, ms_k, plain, nbytes, flops, parts in (
-            ("K5dq", ms_dq, plain_dq, 5 * tok + 3 * stat, 6.0, ("dq",)),
-            ("K5dkv", ms_dkv, plain_dkv, 6 * tok + 3 * stat, 8.0,
+    for key, ms_k, dev, plain, nbytes, flops, parts in (
+            ("K5dq", ms_dq, dev_dq, plain_dq, 5 * tok + 3 * stat, 6.0,
+             ("dq",)),
+            ("K5dkv", ms_dkv, dev_dkv, plain_dkv, 6 * tok + 3 * stat, 8.0,
              ("dk", "dv"))):
         e, tol = max(v for k, v in errs.items()
                      if k.split("/")[0] in parts)
         bms, by = bound(nbytes, flops * b * h * s * s * 64)
         results[f"{key}/m075"] = dict(
             shape=[b, h, s, 64], max_abs_err=e, tol=tol, ms=ms_k,
-            plain_ms=plain, bound_ms=bms, bound_by=by, library_ms=bwd_ms,
+            device_ms=dev, plain_ms=plain, bound_ms=bms, bound_by=by,
+            library_ms=bwd_ms, library_device_ms=bwd_dev_ms,
             library="scaled_dot_product_attention backward (dq, dk, dv: the "
                     "dq and dk/dv kernels together)",
             library_fwd_bwd_ms=fwd_bwd_ms)
@@ -1327,7 +1378,7 @@ def stage2_eval(torch, A, state, eval_step, b: int = 32, warmup: int = 2,
 
 # the wgmma sources: none may spill; a serialized product is reported
 WGMMA_SOURCES = ("flash_fwd_wgmma", "flash_bwd_wgmma", "short_attn_wgmma",
-                 "blocked_matmul_wgmma")
+                 "short_bwd_wgmma", "blocked_matmul_wgmma")
 
 
 def check_ptxas(paths) -> dict:
@@ -1532,6 +1583,70 @@ def check_short_lengths(torch, A):
     print(f"short forward lengths {list(SHORT_LENGTHS)} x heads (2, {HEADS}, "
           f"16) x (K1 packed, K5 views, K5 contiguous) x statistics, and "
           f"k = -q: {worst}", flush=True)
+    return worst
+
+
+def check_short_bwd_lengths(torch, A):
+    """Phase 3: the short backward (csrc/short_bwd_wgmma.cu) against its
+    plain versions at every length of ``SHORT_LENGTHS`` (B=2): K2 on the
+    packed lanes of qkv from K1's out and lse2 (2, 12 and 16 heads, and at
+    ``FUSED_QKV_MAX_SEQ``, its shared-memory guard), K5's backward on strided
+    qkv views (do laid out as the models lay it out) and contiguous tensors
+    from the K5 forward's m and l (2 and 12 heads); within ``BWD_TOL``
+    times the largest |dq|, |dk| or |dv| of the plain version, and each
+    repeat equal bit for bit. Returns the largest errors over that scale,
+    by length."""
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    worst = {}
+
+    def check(what, s, got, again, refs):
+        top = max(r.float().abs().max().item() for r in refs)
+        w = worst.setdefault(s, {})
+        for name, a, a2, r in zip(("dq", "dk", "dv"), got, again, refs):
+            e = (a.float() - r.float()).abs().max().item()
+            if (not bool(torch.isfinite(a).all()) or e > BWD_TOL * top
+                    or not torch.equal(a, a2)):
+                raise AssertionError(
+                    f"short backward {what} S={s} {name}: max abs err {e} "
+                    f"(tol {BWD_TOL * top}), repeat equal "
+                    f"{torch.equal(a, a2)}")
+            w[f"{what.split()[0]}_{name}"] = max(
+                w.get(f"{what.split()[0]}_{name}", 0.0), e / top)
+
+    for s in SHORT_LENGTHS + (A.FUSED_QKV_MAX_SEQ,):
+        for h in (2, HEADS, 16):
+            qkv = torch.randn((2, s, 3 * h * 64), generator=gen,
+                              device="cuda").to(torch.bfloat16)
+            out, lse = A.fused_qkv_fwd(qkv, h, SCALE, with_lse=True)
+            do = torch.randn(out.shape, generator=gen, device="cuda").to(
+                torch.bfloat16)
+
+            def k2():
+                return [A._heads_of(x, h) for x in A.fused_qkv_bwd(
+                    qkv, out, lse, do, h, SCALE).chunk(3, dim=-1)]
+
+            got, again = k2(), k2()
+            torch.cuda.synchronize()
+            refs = [A._heads_of(x, h) for x in A.qkv_attention_reference_bwd(
+                qkv, do, h, SCALE).chunk(3, dim=-1)]
+            check(f"K2 H={h}", s, got, again, refs)
+            if s > A.GROUPED_MAX_SEQ or h == 16:
+                continue
+            views = A._split_heads(qkv, h)
+            dense = [x.contiguous() for x in views]
+            g = A._heads_of(do, h)
+            refs = A.grouped_reference_bwd(*dense, g, scale=SCALE)
+            for layout, x, gl in (("views", views, g),
+                                  ("contiguous", dense, g.contiguous())):
+                _, (m, l) = A.grouped_fwd(*x, SCALE, with_stats=True)
+                got = A.grouped_bwd(*x, gl, m, l, SCALE)
+                again = A.grouped_bwd(*x, gl, m, l, SCALE)
+                torch.cuda.synchronize()
+                check(f"K5 H={h} {layout}", s, got, again, refs)
+    print(f"short backward lengths {list(SHORT_LENGTHS)} (K2 also "
+          f"{A.FUSED_QKV_MAX_SEQ}) x heads (2, {HEADS}, 16 for K2) x (K2 "
+          f"packed, K5 views, K5 contiguous): max abs err / max |ref| "
+          f"{worst}", flush=True)
     return worst
 
 
@@ -2053,6 +2168,7 @@ def main() -> int:
     lengths = check_flash_lengths(torch, A)
     bwd_lengths = check_flash_bwd_lengths(torch, A)
     short_lengths = check_short_lengths(torch, A)
+    short_bwd_lengths = check_short_bwd_lengths(torch, A)
     kr.update(check_grouped_kernels(torch, A))
     mark("K1-K6 checked")
     matmul_sweep = check_matmul_sweep(torch)
@@ -2100,7 +2216,7 @@ def main() -> int:
              "unite_torch/csrc/short_attn_wgmma.cu",
              "unite_tpu/ops/attention.py:678", mp["k1_student"]),
             ("K2/student", "fused_qkv_bwd[student S=320]",
-             "unite_torch/csrc/fused_qkv_bwd.cu",
+             "unite_torch/csrc/short_bwd_wgmma.cu",
              "unite_tpu/ops/attention.py:773", mp["k2_launches"]),
             ("K3/train", "packed_flash_fwd[train B=8 S=1568]",
              "unite_torch/csrc/flash_fwd_wgmma.cu",
@@ -2130,10 +2246,10 @@ def main() -> int:
              "unite_torch/csrc/short_attn_wgmma.cu",
              "unite_tpu/ops/attention.py:441", m075["launches"]["K5"]),
             ("K5dq/m075", "grouped_dq[stage-1 mask 0.75 B=64 S=392]",
-             "unite_torch/csrc/grouped_attn_bwd.cu",
+             "unite_torch/csrc/short_bwd_wgmma.cu",
              "unite_tpu/ops/attention.py:467", m075["launches"]["K5dq"]),
             ("K5dkv/m075", "grouped_dkv[stage-1 mask 0.75 B=64 S=392]",
-             "unite_torch/csrc/grouped_attn_bwd.cu",
+             "unite_torch/csrc/short_bwd_wgmma.cu",
              "unite_tpu/ops/attention.py:467", m075["launches"]["K5dkv"]),
             ("K1/teacher/l14", "fused_qkv_fwd[clip_l14 teacher B=192 S=197 "
              "H=16]", "unite_torch/csrc/short_attn_wgmma.cu",
@@ -2142,7 +2258,7 @@ def main() -> int:
              "unite_torch/csrc/short_attn_wgmma.cu",
              "unite_tpu/ops/attention.py:678", l14["k1_student"]),
             ("K2/student/l14", "fused_qkv_bwd[ViT-L student B=24 S=320 H=16]",
-             "unite_torch/csrc/fused_qkv_bwd.cu",
+             "unite_torch/csrc/short_bwd_wgmma.cu",
              "unite_tpu/ops/attention.py:773", l14["k2_launches"]),
             ("K7a/probe", "int8_matmul[probe 38400x768x3072]",
              "unite_torch/csrc/blocked_matmul_wgmma.cu",
@@ -2175,11 +2291,12 @@ def main() -> int:
                       "probe": probe, "flash_fwd_lengths": lengths,
                       "flash_bwd_lengths": bwd_lengths,
                       "short_fwd_lengths": short_lengths,
+                      "short_bwd_lengths": short_bwd_lengths,
                       "wgmma_ptxas": ptxas, "matmul_sweep": matmul_sweep,
                       "matmul_checks": {
                           k: r for k, r in kr.items() if k.startswith("K7")},
                       "yardsticks": {k: {x: r[x] for x in r if x.startswith(
-                          ("library", "flash_fwd", "device"))}
+                          ("library", "flash_fwd", "flash_bwd", "device"))}
                           for k, r in kr.items()}}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -385,6 +385,86 @@ def test_fused_qkv_kernels_at_16_heads(cuda, s):
         2e-2 * dref.abs().max().item()
 
 
+# the short backward's lengths (csrc/short_bwd_wgmma.cu, K2 and K5's
+# backward): around its 64-row tiles and chunks, the paths' own (320, 392)
+# and, for K2, its shared-memory guard FUSED_QKV_MAX_SEQ
+SHORT_LENGTHS = [1, 7, 8, 9, 63, 64, 65, 127, 128, 129, 196, 197, 208, 255,
+                 256, 257, 314, 320, 384, 385, 392, 511, 512]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("heads", [2, 12, 16])
+@pytest.mark.parametrize("s", SHORT_LENGTHS + [768])
+def test_short_backward_k2_lengths_on_card(cuda, s, heads):
+    # K2 on the packed lanes, from K1's out and lse2; no atomics, so a
+    # repeat is equal bit for bit
+    gen = torch.Generator(device=cuda).manual_seed(300 + s * heads)
+    x = torch.randn((2, s, 3 * heads * 64), generator=gen, device=cuda
+                    ).to(torch.bfloat16)
+    out, lse = TA.fused_qkv_fwd(x, heads, SCALE, with_lse=True)
+    do = torch.randn(out.shape, generator=gen, device=cuda).to(torch.bfloat16)
+    b0 = TA.fused_qkv_bwd.launches
+    dqkv = TA.fused_qkv_bwd(x, out, lse, do, heads, SCALE)
+    again = TA.fused_qkv_bwd(x, out, lse, do, heads, SCALE)
+    assert TA.fused_qkv_bwd.launches == b0 + 2
+    assert torch.equal(dqkv, again)
+    dref = TA.qkv_attention_reference_bwd(x, do, heads, SCALE)
+    _bwd_within([TA._heads_of(t, heads) for t in dqkv.chunk(3, dim=-1)],
+                [TA._heads_of(t, heads) for t in dref.chunk(3, dim=-1)],
+                "packed")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("heads", [2, 12])
+@pytest.mark.parametrize("s", SHORT_LENGTHS)
+def test_short_backward_k5_lengths_on_card(cuda, s, heads):
+    # K5's backward on strided qkv views (do laid out as the models lay it
+    # out) and on contiguous tensors, from the K5 forward's m and l
+    qkv, views, dense, _, _, do = _bwd_inputs(cuda, 2, s, heads,
+                                              400 + s * heads)
+    refs = TA.grouped_reference_bwd(*dense, do, scale=SCALE)
+    do_rows = TA._empty_like_rows(views[0]).copy_(do)
+    for layout, (q, k, v), g in (("views", views, do_rows),
+                                 ("contiguous", dense, do)):
+        _, (m, l) = TA.grouped_fwd(q, k, v, SCALE, with_stats=True)
+        c0 = (TA.grouped_dq.launches, TA.grouped_dkv.launches)
+        got = TA.grouped_bwd(q, k, v, g, m, l, SCALE)
+        again = TA.grouped_bwd(q, k, v, g, m, l, SCALE)
+        assert (TA.grouped_dq.launches, TA.grouped_dkv.launches) == (
+            c0[0] + 2, c0[1] + 2)
+        for a, b in zip(got, again):
+            assert torch.equal(a, b), layout
+        _bwd_within(got, refs, layout)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["k2", "k5_views", "k5_contiguous"])
+def test_short_backward_repeats_at_main_path_batch_on_card(cuda, kernel):
+    # at the main path's B=64 and 12 heads the persistent blocks walk many
+    # tiles across heads, where a race between a ring slot's reads and its
+    # next TMA write shows (at B=2 it need not): five repeats equal the first
+    heads = 12
+    if kernel == "k2":
+        qkv, _, _, _, _, _ = _bwd_inputs(cuda, 64, 320, heads, 500)
+        out, lse = TA.fused_qkv_fwd(qkv, heads, SCALE, with_lse=True)
+        do = torch.randn(out.shape, device=cuda).to(torch.bfloat16)
+
+        def run():
+            return (TA.fused_qkv_bwd(qkv, out, lse, do, heads, SCALE),)
+    else:
+        _, views, dense, _, _, do = _bwd_inputs(cuda, 64, 392, heads, 501)
+        x = views if kernel == "k5_views" else dense
+        if kernel == "k5_views":  # do laid out as the models lay it out
+            do = TA._empty_like_rows(views[0]).copy_(do)
+        _, (m, l) = TA.grouped_fwd(*x, SCALE, with_stats=True)
+
+        def run():
+            return TA.grouped_bwd(*x, do, m, l, SCALE)
+    first = run()
+    for _ in range(5):
+        assert all(torch.equal(a, b) for a, b in zip(run(), first)), kernel
+
+
 # K7's card shapes: ragged M and N (N % 4 != 0 and N % 8 != 0 take the
 # direct store, the others the TMA store), K not a multiple of the kernel's
 # 128-byte box (32, 96, 800 elements), one row, M below and above one wave

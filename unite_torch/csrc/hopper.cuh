@@ -584,6 +584,25 @@ __device__ __forceinline__ void wgmma_m64n8k16_rs(float (&d)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
 }
 
+// d (+)= A . B, 64 x 16 x 16, A from registers (as in the 64 x 64 product),
+// B K-major in shared memory (the accumulator as in the 64 x 64 product,
+// i < 2).
+__device__ __forceinline__ void wgmma_m64n16k16_rs(float (&d)[8],
+                                                   const uint32_t (&a)[4],
+                                                   uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7},"
+      " {%8, %9, %10, %11}, %12, p, 1, 1, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+}
+
 // The 4-D map (64 lanes, then the row, head and batch dimensions) of a
 // [B, H, S, 64] bf16 view with element strides st = (batch, head, row), in
 // boxes of `box_rows` rows with 128-byte swizzle. cuTensorMapEncodeTiled's

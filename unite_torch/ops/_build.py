@@ -23,9 +23,9 @@ from typing import Dict
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "unite_torch_kernels"
-SOURCES = ("short_attn_wgmma", "fused_qkv_bwd", "flash_fwd_wgmma",
-           "flash_bwd_wgmma", "grouped_attn_bwd", "blocked_matmul_wgmma")
-HEADERS = ("fused_qkv_common.cuh", "hopper.cuh")
+SOURCES = ("short_attn_wgmma", "short_bwd_wgmma", "flash_fwd_wgmma",
+           "flash_bwd_wgmma", "blocked_matmul_wgmma")
+HEADERS = ("fused_qkv_common.cuh", "hopper.cuh", "attn_bwd_wgmma.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -87,14 +87,14 @@ def _declare(lib: ctypes.CDLL) -> None:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     ll = ctypes.POINTER(ctypes.c_longlong)  # the views' strides
     signatures = {
-        "unite_fused_qkv_bwd": [p, p, p, p, p, p, i, i, i, f, f, p],
+        "unite_short_qkv_bwd": [p] * 10 + [ll, i, i, i, f, f, p],
         "unite_flash_fwd": [p, p, p, p, p, ll, i, i, i, f, p],
         "unite_short_qkv_fwd": [p, p, p, p, p, ll, i, i, i, f, p],
         "unite_short_grouped_fwd": [p] * 6 + [ll, i, i, i, f, p],
         "unite_flash_dq": [p] * 8 + [ll, i, i, i, f, f, p],
         "unite_flash_dkv": [p] * 8 + [ll, i, i, i, f, f, p],
-        "unite_grouped_dq": [p] * 8 + [ll, i, i, i, f, f, p],
-        "unite_grouped_dkv": [p] * 9 + [ll, i, i, i, f, f, p],
+        "unite_short_grouped_dq": [p] * 8 + [ll, i, i, i, f, f, p],
+        "unite_short_grouped_dkv": [p] * 9 + [ll, i, i, i, f, f, p],
         "unite_int8_matmul": [p, p, p, i, i, i, p],
         "unite_bf16_matmul": [p, p, p, i, i, i, p],
         "unite_int8_matmul_tile": [p, p, p, i, i, i, i, i, p],

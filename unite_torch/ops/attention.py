@@ -9,8 +9,8 @@ package's dispatch (models/layers.py:174-190, models/clip.py:82-108):
   S <= 384 in training and S <= 512 forward-only (``fwd_only``, JAX's
   ``deterministic``), at widths that are a multiple of 128, take the
   fused-qkv kernels, the short-sequence forward csrc/short_attn_wgmma.cu
-  (K1) and csrc/fused_qkv_bwd.cu (K2); longer sequences with a divisor
-  query block (1568, 1000, 600, ...) take the packed flash kernels,
+  (K1) and backward csrc/short_bwd_wgmma.cu (K2); longer sequences with a
+  divisor query block (1568, 1000, 600, ...) take the packed flash kernels,
   csrc/flash_fwd_wgmma.cu (K3) and the dQ and dK/dV kernels of
   csrc/flash_bwd_wgmma.cu (K4);
 * everywhere else q, k and v become strided [B, H, S, D] views of qkv and
@@ -18,10 +18,10 @@ package's dispatch (models/layers.py:174-190, models/clip.py:82-108):
   kernels K5 (training at 385-512 tokens, 392 = stage 1 at mask 0.75, and
   widths that are not a multiple of 128), the forward in
   csrc/short_attn_wgmma.cu (K1's kernel body with K5's statistics) and the
-  dQ and dK/dV kernels in csrc/grouped_attn_bwd.cu; above 512 tokens (1569
-  = 1568 patches + CLS, 577, 785, ...) the blocked flash kernels K6, the
-  same CUDA kernels as K3/K4, which take per-tensor strides. Each has its
-  own launch counter.
+  dQ and dK/dV kernels in csrc/short_bwd_wgmma.cu (K2's kernel bodies
+  with K5's rounding points); above 512 tokens (1569 = 1568 patches + CLS,
+  577, 785, ...) the blocked flash kernels K6, the same CUDA kernels as
+  K3/K4, which take per-tensor strides. Each has its own launch counter.
 
 Beside each kernel is its plain version, with the TPU kernel's math and
 rounding points; a wrapper uses it only for a tensor on the CPU. A CUDA
@@ -55,7 +55,9 @@ FUSED_QKV_TRAIN_MAX_SEQ = 384
 # and dO (dkv) in shared memory, under 227 KB. The route never sends them
 # more than 512; this is their guard.
 FUSED_QKV_MAX_SEQ = 768
-# [B, H, S, D] attention: unite_tpu's grouped kernel K5 up to here, K6 beyond
+# [B, H, S, D] attention: unite_tpu's grouped kernel K5 up to here, K6
+# beyond; also the guard of K5's backward, whose dK/dV kernel holds a head's
+# q, do and bf16(do/l) in shared memory
 GROUPED_MAX_SEQ = 512
 # unite_tpu's _flash_qblock at its defaults: the packed route needs a
 # multiple-of-8 query block in [64, 224] that divides S.
@@ -513,7 +515,9 @@ fused_qkv_fwd.launches = 0
 def fused_qkv_bwd(qkv, out, lse, do, heads: int, scale: float):
     """K2: dqkv [B, S, 3*H*D] from qkv, the forward's out and lse2, and the
     cotangent do. CPU tensors take the plain version (which recomputes the
-    softmax as the TPU kernel does and needs no out/lse)."""
+    softmax as the TPU kernel does and needs no out/lse); CUDA tensors
+    launch csrc/short_bwd_wgmma.cu's dq then dk/dv kernel on the lane
+    slices of qkv, out, do and dqkv."""
     if qkv.device.type == "cpu":
         return qkv_attention_reference_bwd(qkv, do, heads, scale)
     _check_cuda(qkv, heads, out=out, lse=lse, do=do)
@@ -521,11 +525,11 @@ def fused_qkv_bwd(qkv, out, lse, do, heads: int, scale: float):
     b, s, _ = qkv.shape
     dqkv = torch.empty_like(qkv)
     delta = torch.empty((b, heads, s), dtype=torch.float32, device=qkv.device)
-    lib = _build.load("fused_qkv_bwd")
-    err = lib.unite_fused_qkv_bwd(
-        qkv.data_ptr(), out.data_ptr(), do.data_ptr(), lse.data_ptr(),
-        delta.data_ptr(), dqkv.data_ptr(), b, s, heads, scale * INV_LN2,
-        scale, _stream(qkv))
+    ptrs, strides = _packed_args(heads, (qkv, (0, 1, 2)), (out, (0,)),
+                                 (do, (0,)), (dqkv, (0, 1, 2)))
+    err = _build.load("short_bwd_wgmma").unite_short_qkv_bwd(
+        *ptrs, lse.data_ptr(), delta.data_ptr(), strides, b, s, heads,
+        scale * INV_LN2, scale, _stream(qkv))
     _build.check(err, "fused_qkv_bwd")
     fused_qkv_bwd.launches += 1
     return dqkv
@@ -739,18 +743,29 @@ def grouped_fwd(q, k, v, scale: float, with_stats: bool = False):
 grouped_fwd.launches = 0
 
 
+def _check_grouped_bwd(q):
+    if q.shape[2] > GROUPED_MAX_SEQ:
+        raise ValueError(
+            f"sequence {q.shape[2]} > {GROUPED_MAX_SEQ}: a head's q, do and "
+            "bf16(do/l) no longer fit in shared memory for K5's backward; "
+            "longer sequences take K6 (multi_head_attention routes them "
+            "there)")
+
+
 def grouped_dq(q, k, v, do, m, l, dq, delta, scale: float):
     """K5 dQ: writes dq into ``dq`` and rowsum(e*dp)/l into ``delta``
-    [B, H, S] fp32, from the forward's m and l."""
+    [B, H, S] fp32, from the forward's m and l (csrc/short_bwd_wgmma.cu's
+    dq kernel on CUDA tensors)."""
     if q.device.type == "cpu":
         g, dl = _grouped_dq_reference(q, k, v, do, m, l, scale)
         dq.copy_(g)
         delta.copy_(dl)
         return
+    _check_grouped_bwd(q)
     ptrs, strides = _view_args(q, k, v, do, dq)
     _stats(q, m, l, delta)
     b, h, s, _ = q.shape
-    err = _build.load("grouped_attn_bwd").unite_grouped_dq(
+    err = _build.load("short_bwd_wgmma").unite_short_grouped_dq(
         *ptrs[:4], m.data_ptr(), l.data_ptr(), delta.data_ptr(), ptrs[4],
         strides, b, s, h, scale * INV_LN2, scale, _stream(q))
     _build.check(err, "grouped_dq")
@@ -762,16 +777,18 @@ grouped_dq.launches = 0
 
 def grouped_dkv(q, k, v, do, m, l, delta, dk, dv, scale: float):
     """K5 dK/dV: writes dk and dv from the forward's m and l and the dQ
-    kernel's delta."""
+    kernel's delta (csrc/short_bwd_wgmma.cu's dk/dv kernel on CUDA
+    tensors)."""
     if q.device.type == "cpu":
         gk, gv = _grouped_dkv_reference(q, k, v, do, m, l, delta, scale)
         dk.copy_(gk)
         dv.copy_(gv)
         return
+    _check_grouped_bwd(q)
     ptrs, strides = _view_args(q, k, v, do, dk, dv)
     _stats(q, m, l, delta)
     b, h, s, _ = q.shape
-    err = _build.load("grouped_attn_bwd").unite_grouped_dkv(
+    err = _build.load("short_bwd_wgmma").unite_short_grouped_dkv(
         *ptrs[:4], m.data_ptr(), l.data_ptr(), delta.data_ptr(), *ptrs[4:],
         strides, b, s, h, scale * INV_LN2, scale, _stream(q))
     _build.check(err, "grouped_dkv")
