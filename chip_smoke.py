@@ -90,21 +90,32 @@ toolkit. In order:
    launch counts and a profiled step;
 10. the stage-2 eval step at the config's batch_size_val of 32, 2 warm-up
    and 10 timed calls, with the launch counts and a profiled call;
-11. one stage-3 step on the card in bf16 against the CPU in fp32, without
+11. ``stage2-entry-b7``: K3, K4a and K4b against their plain versions at
+   the stage-2 entry's [7, 1568, 2304], then
+   ``unite_torch.train.run_stage2.main`` with no --config
+   (``STAGE2_ARGS``: stage2_config.yaml and stage2.sh) chained from the
+   checkpoint that phase 7 left: 4 steps of 7 synthetic clips, validation
+   (40 clips), a preemption after 2 steps of epoch 1; an auto-resumed call
+   that finishes the epoch, validates, reloads checkpoint-best and runs
+   the 12-view test (96 views) and its merge; an --eval call whose merged
+   accuracies must equal it; exact launch counts, the checkpoints' epochs
+   and steps, the entry's clips/s and views/s beside the bare step's and
+   the host data path's items/s;
+12. one stage-3 step on the card in bf16 against the CPU in fp32, without
    and with the CLS token (B=2, same weights and batch, injected teacher
    attention and CLIP similarities): loss, grad norm and the full and
    grad-member logits, with the selection agreement reported apart;
-12. the stage-3 path ``stage3-b16-b5``: configs/stage3_config.yaml with
+13. the stage-3 path ``stage3-b16-b5``: configs/stage3_config.yaml with
    stage3.sh's batch of 5 (adaptation_umt_base_patch16_224 over 8 x 224^2
    with tubelet 1, clip_b16 teacher, mask 0.8, committee 2,
    clip_matchORconf, AdamW), each step after the zero-shot similarities of
    its batch (text features from a seed), 2 warm-up and 10 timed steps,
    with exact launch counts (K1, K2, K3, K4; no K6) and a profiled step;
-13. ``stage3-cls-b16-b5``: the same with ``use_cls_token``, whose full
+14. ``stage3-cls-b16-b5``: the same with ``use_cls_token``, whose full
    passes run 1569 tokens through K6 (no K3/K4);
-14. ``stage3-cls-eval-b16-b32``: its eval step at batch_size_val 32, K6
+15. ``stage3-cls-eval-b16-b32``: its eval step at batch_size_val 32, K6
    forward only;
-15. one JSON line of every kernel's numbers, the card line again, and the
+16. one JSON line of every kernel's numbers, the card line again, and the
    last line ``{"ok": true, "device": {...}}``.
 
 Any failed check raises and the script exits non-zero. With no CUDA device,
@@ -117,6 +128,7 @@ import json
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from functools import partial
 from pathlib import Path
@@ -194,6 +206,47 @@ STAGE1_ARGS = [
     "--test_best", "true", "--disable_wandb", "true"]
 ENTRY_BATCH = 32       # a stream: 64 clips a step, the bench geometry
 ENTRY_STEPS = 4        # an epoch of the entry run
+# configs/stage2_config.yaml key for key (clip_grad: null left at its
+# default), with stage2.sh's overrides at its EPOCHS=50 (the dataset
+# mapping, output dir and --finetune left out): the stage-2 entry's command
+# line without --config
+STAGE2_ARGS = [
+    "--model", "vit_base_patch16_224", "--batch_size", "7",
+    "--batch_size_val", "32", "--epochs", "50", "--warmup_epochs", "10",
+    "--lr", "2.5e-05", "--min_lr", "1e-06", "--warmup_lr", "1e-06",
+    "--weight_decay", "0.05", "--layer_decay", "0.65", "--opt", "adamw",
+    "--opt_eps", "1e-08", "--opt_betas", "0.9", "0.999",
+    "--frozen_layers", "", "--train_head_only", "false",
+    "--freeze_patch_embedding", "false", "--use_mean_pooling", "true",
+    "--init_scale", "0.001", "--head_type", "linear",
+    "--head_hidden_dim", "256", "--delete_head", "true",
+    "--model_key", "model|module", "--model_prefix", "",
+    "--aa", "rand-m7-n4-mstd0.5-inc1", "--smoothing", "0.0",
+    "--reprob", "0.25", "--remode", "pixel", "--recount", "1",
+    "--mixup", "0.0", "--cutmix", "0.0", "--mixup_prob", "0.0",
+    "--mixup_switch_prob", "0.5", "--mixup_mode", "batch",
+    "--model_ema", "false", "--model_ema_decay", "0.9999",
+    "--update_freq", "1", "--drop", "0.0", "--attn_drop_rate", "0.0",
+    "--fc_drop_rate", "0.0", "--drop_path", "0.1", "--num_frames", "8",
+    "--num_segments", "1", "--tubelet_size", "1", "--input_size", "224",
+    "--short_side_size", "224", "--data_set", "Kinetics_sparse",
+    "--split", ",", "--num_sample", "1", "--train_fraction", "1.0",
+    "--train_interpolation", "bicubic", "--test_num_segment", "4",
+    "--test_num_crop", "3", "--nb_classes", "12", "--num_workers", "12",
+    "--seed", "0", "--log_freq", "10", "--save_ckpt_freq", "100",
+    "--save_ckpt", "true", "--auto_resume", "true", "--eval", "false",
+    "--eval_freq", "5", "--test_best", "true",
+    "--disable_eval_during_finetuning", "false", "--disable_wandb", "true"]
+# the stage-2 entry phase: 28 train clips (4 steps of 7), 40 val clips (a
+# full batch of 32 and one of 8 padded to 32), 8 test videos (x 4 segments
+# x 3 crops = 96 views, 3 calls of 32)
+S2_TRAIN, S2_VAL, S2_TEST = 28, 40, 8
+# its steady-state call: 96 steps of 7, the rate timed over steps 17-96,
+# after the batches the loader's window (max(4, --num_workers 12)) and the
+# device prefetch (2) filled while the model was built have been consumed;
+# each loader thread builds a whole batch, so batches come in waves of up
+# to 12, and the 80 timed steps span several
+S2_STEADY, S2_STEADY_FROM = 7 * 96, 16
 
 
 def card_line() -> str:
@@ -1102,15 +1155,18 @@ def profile_step(torch, run_step, dest_name: str) -> dict:
                                 "classes_ms")}
 
 
-def check_packed_kernels(torch, A):
+def check_packed_kernels(torch, A, shapes=(("train", 8, True),
+                                           ("eval", 32, False)), tag=""):
     """Phase 3, stage 2: K3 and K4 against their plain versions at the
-    stage-2 shapes, with timings."""
+    stage-2 shapes, with timings: ``shapes`` holds (label, batch, with lse);
+    K4 runs at the "train" one. The stage-2 entry's phase passes its B=7
+    with ``tag`` "/b7"."""
     import torch.nn.functional as F
 
     gen = torch.Generator(device="cuda").manual_seed(4)
     s, hd = STAGE2_TOKENS, HEADS * 64
     results = {}
-    for label, b, with_lse in (("train", 8, True), ("eval", 32, False)):
+    for label, b, with_lse in shapes:
         qkv = torch.randn((b, s, 3 * hd), generator=gen,
                           device="cuda").to(torch.bfloat16)
         out, lse = A.packed_flash_fwd(qkv, HEADS, SCALE, with_lse=with_lse)
@@ -1135,13 +1191,13 @@ def check_packed_kernels(torch, A):
             q, k, v, scale=SCALE))
         nbytes = b * s * 4 * hd * 2 + (b * HEADS * s * 4 if with_lse else 0)
         bms, by = bound(nbytes, 4.0 * b * HEADS * s * s * 64)
-        results[f"K3/{label}"] = dict(
+        results[f"K3/{label}{tag}"] = dict(
             shape=[b, s, 3 * hd], max_abs_err=err.max().item(),
             mean_abs_err=err.mean().item(), ms=ms, plain_ms=plain_ms,
             bound_ms=bms, bound_by=by, library_ms=lib_ms,
             library="scaled_dot_product_attention forward")
-        print(f"K3 packed_flash_fwd {label} {results[f'K3/{label}']}",
-              flush=True)
+        print(f"K3 packed_flash_fwd {label}{tag} "
+              f"{results[f'K3/{label}{tag}']}", flush=True)
         del qkv, out, lse, q, k, v, err
         torch.cuda.empty_cache()
 
@@ -1199,14 +1255,14 @@ def check_packed_kernels(torch, A):
             ("K4b", "dkv", ms_dkv, dev_dkv, plain_dkv, 6 * tok + 2 * stat, 8.0,
              max(errs["dk"], errs["dv"]))):
         bms, by = bound(nbytes, flops * b * HEADS * s * s * 64)
-        results[key] = dict(
+        results[key + tag] = dict(
             shape=[b, s, 3 * hd], max_abs_err=e[0], tol=e[1], ms=ms,
             device_ms=dev, plain_ms=plain, bound_ms=bms, bound_by=by,
             library_ms=bwd_ms, library_device_ms=bwd_dev_ms,
             library="scaled_dot_product_attention backward (dq, dk, dv: "
                     "K4a and K4b together)",
             library_fwd_bwd_ms=fwd_bwd_ms)
-        print(f"K4 packed_flash_{name} {results[key]}", flush=True)
+        print(f"K4 packed_flash_{name}{tag} {results[key + tag]}", flush=True)
     del qkv, out, lse, do, dqkv, buf, delta, q, k, v, do_h, o_lib, train
     torch.cuda.empty_cache()
     return results
@@ -2045,7 +2101,7 @@ def entry_run(torch, A, argv, records: list) -> dict:
                 losses=[r["loss"] for r in records], launches=counts)
 
 
-def stage1_entry(torch, A, m075: dict) -> dict:
+def stage1_entry(torch, A, m075: dict, workdir: Path) -> dict:
     """Phase: ``stage1-entry-b32x2``. ``unite_torch.train.run_stage1.main``
     on the card with no --config: ``STAGE1_ARGS`` (stage1_config.yaml and
     stage1.sh) and synthetic source and target annotation files of 128
@@ -2054,9 +2110,9 @@ def stage1_entry(torch, A, m075: dict) -> dict:
     call 2 auto-resumes at epoch 1 and is preempted after 2 steps
     (``--stop_after_steps``), writing a mid-epoch checkpoint. Each step is
     timed after a synchronize, so the entry's clips/s sits beside the bare
-    step's (``m075``) and the data path's share shows."""
-    import tempfile
-
+    step's (``m075``) and the data path's share shows. Its output directory
+    is ``workdir``/stage1/run: the stage-2 entry's phase starts from the
+    checkpoint it leaves there."""
     import unite_torch.train.run_stage1 as R
     from unite_torch.utils.checkpoint import load_checkpoint
 
@@ -2077,46 +2133,46 @@ def stage1_entry(torch, A, m075: dict) -> dict:
         return timed
 
     R.make_pretrain_train_step = timed_build
+    tmp = workdir / "stage1"
+    tmp.mkdir()
     try:
-        with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
-            tmp = Path(tmp)
-            for name in ("source", "target"):
-                (tmp / f"{name}.csv").write_text("".join(
-                    f"{name}/clip_{i:04d}.mp4,{i % 12}\n"
-                    for i in range(ENTRY_BATCH * ENTRY_STEPS)))
-            out = tmp / "run"
-            base = ["--synthetic_data", "true", "--device_normalize", "true",
-                    "--mask_ratio", "0.75", "--batch_size", str(ENTRY_BATCH),
-                    "--ann_file_train", str(tmp / "source.csv"),
-                    "--ann_file_train_target", str(tmp / "target.csv"),
-                    "--output_dir", str(out)]
-            first = entry_run(torch, A, base + [
-                "--stop_after_steps", str(ENTRY_STEPS)], records)
-            stats = [json.loads(x) for x in (out / "log.txt").read_text(
-                ).splitlines()]
-            saved = load_checkpoint(out / "checkpoint-latest.pth")
-            if (first["steps_seen"] != list(range(1, ENTRY_STEPS + 1))
-                    or len(stats) != 1 or stats[0]["epoch"] != 0
-                    or not all(abs(stats[0][k]) < float("inf") and
-                               stats[0][k] == stats[0][k]
-                               for k in ("train_loss", "train_grad_norm"))
-                    or saved["epoch"] != 0
-                    or saved["extra"]["step"] != ENTRY_STEPS):
-                raise AssertionError(f"entry call 1: steps "
-                                     f"{first['steps_seen']}, log {stats}, "
-                                     f"checkpoint epoch {saved['epoch']} "
-                                     f"extra {saved.get('extra')}")
-            second = entry_run(torch, A, base + [
-                "--auto_resume", "true", "--stop_after_steps", "2"], records)
-            saved = load_checkpoint(out / "checkpoint-latest.pth")
-            if (second["steps_seen"] != [ENTRY_STEPS + 1, ENTRY_STEPS + 2]
-                    or saved["epoch"] != 1
-                    or saved["extra"]["epoch_step"] != 2
-                    or saved["extra"]["step"] != ENTRY_STEPS + 2):
-                raise AssertionError(f"entry call 2 did not resume at epoch "
-                                     f"1 step 0: steps {second['steps_seen']},"
-                                     f" checkpoint epoch {saved['epoch']} "
-                                     f"extra {saved.get('extra')}")
+        for name in ("source", "target"):
+            (tmp / f"{name}.csv").write_text("".join(
+                f"{name}/clip_{i:04d}.mp4,{i % 12}\n"
+                for i in range(ENTRY_BATCH * ENTRY_STEPS)))
+        out = tmp / "run"
+        base = ["--synthetic_data", "true", "--device_normalize", "true",
+                "--mask_ratio", "0.75", "--batch_size", str(ENTRY_BATCH),
+                "--ann_file_train", str(tmp / "source.csv"),
+                "--ann_file_train_target", str(tmp / "target.csv"),
+                "--output_dir", str(out)]
+        first = entry_run(torch, A, base + [
+            "--stop_after_steps", str(ENTRY_STEPS)], records)
+        stats = [json.loads(x) for x in (out / "log.txt").read_text(
+            ).splitlines()]
+        saved = load_checkpoint(out / "checkpoint-latest.pth")
+        if (first["steps_seen"] != list(range(1, ENTRY_STEPS + 1))
+                or len(stats) != 1 or stats[0]["epoch"] != 0
+                or not all(abs(stats[0][k]) < float("inf") and
+                           stats[0][k] == stats[0][k]
+                           for k in ("train_loss", "train_grad_norm"))
+                or saved["epoch"] != 0
+                or saved["extra"]["step"] != ENTRY_STEPS):
+            raise AssertionError(f"entry call 1: steps "
+                                 f"{first['steps_seen']}, log {stats}, "
+                                 f"checkpoint epoch {saved['epoch']} "
+                                 f"extra {saved.get('extra')}")
+        second = entry_run(torch, A, base + [
+            "--auto_resume", "true", "--stop_after_steps", "2"], records)
+        saved = load_checkpoint(out / "checkpoint-latest.pth")
+        if (second["steps_seen"] != [ENTRY_STEPS + 1, ENTRY_STEPS + 2]
+                or saved["epoch"] != 1
+                or saved["extra"]["epoch_step"] != 2
+                or saved["extra"]["step"] != ENTRY_STEPS + 2):
+            raise AssertionError(f"entry call 2 did not resume at epoch "
+                                 f"1 step 0: steps {second['steps_seen']},"
+                                 f" checkpoint epoch {saved['epoch']} "
+                                 f"extra {saved.get('extra')}")
     finally:
         R.make_pretrain_train_step = build
     res = dict(first=first, resumed=second, epoch0_log=stats[0],
@@ -2128,6 +2184,245 @@ def stage1_entry(torch, A, m075: dict) -> dict:
           f"{m075['clips_per_s']:.2f}; {json.dumps(res)} on {card_line()}",
           flush=True)
     return res
+
+
+def stage2_entry_call(torch, A, argv, want: dict, what: str) -> dict:
+    """One call of ``run_stage2.main`` on the card with its launch counts
+    read around it, held to ``want``."""
+    from unite_torch.config import parse_with_config
+    from unite_torch.train import run_stage2
+    from unite_torch.train.args import stage2_parser
+
+    args = parse_with_config(stage2_parser(), STAGE2_ARGS + argv)
+    reset_counts(A)
+    t0 = time.perf_counter()
+    run_stage2.main(args)
+    wall = time.perf_counter() - t0
+    counts = read_counts(A)
+    expect_counts(counts, want, what)
+    return dict(t0=t0, wall_s=wall, launches=counts)
+
+
+def stage2_host_rates(tmp: Path, argv) -> dict:
+    """Items/s of the stage-2 entry's host data path alone (decode,
+    augmentation, collation; the entry's --num_workers threads), one pass
+    of each of its train (the steady-state call's file), validation and
+    test loaders, nothing on the card: what the entry's steps and eval
+    calls wait for once the loaders' prefetch runs dry. The train rate is
+    taken over batches 17-96, as the entry's steady rate is."""
+    from unite_torch.config import parse_with_config
+    from unite_torch.data.build import build_dataset
+    from unite_torch.train import common as C
+    from unite_torch.train.args import stage2_parser
+
+    args = parse_with_config(stage2_parser(), STAGE2_ARGS + argv)
+    rates = {}
+    for mode, anno, batch in (("train", "steady.csv", args.batch_size),
+                              ("validation", "val.csv", args.batch_size_val),
+                              ("test", "test.csv", args.batch_size_val)):
+        ds, _ = build_dataset(mode, args, anno_path=str(tmp / anno),
+                              reader=C.reader_for(args, mode != "train"))
+        loader = C.make_loader(ds, args, batch, shuffle=mode == "train",
+                               drop_last=False)
+        t0 = time.perf_counter()
+        ts, n = [t0], [0]
+        for b in loader:
+            ts.append(time.perf_counter())
+            n.append(n[-1] + len(b[0]))
+        i = S2_STEADY_FROM if mode == "train" else 0
+        rates[mode] = (n[-1] - n[i]) / (ts[-1] - ts[i])
+    return rates
+
+
+def stage2_entry(torch, A, finetune: Path, s2: dict, ev: dict,
+                 workdir: Path):
+    """Phase: ``stage2-entry-b7``. ``unite_torch.train.run_stage2.main`` on
+    the card with no --config: ``STAGE2_ARGS`` (stage2_config.yaml and
+    stage2.sh) on synthetic clips, uint8 clips normalized on the card,
+    --eval_freq 1 and --epochs 2 (stage2.sh's warmup of EPOCHS / 5: 0),
+    --finetune the stage-1 entry's checkpoint-latest. K3, K4a and K4b are
+    first held to their plain versions at its train shape [7, 1568, 2304].
+    Call 1 trains epoch 0 (4 steps of 7), validates (40 clips: 2 calls of
+    32), writes checkpoint-best and -latest, and is preempted after 2 steps
+    of epoch 1; call 2 auto-resumes there, finishes the epoch, validates,
+    reloads checkpoint-best and runs the 12-view test (96 views, 3 calls)
+    and its merge; call 3 (--eval, --finetune checkpoint-best) runs only
+    the test, whose merged accuracies must equal call 2's; call 4 trains
+    one epoch of 96 steps with no validation, whose steps 17-96 give the
+    entry's steady clips/s (steps 2-4 of call 1 run on batches the loader
+    prefetched while the model was built), and runs the test. Launch counts
+    are exact: 12 K4a and K4b a step, 12 K3 a step and an eval call. Each
+    step and eval call is timed after a synchronize."""
+    import unite_torch.train.run_stage2 as R
+    from unite_torch.train import common as C
+    from unite_torch.utils.checkpoint import load_checkpoint
+
+    rec = {"steps": [], "calls": 0, "val_s": [], "test_s": []}
+    build_step, build_eval = R.make_finetune_train_step, R.make_eval_step
+    run_val, run_test = C.run_validation, C.run_final_test
+
+    def timed_step(*a, **k):
+        step = build_step(*a, **k)
+
+        def timed(state, batch, gen=None):
+            out = step(state, batch, gen)
+            torch.cuda.synchronize()
+            rec["steps"].append(dict(t=time.perf_counter(), step=state.step,
+                                     loss=out["loss"].item(),
+                                     grad_norm=out["grad_norm"].item()))
+            return out
+
+        return timed
+
+    def checked_eval(*a, **k):
+        step = build_eval(*a, **k)
+
+        def checked(state, batch):
+            out = step(state, batch)
+            probs = out["probs"]
+            sums = probs.sum(-1)
+            if (probs.shape != (32, 12) or not bool(torch.isfinite(probs).all())
+                    or bool((probs < 0).any())
+                    or (sums - 1).abs().max().item() > 1e-4):
+                raise AssertionError(f"stage-2 entry eval probs: shape "
+                                     f"{tuple(probs.shape)}, row sums "
+                                     f"{sums.tolist()}")
+            rec["calls"] += 1
+            return out
+
+        return checked
+
+    def timed_run(fn, key):
+        def run(*a, **k):
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            rec[key].append(time.perf_counter() - t0)
+            return out
+        return run
+
+    # before timing anything: the kernels at the train step's shape
+    kr = check_packed_kernels(torch, A, shapes=(("train", 7, True),),
+                              tag="/b7")
+    tmp = workdir / "stage2"
+    tmp.mkdir()
+    for name, n in (("train", S2_TRAIN), ("val", S2_VAL), ("test", S2_TEST),
+                    ("steady", S2_STEADY)):
+        (tmp / f"{name}.csv").write_text("".join(
+            f"{name}/clip_{i:04d}.mp4,{i % 12}\n" for i in range(n)))
+    out, out_eval, out_steady = tmp / "run", tmp / "eval", tmp / "steady"
+    base = ["--synthetic_data", "true", "--device_normalize", "true",
+            "--eval_freq", "1", "--epochs", "2", "--warmup_epochs", "0",
+            "--ann_file_train", str(tmp / "train.csv"),
+            "--ann_file_val", str(tmp / "val.csv"),
+            "--ann_file_test", str(tmp / "test.csv")]
+    steps_per_epoch = S2_TRAIN // 7
+    val_calls, test_calls = -(-S2_VAL // 32), -(-S2_TEST * 12 // 32)
+
+    def want(steps, evals):
+        return {"K3": 12 * (steps + evals), "K3+lse": 12 * steps,
+                "K4a": 12 * steps, "K4b": 12 * steps}
+
+    R.make_finetune_train_step, R.make_eval_step = timed_step, checked_eval
+    C.run_validation = timed_run(run_val, "val_s")
+    C.run_final_test = timed_run(run_test, "test_s")
+    try:
+        first = stage2_entry_call(
+            torch, A, base + ["--output_dir", str(out), "--finetune",
+                              str(finetune), "--stop_after_steps", "6"],
+            want(6, val_calls), "stage-2 entry call 1")
+        steps1 = rec["steps"][:]
+        best = load_checkpoint(out / "checkpoint-best.pth")
+        mid = load_checkpoint(out / "checkpoint-latest.pth")
+        log1 = [json.loads(x) for x in (out / "log.txt").read_text(
+            ).splitlines()]
+        if ([r["step"] for r in steps1] != list(range(1, 7))
+                or best["epoch"] != 0 or best["extra"]["step"] != 4
+                or mid["epoch"] != 1 or mid["extra"]["epoch_step"] != 2
+                or mid["extra"]["step"] != 6 or len(log1) != 1
+                or log1[0]["epoch"] != 0 or "val_acc1" not in log1[0]):
+            raise AssertionError(
+                f"stage-2 entry call 1: steps {[r['step'] for r in steps1]}, "
+                f"best {best['epoch']} {best['extra']}, latest "
+                f"{mid['epoch']} {mid['extra']}, log {log1}")
+        rec["steps"].clear()
+        second = stage2_entry_call(
+            torch, A, base + ["--output_dir", str(out), "--finetune",
+                              str(finetune), "--auto_resume", "true"],
+            want(2, val_calls + test_calls), "stage-2 entry call 2")
+        steps2 = rec["steps"][:]
+        last = load_checkpoint(out / "checkpoint-latest.pth")
+        log2 = [json.loads(x) for x in (out / "log.txt").read_text(
+            ).splitlines()]
+        if ([r["step"] for r in steps2] != [7, 8] or last["epoch"] != 1
+                or last["extra"]["step"] != 2 * steps_per_epoch
+                or "epoch_step" in last["extra"]
+                or [r["epoch"] for r in log2] != [0, 1, 2]):
+            raise AssertionError(
+                f"stage-2 entry call 2 did not resume at epoch 1 step 2: "
+                f"steps {[r['step'] for r in steps2]}, latest "
+                f"{last['epoch']} {last['extra']}, log {log2}")
+        third = stage2_entry_call(
+            torch, A, base + ["--output_dir", str(out_eval), "--finetune",
+                              str(out / "checkpoint-best.pth"),
+                              "--eval", "true"],
+            want(0, test_calls), "stage-2 entry call 3 (--eval)")
+        log3 = [json.loads(x) for x in (out_eval / "log.txt").read_text(
+            ).splitlines()]
+        rec["steps"].clear()
+        steady = stage2_entry_call(
+            torch, A, base + ["--output_dir", str(out_steady), "--finetune",
+                              str(finetune), "--epochs", "1",
+                              "--ann_file_train", str(tmp / "steady.csv"),
+                              "--disable_eval_during_finetuning", "true",
+                              "--save_ckpt", "false"],
+            want(S2_STEADY // 7, test_calls),
+            "stage-2 entry call 4 (steady)")
+        steps4 = rec["steps"][:]
+        if [r["step"] for r in steps4] != list(range(1, S2_STEADY // 7 + 1)):
+            raise AssertionError(f"stage-2 entry call 4: steps "
+                                 f"{[r['step'] for r in steps4]}")
+    finally:
+        R.make_finetune_train_step, R.make_eval_step = build_step, build_eval
+        C.run_validation, C.run_final_test = run_val, run_test
+    check_finite([(r["loss"], r["grad_norm"])
+                  for r in steps1 + steps2 + steps4])
+    host = stage2_host_rates(tmp, base + ["--output_dir", str(out)])
+    test2 = {k: log2[-1][k] for k in ("test_acc1", "test_acc5")}
+    test3 = {k: log3[-1][k] for k in ("test_acc1", "test_acc5")}
+    if test3 != test2 or not all(0.0 <= v <= 100.0 for v in test2.values()):
+        raise AssertionError(f"stage-2 entry test: call 2 {test2}, "
+                             f"call 3 (--eval) {test3}")
+    ts = [r["t"] for r in steps1]
+    ts4 = [r["t"] for r in steps4][S2_STEADY_FROM - 1:]
+    calls = [first["launches"], second["launches"], third["launches"],
+             steady["launches"]]
+    launches = {k: sum(c[k] for c in calls) for k in first["launches"]}
+    res = dict(
+        steady_clips_per_s=7 * (len(ts4) - 1) / (ts4[-1] - ts4[0]),
+        steady_step_s=[b - a for a, b in zip(ts4, ts4[1:])],
+        prefetched_clips_per_s=7 * 3 / (ts[3] - ts[0]),
+        first_step_s=ts[0] - first["t0"],
+        step_s=[b - a for a, b in zip(ts, ts[1:])],
+        bare_step_clips_per_s_b8=s2["clips_per_s"],
+        val_views_per_s=[S2_VAL / s for s in rec["val_s"]],
+        test_views_per_s=[S2_TEST * 12 / s for s in rec["test_s"]],
+        bare_eval_views_per_s_b32=ev["views_per_s"],
+        host_items_per_s=host,
+        walls_s=[c["wall_s"] for c in (first, second, third, steady)],
+        losses=[r["loss"] for r in steps1 + steps2], epoch_logs=log2,
+        test=test2, eval_calls=rec["calls"], launches=launches, calls=calls)
+    print(f"stage2-entry-b7: entry {res['steady_clips_per_s']:.2f} clips/s "
+          f"over steps {S2_STEADY_FROM + 1}-{S2_STEADY // 7} of call 4 "
+          f"({res['prefetched_clips_per_s']:.2f} over steps 2-4 of call 1, "
+          f"on prefetched batches) beside the bare step's "
+          f"{s2['clips_per_s']:.2f} (B=8); first step after "
+          f"{res['first_step_s']:.2f} s; val views/s "
+          f"{[round(x, 2) for x in res['val_views_per_s']]}, test views/s "
+          f"{[round(x, 2) for x in res['test_views_per_s']]} (bare eval "
+          f"{ev['views_per_s']:.2f}); the host data path alone, items/s: "
+          f"{host}; launches {launches}; "
+          f"{json.dumps(res)} on {card_line()}", flush=True)
+    return res, kr
 
 
 def main() -> int:
@@ -2189,15 +2484,24 @@ def main() -> int:
     m075 = main_path(torch, A, mask_ratio=0.75)
     torch.cuda.empty_cache()
     mark("stage-1 paths")
-    entry = stage1_entry(torch, A, m075)
+    # the stage-1 entry's output stays until the stage-2 entry has read it
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as work:
+        work = Path(work)
+        entry = stage1_entry(torch, A, m075, work)
+        torch.cuda.empty_cache()
+        mark("stage-1 entry")
+        s2_rel = stage2_card_vs_cpu(torch)
+        s2, state, eval_step = stage2_path(torch, A)
+        ev = stage2_eval(torch, A, state, eval_step)
+        del state, eval_step
+        torch.cuda.empty_cache()
+        mark("stage-2 paths")
+        entry2, kr_b7 = stage2_entry(
+            torch, A, work / "stage1" / "run" / "checkpoint-latest.pth", s2,
+            ev, work)
+        kr.update(kr_b7)
     torch.cuda.empty_cache()
-    mark("stage-1 entry")
-    s2_rel = stage2_card_vs_cpu(torch)
-    s2, state, eval_step = stage2_path(torch, A)
-    ev = stage2_eval(torch, A, state, eval_step)
-    del state, eval_step
-    torch.cuda.empty_cache()
-    mark("stage-2 paths")
+    mark("stage-2 entry")
     s3_rel = {f"cls={cls}": stage3_card_vs_cpu(torch, cls)
               for cls in (False, True)}
     s3, state, _ = stage3_path(torch, A, cls=False)
@@ -2230,6 +2534,15 @@ def main() -> int:
             ("K4b", "packed_flash_dkv[train B=8 S=1568]",
              "unite_torch/csrc/flash_bwd_wgmma.cu",
              "unite_tpu/ops/attention.py:1014", s2["k4_dkv_launches"]),
+            ("K3/train/b7", "packed_flash_fwd[stage-2 entry train B=7 "
+             "S=1568]", "unite_torch/csrc/flash_fwd_wgmma.cu",
+             "unite_tpu/ops/attention.py:913", entry2["launches"]["K3+lse"]),
+            ("K4a/b7", "packed_flash_dq[stage-2 entry train B=7 S=1568]",
+             "unite_torch/csrc/flash_bwd_wgmma.cu",
+             "unite_tpu/ops/attention.py:983", entry2["launches"]["K4a"]),
+            ("K4b/b7", "packed_flash_dkv[stage-2 entry train B=7 S=1568]",
+             "unite_torch/csrc/flash_bwd_wgmma.cu",
+             "unite_tpu/ops/attention.py:1014", entry2["launches"]["K4b"]),
             ("K6/train", "flash_fwd[stage-3 CLS train B=5 S=1569]",
              "unite_torch/csrc/flash_fwd_wgmma.cu",
              "unite_tpu/ops/attention.py:148", s3c["launches"]["K6"]),
@@ -2281,7 +2594,8 @@ def main() -> int:
     print(json.dumps({"kernels": kernels, "step": mp,
                       "stage1_m075_step": m075,
                       "stage1_m075_card_vs_cpu_rel": m075_rel,
-                      "stage1_entry": entry, "stage2_step": s2,
+                      "stage1_entry": entry, "stage2_entry": entry2,
+                      "stage2_step": s2,
                       "stage2_eval": ev, "stage2_card_vs_cpu_rel": s2_rel,
                       "stage3_step": s3, "stage3_cls_step": s3c,
                       "stage3_cls_eval": ev3, "stage3_card_vs_cpu": s3_rel,

@@ -595,3 +595,51 @@ def test_int8_dense_on_card_equals_the_cpu(cuda, dtype):
     out = Q.int8_dense(x.to(cuda), w_q_card, scale_card, b.to(cuda))
     assert MM.int8_matmul.launches == before + 1
     assert out.dtype == dtype and torch.equal(out.cpu(), ref)
+
+
+@pytest.mark.cuda
+def test_stage2_entry_runs_on_card_through_k3_k4(cuda, tmp_path):
+    # run_stage2.main on the card at a tiny width: a ViT of depth 2, width
+    # 128 and 2 heads over 4 frames of 224^2 (784 tokens: K3 forward, K4
+    # backward), 2 train steps of 2, one validation call, one test call
+    import json
+
+    from unite_torch.config import parse_with_config
+    from unite_torch.models.vit import VisionTransformer
+    from unite_torch.train import run_stage2
+    from unite_torch.train.args import stage2_parser
+    from unite_torch.utils.registry import _MODEL_REGISTRY, register_model
+
+    if "vit_card_tiny" not in _MODEL_REGISTRY:
+        @register_model
+        def vit_card_tiny(**kwargs):
+            return VisionTransformer(embed_dim=128, depth=2, num_heads=2,
+                                     mlp_ratio=2, **kwargs)
+
+    for name, n in (("train", 4), ("val", 3), ("test", 2)):
+        (tmp_path / f"{name}.csv").write_text("".join(
+            f"{name}/v{i}.mp4,{i % 3}\n" for i in range(n)))
+    args = parse_with_config(stage2_parser(), [
+        "--model", "vit_card_tiny", "--nb_classes", "3", "--num_frames", "4",
+        "--tubelet_size", "1", "--input_size", "224",
+        "--short_side_size", "224", "--batch_size", "2",
+        "--batch_size_val", "4", "--epochs", "1", "--warmup_epochs", "0",
+        "--test_num_segment", "1", "--test_num_crop", "1", "--split", ",",
+        "--synthetic_data", "true", "--device_normalize", "true",
+        "--num_workers", "2", "--output_dir", str(tmp_path / "run"),
+        "--ann_file_train", str(tmp_path / "train.csv"),
+        "--ann_file_val", str(tmp_path / "val.csv"),
+        "--ann_file_test", str(tmp_path / "test.csv")])
+    kernels = (TA.packed_flash_fwd, TA.packed_flash_dq, TA.packed_flash_dkv)
+    before = [k.launches for k in kernels]
+    lse_before = TA.packed_flash_fwd.lse_launches
+    run_stage2.main(args)
+    launched = [k.launches - b for k, b in zip(kernels, before)]
+    # 2 blocks: 2 steps forward and backward, 1 val and 1 test call forward
+    assert launched == [2 * (2 + 1 + 1), 2 * 2, 2 * 2]
+    assert TA.packed_flash_fwd.lse_launches - lse_before == 2 * 2
+    logs = [json.loads(x) for x in
+            (tmp_path / "run" / "log.txt").read_text().splitlines()]
+    assert [r["epoch"] for r in logs] == [0, 1]
+    assert torch.isfinite(torch.tensor(logs[0]["train_loss"]))
+    assert 0.0 <= logs[1]["test_acc1"] <= 100.0

@@ -5,9 +5,9 @@ CPU, with tiny models.
   every shipped config, and ``chip_smoke.py``'s command line equals
   configs/stage1_config.yaml plus stage1.sh.
 * Pretraining items and loader batches equal ``unite_tpu.data``'s on the
-  synthetic reader, in the same order: bitwise on the PIL path; on the uint8
-  ``device_normalize`` path with equal crop boxes and flips and pixels
-  within one uint8 level (torch bilinear against cv2 INTER_LINEAR).
+  synthetic reader, in the same order, bitwise on the PIL path and on the
+  uint8 ``device_normalize`` path (both resize with cv2 INTER_LINEAR), with
+  equal crop boxes and flips.
 * ``run_stage1.main`` over two epochs (tube masks from the data path, drop
   path 0, fp32) writes the per-epoch train loss that the JAX step gives
   over the same batches from the same weights (rtol 1e-5, fp32 summation
@@ -20,6 +20,7 @@ CPU, with tiny models.
 import json
 import os
 import re
+import shlex
 import signal
 from pathlib import Path
 
@@ -125,6 +126,24 @@ def test_chip_smoke_command_line_is_config_plus_launcher():
     got = tconfig.parse_with_config(targs.stage1_parser(),
                                     chip_smoke.STAGE1_ARGS)
     assert vars(got) == dict(vars(ref), config=None)
+    # stage 2: the launcher's command as the shell runs it at its default
+    # EPOCHS=50 (warmup EPOCHS / 5)
+    text = (ROOT / "stage2.sh").read_text()
+    assert "EPOCHS=${EPOCHS:-50}" in text
+    cmd = text[text.index("python -m"):].replace(
+        "$((EPOCHS / 5))", "10").replace('"$EPOCHS"', "50")
+    words = shlex.split(cmd.replace("\\\n", " "))[3:]
+    assert words[-1] == "$@"
+    pairs = list(zip(words[:-1:2], words[1:-1:2]))
+    assert all(f.startswith("--") for f, _ in pairs)
+    launcher = [x for f, v in pairs if f not in (
+        "--config", "--dataset", "--output_dir", "--finetune") for x in (f, v)]
+    assert launcher[:2] == ["--frozen_layers", ""] and "--eval_freq" in launcher
+    ref = jconfig.parse_with_config(jargs.stage2_parser(), [
+        "--config", str(ROOT / "configs/stage2_config.yaml")] + launcher)
+    got = tconfig.parse_with_config(targs.stage2_parser(),
+                                    chip_smoke.STAGE2_ARGS)
+    assert vars(got) == dict(vars(ref), config=None)
 
 
 def test_dump_config_without_yaml(tmp_path, monkeypatch):
@@ -160,7 +179,6 @@ def test_pretrain_items_match_jax(tmp_path, device_normalize):
         sample = d.crop._sample_crop
         d.crop._sample_crop = lambda *a, _s=sample, _n=name: (
             boxes.setdefault(_n, []).append(_s(*a)), boxes[_n][-1])[1]
-    differ = total = 0
     for epoch in (0, 1):
         ds.set_epoch(epoch)
         jds.set_epoch(epoch)
@@ -170,19 +188,8 @@ def test_pretrain_items_match_jax(tmp_path, device_normalize):
                 4, 64, 64, 3)
             np.testing.assert_array_equal(m, jm)
             assert lab == jlab
-            if not device_normalize:
-                np.testing.assert_array_equal(v, jv)
-                continue
-            d = np.abs(v.astype(np.int16) - jv.astype(np.int16))
-            assert d.max() <= 1  # a flip or a crop apart would differ far more
-            differ += int((d > 0).sum())
-            total += d.size
+            np.testing.assert_array_equal(v, jv)
     assert boxes["port"] == boxes["jax"] and len(boxes["port"]) == 12
-    if device_normalize:
-        # measured here: 0.1207 of the pixels differ, all by one level (the
-        # two round fixed-point and fp32 interpolants at other points)
-        print(f"uint8 path: {differ / total:.4f} of the pixels differ by 1")
-        assert differ / total < 0.25
 
 
 def test_loader_batches_match_jax(tmp_path):
@@ -553,7 +560,7 @@ def test_checkpoint_tags_order_and_async_errors(tmp_path):
 
     class Broken:  # a state whose snapshot fails in the writer
         model = torch.nn.Linear(2, 2)
-        optimizer = type("O", (), {"count": 0, "state": {}})()
+        optimizer = type("O", (), {"count": 0, "every_k": 1, "state": {}})()
         ema_params = None
         step = 0
 

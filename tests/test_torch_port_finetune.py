@@ -105,7 +105,7 @@ def test_readout_variants_match_jax(kw):
 
 
 def test_dropout_is_refused():
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(NotImplementedError, match="item 4"):
         tvit.VisionTransformer(**dict(CFG, drop_rate=0.1))
 
 

@@ -33,7 +33,10 @@ SLICE_MODULES = ("ops.attention", "models.adaptation", "engines.finetune",
                  "data.datasets", "data.build", "data.sharding", "data.loader",
                  "utils.logging", "utils.checkpoint", "utils.torch_import",
                  "train.common", "train.run_stage1", "ops.matmul", "ops.quant",
-                 "tools.quant_kernel_probe")
+                 "tools.quant_kernel_probe", "train.run_stage2",
+                 "data.functional", "data.rand_augment",
+                 "data.random_erasing", "data.datasets_extra",
+                 "ops.eval_transforms")
 # imported only where their paths are used (a YAML file, the PIL transform
 # path, the OpenCV reader, the logging flags)
 LAZY = ("yaml", "PIL", "cv2", "tensorboardX", "wandb")

@@ -192,7 +192,7 @@ def test_decay_split_by_name_matches_jax():
 
 def test_only_adamw_is_ported():
     sm = tad.AdaptationVisionTransformer(**STUDENT)
-    with pytest.raises(NotImplementedError, match="item 14"):
+    with pytest.raises(NotImplementedError, match="item 8"):
         tfactory.create_optimizer("lamb", 1e-3, sm, device="cpu")
 
 

@@ -5,14 +5,15 @@ Training reads indexed frame batches (``get_batch(path, indices)``), uint8
 [N, H, W, C] RGB. Backends:
 
 * ``CV2VideoReader``   — OpenCV VideoCapture (sequential seek), imported
-  only when a video is opened;
+  only when a video is opened, with an optional short-side resize after
+  decode;
 * ``SyntheticVideoReader`` — deterministic procedurally-generated frames
   keyed by (path, index), bitwise the JAX package's, for tests and
   benchmarks without video files.
 
 The JAX package's first choice, the native FFmpeg decoder
 (unite_tpu/native/videodec.cpp), has no binding here yet (ROADMAP queue 1,
-item 10): ``default_reader`` takes OpenCV and, where OpenCV is missing too,
+item 6): ``default_reader`` takes OpenCV and, where OpenCV is missing too,
 raises naming the binding.
 """
 
@@ -49,9 +50,13 @@ class VideoReaderBase:
 
 
 class CV2VideoReader(VideoReaderBase):
-    """OpenCV VideoCapture at the native raster (the decode-time scaling of
-    the JAX package's readers serves the finetune datasets, not ported
-    yet)."""
+    """OpenCV VideoCapture. ``short_side`` resizes each batch after the
+    decode (``transforms.resize_clip``, host-side: the capture has no
+    decode-time scaling), as the JAX package's reader does; by default
+    frames keep their native raster."""
+
+    def __init__(self, short_side: Optional[int] = None):
+        self.short_side = short_side
 
     def _probe_num_frames(self, path: str) -> int:
         import cv2
@@ -83,7 +88,12 @@ class CV2VideoReader(VideoReaderBase):
                 if not ok:
                     raise RuntimeError(f"decode failed at frame {target}: {path}")
                 frames[target] = cv2.cvtColor(frame, cv2.COLOR_BGR2RGB)
-            return np.stack([frames[int(i)] for i in indices])
+            out = np.stack([frames[int(i)] for i in indices])
+            if self.short_side:
+                from unite_torch.data.transforms import resize_clip
+
+                out = resize_clip(out, int(self.short_side))
+            return out
         finally:
             cap.release()
 
@@ -128,15 +138,16 @@ class SyntheticVideoReader(VideoReaderBase):
         return out
 
 
-def default_reader() -> VideoReaderBase:
-    """OpenCV's reader. The JAX package prefers its native decoder, whose
-    binding the port does not have yet."""
+def default_reader(short_side: Optional[int] = None) -> VideoReaderBase:
+    """OpenCV's reader (``short_side``: resize each batch's short side to
+    it). The JAX package prefers its native decoder, whose binding the port
+    does not have yet."""
     try:
         import cv2  # noqa: F401
     except ImportError as e:
         raise ImportError(
             "no video decoder: the port has no binding for the native "
             "decoder (unite_tpu/native/videodec.cpp, ROADMAP queue 1 item "
-            "10) and OpenCV (cv2) is not installed; use --synthetic_data "
+            "6) and OpenCV (cv2) is not installed; use --synthetic_data "
             "true or install opencv-python") from e
-    return CV2VideoReader()
+    return CV2VideoReader(short_side=short_side)

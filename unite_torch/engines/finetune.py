@@ -10,8 +10,8 @@ and only their update is 0 (the optimizer's "frozen" group). At 1568 tokens
 the attention of all 12 blocks runs forward through K3 and backward through
 K4.
 
-The epoch loops, logging and checkpoints belong to the stage-2 entry, which
-waits for slice B (``unite_torch/train/run_stage2.py``).
+The epoch loops, logging and checkpoints belong to the stage-2 entry
+(``unite_torch/train/run_stage2.py``).
 """
 
 from __future__ import annotations
@@ -49,7 +49,7 @@ def make_finetune_train_step(model: torch.nn.Module, mixup=None,
     if mixup is not None:
         raise NotImplementedError(
             "device-side mixup (ops/mixup.py) is not ported yet (ROADMAP "
-            "queue 1, item 11); inject batch['soft_targets'] instead")
+            "queue 1, item 4); inject batch['soft_targets'] instead")
     dev = resolve_device(device)
     model.to(dev)
 

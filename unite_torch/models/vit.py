@@ -56,7 +56,7 @@ class VisionTransformer(nn.Module):
         if any(r > 0.0 for r in rates.values()):
             raise NotImplementedError(
                 f"dropout {rates} is not ported yet (ROADMAP queue 1, item "
-                "11); the stage-2 config keeps every dropout rate at 0")
+                "4); the stage-2 config keeps every dropout rate at 0")
         if classifier_type not in ("linear", "mlp"):
             raise NotImplementedError(classifier_type)
         self.depth, self.dtype = depth, dtype

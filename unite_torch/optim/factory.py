@@ -9,10 +9,23 @@ The update is optax's ``scale_by_adam`` followed by the decoupled decay of
     u  = (mu/(1-b1^n)) / (sqrt(nu/(1-b2^n)) + eps) + wd_t*p   (decay groups)
     p  = p - lr_t*scale*u
 
-with lr_t and wd_t read from their tables at the optimizer's own step count,
-clamped at the last entry. Parameters whose ``.grad`` is None (blocks that
-never ran under ``clip_only``) and frozen parameters (scale 0) are skipped:
-no update and no decay, as torch AdamW does for a None grad.
+with lr_t and wd_t read from their tables at the optimizer's schedule
+count, clamped at the last entry. The schedule count is the step count
+(which drives the bias correction) plus an offset that
+``set_schedule_count`` sets when an optimizer is rebuilt mid-run (the
+LP-FT switch), as unite_tpu keeps its ScheduledState count apart from
+Adam's. Parameters whose ``.grad`` is None (blocks that never ran under
+``clip_only``) and frozen parameters (scale 0) are skipped: no update and
+no decay, as torch AdamW does for a None grad.
+
+With ``every_k`` > 1 (--update_freq) the optimizer accumulates gradients
+with ``optax.MultiSteps`` semantics: each ``step()`` folds the parameters'
+``.grad`` into a running mean (acc += (g - acc) / (n + 1)); every
+``every_k``-th call clips that mean once by its global norm
+(``optax.clip_by_global_norm``: g * max_norm / norm when norm >= max_norm)
+and takes one AdamW step from it. The calls in between leave the parameters
+and the moments as they are; ``emitted`` says whether the last call stepped,
+which gates the EMA.
 """
 
 from __future__ import annotations
@@ -22,6 +35,7 @@ from typing import Callable, Dict, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from unite_torch.train.train_state import global_grad_norm
 from unite_torch.utils.device import resolve_device
 
 DEFAULT_SKIP_LIST = ("pos_embed", "cls_token", "mask_token", "clip_pos_embed")
@@ -93,20 +107,57 @@ def _table(x) -> np.ndarray:
 
 
 class ScheduledAdamW(torch.optim.Optimizer):
-    """AdamW whose lr and weight decay follow per-step tables."""
+    """AdamW whose lr and weight decay follow per-step tables, stepping once
+    every ``every_k`` calls from the clipped mean of their gradients."""
 
     def __init__(self, param_groups, lr_table, wd_table,
-                 betas: Tuple[float, float] = (0.9, 0.999), eps: float = 1e-8):
+                 betas: Tuple[float, float] = (0.9, 0.999), eps: float = 1e-8,
+                 every_k: int = 1, clip_grad: Optional[float] = None):
         super().__init__(param_groups, {"lr_scale": 1.0, "decay": True})
         self.lr_table, self.wd_table = _table(lr_table), _table(wd_table)
         self.betas, self.eps = betas, eps
-        self.count = 0  # indexes the tables and drives bias correction
+        self.count = 0  # drives bias correction
+        self.schedule_offset = 0  # tables index count + schedule_offset
+        self.every_k, self.clip_grad = int(every_k), clip_grad
+        self.mini_step = 0  # position in the accumulation window
+        self.acc: Dict[torch.Tensor, torch.Tensor] = {}
+
+    @property
+    def emitted(self) -> bool:
+        return self.mini_step == 0
+
+    def _accumulate(self) -> bool:
+        """Fold ``.grad`` into the running mean; at the window's end put the
+        clipped mean back into ``.grad`` and return True."""
+        params = [p for g in self.param_groups for p in g["params"]
+                  if p.grad is not None]
+        n = self.mini_step
+        for p in params:
+            acc = self.acc.get(p)
+            if acc is None:
+                acc = self.acc[p] = torch.zeros_like(p.grad)
+            acc.add_((p.grad - acc) / (n + 1))
+        self.mini_step = (n + 1) % self.every_k
+        if self.mini_step:
+            return False
+        grads = [self.acc.pop(p) for p in params]
+        if self.clip_grad is not None:
+            norm = global_grad_norm(grads)
+            keep = norm < self.clip_grad
+            for g in grads:
+                g.copy_(torch.where(keep, g, g / norm * self.clip_grad))
+        for p, g in zip(params, grads):
+            p.grad = g
+        return True
 
     @torch.no_grad()
     def step(self, closure=None):
+        if self.every_k > 1 and not self._accumulate():
+            return
         b1, b2 = self.betas
-        lr_t = float(self.lr_table[min(self.count, len(self.lr_table) - 1)])
-        wd_t = float(self.wd_table[min(self.count, len(self.wd_table) - 1)])
+        i = self.count + self.schedule_offset
+        lr_t = float(self.lr_table[min(i, len(self.lr_table) - 1)])
+        wd_t = float(self.wd_table[min(i, len(self.wd_table) - 1)])
         n = self.count + 1
         bc1, bc2 = 1.0 - b1 ** n, 1.0 - b2 ** n
         for group in self.param_groups:
@@ -152,7 +203,7 @@ def create_optimizer(opt: str, lr, model: torch.nn.Module,
     name = opt.lower()
     if name != "adamw":
         raise NotImplementedError(
-            f"optimizer {opt!r} is not ported yet (ROADMAP queue 1, item 14); "
+            f"optimizer {opt!r} is not ported yet (ROADMAP queue 1, item 8); "
             "the port has 'adamw'")
     dev = resolve_device(device)
     named = list(model.named_parameters())
@@ -171,3 +222,10 @@ def create_optimizer(opt: str, lr, model: torch.nn.Module,
     tx = ScheduledAdamW(torch_groups, lr, weight_decay,
                         betas=betas or (0.9, 0.999), eps=eps)
     return tx, groups
+
+
+def set_schedule_count(opt, step: int) -> None:
+    """Continue the lr / wd tables of a freshly built optimizer (the LP-FT
+    switch) from optimizer step ``step``, leaving its bias-correction count
+    where it is (unite_tpu/optim/factory.py::set_schedule_count)."""
+    opt.schedule_offset = int(step) - int(opt.count)

@@ -1,12 +1,14 @@
 """Shared runtime for the stage entry points (unite_tpu/train/common.py, the
-parts stage 1 uses).
+parts stages 1 and 2 use).
 
 The host-side frame around the steps: run setup (seeds, experiment dir,
-device), loader construction, the per-step lr / wd tables, resume
-arithmetic, preemption, and the per-epoch train loop with MetricLogger.
-The port trains in one process on one card: ``--zero1``, ``--fsdp``,
-``--tp`` > 1 and multi-process launches raise until scale-out lands
-(ROADMAP slice E).
+device), loader construction, the per-step lr / wd tables, gradient
+accumulation, resume arithmetic, preemption, the per-epoch train loop with
+MetricLogger, padded validation (the last short batch padded to the full
+batch with its last row, the padding dropped on the host) and the
+multi-view test with its merge. The port trains in one process on one
+card: ``--zero1``, ``--fsdp``, ``--tp`` > 1 and multi-process launches
+raise until scale-out lands (ROADMAP queue 1, item 7: slice E).
 """
 
 from __future__ import annotations
@@ -21,12 +23,14 @@ import numpy as np
 import torch
 
 from unite_torch.config import dump_config, log_stats, prepare_output_dir
-from unite_torch.data.loader import DataLoader
+from unite_torch.data.loader import DataLoader, to_device
 from unite_torch.data.sharding import ShardedSampler
 from unite_torch.data.video_reader import SyntheticVideoReader, default_reader
+from unite_torch.engines.finetune import merge, write_preds_file
 from unite_torch.utils.device import resolve_device
-from unite_torch.utils.metrics import MetricLogger
-from unite_torch.utils.schedules import cosine_scheduler, scaled_lr
+from unite_torch.utils.metrics import MetricLogger, compute_ece
+from unite_torch.utils.schedules import (cosine_scheduler, scaled_lr,
+                                         step_scheduler)
 
 
 def check_single_card(args) -> None:
@@ -42,7 +46,7 @@ def check_single_card(args) -> None:
         raise NotImplementedError(
             f"{', '.join(asked)}: the port trains on one card in one process; "
             "data, ZeRO-1, FSDP and tensor parallelism come with scale-out "
-            "(ROADMAP queue 1, slice E)")
+            "(ROADMAP queue 1, item 7: slice E)")
 
 
 def setup_run(args, device=None) -> torch.device:
@@ -60,12 +64,18 @@ def setup_run(args, device=None) -> torch.device:
     return dev
 
 
-def reader_for(args):
-    """Decode backend: the synthetic reader under --synthetic_data (a fixed
-    256x320 raster), else ``default_reader``."""
+def reader_for(args, for_eval: bool = False):
+    """Decode backend of a dataset: the synthetic reader under
+    --synthetic_data (a fixed 256x320 raster), else ``default_reader``.
+    ``for_eval`` with --device_eval_transforms resizes the short side to
+    --short_side_size after the decode, so every val/test clip arrives at
+    one raster; train datasets always get the unscaled reader (their
+    augmentation works on the native raster, kinetics_sparse.py:218-281)."""
+    scaled = for_eval and getattr(args, "device_eval_transforms", False)
     if getattr(args, "synthetic_data", False):
         return SyntheticVideoReader(256, 320)
-    return default_reader()
+    return default_reader(
+        short_side=getattr(args, "short_side_size", 256) if scaled else None)
 
 
 def compute_dtype(args) -> torch.dtype:
@@ -81,7 +91,8 @@ def check_mu_dtype(args) -> None:
     name = getattr(args, "mu_dtype", None)
     if name and name != "float32":
         raise NotImplementedError(
-            f"--mu_dtype {name}: the port's AdamW keeps fp32 moments")
+            f"--mu_dtype {name}: the port's AdamW keeps fp32 moments "
+            "(ROADMAP queue 1, item 4)")
 
 
 def betas_for(args):
@@ -91,33 +102,65 @@ def betas_for(args):
     return None if b is None else tuple(b)
 
 
-def make_loader(dataset, args, batch_size, repetitions=1, seed=None):
-    """A shuffled train loader over one shard, full batches only."""
+def wrap_update_freq(tx, update_freq: int, clip_grad=None):
+    """Gradient accumulation (--update_freq), ``optax.MultiSteps``
+    semantics: k micro-batches averaged, the averaged gradient clipped once
+    to ``clip_grad``, one optimizer step (the reference clips the
+    accumulated gradient at the update boundary,
+    engine_for_finetuning.py:109-126). The step itself then runs without a
+    clip and logs each micro-batch's pre-clip norm."""
+    if update_freq > 1:
+        tx.every_k, tx.clip_grad = int(update_freq), clip_grad
+    return tx
+
+
+def make_loader(dataset, args, batch_size, shuffle=True, drop_last=True,
+                repetitions=1, seed=None):
+    """A loader over one shard: shuffled full batches for training,
+    ``shuffle=False, drop_last=False`` for evaluation."""
     sampler = ShardedSampler(
-        len(dataset), 1, 0, shuffle=True,
+        len(dataset), 1, 0, shuffle=shuffle,
         seed=args.seed if seed is None else seed, drop_last=False,
         repetitions=repetitions)
     return DataLoader(dataset, batch_size=int(batch_size), sampler=sampler,
-                      num_workers=args.num_workers, drop_last=True,
+                      num_workers=args.num_workers, drop_last=drop_last,
                       worker_mode=getattr(args, "worker_mode", "thread"))
 
 
-def lr_tables(args, niter_per_ep: int, num_sample: int = 1):
-    """Per-step LR/WD tables, with the linear scaling rule
-    lr * batch * num_sample / 256 of stages 1 and 3 (run_stage1.py:796-800;
-    one card, so the total batch is --batch_size). Stage 1 takes the cosine
-    family; the others come with the stage-2 entry."""
-    lr, min_lr, warmup_lr = (scaled_lr(x, args.batch_size, num_sample)
-                             for x in (args.lr, args.min_lr, args.warmup_lr))
+def lr_tables(args, niter_per_ep: int, num_sample: int = 1,
+              scale_rule: bool = True):
+    """Per-step LR/WD tables. With ``scale_rule`` (stages 1 and 3,
+    run_stage1.py:796-800) the lrs follow lr * batch * num_sample / 256 (one
+    card, so the total batch is --batch_size); stage 2 takes --lr as it is
+    (run_stage2.py:604). Families: cosine; constant, the step schedule
+    without milestones; step, decaying by --step_fraction at
+    --lr_step_epochs (run_stage2.py:656-667)."""
+    if scale_rule:
+        lr, min_lr, warmup_lr = (scaled_lr(x, args.batch_size, num_sample)
+                                 for x in (args.lr, args.min_lr,
+                                           args.warmup_lr))
+    else:
+        lr, min_lr, warmup_lr = args.lr, args.min_lr, args.warmup_lr
     family = getattr(args, "lr_schedule", "cosine")
-    if family != "cosine":
+    if family == "cosine":
+        lr_tab = cosine_scheduler(
+            lr, min_lr, args.epochs, niter_per_ep,
+            warmup_epochs=args.warmup_epochs, start_warmup_value=warmup_lr,
+            warmup_steps=args.warmup_steps)
+    elif family in ("constant", "step"):
+        steps = (getattr(args, "lr_step_epochs", None) if family == "step"
+                 else None)
+        if family == "step" and steps is None:
+            raise ValueError("lr_schedule=step requires --lr_step_epochs")
+        lr_tab = step_scheduler(
+            lr, getattr(args, "step_fraction", 0.1), args.epochs,
+            niter_per_ep, warmup_epochs=args.warmup_epochs,
+            start_warmup_value=warmup_lr, warmup_steps=args.warmup_steps,
+            steps=steps)
+    else:
         raise NotImplementedError(
-            f"lr_schedule {family}: the port has the cosine schedule (the "
-            "constant and step families come with the stage-2 entry)")
-    lr_tab = cosine_scheduler(
-        lr, min_lr, args.epochs, niter_per_ep,
-        warmup_epochs=args.warmup_epochs, start_warmup_value=warmup_lr,
-        warmup_steps=args.warmup_steps)
+            f"lr_schedule {family}: the families are cosine, constant and "
+            "step")
     wd_end = args.weight_decay_end
     if wd_end is None:
         wd_end = args.weight_decay
@@ -126,21 +169,28 @@ def lr_tables(args, niter_per_ep: int, num_sample: int = 1):
     return lr_tab, wd_tab, lr
 
 
-def make_sched(lr_tab, wd_tab, offset: int, groups: Dict):
+def make_sched(lr_tab, wd_tab, offset: int, groups: Dict, every_k: int = 1,
+               phase: int = 0):
     """Schedule meters for ``train_one_epoch(sched=...)``: ``offset`` is the
     global optimizer-step index of this epoch's first batch (plus skipped
-    steps on a mid-epoch resume); ``groups`` the create_optimizer group
+    steps on a mid-epoch resume); ``every_k`` batches make one optimizer
+    step (--update_freq); ``phase`` is the batches already in the current
+    accumulation window on a mid-epoch resume (skip0 % every_k), so that
+    offset + (phase + step_i) // every_k is the reference's
+    start_steps + data_iter_step // update_freq
+    (engine_for_finetuning.py:71-74); ``groups`` the create_optimizer group
     table, whose lr scales give the reference's max/min per-group lr
     (run_stage1.py:460-467; frozen scale-0 groups excluded)."""
     scales = [g["lr_scale"] for g in groups.values()
               if g["lr_scale"] > 0] or [1.0]
     return {"lr_tab": np.asarray(lr_tab), "wd_tab": np.asarray(wd_tab),
-            "offset": int(offset),
+            "offset": int(offset), "every_k": max(1, int(every_k)),
+            "phase": int(phase),
             "max_scale": float(max(scales)), "min_scale": float(min(scales))}
 
 
 def _sched_values(sched: Dict, step_i: int) -> Dict:
-    g = sched["offset"] + step_i
+    g = sched["offset"] + (sched["phase"] + step_i) // sched["every_k"]
     base = float(sched["lr_tab"][min(g, len(sched["lr_tab"]) - 1)])
     return {"lr": base * sched["max_scale"],
             "min_lr": base * sched["min_scale"],
@@ -174,6 +224,16 @@ def resume_position(payload):
     if epoch_step > 0:
         return int(payload["epoch"]), epoch_step
     return int(payload["epoch"]) + 1, 0
+
+
+def resume_best_acc(payload) -> float:
+    """The best val acc1 a resumed checkpoint recorded in ``extra``, so the
+    first validation after a resume cannot overwrite checkpoint-best with a
+    worse model; -1 without one (a recorded 0.0 survives)."""
+    if payload is None:
+        return -1.0
+    v = (payload.get("extra") or {}).get("best_acc")
+    return -1.0 if v is None else float(v)
 
 
 def step_seed(seed: int, step: int) -> int:
@@ -236,17 +296,19 @@ class PreemptionGuard:
 
 
 def preempted_mid_epoch(guard, ckpt_io, args, state, epoch: int, done: int,
-                        niter_per_ep: int, saving: bool) -> bool:
+                        niter_per_ep: int, saving: bool,
+                        extra: Optional[Dict] = None) -> bool:
     """True = the run was preempted MID-epoch and must exit now; when
-    ``saving``, a checkpoint carrying ``epoch_step=done`` was written (and
-    waited on). An epoch-boundary preemption returns False: the caller runs
-    its normal end-of-epoch saves, then checks ``guard.triggered``."""
+    ``saving``, a checkpoint carrying ``epoch_step=done`` (and ``extra``,
+    such as stage 2's ``best_acc``) was written and waited on. An
+    epoch-boundary preemption returns False: the caller runs its normal
+    end-of-epoch saves, then checks ``guard.triggered``."""
     if not (guard.triggered and done < niter_per_ep):
         return False
     if saving:
         ckpt_io.save_train_state(args.output_dir, epoch, state,
                                  args=vars(args),
-                                 extra={"epoch_step": done},
+                                 extra={**(extra or {}), "epoch_step": done},
                                  tags=("latest",))
         ckpt_io.wait()
         print(f"Preempted at epoch {epoch} step {done}; "
@@ -303,7 +365,9 @@ def train_one_epoch(state, step_fn: Callable, batches: Iterable, epoch: int,
                 host.update(_sched_values(sched, step_i))
             logger.update(**host)
             if tb_logger is not None:
-                gstep = sched["offset"] + step_i if sched else step_i
+                # the global batch index, so epochs do not overwrite
+                gstep = (sched["offset"] * sched["every_k"] + sched["phase"]
+                         + step_i) if sched else step_i
                 tb_logger.update(head="train", step=gstep, **host)
             if wandb_logger is not None:
                 wandb_logger.log({f"train/{k}": v for k, v in host.items()})
@@ -362,6 +426,105 @@ def _batch_clips(batch) -> int:
         return 0
     return sum(int(v.shape[0]) for k, v in batch.items()
                if k.startswith("videos"))
+
+
+def _pad_batch(batch: Dict, size: int) -> Dict:
+    """Pad every array of a host batch to ``size`` rows by repeating its
+    last row, so every eval call runs at the full batch."""
+    out = {}
+    for k, v in batch.items():
+        v = np.asarray(v)
+        n = v.shape[0]
+        out[k] = (np.concatenate([v, np.repeat(v[-1:], size - n, axis=0)])
+                  if n < size else v)
+    return out
+
+
+def _eval_input(clips, labels, batch_size: int, device,
+                cast_bf16: bool) -> Dict:
+    host = _pad_batch({"videos": as_video_array(clips),
+                       "labels": np.asarray(labels, np.int32)}, batch_size)
+    batch = to_device(host, device)
+    if cast_bf16 and batch["videos"].is_floating_point():
+        batch["videos"] = batch["videos"].to(torch.bfloat16)
+    return batch
+
+
+def _eval_batches(state, eval_step, loader, batch_size: int, device,
+                  cast_bf16: bool = False):
+    """Pad each host batch to ``batch_size``, run ``eval_step`` on
+    ``device`` and yield ``(probs, labels, true_n, rest)`` for
+    the batch's real rows only; ``rest`` is the batch's fields after the
+    clips and labels (the test loader's video ids, chunk and split numbers).
+    ``cast_bf16`` ships float videos as bf16, as the train batches of a bf16
+    model are."""
+    for batch in loader:
+        clips, labels = batch[0], batch[1]
+        true_n = np.asarray(clips).shape[0]
+        out = eval_step(state, _eval_input(clips, labels, batch_size, device,
+                                           cast_bf16))
+        yield (out["probs"][:true_n].float().cpu().numpy(),
+               np.asarray(labels)[:true_n], true_n, batch[2:])
+
+
+def run_validation(state, eval_step, loader, batch_size: int, device,
+                   header: str = "Val", save_preds_path: Optional[str] = None,
+                   cast_bf16: bool = False) -> Dict:
+    """Padded-batch validation (engine_for_finetuning.py:175-237): acc1,
+    acc5, ECE and the mean cross-entropy over the real rows only (the loss
+    recomputed on the host from their probabilities: the step's own mean
+    would count the padding). ``save_preds_path`` keeps preds.npy,
+    labels.npy and probs.npy."""
+    all_probs, all_labels = [], []
+    loss_sum = n_total = 0.0
+    for probs, labels_np, true_n, _ in _eval_batches(
+            state, eval_step, loader, batch_size, device,
+            cast_bf16=cast_bf16):
+        all_probs.append(probs)
+        all_labels.append(labels_np)
+        nll = -np.log(np.maximum(probs[np.arange(true_n), labels_np], 1e-30))
+        loss_sum += float(nll.sum())
+        n_total += true_n
+    if n_total == 0:
+        return {}
+    probs = np.concatenate(all_probs)
+    labels = np.concatenate(all_labels)
+    pred = probs.argmax(-1)
+    top1 = 100.0 * (pred == labels).mean()
+    order = np.argsort(-probs, axis=-1)[:, :5]
+    top5 = 100.0 * (order == labels[:, None]).any(-1).mean()
+    ece = compute_ece(probs, labels)
+    stats = {"acc1": float(top1), "acc5": float(top5), "ece": float(ece),
+             "loss": loss_sum / n_total}
+    print(f"{header}: acc1 {top1:.2f} acc5 {top5:.2f} ece {ece:.4f}")
+    if save_preds_path:
+        os.makedirs(save_preds_path, exist_ok=True)
+        np.save(os.path.join(save_preds_path, "preds.npy"), pred)
+        np.save(os.path.join(save_preds_path, "labels.npy"), labels)
+        np.save(os.path.join(save_preds_path, "probs.npy"), probs)
+        print(f"Saved predictions to {save_preds_path}")
+    return stats
+
+
+def run_final_test(state, eval_step, dataset, args, batch_size: int,
+                   output_dir: str, device, cast_bf16: bool = False) -> Dict:
+    """Multi-view test (engine_for_finetuning.py:241-351): every view's
+    probabilities into ``{output_dir}/0.txt`` through ``write_preds_file``,
+    then ``merge`` averages each video's views into top-1 / top-5."""
+    loader = make_loader(dataset, args, batch_size, shuffle=False,
+                         drop_last=False)
+    path = os.path.join(output_dir, "0.txt")
+    if os.path.exists(path):
+        os.remove(path)
+    for probs, labels, true_n, (vids, chunk_nb, split_nb) in _eval_batches(
+            state, eval_step, loader, batch_size, device,
+            cast_bf16=cast_bf16):
+        write_preds_file(path, [
+            (vids[i], probs[i], int(labels[i]), int(chunk_nb[i]),
+             int(split_nb[i])) for i in range(true_n)])
+    top1, top5 = merge(output_dir, 1)
+    print(f"Final test: top1 {top1:.2f} top5 {top5:.2f}")
+    return {"test_acc1": top1, "test_acc5": top5}
 
 
 def save_epoch_stats(args, epoch: int, stats: Dict):

@@ -4,11 +4,11 @@ mask and the optimizer.
 Counterpart of unite_tpu/train/run_stage3.py:51-55 (``build_classifier``)
 and :189-218 (the trainable mask and ``create_optimizer``), as functions of
 an args-like namespace with the stage-3 CLI's names
-(configs/stage3_config.yaml). The ``main`` entry (datasets and the target
-stream, checkpoint import, the zero-shot teacher from the CLI's text
-artifacts, the epoch loop, validation and the multi-view test) waits for
-slice B's args, config, checkpoint and data path (ROADMAP queue 1, items
-9-10); the steps it runs are ``unite_torch.engines.selftrain``.
+(configs/stage3_config.yaml). The ``main`` entry (the target stream, the
+classifier-head import, the zero-shot teacher from the CLI's text
+artifacts, the epoch loop, validation and the multi-view test) is not
+ported yet (ROADMAP queue 1, item 5); the steps it runs are
+``unite_torch.engines.selftrain``.
 """
 
 from __future__ import annotations

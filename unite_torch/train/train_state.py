@@ -27,10 +27,14 @@ class TrainState:
     def apply_gradients(self, ema_decay: Optional[float] = None):
         """One optimizer step from the parameters' current ``.grad``, then,
         when the state keeps an EMA and ``ema_decay`` is given,
-        ema = decay * ema + (1 - decay) * param over every parameter."""
+        ema = decay * ema + (1 - decay) * param over every parameter. Under
+        gradient accumulation (the optimizer's ``every_k``) ``step`` counts
+        micro-batches and the EMA moves only where the optimizer stepped
+        (timm's ModelEma updates once an optimizer step)."""
         self.optimizer.step()
         self.step += 1
-        if self.ema_params is not None and ema_decay is not None:
+        if (self.ema_params is not None and ema_decay is not None
+                and self.optimizer.emitted):
             named = dict(self.model.named_parameters())
             ema = list(self.ema_params.values())
             # the decay as fp32, and 1 - decay from it, as the JAX step has

@@ -10,7 +10,9 @@ checkpoint.
 
 Payload: ``{model, optimizer, epoch, args, [model_ema], [extra]}`` with CPU
 tensors. ``model`` is the model's ``state_dict``; ``optimizer`` holds the
-AdamW step count and the moments by parameter name; ``extra`` carries the
+AdamW step count, its schedule count, the moments by parameter name and,
+under gradient accumulation, the running mean and its position in the
+window (``accumulation``); ``extra`` carries the
 global ``step`` and, for a checkpoint written on preemption, the batches
 already consumed this epoch (``epoch_step``), from which a resumed run
 replays the rest of the epoch bitwise. Writes are atomic (tmp + fsync +
@@ -75,12 +77,17 @@ def save_checkpoint(output_dir: str, epoch: int, model_state,
         _atomic_write(_path(output_dir, tag), buf.getvalue())
 
 
-def find_resume_checkpoint(output_dir: str) -> Optional[str]:
-    """latest > best > highest-numbered (reference utils.py:739-776 order)."""
+def find_resume_checkpoint(output_dir: str,
+                           include_numbered: bool = True) -> Optional[str]:
+    """latest > best > highest-numbered (reference utils.py:739-776 order).
+    ``include_numbered`` False leaves the numbered checkpoints out: the
+    reference gates only their glob on --auto_resume (utils.py:749)."""
     for tag in ("latest", "best"):
         p = _path(output_dir, tag)
         if os.path.exists(p):
             return p
+    if not include_numbered:
+        return None
     best_epoch, best_path = -1, None
     for p in glob.glob(_path(output_dir, "*")):
         m = re.search(rf"{CKPT_PREFIX}-(\d+){re.escape(CKPT_EXT)}$", p)
@@ -93,9 +100,9 @@ def load_checkpoint(path: str) -> Dict[str, Any]:
     return torch.load(path, map_location="cpu", weights_only=False)
 
 
-def auto_load_model(output_dir: str):
+def auto_load_model(output_dir: str, include_numbered: bool = True):
     """The restored payload dict, or None if there is nothing to resume."""
-    path = find_resume_checkpoint(output_dir)
+    path = find_resume_checkpoint(output_dir, include_numbered)
     if path is None:
         return None
     print(f"Auto resume checkpoint: {path}")
@@ -105,17 +112,24 @@ def auto_load_model(output_dir: str):
 def _snapshot(state) -> Dict[str, Any]:
     """Copies of the train state's tensors (on their device: a CUDA copy is
     queued on the stream, so later in-place updates cannot reach it): the
-    model's state dict, the optimizer's step count and moments by parameter
-    name, the EMA, and the global step."""
+    model's state dict, the optimizer's counts, moments by parameter name
+    and accumulated gradients, the EMA, and the global step."""
     names = {id(p): n for n, p in state.model.named_parameters()}
     opt = state.optimizer
+    optimizer = {"count": int(opt.count),
+                 "schedule_count": int(opt.count)
+                 + int(getattr(opt, "schedule_offset", 0)),
+                 "moments": {names[id(p)]: {k: v.clone()
+                                            for k, v in s.items()}
+                             for p, s in opt.state.items()}}
+    if opt.every_k > 1:
+        optimizer["accumulation"] = {
+            "mini_step": int(opt.mini_step),
+            "grads": {names[id(p)]: g.clone() for p, g in opt.acc.items()}}
     return {
         "model": {k: v.detach().clone()
                   for k, v in state.model.state_dict().items()},
-        "optimizer": {"count": int(opt.count),
-                      "moments": {names[id(p)]: {k: v.clone()
-                                                 for k, v in s.items()}
-                                  for p, s in opt.state.items()}},
+        "optimizer": optimizer,
         "model_ema": (None if state.ema_params is None else
                       {k: v.clone() for k, v in state.ema_params.items()}),
         "step": int(state.step),
@@ -182,30 +196,41 @@ class AsyncCheckpointer:
         self._thread.start()
 
 
-def restore_train_state(state, payload: Dict[str, Any]):
+def restore_train_state(state, payload: Dict[str, Any],
+                        sched_every_k: int = 1):
     """Restore a payload into a TrainState built with the same model and
-    optimizer: parameters, the optimizer's moments and step count (so the
+    optimizer: parameters, the optimizer's moments and counts (so the
     per-step lr/wd tables and the step-seeded random draws continue where
-    they left off), the global step, and the EMA when both sides keep one.
-    If the saved moments do not name the model's parameters, only the
-    schedule count continues (unite_tpu's fallback). Returns ``state``,
-    updated in place."""
+    they left off), gradients accumulated mid-window, the global step, and
+    the EMA when both sides keep one. If the saved moments do not name the
+    model's parameters, only the schedule continues, at optimizer step
+    ``step // sched_every_k`` (``state.step`` counts batches, the tables
+    optimizer steps: stage 2 passes its --update_freq), with fresh moments
+    (unite_tpu's fallback). Returns ``state``, updated in place."""
+    from unite_torch.optim.factory import set_schedule_count
+
     state.model.load_state_dict(payload["model"])
     step = int((payload.get("extra") or {}).get("step", 0) or 0)
     opt = state.optimizer
     saved = payload.get("optimizer") or {}
     params = dict(state.model.named_parameters())
     moments = saved.get("moments", {})
-    if set(moments) <= set(params):
+    acc = saved.get("accumulation") or {}
+    if set(moments) <= set(params) and set(acc.get("grads", {})) <= set(
+            params):
         opt.state.clear()
         for name, mom in moments.items():
             p = params[name]
             opt.state[p] = {k: v.to(p.device, p.dtype) for k, v in mom.items()}
         opt.count = int(saved.get("count", step))
+        set_schedule_count(opt, int(saved.get("schedule_count", opt.count)))
+        opt.mini_step = int(acc.get("mini_step", 0))
+        opt.acc = {params[n]: g.to(params[n].device)
+                   for n, g in acc.get("grads", {}).items()}
     else:
         print("WARNING: optimizer state not restored (parameter names "
               "differ); continuing the schedule only")
-        opt.count = step
+        set_schedule_count(opt, step // max(1, int(sched_every_k)))
     if payload.get("model_ema") is not None and state.ema_params is not None:
         state.ema_params = {k: v.to(state.ema_params[k].device)
                             for k, v in payload["model_ema"].items()}

@@ -9,6 +9,8 @@ package's importer is the key surgery itself:
 
 * model-key search over 'model|module' (run_stage1.py:522-533);
 * stage-1 wrap-in-``encoder.`` + ``backbone.`` strip (run_stage1.py:525-542);
+* stage 2's classifier-head surgery: delete, slice or remap a K710 head
+  (run_stage2.py:366-382);
 * temporal (linear) + spatial (bicubic) positional-embedding interpolation
   (run_stage2.py:395-435), with the CLS rows split off first;
 * CLIP 2D->3D patch-conv inflation and positional interpolation
@@ -56,6 +58,48 @@ def wrap_encoder_prefix(state: dict) -> dict:
     """Prefix every key with ``encoder.`` (stage-1 semantics when the ckpt
     came from a bare-encoder model, run_stage1.py:525-527)."""
     return {f"encoder.{k}": v for k, v in state.items()}
+
+
+def surgery_head(state: dict, nb_classes: int, delete_head: bool = False,
+                 label_map_path: str = None) -> dict:
+    """Delete, slice, or remap the classifier head (run_stage2.py:366-382).
+
+    K710 checkpoints: nb_classes=400 takes the first 400 rows; 600/700 remap
+    rows through a label-map json (the reference reads
+    ``k710/label_mixto{n}.json``, a user-downloaded file it does not ship —
+    ``label_map_path`` overrides the default location). When the map file is
+    absent the head is left as-is with a loud warning (merge_state will then
+    skip it on shape mismatch) instead of silently training a fresh head."""
+    state = dict(state)
+    if "head.weight" in state:
+        if delete_head:
+            print("Removing head from pretrained checkpoint")
+            state.pop("head.weight")
+            state.pop("head.bias", None)
+        elif state["head.weight"].shape[0] == 710:
+            if nb_classes == 400:
+                state["head.weight"] = state["head.weight"][:nb_classes]
+                state["head.bias"] = state["head.bias"][:nb_classes]
+            elif nb_classes in (600, 700):
+                import json
+                import os as _os
+                import warnings as _warnings
+
+                path = label_map_path or f"k710/label_mixto{nb_classes}.json"
+                if _os.path.exists(path):
+                    print(f"Load label map from {path}")
+                    with open(path) as f:
+                        label_map = json.load(f)
+                    state["head.weight"] = state["head.weight"][label_map]
+                    state["head.bias"] = state["head.bias"][label_map]
+                else:
+                    _warnings.warn(
+                        f"K710 head with nb_classes={nb_classes} needs the "
+                        f"label map {path} (run_stage2.py:376-382); not "
+                        "found — the pretrained head will be DROPPED on "
+                        "shape mismatch. Pass --label_map_path or place "
+                        "the file there.")
+    return state
 
 
 def interpolate_pos_embed(
