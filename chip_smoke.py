@@ -98,9 +98,10 @@ toolkit. In order:
    (40 clips), a preemption after 2 steps of epoch 1; an auto-resumed call
    that finishes the epoch, validates, reloads checkpoint-best and runs
    the 12-view test (96 views) and its merge; an --eval call whose merged
-   accuracies must equal it; exact launch counts, the checkpoints' epochs
-   and steps, the entry's clips/s and views/s beside the bare step's and
-   the host data path's items/s;
+   accuracies must equal it; 96 steps of one epoch for the steady rate,
+   waited for only at steps 1, 16 and 96; exact launch counts, the
+   checkpoints' epochs and steps, the entry's clips/s and views/s beside
+   the bare step's and the host data path's items/s;
 12. one stage-3 step on the card in bf16 against the CPU in fp32, without
    and with the CLS token (B=2, same weights and batch, injected teacher
    attention and CLIP similarities): loss, grad norm and the full and
@@ -115,7 +116,25 @@ toolkit. In order:
    passes run 1569 tokens through K6 (no K3/K4);
 15. ``stage3-cls-eval-b16-b32``: its eval step at batch_size_val 32, K6
    forward only;
-16. one JSON line of every kernel's numbers, the card line again, and the
+16. ``stage3-entry-b5``: K1/K2 at the stage-3 entry's teacher and
+   committee shapes ([40, 197, 2304], [5, 320, 2304]) and K3, K4a and K4b
+   at its train shape [5, 1568, 2304] against their plain versions, then
+   ``unite_torch.train.run_stage3.main`` with no --config
+   (``STAGE3_ARGS``: stage3_config.yaml and stage3.sh, --epochs 2
+   --warmup_epochs 0) chained from the checkpoint-best that phase 11 left
+   (its blocks and head loaded bit for bit), the zero-shot teacher from
+   seeded text features: the initial validation and the kNN probe, 4 steps
+   of 5 source and 5 target synthetic clips (the target repeated x2),
+   validation (40 clips), a preemption after 2 steps of epoch 1; an
+   auto-resumed call that finishes the epoch, validates, reloads
+   checkpoint-best and runs the 15-view test (120 views) and its merge; an
+   --eval call that loads every weight of the combined checkpoint bit for
+   bit and whose merged accuracies must equal it; 96 steps of a 97-step
+   epoch for the steady rate, waited for only at steps 1, 16 and 96;
+   exact launch counts, in all and K1's and K3's by shape, the
+   checkpoints' epochs and steps, the entry's clips/s beside the bare
+   step's, val and test views/s and the host data path's items/s;
+17. one JSON line of every kernel's numbers, the card line again, and the
    last line ``{"ok": true, "device": {...}}``.
 
 Any failed check raises and the script exits non-zero. With no CUDA device,
@@ -124,6 +143,7 @@ or run outside a checkout, it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import statistics
 import subprocess
@@ -247,6 +267,46 @@ S2_TRAIN, S2_VAL, S2_TEST = 28, 40, 8
 # each loader thread builds a whole batch, so batches come in waves of up
 # to 12, and the 80 timed steps span several
 S2_STEADY, S2_STEADY_FROM = 7 * 96, 16
+# configs/stage3_config.yaml key for key (clip_grad: null left at its
+# default), with stage3.sh's overrides (the dataset mapping, output dir and
+# --student_init left out) and --epochs 2 --warmup_epochs 0 (stage3.sh's
+# warmup is EPOCHS / 5): the stage-3 entry's command line without --config
+STAGE3_ARGS = [
+    "--model", "adaptation_umt_base_patch16_224", "--batch_size", "5",
+    "--batch_size_val", "32", "--epochs", "2", "--warmup_epochs", "0",
+    "--lr", "1e-05", "--min_lr", "1e-05", "--warmup_lr", "1e-06",
+    "--weight_decay", "0.05", "--opt", "adamw", "--opt_eps", "1e-08",
+    "--opt_betas", "0.9", "0.95", "--mask_type", "attention",
+    "--masking_type", "clip_attention", "--mask_ratio", "0.8",
+    "--clip_teacher", "clip_b16", "--clip_input_resolution", "224",
+    "--clip_loss_type", "l2", "--clip_loss_data", "target",
+    "--clip_return_layers", "6", "--clip_return_attn", "true",
+    "--clip_output_dim", "512", "--clip_decoder_embed_dim", "768",
+    "--clip_norm_type", "l2", "--use_cls_token", "false",
+    "--selection_strategy", "clip_matchORconf", "--clip_threshold", "0.1",
+    "--conf_weighted_loss", "true", "--train_masked", "true",
+    "--class_loss_src_ratio_pl", "1.0", "--class_loss_tgt_ratio", "1.0",
+    "--full_oracle", "false", "--return_aug_for_val", "true",
+    "--src_classifier_type", "linear", "--aa", "rand-m7-n4-mstd0.5-inc1",
+    "--reprob", "0.25", "--remode", "pixel", "--recount", "1",
+    "--num_frames", "8", "--num_segments", "8", "--tubelet_size", "1",
+    "--input_size", "224", "--short_side_size", "224",
+    "--data_set", "Kinetics_sparse", "--split", ",", "--drop_path", "0.1",
+    "--num_sample", "1", "--train_fraction", "1.0",
+    "--train_interpolation", "bicubic", "--test_num_segment", "5",
+    "--test_num_crop", "3", "--nb_classes", "12", "--num_workers", "6",
+    "--seed", "0", "--log_freq", "10", "--save_ckpt_freq", "10",
+    "--checkpoints_enabled", "true", "--auto_resume", "false",
+    "--model_key", "model|module", "--student_prefix", "",
+    "--initial_validation", "true", "--test_best", "true",
+    "--disable_wandb", "true"]
+# the stage-3 entry phase: 20 source clips (4 steps of 5) and 10 target
+# clips (repeated x2 to match), 40 val clips (a batch of 32 and one of 8
+# padded), 8 test videos (x 5 segments x 3 crops = 120 views, 4 calls of
+# 32); its steady call stops after 96 steps of a 97-step epoch (before the
+# epoch's validation), the rate taken over steps 17-96
+S3_SRC, S3_TGT, S3_VAL, S3_TEST = 20, 10, 40, 8
+S3_STEADY, S3_STEADY_FROM = 96, 16
 
 
 def card_line() -> str:
@@ -314,17 +374,31 @@ def lse_counters(A) -> dict:
     return {"K3+lse": A.packed_flash_fwd, "K6+lse": A.flash_fwd}
 
 
+def shape_counters(A) -> dict:
+    """The wrappers that also count their launches by shape (``.by_shape``:
+    K1 and K3 by (B, S), K7a by (M, K, N))."""
+    c = counters(A)
+    return {k: c[k] for k in ("K1", "K3", "K7a")}
+
+
 def reset_counts(A) -> None:
     for fn in counters(A).values():
         fn.launches = 0
     for fn in lse_counters(A).values():
         fn.lse_launches = 0
-    counters(A)["K7a"].by_shape.clear()
+    for fn in shape_counters(A).values():
+        fn.by_shape.clear()
 
 
 def read_counts(A) -> dict:
     return dict({k: fn.launches for k, fn in counters(A).items()},
                 **{k: fn.lse_launches for k, fn in lse_counters(A).items()})
+
+
+def read_shapes(A) -> dict:
+    """K1's and K3's launches since ``reset_counts`` by (B, S)."""
+    return {k: dict(fn.by_shape) for k, fn in shape_counters(A).items()
+            if k != "K7a"}
 
 
 def expect_counts(counts: dict, want: dict, what: str) -> None:
@@ -877,11 +951,6 @@ def l14_path(torch, A, int8: bool, warmup: int = 2, timed: int = 5):
     gen = torch.Generator(device="cuda").manual_seed(52)
     batch = random_batch(torch, L14_B, 53, with_vis_idx=False)
     batch["videos"] = batch["videos"].pin_memory()
-    teacher_k1 = []
-    teacher.register_forward_pre_hook(
-        lambda *_: teacher_k1.append(-A.fused_qkv_fwd.launches))
-    teacher.register_forward_hook(
-        lambda *_: teacher_k1.append(A.fused_qkv_fwd.launches))
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     reset_counts(A)
@@ -906,7 +975,8 @@ def l14_path(torch, A, int8: bool, warmup: int = 2, timed: int = 5):
     if by_shape != want_shapes:
         raise AssertionError(f"{name}: K7a launches by shape {by_shape}, "
                              f"expected {want_shapes}")
-    k1_teacher = sum(teacher_k1)
+    k1_teacher = expect_k1_shapes(
+        A, {(8 * L14_B, 197): 24 * n, (L14_B, 320): 24 * n}, name)
     flops = step_flops(L14_B, width=1024, layers=24, out_dim=768,
                        t_width=1024, t_layers=24, t_patch=14, t_out_dim=768)
     res = dict(clips_per_s=L14_B * timed / dt, step_ms=dt / timed * 1e3,
@@ -1045,16 +1115,11 @@ def main_path(torch, A, b: int = 64, warmup: int = 2, timed: int = 5,
     """Phase 5: the full stage-1 step; returns counts and timings. At mask
     0.8 the student runs 320 tokens on K1/K2; at 0.75, 392 on K5."""
     torch.manual_seed(1)
-    state, teacher, step = build_step(torch, b, torch.bfloat16, "cuda", 0.1,
+    state, _, step = build_step(torch, b, torch.bfloat16, "cuda", 0.1,
                                       mask_ratio=mask_ratio)
     gen = torch.Generator(device="cuda").manual_seed(2)
     batch = random_batch(torch, b, 3, with_vis_idx=False)
     batch["videos"] = batch["videos"].pin_memory()
-    teacher_k1 = []
-    teacher.register_forward_pre_hook(
-        lambda *_: teacher_k1.append(-A.fused_qkv_fwd.launches))
-    teacher.register_forward_hook(
-        lambda *_: teacher_k1.append(A.fused_qkv_fwd.launches))
     torch.cuda.reset_peak_memory_stats()
     reset_counts(A)
     losses = []
@@ -1078,7 +1143,9 @@ def main_path(torch, A, b: int = 64, warmup: int = 2, timed: int = 5,
     else:  # 392 tokens in training: K5, and no K2
         want = {"K1": 12 * n, "K5": 12 * n, "K5dq": 12 * n, "K5dkv": 12 * n}
     expect_counts(counts, want, f"{name}, {n} steps")
-    k1_teacher = sum(teacher_k1)
+    k1_teacher = expect_k1_shapes(
+        A, {(8 * b, 197): 12 * n, (b, 320): 12 * n if mask_ratio == 0.8
+            else 0}, name)
     visible = 8 * (196 - int(196 * mask_ratio))
     flops = step_flops(b, visible=visible)
     res = dict(clips_per_s=b * timed / dt, step_ms=dt / timed * 1e3,
@@ -1096,6 +1163,17 @@ def main_path(torch, A, b: int = 64, warmup: int = 2, timed: int = 5,
     res["device_share_of_timed_step"] = (res["profile"]["device_ms"]
                                          / res["step_ms"])
     return res
+
+
+def expect_k1_shapes(A, want: dict, what: str) -> int:
+    """Raise unless K1 ran at exactly the (B, S) counts of ``want`` since
+    ``reset_counts`` (zero counts left out); the teacher's, at S = 197."""
+    want = {k: v for k, v in want.items() if v}
+    got = read_shapes(A)["K1"]
+    if got != want:
+        raise AssertionError(f"{what}: K1 launches by (B, S) {got}, "
+                             f"expected {want}")
+    return sum(v for (_, s), v in got.items() if s == 197)
 
 
 def check_finite(vals) -> None:
@@ -2075,30 +2153,30 @@ def stage3_eval(torch, A, state, eval_step, b: int = 32, warmup: int = 2,
     return res
 
 
-def entry_run(torch, A, argv, records: list) -> dict:
+def entry_run(torch, A, argv, rec: dict) -> dict:
     """One call of ``run_stage1.main`` on the card with the launch counts
     read around it."""
     from unite_torch.config import parse_with_config
     from unite_torch.train import run_stage1
     from unite_torch.train.args import stage1_parser
 
-    args = parse_with_config(stage1_parser(), STAGE1_ARGS + argv)
-    records.clear()
-    reset_counts(A)
-    t0 = time.perf_counter()
-    run_stage1.main(args)
-    wall = time.perf_counter() - t0
-    counts = read_counts(A)
-    n = len(records)
-    expect_counts(counts, {"K1": 12 * n, "K5": 12 * n, "K5dq": 12 * n,
-                           "K5dkv": 12 * n}, f"stage-1 entry, {n} steps")
-    check_finite([(r["loss"], r["grad_norm"]) for r in records])
-    ts = [r["t"] for r in records]
-    clips = 2 * ENTRY_BATCH
-    return dict(steps=n, wall_s=wall, first_step_s=ts[0] - t0,
-                clips_per_s=clips * (n - 1) / (ts[-1] - ts[0]),
-                steps_seen=[r["step"] for r in records],
-                losses=[r["loss"] for r in records], launches=counts)
+    rec["steps"] = []
+
+    def want():
+        n = len(rec["steps"])
+        return {"K1": 12 * n, "K5": 12 * n, "K5dq": 12 * n, "K5dkv": 12 * n}
+
+    got = entry_call(torch, A, run_stage1.main,
+                     parse_with_config(stage1_parser(), STAGE1_ARGS + argv),
+                     want, "stage-1 entry")
+    vals = step_values(rec["steps"], ("loss", "grad_norm"))
+    check_finite(vals)
+    ts = [r["t"] for r in rec["steps"]]
+    n = len(ts)
+    return dict(steps=n, wall_s=got["wall_s"], first_step_s=ts[0] - got["t0"],
+                clips_per_s=2 * ENTRY_BATCH * (n - 1) / (ts[-1] - ts[0]),
+                steps_seen=[r["step"] for r in rec["steps"]],
+                losses=[v[0] for v in vals], launches=got["launches"])
 
 
 def stage1_entry(torch, A, m075: dict, workdir: Path) -> dict:
@@ -2116,40 +2194,22 @@ def stage1_entry(torch, A, m075: dict, workdir: Path) -> dict:
     import unite_torch.train.run_stage1 as R
     from unite_torch.utils.checkpoint import load_checkpoint
 
-    records = []
-    build = R.make_pretrain_train_step
-
-    def timed_build(*a, **k):
-        step = build(*a, **k)
-
-        def timed(state, batch, gen=None):
-            out = step(state, batch, gen)
-            torch.cuda.synchronize()
-            records.append(dict(t=time.perf_counter(), step=state.step,
-                                loss=out["loss"].item(),
-                                grad_norm=out["grad_norm"].item()))
-            return out
-
-        return timed
-
-    R.make_pretrain_train_step = timed_build
+    rec = {"steps": []}
     tmp = workdir / "stage1"
     tmp.mkdir()
-    try:
-        for name in ("source", "target"):
-            (tmp / f"{name}.csv").write_text("".join(
-                f"{name}/clip_{i:04d}.mp4,{i % 12}\n"
-                for i in range(ENTRY_BATCH * ENTRY_STEPS)))
-        out = tmp / "run"
-        base = ["--synthetic_data", "true", "--device_normalize", "true",
-                "--mask_ratio", "0.75", "--batch_size", str(ENTRY_BATCH),
-                "--ann_file_train", str(tmp / "source.csv"),
-                "--ann_file_train_target", str(tmp / "target.csv"),
-                "--output_dir", str(out)]
+    write_annotations(tmp, {"source": ENTRY_BATCH * ENTRY_STEPS,
+                            "target": ENTRY_BATCH * ENTRY_STEPS})
+    out = tmp / "run"
+    base = ["--synthetic_data", "true", "--device_normalize", "true",
+            "--mask_ratio", "0.75", "--batch_size", str(ENTRY_BATCH),
+            "--ann_file_train", str(tmp / "source.csv"),
+            "--ann_file_train_target", str(tmp / "target.csv"),
+            "--output_dir", str(out)]
+    with patched((R, "make_pretrain_train_step", timed_steps(
+            torch, R.make_pretrain_train_step, rec, ("loss", "grad_norm")))):
         first = entry_run(torch, A, base + [
-            "--stop_after_steps", str(ENTRY_STEPS)], records)
-        stats = [json.loads(x) for x in (out / "log.txt").read_text(
-            ).splitlines()]
+            "--stop_after_steps", str(ENTRY_STEPS)], rec)
+        stats = entry_log(out)
         saved = load_checkpoint(out / "checkpoint-latest.pth")
         if (first["steps_seen"] != list(range(1, ENTRY_STEPS + 1))
                 or len(stats) != 1 or stats[0]["epoch"] != 0
@@ -2163,7 +2223,7 @@ def stage1_entry(torch, A, m075: dict, workdir: Path) -> dict:
                                  f"checkpoint epoch {saved['epoch']} "
                                  f"extra {saved.get('extra')}")
         second = entry_run(torch, A, base + [
-            "--auto_resume", "true", "--stop_after_steps", "2"], records)
+            "--auto_resume", "true", "--stop_after_steps", "2"], rec)
         saved = load_checkpoint(out / "checkpoint-latest.pth")
         if (second["steps_seen"] != [ENTRY_STEPS + 1, ENTRY_STEPS + 2]
                 or saved["epoch"] != 1
@@ -2173,8 +2233,6 @@ def stage1_entry(torch, A, m075: dict, workdir: Path) -> dict:
                                  f"1 step 0: steps {second['steps_seen']},"
                                  f" checkpoint epoch {saved['epoch']} "
                                  f"extra {saved.get('extra')}")
-    finally:
-        R.make_pretrain_train_step = build
     res = dict(first=first, resumed=second, epoch0_log=stats[0],
                step_clips_per_s=m075["clips_per_s"],
                entry_share_of_step_rate=first["clips_per_s"]
@@ -2186,52 +2244,157 @@ def stage1_entry(torch, A, m075: dict, workdir: Path) -> dict:
     return res
 
 
-def stage2_entry_call(torch, A, argv, want: dict, what: str) -> dict:
-    """One call of ``run_stage2.main`` on the card with its launch counts
-    read around it, held to ``want``."""
-    from unite_torch.config import parse_with_config
-    from unite_torch.train import run_stage2
-    from unite_torch.train.args import stage2_parser
+@contextlib.contextmanager
+def patched(*subs):
+    """Each ``(owner, name, value)`` of ``subs`` set for the block and put
+    back after it, whatever happens in it."""
+    old = [(o, n, getattr(o, n)) for o, n, _ in subs]
+    for o, n, v in subs:
+        setattr(o, n, v)
+    try:
+        yield
+    finally:
+        for o, n, v in old:
+            setattr(o, n, v)
 
-    args = parse_with_config(stage2_parser(), STAGE2_ARGS + argv)
+
+def entry_call(torch, A, main, args, want, what: str) -> dict:
+    """One call of an entry's ``main(args)`` on the card, its launch counts
+    read around it (in all, and K1's and K3's by (B, S)) and the totals held
+    to ``want()``, which is asked after the call."""
     reset_counts(A)
     t0 = time.perf_counter()
-    run_stage2.main(args)
+    main(args)
     wall = time.perf_counter() - t0
     counts = read_counts(A)
-    expect_counts(counts, want, what)
-    return dict(t0=t0, wall_s=wall, launches=counts)
+    expect_counts(counts, want(), what)
+    return dict(t0=t0, wall_s=wall, launches=counts, by_shape=read_shapes(A))
 
 
-def stage2_host_rates(tmp: Path, argv) -> dict:
-    """Items/s of the stage-2 entry's host data path alone (decode,
-    augmentation, collation; the entry's --num_workers threads), one pass
-    of each of its train (the steady-state call's file), validation and
-    test loaders, nothing on the card: what the entry's steps and eval
-    calls wait for once the loaders' prefetch runs dry. The train rate is
-    taken over batches 17-96, as the entry's steady rate is."""
-    from unite_torch.config import parse_with_config
+def timed_steps(torch, build, rec: dict, keys, before=None):
+    """``build`` (an entry's step builder) with each step it makes recorded
+    in ``rec["steps"]``: the step counter after it, the time it ended and
+    its 0-d metrics ``keys``, kept as device tensors (``step_values`` reads
+    them once the call is over). A step waits for the card first where
+    ``rec["sync"]`` (a set of step counters, or None: every step) names it;
+    the others' times are when the host got the step back, so a rate
+    between two synchronized steps keeps the entry's own overlap of host
+    and card. ``before`` sees the builder's arguments."""
+    def make(*a, **k):
+        if before is not None:
+            before(*a)
+        step = build(*a, **k)
+
+        def timed(state, batch, gen=None):
+            out = step(state, batch, gen)
+            sync = rec.get("sync")
+            if sync is None or state.step in sync:
+                torch.cuda.synchronize()
+            rec["steps"].append(dict(t=time.perf_counter(), step=state.step,
+                                     **{k: out[k].detach() for k in keys}))
+            return out
+
+        return timed
+
+    return make
+
+
+def step_values(steps, keys) -> list:
+    """The recorded steps' metrics ``keys``, a tuple of floats a step."""
+    return [tuple(float(r[k]) for k in keys) for r in steps]
+
+
+def steady_rate(times, clips: int, first: int, last: int) -> dict:
+    """An entry's steady clips/s from its steps' end times (``times[i]`` of
+    step i + 1), between steps ``first`` and ``last``, both synchronized."""
+    ts = times[first - 1:last]
+    return dict(steady_clips_per_s=clips * (len(ts) - 1) / (ts[-1] - ts[0]),
+                steady_step_host_s=[b - a for a, b in zip(ts, ts[1:])])
+
+
+def write_annotations(tmp: Path, files: dict) -> None:
+    """``{name}.csv`` under ``tmp`` for each ``name: clips`` of ``files``,
+    synthetic clips of 12 classes."""
+    for name, n in files.items():
+        (tmp / f"{name}.csv").write_text("".join(
+            f"{name}/clip_{i:04d}.mp4,{i % 12}\n" for i in range(n)))
+
+
+def entry_log(d: Path) -> list:
+    return [json.loads(x) for x in (d / "log.txt").read_text().splitlines()]
+
+
+def same_merged_test(log_train: list, log_eval: list, what: str) -> dict:
+    """The merged test accuracies of an entry's training call and of its
+    --eval call (each log's last record): equal, and in [0, 100]."""
+    got = [{k: log[-1][k] for k in ("test_acc1", "test_acc5")}
+           for log in (log_train, log_eval)]
+    if got[0] != got[1] or not all(0.0 <= v <= 100.0
+                                   for v in got[0].values()):
+        raise AssertionError(f"{what} test: training call {got[0]}, --eval "
+                             f"call {got[1]}")
+    return got[0]
+
+
+def loader_rates(args, tmp: Path, streams) -> dict:
+    """Items/s of an entry's host data path alone (decode, augmentation,
+    collation; the entry's --num_workers threads), nothing on the card:
+    what the entry's steps and eval calls wait for once the loaders'
+    prefetch runs dry. ``streams`` holds (name, dataset mode, annotation
+    file under ``tmp``, train, (first, last) batch of the rate or None for
+    the whole pass, return_aug_for_val, loader seed offset); a train stream
+    takes full shuffled batches of --batch_size, the others
+    --batch_size_val."""
+    import copy
+
     from unite_torch.data.build import build_dataset
     from unite_torch.train import common as C
-    from unite_torch.train.args import stage2_parser
 
-    args = parse_with_config(stage2_parser(), STAGE2_ARGS + argv)
     rates = {}
-    for mode, anno, batch in (("train", "steady.csv", args.batch_size),
-                              ("validation", "val.csv", args.batch_size_val),
-                              ("test", "test.csv", args.batch_size_val)):
-        ds, _ = build_dataset(mode, args, anno_path=str(tmp / anno),
-                              reader=C.reader_for(args, mode != "train"))
-        loader = C.make_loader(ds, args, batch, shuffle=mode == "train",
-                               drop_last=False)
+    for name, mode, anno, train, window, aug, seed_offset in streams:
+        a = copy.copy(args)
+        a.return_aug_for_val = aug
+        ds, _ = build_dataset(mode, a, anno_path=str(tmp / anno),
+                              reader=C.reader_for(a, not train))
+        batch = a.batch_size if train else a.batch_size_val
+        loader = C.make_loader(ds, a, batch, shuffle=train, drop_last=train,
+                               seed=a.seed + seed_offset)
         t0 = time.perf_counter()
         ts, n = [t0], [0]
         for b in loader:
             ts.append(time.perf_counter())
             n.append(n[-1] + len(b[0]))
-        i = S2_STEADY_FROM if mode == "train" else 0
-        rates[mode] = (n[-1] - n[i]) / (ts[-1] - ts[i])
+        i, j = window or (0, len(ts) - 1)
+        rates[name] = (n[j] - n[i]) / (ts[j] - ts[i])
     return rates
+
+
+def timed_calls(fn, times: list, outs=None):
+    """``fn`` with each call's seconds appended to ``times`` (and its result
+    to ``outs``)."""
+    def run(*a, **k):
+        t0 = time.perf_counter()
+        out = fn(*a, **k)
+        times.append(time.perf_counter() - t0)
+        if outs is not None:
+            outs.append(out)
+        return out
+    return run
+
+
+def check_eval_rows(torch, out, what: str, width=None) -> None:
+    """Raise unless an entry's eval call gave 32 rows of 12 probabilities
+    (and, with ``width``, finite features of that width)."""
+    probs, feats = out["probs"], out.get("feats")
+    sums = probs.sum(-1)
+    if (probs.shape != (32, 12) or not bool(torch.isfinite(probs).all())
+            or bool((probs < 0).any()) or (sums - 1).abs().max().item() > 1e-4
+            or (feats is not None and (
+                feats.shape != (32, width)
+                or not bool(torch.isfinite(feats).all())))):
+        raise AssertionError(
+            f"{what} eval: probs {tuple(probs.shape)}, row sums "
+            f"{sums.tolist()}, feats {None if feats is None else feats.shape}")
 
 
 def stage2_entry(torch, A, finetune: Path, s2: dict, ev: dict,
@@ -2251,64 +2414,37 @@ def stage2_entry(torch, A, finetune: Path, s2: dict, ev: dict,
     one epoch of 96 steps with no validation, whose steps 17-96 give the
     entry's steady clips/s (steps 2-4 of call 1 run on batches the loader
     prefetched while the model was built), and runs the test. Launch counts
-    are exact: 12 K4a and K4b a step, 12 K3 a step and an eval call. Each
-    step and eval call is timed after a synchronize."""
+    are exact: 12 K4a and K4b a step, 12 K3 a step and an eval call. Calls
+    1-3 wait for the card after every step; call 4 only after steps 1, 16
+    and 96, so that its steady rate keeps the entry's overlap of host and
+    card. Each eval call is timed after a synchronize."""
     import unite_torch.train.run_stage2 as R
+    from unite_torch.config import parse_with_config
     from unite_torch.train import common as C
+    from unite_torch.train.args import stage2_parser
     from unite_torch.utils.checkpoint import load_checkpoint
 
-    rec = {"steps": [], "calls": 0, "val_s": [], "test_s": []}
-    build_step, build_eval = R.make_finetune_train_step, R.make_eval_step
-    run_val, run_test = C.run_validation, C.run_final_test
-
-    def timed_step(*a, **k):
-        step = build_step(*a, **k)
-
-        def timed(state, batch, gen=None):
-            out = step(state, batch, gen)
-            torch.cuda.synchronize()
-            rec["steps"].append(dict(t=time.perf_counter(), step=state.step,
-                                     loss=out["loss"].item(),
-                                     grad_norm=out["grad_norm"].item()))
-            return out
-
-        return timed
+    rec = {"steps": [], "calls": 0, "val_s": [], "test_s": [], "sync": None}
+    build_eval = R.make_eval_step
 
     def checked_eval(*a, **k):
         step = build_eval(*a, **k)
 
         def checked(state, batch):
             out = step(state, batch)
-            probs = out["probs"]
-            sums = probs.sum(-1)
-            if (probs.shape != (32, 12) or not bool(torch.isfinite(probs).all())
-                    or bool((probs < 0).any())
-                    or (sums - 1).abs().max().item() > 1e-4):
-                raise AssertionError(f"stage-2 entry eval probs: shape "
-                                     f"{tuple(probs.shape)}, row sums "
-                                     f"{sums.tolist()}")
+            check_eval_rows(torch, out, "stage-2 entry")
             rec["calls"] += 1
             return out
 
         return checked
-
-    def timed_run(fn, key):
-        def run(*a, **k):
-            t0 = time.perf_counter()
-            out = fn(*a, **k)
-            rec[key].append(time.perf_counter() - t0)
-            return out
-        return run
 
     # before timing anything: the kernels at the train step's shape
     kr = check_packed_kernels(torch, A, shapes=(("train", 7, True),),
                               tag="/b7")
     tmp = workdir / "stage2"
     tmp.mkdir()
-    for name, n in (("train", S2_TRAIN), ("val", S2_VAL), ("test", S2_TEST),
-                    ("steady", S2_STEADY)):
-        (tmp / f"{name}.csv").write_text("".join(
-            f"{name}/clip_{i:04d}.mp4,{i % 12}\n" for i in range(n)))
+    write_annotations(tmp, {"train": S2_TRAIN, "val": S2_VAL,
+                            "test": S2_TEST, "steady": S2_STEADY})
     out, out_eval, out_steady = tmp / "run", tmp / "eval", tmp / "steady"
     base = ["--synthetic_data", "true", "--device_normalize", "true",
             "--eval_freq", "1", "--epochs", "2", "--warmup_epochs", "0",
@@ -2316,90 +2452,86 @@ def stage2_entry(torch, A, finetune: Path, s2: dict, ev: dict,
             "--ann_file_val", str(tmp / "val.csv"),
             "--ann_file_test", str(tmp / "test.csv")]
     steps_per_epoch = S2_TRAIN // 7
+    n_steady = S2_STEADY // 7
     val_calls, test_calls = -(-S2_VAL // 32), -(-S2_TEST * 12 // 32)
 
-    def want(steps, evals):
-        return {"K3": 12 * (steps + evals), "K3+lse": 12 * steps,
-                "K4a": 12 * steps, "K4b": 12 * steps}
+    def call(argv, steps, evals, what):
+        rec["steps"] = []
+        got = entry_call(
+            torch, A, R.main,
+            parse_with_config(stage2_parser(), STAGE2_ARGS + base + argv),
+            lambda: {"K3": 12 * (steps + evals), "K3+lse": 12 * steps,
+                     "K4a": 12 * steps, "K4b": 12 * steps}, what)
+        return dict(got, records=rec["steps"],
+                    steps_seen=[r["step"] for r in rec["steps"]])
 
-    R.make_finetune_train_step, R.make_eval_step = timed_step, checked_eval
-    C.run_validation = timed_run(run_val, "val_s")
-    C.run_final_test = timed_run(run_test, "test_s")
-    try:
-        first = stage2_entry_call(
-            torch, A, base + ["--output_dir", str(out), "--finetune",
-                              str(finetune), "--stop_after_steps", "6"],
-            want(6, val_calls), "stage-2 entry call 1")
-        steps1 = rec["steps"][:]
+    with patched((R, "make_finetune_train_step", timed_steps(
+                      torch, R.make_finetune_train_step, rec,
+                      ("loss", "grad_norm"))),
+                 (R, "make_eval_step", checked_eval),
+                 (C, "run_validation", timed_calls(C.run_validation,
+                                                   rec["val_s"])),
+                 (C, "run_final_test", timed_calls(C.run_final_test,
+                                                   rec["test_s"]))):
+        first = call(["--output_dir", str(out), "--finetune", str(finetune),
+                      "--stop_after_steps", "6"], 6, val_calls,
+                     "stage-2 entry call 1")
         best = load_checkpoint(out / "checkpoint-best.pth")
         mid = load_checkpoint(out / "checkpoint-latest.pth")
-        log1 = [json.loads(x) for x in (out / "log.txt").read_text(
-            ).splitlines()]
-        if ([r["step"] for r in steps1] != list(range(1, 7))
+        log1 = entry_log(out)
+        if (first["steps_seen"] != list(range(1, 7))
                 or best["epoch"] != 0 or best["extra"]["step"] != 4
                 or mid["epoch"] != 1 or mid["extra"]["epoch_step"] != 2
                 or mid["extra"]["step"] != 6 or len(log1) != 1
                 or log1[0]["epoch"] != 0 or "val_acc1" not in log1[0]):
             raise AssertionError(
-                f"stage-2 entry call 1: steps {[r['step'] for r in steps1]}, "
+                f"stage-2 entry call 1: steps {first['steps_seen']}, "
                 f"best {best['epoch']} {best['extra']}, latest "
                 f"{mid['epoch']} {mid['extra']}, log {log1}")
-        rec["steps"].clear()
-        second = stage2_entry_call(
-            torch, A, base + ["--output_dir", str(out), "--finetune",
-                              str(finetune), "--auto_resume", "true"],
-            want(2, val_calls + test_calls), "stage-2 entry call 2")
-        steps2 = rec["steps"][:]
+        second = call(["--output_dir", str(out), "--finetune", str(finetune),
+                       "--auto_resume", "true"], 2, val_calls + test_calls,
+                      "stage-2 entry call 2")
         last = load_checkpoint(out / "checkpoint-latest.pth")
-        log2 = [json.loads(x) for x in (out / "log.txt").read_text(
-            ).splitlines()]
-        if ([r["step"] for r in steps2] != [7, 8] or last["epoch"] != 1
+        log2 = entry_log(out)
+        if (second["steps_seen"] != [7, 8] or last["epoch"] != 1
                 or last["extra"]["step"] != 2 * steps_per_epoch
                 or "epoch_step" in last["extra"]
                 or [r["epoch"] for r in log2] != [0, 1, 2]):
             raise AssertionError(
                 f"stage-2 entry call 2 did not resume at epoch 1 step 2: "
-                f"steps {[r['step'] for r in steps2]}, latest "
-                f"{last['epoch']} {last['extra']}, log {log2}")
-        third = stage2_entry_call(
-            torch, A, base + ["--output_dir", str(out_eval), "--finetune",
-                              str(out / "checkpoint-best.pth"),
-                              "--eval", "true"],
-            want(0, test_calls), "stage-2 entry call 3 (--eval)")
-        log3 = [json.loads(x) for x in (out_eval / "log.txt").read_text(
-            ).splitlines()]
-        rec["steps"].clear()
-        steady = stage2_entry_call(
-            torch, A, base + ["--output_dir", str(out_steady), "--finetune",
-                              str(finetune), "--epochs", "1",
-                              "--ann_file_train", str(tmp / "steady.csv"),
-                              "--disable_eval_during_finetuning", "true",
-                              "--save_ckpt", "false"],
-            want(S2_STEADY // 7, test_calls),
-            "stage-2 entry call 4 (steady)")
-        steps4 = rec["steps"][:]
-        if [r["step"] for r in steps4] != list(range(1, S2_STEADY // 7 + 1)):
+                f"steps {second['steps_seen']}, latest {last['epoch']} "
+                f"{last['extra']}, log {log2}")
+        third = call(["--output_dir", str(out_eval), "--finetune",
+                      str(out / "checkpoint-best.pth"), "--eval", "true"],
+                     0, test_calls, "stage-2 entry call 3 (--eval)")
+        rec["sync"] = {1, S2_STEADY_FROM, n_steady}
+        steady = call(["--output_dir", str(out_steady), "--finetune",
+                       str(finetune), "--epochs", "1",
+                       "--ann_file_train", str(tmp / "steady.csv"),
+                       "--disable_eval_during_finetuning", "true",
+                       "--save_ckpt", "false"], n_steady, test_calls,
+                      "stage-2 entry call 4 (steady)")
+        if steady["steps_seen"] != list(range(1, n_steady + 1)):
             raise AssertionError(f"stage-2 entry call 4: steps "
-                                 f"{[r['step'] for r in steps4]}")
-    finally:
-        R.make_finetune_train_step, R.make_eval_step = build_step, build_eval
-        C.run_validation, C.run_final_test = run_val, run_test
-    check_finite([(r["loss"], r["grad_norm"])
-                  for r in steps1 + steps2 + steps4])
-    host = stage2_host_rates(tmp, base + ["--output_dir", str(out)])
-    test2 = {k: log2[-1][k] for k in ("test_acc1", "test_acc5")}
-    test3 = {k: log3[-1][k] for k in ("test_acc1", "test_acc5")}
-    if test3 != test2 or not all(0.0 <= v <= 100.0 for v in test2.values()):
-        raise AssertionError(f"stage-2 entry test: call 2 {test2}, "
-                             f"call 3 (--eval) {test3}")
-    ts = [r["t"] for r in steps1]
-    ts4 = [r["t"] for r in steps4][S2_STEADY_FROM - 1:]
-    calls = [first["launches"], second["launches"], third["launches"],
-             steady["launches"]]
-    launches = {k: sum(c[k] for c in calls) for k in first["launches"]}
+                                 f"{steady['steps_seen']}")
+    keys = ("loss", "grad_norm")
+    vals = {c: step_values(x["records"], keys) for c, x in (
+        ("first", first), ("second", second), ("steady", steady))}
+    check_finite(vals["first"] + vals["second"] + vals["steady"])
+    host = loader_rates(
+        parse_with_config(stage2_parser(), STAGE2_ARGS + base), tmp,
+        (("train", "train", "steady.csv", True, (S2_STEADY_FROM, n_steady),
+          False, 0),
+         ("validation", "validation", "val.csv", False, None, False, 0),
+         ("test", "test", "test.csv", False, None, False, 0)))
+    test2 = same_merged_test(log2, entry_log(out_eval), "stage-2 entry")
+    ts = [r["t"] for r in first["records"]]
+    calls = [first, second, third, steady]
+    launches = {k: sum(c["launches"][k] for c in calls)
+                for k in first["launches"]}
     res = dict(
-        steady_clips_per_s=7 * (len(ts4) - 1) / (ts4[-1] - ts4[0]),
-        steady_step_s=[b - a for a, b in zip(ts4, ts4[1:])],
+        steady_rate([r["t"] for r in steady["records"]], 7, S2_STEADY_FROM,
+                    n_steady),
         prefetched_clips_per_s=7 * 3 / (ts[3] - ts[0]),
         first_step_s=ts[0] - first["t0"],
         step_s=[b - a for a, b in zip(ts, ts[1:])],
@@ -2408,20 +2540,324 @@ def stage2_entry(torch, A, finetune: Path, s2: dict, ev: dict,
         test_views_per_s=[S2_TEST * 12 / s for s in rec["test_s"]],
         bare_eval_views_per_s_b32=ev["views_per_s"],
         host_items_per_s=host,
-        walls_s=[c["wall_s"] for c in (first, second, third, steady)],
-        losses=[r["loss"] for r in steps1 + steps2], epoch_logs=log2,
-        test=test2, eval_calls=rec["calls"], launches=launches, calls=calls)
+        walls_s=[c["wall_s"] for c in calls],
+        losses=[v[0] for v in vals["first"] + vals["second"]],
+        epoch_logs=log2, test=test2, eval_calls=rec["calls"],
+        launches=launches, calls=[c["launches"] for c in calls])
     print(f"stage2-entry-b7: entry {res['steady_clips_per_s']:.2f} clips/s "
-          f"over steps {S2_STEADY_FROM + 1}-{S2_STEADY // 7} of call 4 "
+          f"over steps {S2_STEADY_FROM + 1}-{n_steady} of call 4 (no wait "
+          f"for the card between steps {S2_STEADY_FROM} and {n_steady}) "
           f"({res['prefetched_clips_per_s']:.2f} over steps 2-4 of call 1, "
-          f"on prefetched batches) beside the bare step's "
-          f"{s2['clips_per_s']:.2f} (B=8); first step after "
+          f"on prefetched batches, each step waited for) beside the bare "
+          f"step's {s2['clips_per_s']:.2f} (B=8); first step after "
           f"{res['first_step_s']:.2f} s; val views/s "
           f"{[round(x, 2) for x in res['val_views_per_s']]}, test views/s "
           f"{[round(x, 2) for x in res['test_views_per_s']]} (bare eval "
           f"{ev['views_per_s']:.2f}); the host data path alone, items/s: "
           f"{host}; launches {launches}; "
           f"{json.dumps(res)} on {card_line()}", flush=True)
+    return res, kr
+
+
+def stage3_entry(torch, A, student_init: Path, s3: dict, workdir: Path):
+    """Phase: ``stage3-entry-b5``. ``unite_torch.train.run_stage3.main`` on
+    the card with no --config (``python -m unite_torch.train.run_stage3``'s
+    parser, with --clip_init): ``STAGE3_ARGS`` (stage3_config.yaml and
+    stage3.sh, --epochs 2 --warmup_epochs 0) on synthetic clips, the
+    zero-shot teacher from a seeded [12, 512] --clip_text_features,
+    --student_init the stage-2 entry's checkpoint-best. K1/K2 at the
+    entry's teacher and committee shapes and K3/K4 at its train shape
+    [5, 1568, 2304] are first held to their plain versions. Call 1 loads
+    the student and the classifier (each held bit for bit to the stage-2
+    checkpoint's blocks and head), validates (40 clips: 2 calls of 32) and
+    runs the kNN probe (--knn_eval, 20 source and 40 val clips: 3 calls of
+    the feature step), trains epoch 0 (4 steps of 5 source and 5 target
+    clips), validates, writes checkpoint-best and -latest, and is
+    preempted after 2 steps of epoch 1; call 2 auto-resumes there,
+    finishes the epoch, validates, reloads checkpoint-best and runs the
+    15-view test (120 views, 4 calls) and its merge; call 3 (--eval,
+    --student_init checkpoint-best) loads every weight of that combined
+    checkpoint bit for bit, runs only the test and must repeat call 2's
+    merged accuracies; call 4 trains 96 steps of a 97-step epoch (stopped
+    before the epoch's validation) whose steps 17-96 give the entry's
+    steady clips/s. Calls 1-3 wait for the card after every step; call 4
+    only after steps 1, 16 and 96, so that its steady rate keeps the
+    entry's overlap of host and card. The device's share of those steps
+    is derived, not traced: the bare step's profiled device time over
+    their mean time (a profiler inside the entry's steps slows them by a
+    quarter, and its stop holds the loop for seconds). Launch counts are
+    exact, in all and by shape: a step 12 K1 at the attention teacher's
+    [40, 197] and 12 at the committee's grad member's [5, 320], 12 K2, 24
+    K3 at [5, 1568] (12 with lse), 12 K4a and 12 K4b; a zero-shot call 12
+    K1 at [40, 197]; an eval call 12 K3 at [32, 1568]."""
+    import numpy as np
+
+    import unite_torch.train.run_stage3 as R
+    from unite_torch.config import parse_with_config
+    from unite_torch.train import common as C
+    from unite_torch.train.args import stage3_parser
+    from unite_torch.utils.checkpoint import load_checkpoint
+
+    kr = check_kernels(torch, A, batches=(5 * 8, 5), tag="/s3")
+    kr.update(check_packed_kernels(torch, A, shapes=(("train", 5, True),),
+                                   tag="/b5"))
+    rec = {"steps": [], "eval_calls": 0, "zs_calls": 0, "val_s": [],
+           "test_s": [], "knn": [], "knn_stats": [], "heads": [],
+           "expect": None, "loaded": [], "sync": None}
+    build_eval, build_zs = R.make_selftrain_eval_step, R.build_zero_shot_fn
+    load_head = R.load_classifier_head
+
+    def loaded_state(student, classifier, *_):
+        """The weights the step starts from against ``rec["expect"]``
+        (name -> tensor), bit for bit."""
+        want, rec["expect"] = rec["expect"], None
+        if want is None:
+            return
+        got = dict({f"model.{k}": v for k, v in student.state_dict().items()},
+                   **{f"classifier.{k}": v
+                      for k, v in classifier.state_dict().items()})
+        bad = [k for k, v in want.items()
+               if k not in got or not torch.equal(got[k].float().cpu(),
+                                                  v.float())]
+        rec["loaded"].append(dict(compared=len(want), differ=bad))
+        if bad or not want:
+            raise AssertionError(f"stage-3 entry: loaded weights differ from "
+                                 f"the checkpoint at {bad[:5]}")
+
+    def checked_eval(student, classifier, *a, **k):
+        step = build_eval(student, classifier, *a, **k)
+
+        def checked(state, batch):
+            out = step(state, batch)
+            check_eval_rows(torch, out, "stage-3 entry",
+                            classifier.weight.shape[1])
+            rec["eval_calls"] += 1
+            return out
+
+        return checked
+
+    def counted_zero_shot(*a, **k):
+        fn = build_zs(*a, **k)
+
+        def call(videos, *x, **y):
+            rec["zs_calls"] += 1  # the batch generator's thread only
+            return fn(videos, *x, **y)
+
+        return None if fn is None else call
+
+    def recorded_head(args, classifier):
+        path = load_head(args, classifier)
+        rec["heads"].append(path)
+        return path
+
+    tmp = workdir / "stage3"
+    tmp.mkdir()
+    n_steady = 5 * (S3_STEADY + 1)
+    write_annotations(tmp, {"source": S3_SRC, "target": S3_TGT,
+                            "val": S3_VAL, "test": S3_TEST,
+                            "steady_src": n_steady, "steady_tgt": n_steady})
+    feats = tmp / "text_features.npy"
+    np.save(feats, np.random.default_rng(12).standard_normal(
+        (12, 512)).astype(np.float32))
+    out, out_eval, out_steady = tmp / "run", tmp / "eval", tmp / "steady"
+    base = ["--synthetic_data", "true", "--device_normalize", "true",
+            "--clip_text_features", str(feats),
+            "--ann_file_train", str(tmp / "source.csv"),
+            "--ann_file_train_target", str(tmp / "target.csv"),
+            "--ann_file_val", str(tmp / "val.csv"),
+            "--ann_file_test", str(tmp / "test.csv")]
+    steps_per_epoch = S3_SRC // 5
+    val_calls = -(-S3_VAL // 32)
+    test_calls = -(-S3_TEST * 15 // 32)
+    knn_calls = -(-S3_SRC // 32) + val_calls
+    keys = ("loss", "grad_norm", "sel_ratio")
+
+    def call(argv, what: str) -> dict:
+        """One call of the entry, its launches held to the steps, eval
+        calls and zero-shot calls it made: in all and by shape."""
+        rec.update(steps=[], eval_calls=0, zs_calls=0)
+        parser = stage3_parser()
+        parser.add_argument("--clip_init", default="")
+
+        def want():
+            steps, zs = len(rec["steps"]), rec["zs_calls"]
+            # the batch generator computes a batch's zero-shot
+            # similarities when it builds the batch, so a preempted call
+            # has built up to 3 (the device prefetch's 2 and the one in
+            # hand) that no step took
+            if not steps <= zs <= steps + 3:
+                raise AssertionError(f"{what}: {zs} zero-shot calls for "
+                                     f"{steps} steps")
+            evals = rec["eval_calls"]
+            return {"K1": 12 * (2 * steps + zs), "K2": 12 * steps,
+                    "K3": 12 * (2 * steps + evals), "K3+lse": 12 * steps,
+                    "K4a": 12 * steps, "K4b": 12 * steps}
+
+        got = entry_call(torch, A, R.main,
+                         parse_with_config(parser, STAGE3_ARGS + base + argv),
+                         want, what)
+        steps, zs = len(rec["steps"]), rec["zs_calls"]
+        shapes = {"K1": {(40, 197): 12 * (steps + zs), (5, 320): 12 * steps},
+                  "K3": {(5, 1568): 24 * steps,
+                         (32, 1568): 12 * rec["eval_calls"]}}
+        shapes = {k: {s: n for s, n in v.items() if n}
+                  for k, v in shapes.items()}
+        if got["by_shape"] != shapes:
+            raise AssertionError(f"{what}: launches by (B, S) "
+                                 f"{got['by_shape']}, expected {shapes}")
+        return dict(got, records=rec["steps"], steps=steps,
+                    eval_calls=rec["eval_calls"], zero_shot_calls=zs,
+                    steps_seen=[r["step"] for r in rec["steps"]],
+                    by_shape={k: {f"{b}x{s}": n for (b, s), n in v.items()}
+                              for k, v in got["by_shape"].items()})
+
+    s2 = load_checkpoint(student_init)["model"]
+    with patched((R, "make_selftrain_step", timed_steps(
+                      torch, R.make_selftrain_step, rec, keys,
+                      before=loaded_state)),
+                 (R, "make_selftrain_eval_step", checked_eval),
+                 (R, "build_zero_shot_fn", counted_zero_shot),
+                 (R, "load_classifier_head", recorded_head),
+                 (C, "run_validation", timed_calls(C.run_validation,
+                                                   rec["val_s"])),
+                 (C, "run_final_test", timed_calls(C.run_final_test,
+                                                   rec["test_s"])),
+                 (C, "run_knn_probe", timed_calls(C.run_knn_probe,
+                                                  rec["knn"],
+                                                  rec["knn_stats"]))):
+        # call 1: the stage-2 checkpoint's blocks and head, bit for bit
+        rec["expect"] = dict(
+            {f"model.encoder.{k}": v for k, v in s2.items()
+             if k.startswith("blocks.")},
+            **{f"classifier.{k}": s2[f"head.{k}"] for k in ("weight",
+                                                           "bias")})
+        first = call(["--output_dir", str(out), "--student_init",
+                      str(student_init), "--knn_eval", "true",
+                      "--knn_max_videos", "40", "--stop_after_steps", "6"],
+                     "stage-3 entry call 1")
+        if first["eval_calls"] != 2 * val_calls + knn_calls:
+            raise AssertionError(f"stage-3 entry call 1: "
+                                 f"{first['eval_calls']} eval calls")
+        best = load_checkpoint(out / "checkpoint-best.pth")
+        mid = load_checkpoint(out / "checkpoint-latest.pth")
+        log1 = entry_log(out)
+        diag = ("train_loss", "train_grad_norm", "train_sel_ratio",
+                "train_match_select_rate", "train_conf_select_rate",
+                "train_match_error_rate", "train_conf_error_rate",
+                "train_correct_precision", "train_correct_recall",
+                "cmp_student_acc", "cmp_clip_acc",
+                "cmp_student_or_clip_correct", "cmp_student_clip_agree",
+                "cmp_student_clip_disagree", "val_acc1", "val_loss")
+        if (first["steps_seen"] != list(range(1, 7))
+                or rec["heads"] != [str(student_init)]
+                or best["epoch"] != 0 or best["extra"]["step"] != 4
+                or mid["epoch"] != 1 or mid["extra"]["epoch_step"] != 2
+                or mid["extra"]["step"] != 6 or len(log1) != 1
+                or log1[0]["epoch"] != 0
+                or not all(k in log1[0] and np.isfinite(log1[0][k])
+                           for k in diag)
+                or not rec["knn_stats"] or not rec["knn_stats"][0]):
+            raise AssertionError(
+                f"stage-3 entry call 1: steps {first['steps_seen']}, heads "
+                f"{rec['heads']}, best {best['epoch']} {best['extra']}, "
+                f"latest {mid['epoch']} {mid['extra']}, log {log1}, kNN "
+                f"{rec['knn_stats']}")
+        second = call(["--output_dir", str(out), "--student_init",
+                       str(student_init), "--auto_resume", "true"],
+                      "stage-3 entry call 2")
+        last = load_checkpoint(out / "checkpoint-latest.pth")
+        log2 = entry_log(out)
+        if (second["steps_seen"] != [7, 8] or second["zero_shot_calls"] != 2
+                or second["eval_calls"] != val_calls + test_calls
+                or last["epoch"] != 1
+                or last["extra"]["step"] != 2 * steps_per_epoch
+                or "epoch_step" in last["extra"]
+                or [r["epoch"] for r in log2] != [0, 1, 2]
+                or not all(k in log2[1] for k in diag)):
+            raise AssertionError(
+                f"stage-3 entry call 2 did not resume at epoch 1 step 2: "
+                f"steps {second['steps_seen']}, latest {last['epoch']} "
+                f"{last['extra']}, log {log2}")
+        # call 3: every weight of the combined checkpoint, bit for bit
+        rec["expect"] = dict(load_checkpoint(
+            out / "checkpoint-best.pth")["model"])
+        del best, mid, last
+        third = call(["--output_dir", str(out_eval), "--student_init",
+                      str(out / "checkpoint-best.pth"), "--eval", "true"],
+                     "stage-3 entry call 3 (--eval)")
+        log3 = entry_log(out_eval)
+        if (rec["heads"][-1] != str(out / "checkpoint-best.pth")
+                or third["eval_calls"] != test_calls or len(log3) != 1):
+            raise AssertionError(f"stage-3 entry call 3: heads "
+                                 f"{rec['heads']}, eval calls "
+                                 f"{third['eval_calls']}, log {log3}")
+        rec["sync"] = {1, S3_STEADY_FROM, S3_STEADY}
+        steady = call(["--output_dir", str(out_steady), "--student_init",
+                       str(student_init), "--epochs", "1",
+                       "--initial_validation", "false",
+                       "--checkpoints_enabled", "false",
+                       "--ann_file_train", str(tmp / "steady_src.csv"),
+                       "--ann_file_train_target", str(tmp / "steady_tgt.csv"),
+                       "--stop_after_steps", str(S3_STEADY)],
+                      "stage-3 entry call 4 (steady)")
+        if (steady["steps_seen"] != list(range(1, S3_STEADY + 1))
+                or steady["eval_calls"] != 0):
+            raise AssertionError(f"stage-3 entry call 4: steps "
+                                 f"{steady['steps_seen']}, eval calls "
+                                 f"{steady['eval_calls']}")
+    del s2
+    calls = [first, second, third, steady]
+    vals = [step_values(c["records"], keys) for c in calls]
+    check_finite([v[:2] for c in vals for v in c])
+    window = (S3_STEADY_FROM, S3_STEADY)
+    host = loader_rates(
+        parse_with_config(stage3_parser(), STAGE3_ARGS + base), tmp,
+        (("source", "train", "steady_src.csv", True, window, False, 0),
+         ("target", "validation", "steady_tgt.csv", True, window, True, 7),
+         ("validation", "validation", "val.csv", False, None, False, 0),
+         ("test", "test", "test.csv", False, None, False, 0)))
+    test2 = same_merged_test(log2, log3, "stage-3 entry")
+    ts = [r["t"] for r in steady["records"]]
+    launches = {k: sum(c["launches"][k] for c in calls)
+                for k in first["launches"]}
+    by_shape = {k: {s: sum(c["by_shape"][k].get(s, 0) for c in calls)
+                    for s in {s for c in calls for s in c["by_shape"][k]}}
+                for k in ("K1", "K3")}
+    res = dict(steady_rate(ts, 5, S3_STEADY_FROM, S3_STEADY),
+               first_step_s=ts[0] - steady["t0"],
+               first_step_s_call1=first["records"][0]["t"] - first["t0"])
+    res.update(
+        derived_busy_share=s3["profile"]["device_ms"] / (
+            5e3 / res["steady_clips_per_s"]),
+        bare_step_clips_per_s_b5=s3["clips_per_s"],
+        val_views_per_s=[S3_VAL / s for s in rec["val_s"]],
+        test_views_per_s=[S3_TEST * 15 / s for s in rec["test_s"]],
+        knn_s=rec["knn"], knn=rec["knn_stats"][0], host_items_per_s=host,
+        loaded=rec["loaded"], walls_s=[c["wall_s"] for c in calls],
+        losses=[v[:2] for v in vals[0] + vals[1]],
+        sel_ratio=[v[2] for v in vals[0] + vals[1]],
+        epoch_logs=log2, test=test2,
+        steps=sum(c["steps"] for c in calls),
+        zero_shot_calls=sum(c["zero_shot_calls"] for c in calls),
+        eval_calls=sum(c["eval_calls"] for c in calls), launches=launches,
+        by_shape=by_shape,
+        calls=[{k: c[k] for k in ("launches", "by_shape", "steps",
+                                  "eval_calls", "zero_shot_calls")}
+               for c in calls])
+    print(f"stage3-entry-b5: entry {res['steady_clips_per_s']:.2f} clips/s "
+          f"(B_s = B_t = 5, 5 a step) over steps {S3_STEADY_FROM + 1}-"
+          f"{S3_STEADY} of call 4 (no wait for the card between steps "
+          f"{S3_STEADY_FROM} and {S3_STEADY}) beside the bare step's "
+          f"{s3['clips_per_s']:.2f}; first step after "
+          f"{res['first_step_s']:.2f} s ({res['first_step_s_call1']:.2f} s "
+          f"in call 1, after the initial validation and the kNN probe); "
+          f"device busy share, derived: {res['derived_busy_share']:.3f} (the "
+          f"bare step's {s3['profile']['device_ms']:.2f} device ms a step "
+          f"over the entry's step time); val views/s "
+          f"{[round(x, 2) for x in res['val_views_per_s']]}, test views/s "
+          f"{[round(x, 2) for x in res['test_views_per_s']]}; the host data "
+          f"path alone, items/s: {host}; launches {launches}, by shape "
+          f"{by_shape}; {json.dumps(res)} on {card_line()}", flush=True)
     return res, kr
 
 
@@ -2484,7 +2920,7 @@ def main() -> int:
     m075 = main_path(torch, A, mask_ratio=0.75)
     torch.cuda.empty_cache()
     mark("stage-1 paths")
-    # the stage-1 entry's output stays until the stage-2 entry has read it
+    # each entry's output stays until the next stage's entry has read it
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as work:
         work = Path(work)
         entry = stage1_entry(torch, A, m075, work)
@@ -2500,16 +2936,25 @@ def main() -> int:
             torch, A, work / "stage1" / "run" / "checkpoint-latest.pth", s2,
             ev, work)
         kr.update(kr_b7)
+        torch.cuda.empty_cache()
+        mark("stage-2 entry")
+        s3_rel = {f"cls={cls}": stage3_card_vs_cpu(torch, cls)
+                  for cls in (False, True)}
+        s3, state, _ = stage3_path(torch, A, cls=False)
+        del state
+        torch.cuda.empty_cache()
+        s3c, state, eval_step = stage3_path(torch, A, cls=True)
+        ev3 = stage3_eval(torch, A, state, eval_step)
+        del state, eval_step
+        torch.cuda.empty_cache()
+        mark("stage-3 paths")
+        # the stage-2 entry's output stays until this phase has read it
+        entry3, kr_s3 = stage3_entry(
+            torch, A, work / "stage2" / "run" / "checkpoint-best.pth", s3,
+            work)
+        kr.update(kr_s3)
     torch.cuda.empty_cache()
-    mark("stage-2 entry")
-    s3_rel = {f"cls={cls}": stage3_card_vs_cpu(torch, cls)
-              for cls in (False, True)}
-    s3, state, _ = stage3_path(torch, A, cls=False)
-    del state
-    torch.cuda.empty_cache()
-    s3c, state, eval_step = stage3_path(torch, A, cls=True)
-    ev3 = stage3_eval(torch, A, state, eval_step)
-    mark("stage-3 paths")
+    mark("stage-3 entry")
 
     kernels = []
     for key, name, src, rep, launches in (
@@ -2543,6 +2988,31 @@ def main() -> int:
             ("K4b/b7", "packed_flash_dkv[stage-2 entry train B=7 S=1568]",
              "unite_torch/csrc/flash_bwd_wgmma.cu",
              "unite_tpu/ops/attention.py:1014", entry2["launches"]["K4b"]),
+            ("K1/teacher/s3", "fused_qkv_fwd[stage-3 entry teachers B=40 "
+             "S=197]", "unite_torch/csrc/short_attn_wgmma.cu",
+             "unite_tpu/ops/attention.py:678",
+             entry3["by_shape"]["K1"]["40x197"]),
+            ("K1/student/s3", "fused_qkv_fwd[stage-3 entry grad member B=5 "
+             "S=320]", "unite_torch/csrc/short_attn_wgmma.cu",
+             "unite_tpu/ops/attention.py:678",
+             entry3["by_shape"]["K1"]["5x320"]),
+            ("K2/student/s3", "fused_qkv_bwd[stage-3 entry grad member B=5 "
+             "S=320]", "unite_torch/csrc/short_bwd_wgmma.cu",
+             "unite_tpu/ops/attention.py:773", entry3["launches"]["K2"]),
+            ("K3/train/b5", "packed_flash_fwd[stage-3 entry train B=5 "
+             "S=1568]", "unite_torch/csrc/flash_fwd_wgmma.cu",
+             "unite_tpu/ops/attention.py:913",
+             entry3["by_shape"]["K3"]["5x1568"]),
+            ("K3/eval", "packed_flash_fwd[stage-3 entry eval B=32 S=1568]",
+             "unite_torch/csrc/flash_fwd_wgmma.cu",
+             "unite_tpu/ops/attention.py:913",
+             entry3["by_shape"]["K3"]["32x1568"]),
+            ("K4a/b5", "packed_flash_dq[stage-3 entry train B=5 S=1568]",
+             "unite_torch/csrc/flash_bwd_wgmma.cu",
+             "unite_tpu/ops/attention.py:983", entry3["launches"]["K4a"]),
+            ("K4b/b5", "packed_flash_dkv[stage-3 entry train B=5 S=1568]",
+             "unite_torch/csrc/flash_bwd_wgmma.cu",
+             "unite_tpu/ops/attention.py:1014", entry3["launches"]["K4b"]),
             ("K6/train", "flash_fwd[stage-3 CLS train B=5 S=1569]",
              "unite_torch/csrc/flash_fwd_wgmma.cu",
              "unite_tpu/ops/attention.py:148", s3c["launches"]["K6"]),
@@ -2595,6 +3065,7 @@ def main() -> int:
                       "stage1_m075_step": m075,
                       "stage1_m075_card_vs_cpu_rel": m075_rel,
                       "stage1_entry": entry, "stage2_entry": entry2,
+                      "stage3_entry": entry3,
                       "stage2_step": s2,
                       "stage2_eval": ev, "stage2_card_vs_cpu_rel": s2_rel,
                       "stage3_step": s3, "stage3_cls_step": s3c,

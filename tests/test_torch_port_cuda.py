@@ -69,10 +69,12 @@ def test_autograd_through_the_kernels(cuda):
     x = torch.randn((2, 197, 3 * HEADS * 64), generator=gen, device=cuda
                     ).to(torch.bfloat16).requires_grad_(True)
     f0, b0 = TA.fused_qkv_fwd.launches, TA.fused_qkv_bwd.launches
+    s0 = TA.fused_qkv_fwd.by_shape[(2, 197)]
     out = TA.fused_qkv_attention(x, HEADS, SCALE)
     out.float().square().sum().backward()
     assert (TA.fused_qkv_fwd.launches - f0, TA.fused_qkv_bwd.launches - b0) \
         == (1, 1)
+    assert TA.fused_qkv_fwd.by_shape[(2, 197)] - s0 == 1
     ref = TA.qkv_attention_reference_bwd(
         x.detach(), (2 * out.float()).to(torch.bfloat16), HEADS, SCALE).float()
     assert (x.grad.float() - ref).abs().max().item() <= \
@@ -305,12 +307,14 @@ def test_autograd_through_the_packed_kernels(cuda):
     x = torch.randn((2, 600, 3 * HEADS * 64), generator=gen, device=cuda
                     ).to(torch.bfloat16).requires_grad_(True)
     before = (TA.packed_flash_fwd.launches, TA.packed_flash_dq.launches,
-              TA.packed_flash_dkv.launches, TA.fused_qkv_fwd.launches)
+              TA.packed_flash_dkv.launches, TA.fused_qkv_fwd.launches,
+              TA.packed_flash_fwd.by_shape[(2, 600)])
     out = TA.fused_qkv_attention(x, HEADS, SCALE)
     out.float().square().sum().backward()
     after = (TA.packed_flash_fwd.launches, TA.packed_flash_dq.launches,
-             TA.packed_flash_dkv.launches, TA.fused_qkv_fwd.launches)
-    assert [a - b for a, b in zip(after, before)] == [1, 1, 1, 0]
+             TA.packed_flash_dkv.launches, TA.fused_qkv_fwd.launches,
+             TA.packed_flash_fwd.by_shape[(2, 600)])
+    assert [a - b for a, b in zip(after, before)] == [1, 1, 1, 0, 1]
     _, lse = TA.packed_flash_reference(x.detach(), HEADS, SCALE)
     ref = TA.packed_flash_reference_bwd(
         x.detach(), out.detach(), lse, (2 * out.float()).to(torch.bfloat16),
@@ -643,3 +647,86 @@ def test_stage2_entry_runs_on_card_through_k3_k4(cuda, tmp_path):
     assert [r["epoch"] for r in logs] == [0, 1]
     assert torch.isfinite(torch.tensor(logs[0]["train_loss"]))
     assert 0.0 <= logs[1]["test_acc1"] <= 100.0
+
+
+@pytest.mark.cuda
+def test_stage3_entry_runs_on_card(cuda, tmp_path):
+    # run_stage3.main on the card at a tiny width, chained from a stage-2
+    # checkpoint of the port: a student of depth 2, width 128 and 2 heads
+    # over 4 frames of 224^2 (784 tokens: K3 forward, K4 backward; the
+    # committee's 156 visible tokens: K1, K2), a CLIP teacher of the same
+    # width (197 tokens: K1), 2 train steps of 2 + 2 clips, the initial and
+    # the epoch's validation and one test call
+    import json
+
+    import numpy as np
+
+    from unite_torch.config import parse_with_config
+    from unite_torch.models.adaptation import AdaptationVisionTransformer
+    from unite_torch.models.clip import CLIPVisionTransformer
+    from unite_torch.models.vit import VisionTransformer
+    from unite_torch.train import run_stage3
+    from unite_torch.train.args import stage3_parser
+    from unite_torch.utils import checkpoint as ck
+    from unite_torch.utils.registry import _MODEL_REGISTRY, register_model
+
+    if "adaptation_card_tiny" not in _MODEL_REGISTRY:
+        @register_model
+        def adaptation_card_tiny(**kwargs):
+            for k in ("clip_decoder_embed_dim", "clip_output_dim"):
+                kwargs.pop(k, None)
+            return AdaptationVisionTransformer(
+                encoder_embed_dim=128, encoder_depth=2, encoder_num_heads=2,
+                mlp_ratio=2, clip_decoder_embed_dim=128, clip_output_dim=64,
+                **kwargs)
+
+        @register_model
+        def clip_b16_card_tiny(**kwargs):
+            return CLIPVisionTransformer(patch_size=16, width=128, layers=2,
+                                         heads=2, output_dim=64, **kwargs)
+
+    vit = VisionTransformer(embed_dim=128, depth=2, num_heads=2, mlp_ratio=2,
+                            num_classes=3, all_frames=4, tubelet_size=1)
+    ck.save_checkpoint(str(tmp_path / "s2"), 0, vit.state_dict(),
+                       optimizer={"count": 0, "moments": {}}, tags=("best",))
+    np.save(tmp_path / "text.npy", np.random.default_rng(0).standard_normal(
+        (3, 64)).astype(np.float32))
+    for name, n in (("src", 4), ("tgt", 4), ("val", 3), ("test", 2)):
+        (tmp_path / f"{name}.csv").write_text("".join(
+            f"{name}/v{i}.mp4,{i % 3}\n" for i in range(n)))
+    args = parse_with_config(stage3_parser(), [
+        "--model", "adaptation_card_tiny", "--clip_teacher",
+        "clip_b16_card_tiny", "--clip_return_layers", "1", "--nb_classes", "3",
+        "--num_frames", "4", "--tubelet_size", "1", "--input_size", "224",
+        "--short_side_size", "224", "--clip_input_resolution", "224",
+        "--mask_ratio", "0.8", "--batch_size", "2", "--batch_size_val", "4",
+        "--epochs", "1", "--warmup_epochs", "0", "--test_num_segment", "1",
+        "--test_num_crop", "1", "--split", ",", "--synthetic_data", "true",
+        "--device_normalize", "true", "--num_workers", "2",
+        "--initial_validation", "true", "--checkpoints_enabled", "true",
+        "--output_dir", str(tmp_path / "run"),
+        "--student_init", str(tmp_path / "s2" / "checkpoint-best.pth"),
+        "--clip_text_features", str(tmp_path / "text.npy"),
+        "--ann_file_train", str(tmp_path / "src.csv"),
+        "--ann_file_train_target", str(tmp_path / "tgt.csv"),
+        "--ann_file_val", str(tmp_path / "val.csv"),
+        "--ann_file_test", str(tmp_path / "test.csv")])
+    kernels = (TA.fused_qkv_fwd, TA.fused_qkv_bwd, TA.packed_flash_fwd,
+               TA.packed_flash_dq, TA.packed_flash_dkv)
+    before = [k.launches for k in kernels]
+    run_stage3.main(args)
+    launched = [k.launches - b for k, b in zip(kernels, before)]
+    # 2 blocks: a step's teacher, grad member and zero-shot forwards (K1),
+    # the grad member's backward (K2), the source and target full passes
+    # (K3) and the source backward (K4); 3 eval calls (K3)
+    assert launched == [2 * 3 * 2, 2 * 2, 2 * (2 * 2 + 3), 2 * 2, 2 * 2]
+    logs = [json.loads(x) for x in
+            (tmp_path / "run" / "log.txt").read_text().splitlines()]
+    assert [r["epoch"] for r in logs] == [0, 1]
+    assert torch.isfinite(torch.tensor(logs[0]["train_loss"]))
+    assert "cmp_student_acc" in logs[0] and "train_sel_ratio" in logs[0]
+    assert 0.0 <= logs[1]["test_acc1"] <= 100.0
+    saved = ck.load_checkpoint(str(tmp_path / "run" / "checkpoint-latest.pth"))
+    head = vit.state_dict()
+    assert torch.equal(saved["model"]["classifier.weight"].cpu(),
+                       head["head.weight"])

@@ -303,7 +303,10 @@ def device_prefetch(iterator: Iterable, put: Callable, depth: int = 2):
     bench loop), the generator's ``finally`` sets the flag and the producer
     exits within the poll interval instead of blocking in q.put() forever —
     which would leak the thread plus up to depth+window decoded/device
-    batches per abandoned epoch."""
+    batches per abandoned epoch. The ``finally`` then joins the producer,
+    so that no ``put`` (a device copy, stage 3's zero-shot teacher) is
+    still running once the generator is closed: that takes at most the
+    batch in hand."""
     q: "queue.Queue" = queue.Queue(maxsize=depth)
     sentinel = object()
     stop = threading.Event()
@@ -339,6 +342,7 @@ def device_prefetch(iterator: Iterable, put: Callable, depth: int = 2):
             yield item
     finally:
         stop.set()
+        t.join()
 
 
 def to_device(batch: dict, device) -> dict:

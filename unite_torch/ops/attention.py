@@ -21,7 +21,9 @@ package's dispatch (models/layers.py:174-190, models/clip.py:82-108):
   dQ and dK/dV kernels in csrc/short_bwd_wgmma.cu (K2's kernel bodies
   with K5's rounding points); above 512 tokens (1569 = 1568 patches + CLS,
   577, 785, ...) the blocked flash kernels K6, the same CUDA kernels as
-  K3/K4, which take per-tensor strides. Each has its own launch counter.
+  K3/K4, which take per-tensor strides. Each has its own launch counter;
+  K1's and K3's forwards also count their launches by (B, S) in
+  ``.by_shape``, since one path runs each at more than one shape.
 
 Beside each kernel is its plain version, with the TPU kernel's math and
 rounding points; a wrapper uses it only for a tensor on the CPU. A CUDA
@@ -39,6 +41,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
+from collections import Counter
 from typing import Optional
 
 import torch
@@ -506,10 +509,12 @@ def fused_qkv_fwd(qkv, heads: int, scale: float, with_lse: bool = False):
         qkv.shape[1], heads, scale * INV_LN2, _stream(qkv))
     _build.check(err, "fused_qkv_fwd")
     fused_qkv_fwd.launches += 1
+    fused_qkv_fwd.by_shape[tuple(qkv.shape[:2])] += 1
     return out, lse
 
 
 fused_qkv_fwd.launches = 0
+fused_qkv_fwd.by_shape = Counter()
 
 
 def fused_qkv_bwd(qkv, out, lse, do, heads: int, scale: float):
@@ -554,12 +559,14 @@ def packed_flash_fwd(qkv, heads: int, scale: float, with_lse: bool = False):
     _launch_fwd(ptrs, strides, lse, (qkv.shape[0], heads, qkv.shape[1]),
                 scale, _stream(qkv))
     packed_flash_fwd.launches += 1
+    packed_flash_fwd.by_shape[tuple(qkv.shape[:2])] += 1
     if with_lse:
         packed_flash_fwd.lse_launches += 1
     return out, lse
 
 
 packed_flash_fwd.launches = packed_flash_fwd.lse_launches = 0
+packed_flash_fwd.by_shape = Counter()
 
 
 def packed_flash_dq(qkv, out, lse, do, dqkv, delta, heads: int,

@@ -1,12 +1,12 @@
-"""Shared runtime for the stage entry points (unite_tpu/train/common.py, the
-parts stages 1 and 2 use).
+"""Shared runtime for the stage entry points (unite_tpu/train/common.py).
 
 The host-side frame around the steps: run setup (seeds, experiment dir,
 device), loader construction, the per-step lr / wd tables, gradient
 accumulation, resume arithmetic, preemption, the per-epoch train loop with
-MetricLogger, padded validation (the last short batch padded to the full
-batch with its last row, the padding dropped on the host) and the
-multi-view test with its merge. The port trains in one process on one
+MetricLogger (and stage 3's per-sample arrays), padded validation (the last
+short batch padded to the full batch with its last row, the padding dropped
+on the host), the kNN feature probe and the multi-view test with its
+merge. The port trains in one process on one
 card: ``--zero1``, ``--fsdp``, ``--tp`` > 1 and multi-process launches
 raise until scale-out lands (ROADMAP queue 1, item 7: slice E).
 """
@@ -28,6 +28,7 @@ from unite_torch.data.sharding import ShardedSampler
 from unite_torch.data.video_reader import SyntheticVideoReader, default_reader
 from unite_torch.engines.finetune import merge, write_preds_file
 from unite_torch.utils.device import resolve_device
+from unite_torch.utils.knn import knn_classifier
 from unite_torch.utils.metrics import MetricLogger, compute_ece
 from unite_torch.utils.schedules import (cosine_scheduler, scaled_lr,
                                          step_scheduler)
@@ -324,15 +325,21 @@ def train_one_epoch(state, step_fn: Callable, batches: Iterable, epoch: int,
                     tb_logger=None,
                     wandb_logger=None,
                     preempt_guard: Optional[PreemptionGuard] = None,
-                    sched: Optional[Dict] = None):
+                    sched: Optional[Dict] = None,
+                    array_sink: Optional[Dict] = None):
     """Host loop around the step (the engine's train_one_epoch frame).
 
-    ``step_fn(state, batch)`` updates ``state`` in place and returns 0-d
-    metric tensors. They are read on the host only on log steps (a read
+    ``step_fn(state, batch)`` updates ``state`` in place and returns metric
+    tensors. The 0-d ones are read on the host only on log steps (a read
     waits for the card), so the NaN check fires within ``log_freq`` steps.
     Logs a ``clips_per_sec_chip`` meter per window; ``profile_dir`` captures
     a torch.profiler trace of steps 2-7 of epoch 0. ``sched`` (see
-    ``make_sched``) adds the lr/min_lr/weight_decay meters."""
+    ``make_sched``) adds the lr/min_lr/weight_decay meters.
+
+    ``array_sink``: a dict that collects the other metrics (stage 3's
+    per-sample predictions and labels), kept on the device per step and
+    moved to the host once, at the epoch's end: one numpy array a key, the
+    steps' rows in order. Without a sink they are dropped."""
     logger = MetricLogger()
     header = f"Epoch [{epoch}]:"
     last_metrics = None
@@ -350,6 +357,11 @@ def train_one_epoch(state, step_fn: Callable, batches: Iterable, epoch: int,
             prof = profile(activities=acts)
             prof.__enter__()
         metrics = step_fn(state, batch)
+        if array_sink is not None:
+            for k, v in metrics.items():
+                if getattr(v, "ndim", 0) > 0:
+                    # no read here: it would wait for the step
+                    array_sink.setdefault(k, []).append(v)
         window_clips += _batch_clips(batch)
         if step_i % log_freq == 0:
             host = _scalar_metrics(metrics)
@@ -392,6 +404,9 @@ def train_one_epoch(state, step_fn: Callable, batches: Iterable, epoch: int,
         last_metrics = host
     if preempt_guard is not None:
         preempt_guard.steps_done = step_i
+    if array_sink:
+        for k, chunks in array_sink.items():
+            array_sink[k] = torch.cat(chunks).cpu().numpy()
     print("Averaged stats:", logger)
     stats = {k: m.global_avg for k, m in logger.meters.items()}
     return state, stats, last_metrics
@@ -451,11 +466,11 @@ def _eval_input(clips, labels, batch_size: int, device,
 
 
 def _eval_batches(state, eval_step, loader, batch_size: int, device,
-                  cast_bf16: bool = False):
+                  cast_bf16: bool = False, out_key: str = "probs"):
     """Pad each host batch to ``batch_size``, run ``eval_step`` on
-    ``device`` and yield ``(probs, labels, true_n, rest)`` for
-    the batch's real rows only; ``rest`` is the batch's fields after the
-    clips and labels (the test loader's video ids, chunk and split numbers).
+    ``device`` and yield ``(out[out_key], labels, true_n, rest)`` for the
+    batch's real rows only; ``rest`` is the batch's fields after the clips
+    and labels (the test loader's video ids, chunk and split numbers).
     ``cast_bf16`` ships float videos as bf16, as the train batches of a bf16
     model are."""
     for batch in loader:
@@ -463,7 +478,7 @@ def _eval_batches(state, eval_step, loader, batch_size: int, device,
         true_n = np.asarray(clips).shape[0]
         out = eval_step(state, _eval_input(clips, labels, batch_size, device,
                                            cast_bf16))
-        yield (out["probs"][:true_n].float().cpu().numpy(),
+        yield (out[out_key][:true_n].float().cpu().numpy(),
                np.asarray(labels)[:true_n], true_n, batch[2:])
 
 
@@ -504,6 +519,46 @@ def run_validation(state, eval_step, loader, batch_size: int, device,
         np.save(os.path.join(save_preds_path, "probs.npy"), probs)
         print(f"Saved predictions to {save_preds_path}")
     return stats
+
+
+def collect_features(state, eval_step, loader, batch_size: int, device,
+                     max_videos: int = 512, cast_bf16: bool = False):
+    """Pooled encoder features [N, width] and labels [N] over a loader, from
+    an eval step that returns ``feats``, stopping after the batch that
+    reaches ``max_videos``; empty arrays for an empty loader."""
+    feats, labels = [], []
+    n = 0
+    for f, lab, true_n, _ in _eval_batches(state, eval_step, loader,
+                                           batch_size, device,
+                                           cast_bf16=cast_bf16,
+                                           out_key="feats"):
+        feats.append(f)
+        labels.append(lab)
+        n += true_n
+        if n >= max_videos:
+            break
+    if not feats:
+        return np.zeros((0, 1), np.float32), np.zeros((0,), np.int64)
+    return np.concatenate(feats), np.concatenate(labels)
+
+
+def run_knn_probe(state, eval_step, train_loader, val_loader,
+                  batch_size: int, num_classes: int, device, k: int = 20,
+                  max_videos: int = 512, cast_bf16: bool = False) -> Dict:
+    """The representation probe: the val features classified by cosine kNN
+    against the train features (``utils/knn.py``, the DINO/UMT protocol).
+    ``{"knn_top1", "knn_top5"}`` in percent, ``{}`` when a side is empty."""
+    tr_f, tr_l = collect_features(state, eval_step, train_loader, batch_size,
+                                  device, max_videos, cast_bf16)
+    va_f, va_l = collect_features(state, eval_step, val_loader, batch_size,
+                                  device, max_videos, cast_bf16)
+    if tr_f.shape[0] == 0 or va_f.shape[0] == 0:
+        return {}
+    top1, top5 = knn_classifier(tr_f, tr_l, va_f, va_l, k=k,
+                                num_classes=num_classes)
+    print(f"kNN probe (k={k}, {tr_f.shape[0]} train / {va_f.shape[0]} val): "
+          f"top1 {top1:.2f} top5 {top5:.2f}")
+    return {"knn_top1": top1, "knn_top5": top5}
 
 
 def run_final_test(state, eval_step, dataset, args, batch_size: int,
