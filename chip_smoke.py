@@ -73,7 +73,20 @@ toolkit. In order:
    kernel launch counts read around it;
 6. phase 4 at mask 0.75 (392 visible tokens: the card's student runs K5),
    then ``stage1-m075-b16-b64``: phase 5 at mask 0.75 (12 K1 + 12 K5
-   forward + 12 K5 dQ + 12 K5 dK/dV a step, no K2);
+   forward + 12 K5 dQ + 12 K5 dK/dV a step, no K2); then
+   ``stage1-remat-b64``: phase 5's step at drop path 0.1 from the same
+   weights, batch and generator seeds, plain and with every student block
+   recomputed in the backward (--use_checkpoint): losses and every
+   parameter bit-equal after 3 steps, K1 by shape exact (the student's 12
+   a step become 24), both step times and peak memories;
+6a. ``native-decode``: the port's native decoder
+   (unite_torch/native/videodec.cpp, g++, into build/unite_torch_native/)
+   on 16 mp4v clips of 64 frames at 340x256 and a 16-frame JPEG folder
+   written with OpenCV, held to OpenCV's decode within the JAX package's
+   bars (plain equal; short side 224 and 224x224 sized within a mean of 4
+   levels; JPEG within a mean of 2), with decode rates in frames/s at 8
+   frames a clip; without FFmpeg's headers on the machine it says so and
+   the recipe phase reads through OpenCV;
 7. ``stage1-entry-b32x2``: ``unite_torch.train.run_stage1.main`` with no
    --config (``STAGE1_ARGS``: stage1_config.yaml and stage1.sh) on
    synthetic clips at mask 0.75, 2 x 32 clips a step, uint8 clips
@@ -102,6 +115,21 @@ toolkit. In order:
    waited for only at steps 1, 16 and 96; exact launch counts, the
    checkpoints' epochs and steps, the entry's clips/s and views/s beside
    the bare step's and the host data path's items/s;
+11a. ``stage2-recipe-b7``: the bare B=7 step plain and with the finetune
+   recipe (``RECIPE``: mixup 0.8 and cutmix 1.0, smoothing 0.1, dropout
+   0.1, the head's dropout 0.5, --use_checkpoint, --mu_dtype bfloat16),
+   timed in turns (plain, recipe, recipe, plain; 24 K3 a step under
+   remat); a train-mode forward and backward at --attn_drop_rate 0.1 that
+   launches no K3 (JAX's routing to the plain attention) and its eval
+   forward that launches 12; then ``run_stage2.main`` with the recipe,
+   chained from phase 7's checkpoint, reading phase 6a's clips through
+   ``default_reader``: 4 steps of 7, validation, a preemption after 2
+   steps of epoch 1, and a resumed call that loads the bf16 first moments
+   bit for bit, validates and runs the 12-view test; exact launches (24
+   K3 a step and 12 an eval call, 12 K4a and 12 K4b a step), every
+   decode through the expected reader and none failed, the checkpoints'
+   epochs and steps, the entry's clips/s, first-step latency and peak
+   memory beside the plain stage-2 entry's;
 12. one stage-3 step on the card in bf16 against the CPU in fp32, without
    and with the CLS token (B=2, same weights and batch, injected teacher
    attention and CLIP similarities): loss, grad norm and the full and
@@ -307,6 +335,18 @@ STAGE3_ARGS = [
 # epoch's validation), the rate taken over steps 17-96
 S3_SRC, S3_TGT, S3_VAL, S3_TEST = 20, 10, 40, 8
 S3_STEADY, S3_STEADY_FROM = 96, 16
+# the native-decode phase's real video: 16 mp4v clips of 64 frames at
+# 340x256 (the new_width x new_height of the reference's dataset), written
+# with OpenCV
+DECODE_CLIPS, DECODE_FRAMES, DECODE_RASTER = 16, 64, (340, 256)
+# the finetune recipe's switches, on top of STAGE2_ARGS, for the
+# stage2-recipe-b7 phase: mixup and cutmix, dropout, the head's dropout,
+# every block recomputed in the backward, a bf16 first moment; attention
+# dropout stays 0, so attention keeps its kernels
+RECIPE = ["--mixup", "0.8", "--cutmix", "1.0", "--mixup_prob", "1.0",
+          "--smoothing", "0.1", "--drop", "0.1", "--fc_drop_rate", "0.5",
+          "--attn_drop_rate", "0.0", "--use_checkpoint", "true",
+          "--mu_dtype", "bfloat16"]
 
 
 def card_line() -> str:
@@ -1025,9 +1065,10 @@ def step_flops(b: int, frames: int = 8, width: int = 768, layers: int = 12,
 
 
 def build_step(torch, b: int, dtype, device: str, drop_path: float,
-               state_dict=None, teacher_state=None, mask_ratio: float = 0.8):
+               state_dict=None, teacher_state=None, mask_ratio: float = 0.8,
+               remat: bool = False):
     """The stage-1 step as run_stage1.main builds it, with the
-    configs/stage1_config.yaml values."""
+    configs/stage1_config.yaml values (``remat``: --use_checkpoint)."""
     from unite_torch import create_model
     from unite_torch.engines.pretrain_umt import make_pretrain_train_step
     from unite_torch.optim.factory import create_optimizer
@@ -1039,7 +1080,7 @@ def build_step(torch, b: int, dtype, device: str, drop_path: float,
         "adaptation_umt_base_patch16_224", device=device, dtype=dtype,
         num_frames=frames, tubelet_size=1, drop_path_rate=drop_path,
         clip_decoder_embed_dim=768, clip_output_dim=512,
-        clip_norm_type="l2", clip_return_layers=ret)
+        clip_norm_type="l2", clip_return_layers=ret, remat=remat)
     teacher = create_model("clip_b16", device=device, dtype=dtype,
                            input_resolution=224, clip_norm_type="l2",
                            return_attn=True, return_index=ret)
@@ -1358,25 +1399,36 @@ def stage2_clip_flops(frames: int = 8, img: int = 224, depth: int = 12,
 
 
 def build_stage2(torch, dtype_name: str, device: str, drop_path: float,
-                 state_dict=None):
+                 state_dict=None, recipe: bool = False,
+                 attn_drop: float = 0.0):
     """The stage-2 model, optimizer and steps as run_stage2.main builds
     them from configs/stage2_config.yaml (no lr batch scaling in stage 2,
-    warmup 0, layer decay 0.65, blocks 0-6 frozen, no EMA, no clip)."""
+    warmup 0, layer decay 0.65, blocks 0-6 frozen, no EMA, no clip); with
+    ``recipe``, ``RECIPE``'s switches (mixup 0.8 and cutmix 1.0 with
+    smoothing 0.1, dropout 0.1, the head's 0.5, remat, a bf16 first
+    moment); ``attn_drop`` the attention dropout rate."""
     from unite_torch.engines.finetune import (make_eval_step,
                                               make_finetune_train_step)
     from unite_torch.optim.factory import create_optimizer
-    from unite_torch.train.run_stage2 import build_model, trainable_mask
+    from unite_torch.train.common import mu_dtype_for
+    from unite_torch.train.run_stage2 import (build_mixup, build_model,
+                                              trainable_mask)
     from unite_torch.train.train_state import TrainState
     from unite_torch.utils.schedules import cosine_scheduler
 
     args = SimpleNamespace(
         model="vit_base_patch16_224", nb_classes=12, num_frames=8,
-        tubelet_size=1, fc_drop_rate=0.0, drop=0.0, attn_drop_rate=0.0,
+        tubelet_size=1, fc_drop_rate=0.5 if recipe else 0.0,
+        drop=0.1 if recipe else 0.0, attn_drop_rate=attn_drop,
         drop_path=drop_path, use_learnable_pos_emb=False,
         use_mean_pooling=True, init_scale=0.001, head_type="linear",
         head_hidden_dim=256, compute_dtype=dtype_name,
         frozen_layers="0,1,2,3,4,5,6", train_head_only=False,
-        freeze_patch_embedding=False)
+        freeze_patch_embedding=False, use_checkpoint=recipe,
+        mu_dtype="bfloat16" if recipe else None,
+        mixup=0.8 if recipe else 0.0, cutmix=1.0 if recipe else 0.0,
+        mixup_prob=1.0, mixup_switch_prob=0.5, mixup_mode="batch",
+        smoothing=0.1 if recipe else 0.0)
     model = build_model(args, device=device)
     if state_dict is not None:
         model.load_state_dict(state_dict)
@@ -1389,9 +1441,11 @@ def build_stage2(torch, dtype_name: str, device: str, drop_path: float,
                              betas=(0.9, 0.999), eps=1e-8,
                              trainable=mask.__getitem__,
                              num_layers=model.depth, layer_decay=0.65,
-                             device=device)
+                             mu_dtype=mu_dtype_for(args), device=device)
     return (TrainState(model, tx),
-            make_finetune_train_step(model, device=device),
+            make_finetune_train_step(model, mixup=build_mixup(args),
+                                     label_smoothing=args.smoothing,
+                                     device=device),
             make_eval_step(model, device=device))
 
 
@@ -2261,14 +2315,18 @@ def patched(*subs):
 def entry_call(torch, A, main, args, want, what: str) -> dict:
     """One call of an entry's ``main(args)`` on the card, its launch counts
     read around it (in all, and K1's and K3's by (B, S)) and the totals held
-    to ``want()``, which is asked after the call."""
+    to ``want()``, which is asked after the call, and its peak device
+    memory."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     reset_counts(A)
     t0 = time.perf_counter()
     main(args)
     wall = time.perf_counter() - t0
     counts = read_counts(A)
     expect_counts(counts, want(), what)
-    return dict(t0=t0, wall_s=wall, launches=counts, by_shape=read_shapes(A))
+    return dict(t0=t0, wall_s=wall, launches=counts, by_shape=read_shapes(A),
+                peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
 
 
 def timed_steps(torch, build, rec: dict, keys, before=None):
@@ -2397,6 +2455,24 @@ def check_eval_rows(torch, out, what: str, width=None) -> None:
             f"{sums.tolist()}, feats {None if feats is None else feats.shape}")
 
 
+def checked_eval_step(torch, build_eval, what: str, rec=None):
+    """``build_eval`` (an entry's eval-step builder) with each call's rows
+    held by ``check_eval_rows`` and counted in ``rec["calls"]``."""
+    def make(*a, **k):
+        step = build_eval(*a, **k)
+
+        def checked(state, batch):
+            out = step(state, batch)
+            check_eval_rows(torch, out, what)
+            if rec is not None:
+                rec["calls"] += 1
+            return out
+
+        return checked
+
+    return make
+
+
 def stage2_entry(torch, A, finetune: Path, s2: dict, ev: dict,
                  workdir: Path):
     """Phase: ``stage2-entry-b7``. ``unite_torch.train.run_stage2.main`` on
@@ -2425,19 +2501,6 @@ def stage2_entry(torch, A, finetune: Path, s2: dict, ev: dict,
     from unite_torch.utils.checkpoint import load_checkpoint
 
     rec = {"steps": [], "calls": 0, "val_s": [], "test_s": [], "sync": None}
-    build_eval = R.make_eval_step
-
-    def checked_eval(*a, **k):
-        step = build_eval(*a, **k)
-
-        def checked(state, batch):
-            out = step(state, batch)
-            check_eval_rows(torch, out, "stage-2 entry")
-            rec["calls"] += 1
-            return out
-
-        return checked
-
     # before timing anything: the kernels at the train step's shape
     kr = check_packed_kernels(torch, A, shapes=(("train", 7, True),),
                               tag="/b7")
@@ -2468,7 +2531,8 @@ def stage2_entry(torch, A, finetune: Path, s2: dict, ev: dict,
     with patched((R, "make_finetune_train_step", timed_steps(
                       torch, R.make_finetune_train_step, rec,
                       ("loss", "grad_norm"))),
-                 (R, "make_eval_step", checked_eval),
+                 (R, "make_eval_step", checked_eval_step(
+                     torch, R.make_eval_step, "stage-2 entry", rec)),
                  (C, "run_validation", timed_calls(C.run_validation,
                                                    rec["val_s"])),
                  (C, "run_final_test", timed_calls(C.run_final_test,
@@ -2541,6 +2605,7 @@ def stage2_entry(torch, A, finetune: Path, s2: dict, ev: dict,
         bare_eval_views_per_s_b32=ev["views_per_s"],
         host_items_per_s=host,
         walls_s=[c["wall_s"] for c in calls],
+        peak_mem_gb=[c["peak_mem_gb"] for c in calls],
         losses=[v[0] for v in vals["first"] + vals["second"]],
         epoch_logs=log2, test=test2, eval_calls=rec["calls"],
         launches=launches, calls=[c["launches"] for c in calls])
@@ -2861,6 +2926,527 @@ def stage3_entry(torch, A, student_init: Path, s3: dict, workdir: Path):
     return res, kr
 
 
+def ffmpeg_headers() -> list:
+    """The FFmpeg development headers the native decoder's build needs
+    (libavformat's directory), where the machine has them."""
+    import glob
+
+    return sorted(glob.glob("/usr/include/libavformat")
+                  + glob.glob("/usr/include/*/libavformat")
+                  + glob.glob("/usr/local/include/libavformat"))
+
+
+def write_clips(d: Path, n: int, frames: int, raster) -> list:
+    """``n`` mp4v clips of ``frames`` frames at ``raster`` (w, h), written
+    with OpenCV: smooth gradients that move from frame to frame and a
+    bright box, a little different in each clip."""
+    import cv2
+    import numpy as np
+
+    w, h = raster
+    yy, xx = np.mgrid[0:h, 0:w]
+    paths = []
+    for c in range(n):
+        path = str(d / f"clip_{c:02d}.mp4")
+        vw = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*"mp4v"), 25,
+                             (w, h))
+        for i in range(frames):
+            f = np.stack([(xx + 3 * i + 11 * c) % 256,
+                          (yy * 2 + i) % 256,
+                          (xx // 2 + yy // 2 + 5 * c) % 256], -1)
+            f = f.astype(np.uint8)
+            y0, x0 = (8 * i) % (h - 40), (5 * i + 9 * c) % (w - 60)
+            f[y0:y0 + 40, x0:x0 + 60] = (40 + 13 * c) % 256
+            vw.write(f)
+        vw.release()
+        paths.append(path)
+    return paths
+
+
+def write_jpeg_folder(d: Path, frames: int, raster) -> str:
+    """A frame folder (img_00001.jpg, ...) of smooth frames and a
+    saturated box, JPEG quality 95."""
+    import cv2
+    import numpy as np
+
+    w, h = raster
+    d.mkdir()
+    yy, xx = np.mgrid[0:h, 0:w]
+    for i in range(1, frames + 1):
+        img = np.stack([(yy // 2 + xx // 3 + 10 * i) % 200,
+                        (xx // 2 + 20 * i) % 200,
+                        (yy // 2 + 5 * i) % 200], -1).astype(np.uint8)
+        img[20:60, 30:90] = (255, 0, 0)
+        cv2.imwrite(str(d / f"img_{i:05}.jpg"), img,
+                    [cv2.IMWRITE_JPEG_QUALITY, 95])
+    return str(d)
+
+
+def sparse_indices(frames: int, k: int = 8) -> list:
+    """k indices spread over a clip, as the sparse sampler takes them."""
+    return [int(round(i * (frames - 1) / (k - 1))) for i in range(k)]
+
+
+def decode_rate(reader, clips: list, frames: int) -> float:
+    """Frames/s of ``reader`` decoding 8 frames of each clip, one thread."""
+    idx = sparse_indices(frames)
+    t0 = time.perf_counter()
+    for path in clips:
+        reader.get_batch(path, idx)
+    return 8 * len(clips) / (time.perf_counter() - t0)
+
+
+def native_decode(torch, workdir: Path) -> dict:
+    """Phase ``native-decode``: the port's native decoder built from
+    unite_torch/native/videodec.cpp with g++ (into
+    build/unite_torch_native/), 16 mp4v clips of 64 frames at 340x256 and
+    a 16-frame JPEG folder written with OpenCV, and the decoder held to
+    OpenCV's decode within the JAX package's own bars
+    (tests/test_native_decoder.py): the plain decode equal, the short-side
+    224 decode within a mean of 4 levels (95% within 16) and the 224x224
+    sized decode within a mean of 4 of OpenCV's decode resized by
+    ``resize_clip``, the ``jd_*`` JPEG decode within a mean of 2 levels
+    (under 5% beyond 10) of ``cv2.imread``. Prints the decode rates in
+    frames/s at 8 frames a clip (native plain and short-side 224, OpenCV
+    beside them). Where the machine has no FFmpeg headers the decoder does
+    not build: the phase says so and the recipe phase reads through
+    ``CV2VideoReader``, what JAX's ``default_reader`` takes without its
+    library; a build or decode error where the headers are present fails
+    the smoke."""
+    import numpy as np
+
+    from unite_torch.data import video_reader as VR
+    from unite_torch.data.datasets_extra import RawFrameReader
+    from unite_torch.data.transforms import resize_clip
+    from unite_torch.native import _build
+
+    d = workdir / "video"
+    d.mkdir()
+    t0 = time.perf_counter()
+    clips = write_clips(d, DECODE_CLIPS, DECODE_FRAMES, DECODE_RASTER)
+    folder = write_jpeg_folder(d / "frames", 16, DECODE_RASTER)
+    res = dict(clips=len(clips), frames=DECODE_FRAMES,
+               raster=list(DECODE_RASTER),
+               write_s=time.perf_counter() - t0, headers=ffmpeg_headers())
+    cv = VR.CV2VideoReader()
+    res["cv2_frames_per_s"] = decode_rate(cv, clips, DECODE_FRAMES)
+    if not res["headers"]:
+        res["built"] = False
+        print("native-decode: no FFmpeg development headers on this "
+              "machine (no libavformat under /usr/include): the native "
+              "decoder does not build here; the recipe phase reads the "
+              "clips through CV2VideoReader, the reader JAX's "
+              "default_reader takes without its library, and the CPU tests "
+              f"hold the decoder; OpenCV decodes {res['cv2_frames_per_s']:.1f}"
+              " frames/s at 8 frames a clip", flush=True)
+        return res, clips
+    t0 = time.perf_counter()
+    lib_path = _build.build()
+    res.update(built=True, build_s=time.perf_counter() - t0,
+               library=str(lib_path.relative_to(ROOT)))
+    idx = sparse_indices(DECODE_FRAMES)
+    native = VR.NativeVideoReader()
+    diffs = {"plain": 0.0, "short_side_224_mean": 0.0,
+             "short_side_224_q95": 0.0, "size_224_mean": 0.0}
+    for path in clips[:4]:
+        if native.num_frames(path) != DECODE_FRAMES:
+            raise AssertionError(f"native frame count of {path}: "
+                                 f"{native.num_frames(path)}")
+        ref = cv.get_batch(path, idx)
+        got = native.get_batch(path, idx)
+        if got.shape != ref.shape or not np.array_equal(got, ref):
+            raise AssertionError(
+                f"native plain decode of {path} differs from OpenCV's: "
+                f"{got.shape} {ref.shape}, max "
+                f"{np.abs(got.astype(int) - ref).max()}")
+        scaled = VR.NativeVideoReader(short_side=224).get_batch(path, idx)
+        host = resize_clip(ref, 224)
+        if scaled.shape != host.shape or scaled.shape[1:3] != (224, 297):
+            raise AssertionError(f"scaled decode {scaled.shape}, host "
+                                 f"resize {host.shape}")
+        diff = np.abs(scaled.astype(np.int16) - host.astype(np.int16))
+        diffs["short_side_224_mean"] = max(diffs["short_side_224_mean"],
+                                           float(diff.mean()))
+        diffs["short_side_224_q95"] = max(diffs["short_side_224_q95"],
+                                          float(np.quantile(diff, 0.95)))
+        sized = VR.NativeVideoReader(size=(224, 224)).get_batch(path, idx)
+        host = resize_clip(ref, (224, 224))
+        if sized.shape != host.shape:
+            raise AssertionError(f"sized decode {sized.shape}")
+        diff = np.abs(sized.astype(np.int16) - host.astype(np.int16))
+        diffs["size_224_mean"] = max(diffs["size_224_mean"],
+                                     float(diff.mean()))
+    if (diffs["short_side_224_mean"] >= 4.0
+            or diffs["short_side_224_q95"] > 16
+            or diffs["size_224_mean"] >= 4.0):
+        raise AssertionError(f"native scaled decodes off OpenCV's: {diffs}")
+    jidx = list(range(16))
+    a = RawFrameReader(use_native=True).get_batch(folder, jidx)
+    b = RawFrameReader().get_batch(folder, jidx)
+    jdiff = np.abs(a.astype(np.int16) - b.astype(np.int16))
+    diffs.update(jpeg_mean=float(jdiff.mean()),
+                 jpeg_over_10=float((jdiff > 10).mean()))
+    if a.shape != b.shape or jdiff.mean() >= 2.0 or (jdiff > 10).mean() \
+            >= 0.05:
+        raise AssertionError(f"native JPEG decode off OpenCV's: {diffs}")
+    res.update(diffs=diffs,
+               native_frames_per_s=decode_rate(native, clips, DECODE_FRAMES),
+               native_224_frames_per_s=decode_rate(
+                   VR.NativeVideoReader(short_side=224), clips,
+                   DECODE_FRAMES),
+               cv2_frames_per_s_again=decode_rate(cv, clips, DECODE_FRAMES))
+    print(f"native-decode: built {res['library']} in {res['build_s']:.1f} s;"
+          f" {DECODE_CLIPS} clips {DECODE_RASTER[0]}x{DECODE_RASTER[1]}x"
+          f"{DECODE_FRAMES}; against OpenCV {diffs}; decode at 8 frames a "
+          f"clip, frames/s: native {res['native_frames_per_s']:.1f}, native "
+          f"short side 224 {res['native_224_frames_per_s']:.1f}, OpenCV "
+          f"{res['cv2_frames_per_s']:.1f} / "
+          f"{res['cv2_frames_per_s_again']:.1f}; on {card_line()}",
+          flush=True)
+    return res, clips
+
+
+def stage1_remat(torch, A, b: int = 64, steps: int = 3):
+    """Phase ``stage1-remat-b64``: the stage-1 step at the main path's
+    geometry (B=64, mask 0.8, ViT-B/16 student, drop path 0.1) from the
+    same weights, batch and generator seeds, plain and with every student
+    block recomputed in the backward (``--use_checkpoint``): ``steps``
+    steps each, the losses and every parameter after them bit-equal. K1
+    runs 12 times a step at the teacher's [8B, 197] either way, and at the
+    student's [B, 320] 12 times plain and 24 times recomputed (each block's
+    forward again in the backward); K2 12 times. Both steps' times (steps 2
+    on, each waited for) and peak memories are reported."""
+    torch.manual_seed(11)
+    plain, teacher, step = build_step(torch, b, torch.bfloat16, "cuda", 0.1)
+    sd = {k: v.clone() for k, v in plain.model.state_dict().items()}
+    td = teacher.state_dict()
+    batch = random_batch(torch, b, 12, with_vis_idx=False)
+    batch["videos"] = batch["videos"].pin_memory()
+    runs = {}
+
+    def run(state, step, remat):
+        gen = torch.Generator(device="cuda")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts(A)
+        losses, times = [], []
+        for i in range(steps):
+            gen.manual_seed(100 + i)
+            t0 = time.perf_counter()
+            m = step(state, batch, gen)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            losses.append(m["loss"].detach().clone())
+        counts, shapes = read_counts(A), read_shapes(A)["K1"]
+        n = 24 if remat else 12
+        what = f"stage1-remat-b64 ({'remat' if remat else 'plain'})"
+        expect_counts(counts, {"K1": (12 + n) * steps, "K2": 12 * steps},
+                      what)
+        want = {(8 * b, 197): 12 * steps, (b, 320): n * steps}
+        if shapes != want:
+            raise AssertionError(f"{what}: K1 by (B, S) {shapes}, expected "
+                                 f"{want}")
+        return dict(losses=losses, step_ms=[t * 1e3 for t in times],
+                    peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+                    launches=counts, k1_student=shapes[(b, 320)])
+
+    runs["plain"] = run(plain, step, False)
+    params = {k: v.detach().clone() for k, v in
+              plain.model.named_parameters()}
+    del plain, teacher, step
+    torch.cuda.empty_cache()
+    remat, _, step = build_step(torch, b, torch.bfloat16, "cuda", 0.1, sd, td,
+                                remat=True)
+    runs["remat"] = run(remat, step, True)
+    same_loss = all(torch.equal(x, y) for x, y in zip(
+        runs["plain"]["losses"], runs["remat"]["losses"]))
+    named = dict(remat.model.named_parameters())
+    differ = [k for k, v in params.items() if not torch.equal(v, named[k])]
+    if not same_loss or differ:
+        raise AssertionError(
+            f"stage1-remat-b64: the recomputed step is not the plain one: "
+            f"losses {[x.item() for x in runs['plain']['losses']]} / "
+            f"{[x.item() for x in runs['remat']['losses']]}, parameters "
+            f"that differ {differ[:5]} ({len(differ)})")
+    check_finite([[x.item()] for x in runs["plain"]["losses"]])
+    res = {k: dict(v, losses=[x.item() for x in v["losses"]],
+                   steady_step_ms=statistics.mean(v["step_ms"][1:]))
+           for k, v in runs.items()}
+    res["bit_equal_parameters"] = len(params)
+    print(f"stage1-remat-b64: {steps} steps plain and recomputed bit-equal "
+          f"(losses and all {len(params)} parameters); step ms plain "
+          f"{res['plain']['steady_step_ms']:.2f}, remat "
+          f"{res['remat']['steady_step_ms']:.2f}; peak memory plain "
+          f"{res['plain']['peak_mem_gb']:.2f} GB, remat "
+          f"{res['remat']['peak_mem_gb']:.2f} GB; {json.dumps(res)} on "
+          f"{card_line()}", flush=True)
+    return res
+
+
+def stage2_recipe_steps(torch, A, b: int = 7, warmup: int = 2,
+                        timed: int = 5) -> dict:
+    """The bare B=7 stage-2 step, plain (stage2_config.yaml) and with the
+    recipe (``RECIPE``: mixup and cutmix, dropout 0.1, the head's dropout
+    0.5, every block recomputed, a bf16 first moment), from the same
+    weights and batch, each timed in turn (plain, recipe, recipe, plain):
+    clips/s, step ms and peak memory, with exact launches (12 K3 a step
+    plain, 24 with remat; 12 K4a and 12 K4b), and one profiled step of the
+    first plain and the first recipe run after their timed steps."""
+    torch.manual_seed(13)
+    res, sd = {}, None
+    batch = stage2_batch(torch, b, 14)
+    batch["videos"] = batch["videos"].pin_memory()
+    for name in ("plain", "recipe", "recipe_again", "plain_again"):
+        recipe = name.startswith("recipe")
+        state, step, _ = build_stage2(torch, "bfloat16", "cuda", 0.1, sd,
+                                      recipe=recipe)
+        if sd is None:
+            sd = {k: v.clone() for k, v in state.model.state_dict().items()}
+        gen = torch.Generator(device="cuda").manual_seed(15)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts(A)
+        metrics = [step(state, batch, gen) for _ in range(warmup)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics += [step(state, batch, gen) for _ in range(timed)]
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        n = warmup + timed
+        k3 = 24 if recipe else 12
+        expect_counts(read_counts(A), {"K3": k3 * n, "K3+lse": k3 * n,
+                                       "K4a": 12 * n, "K4b": 12 * n},
+                      f"stage-2 B={b} step ({name}), {n} steps")
+        vals = [(m["loss"].item(), m["grad_norm"].item()) for m in metrics]
+        check_finite(vals)
+        if recipe and "class_acc" in metrics[-1]:
+            raise AssertionError("the mixup step logged class_acc")
+        res[name] = dict(clips_per_s=b * timed / dt, step_ms=dt / timed * 1e3,
+                         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+                         losses=[v[0] for v in vals])
+        if name in ("plain", "recipe"):
+            res[name]["profile"] = profile_step(
+                torch, lambda: step(state, batch, gen),
+                f"chip_smoke_profile_stage2_b7_{name}.json")
+        if recipe:
+            mus = {s["mu"].dtype for s in state.optimizer.state.values()}
+            if mus != {torch.bfloat16}:
+                raise AssertionError(f"recipe step's first moments: {mus}")
+        del state, step, metrics
+        torch.cuda.empty_cache()
+    print(f"stage-2 B={b} bare step, plain / recipe / recipe / plain: "
+          f"clips/s {[round(r['clips_per_s'], 2) for r in res.values()]}, "
+          f"step ms {[round(r['step_ms'], 2) for r in res.values()]}, peak "
+          f"GB {[round(r['peak_mem_gb'], 2) for r in res.values()]} on "
+          f"{card_line()}", flush=True)
+    return res
+
+
+def attn_dropout_route(torch, A, b: int = 7) -> dict:
+    """A train-mode forward and backward of the stage-2 ViT with
+    --attn_drop_rate 0.1 launches no K3 (no K4): JAX sends attention
+    dropout to its XLA path, the port to the plain attention. Its eval
+    forward launches K3, 12 times."""
+    from unite_torch.ops.normalize import normalize_videos
+
+    torch.manual_seed(16)
+    state, _, _ = build_stage2(torch, "bfloat16", "cuda", 0.1,
+                               attn_drop=0.1)
+    model = state.model
+    x = normalize_videos(stage2_batch(torch, b, 17)["videos"].cuda())
+    gen = torch.Generator(device="cuda").manual_seed(18)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(A)
+    model.train()
+    loss = model(x, gen).float().square().mean()
+    loss.backward()
+    torch.cuda.synchronize()
+    train = read_counts(A)
+    expect_counts(train, {}, "train-mode forward/backward, attn_drop 0.1")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    reset_counts(A)
+    with torch.no_grad():
+        logits = model.eval()(x)
+    torch.cuda.synchronize()
+    evals = read_counts(A)
+    expect_counts(evals, {"K3": 12}, "eval forward, attn_drop 0.1")
+    check_finite([[loss.item()], [float(logits.float().abs().max())]])
+    res = dict(train_launches=train, eval_launches=evals,
+               train_peak_mem_gb=peak, loss=loss.item())
+    print(f"attention dropout 0.1: training launched {train['K3']} K3 (the "
+          f"plain attention, JAX's routing), evaluation {evals['K3']}; "
+          f"train peak memory {peak:.2f} GB", flush=True)
+    return res
+
+
+def stage2_recipe_entry(torch, A, finetune: Path, clips: list,
+                        native: bool, workdir: Path, entry2: dict):
+    """Phase ``stage2-recipe-b7``. ``unite_torch.train.run_stage2.main`` on
+    the card with ``STAGE2_ARGS`` and the recipe's flags (``RECIPE``:
+    --mixup 0.8 --cutmix 1.0 --mixup_prob 1.0 --smoothing 0.1 --drop 0.1
+    --fc_drop_rate 0.5 --use_checkpoint true --mu_dtype bfloat16,
+    --attn_drop_rate 0 so attention stays on the kernels), chained from the
+    stage-1 entry's checkpoint, reading the native-decode phase's 340x256
+    clips through ``default_reader`` (the native decoder where it built,
+    else OpenCV), 7 clips a step, validated each epoch. Call 1 trains
+    epoch 0 (4 steps), validates, writes checkpoint-best and -latest and
+    is preempted after 2 steps of epoch 1; call 2 auto-resumes there (the
+    bf16 first moments loaded bit for bit from the mid-epoch checkpoint),
+    finishes the epoch, validates and runs the 12-view test. Launches are
+    exact: 24 K3 a step (each block's forward again in the backward) and 12
+    an eval call, 12 K4a and 12 K4b a step. Every decode goes through the
+    expected reader, and none fails. Before it: the bare B=7 steps, plain
+    and recipe (``stage2_recipe_steps``), and the attention-dropout route
+    (``attn_dropout_route``)."""
+    import numpy as np
+
+    import unite_torch.train.run_stage2 as R
+    from unite_torch.config import parse_with_config
+    from unite_torch.data import video_reader as VR
+    from unite_torch.train import common as C
+    from unite_torch.train.args import stage2_parser
+    from unite_torch.utils import checkpoint as CK
+
+    bare = stage2_recipe_steps(torch, A)
+    route = attn_dropout_route(torch, A)
+    tmp = workdir / "recipe"
+    tmp.mkdir()
+    n_train, n_val, n_test = 28, 16, 4
+    for name, n in (("train", n_train), ("val", n_val), ("test", n_test)):
+        (tmp / f"{name}.csv").write_text("".join(
+            f"{clips[i % len(clips)]},{i % 12}\n" for i in range(n)))
+    out = tmp / "run"
+    base = ["--device_normalize", "true", "--eval_freq", "1", "--epochs",
+            "2", "--warmup_epochs", "0", "--output_dir", str(out),
+            "--finetune", str(finetune),
+            "--ann_file_train", str(tmp / "train.csv"),
+            "--ann_file_val", str(tmp / "val.csv"),
+            "--ann_file_test", str(tmp / "test.csv"), *RECIPE]
+    rec = {"steps": [], "restored": [], "decoded": {}, "errors": []}
+    want_reader = VR.NativeVideoReader if native else VR.CV2VideoReader
+
+    def counting(cls):
+        decode = cls.get_batch
+
+        def get_batch(self, path, indices):
+            try:
+                out = decode(self, path, indices)
+            except Exception as e:
+                rec["errors"].append(f"{cls.__name__} {path}: {e!r}")
+                raise
+            key = cls.__name__
+            rec["decoded"][key] = rec["decoded"].get(key, 0) + len(out)
+            return out
+
+        return get_batch
+
+    restore = CK.restore_train_state
+
+    def restoring(state, payload, **kw):
+        out = restore(state, payload, **kw)
+        names = {id(p): n for n, p in state.model.named_parameters()}
+        moments = payload["optimizer"]["moments"]
+        bad = [n for p, s in state.optimizer.state.items()
+               for n in [names[id(p)]]
+               if s["mu"].dtype != torch.bfloat16
+               or not torch.equal(s["mu"].cpu(), moments[n]["mu"])
+               or not torch.equal(s["nu"].cpu(), moments[n]["nu"])]
+        rec["restored"].append(dict(tensors=len(state.optimizer.state),
+                                    differ=bad))
+        return out
+
+    steps_per_epoch = n_train // 7
+    val_calls, test_calls = -(-n_val // 32), -(-n_test * 12 // 32)
+
+    def call(argv, steps, evals, what):
+        rec["steps"] = []
+        got = entry_call(
+            torch, A, R.main,
+            parse_with_config(stage2_parser(), STAGE2_ARGS + base + argv),
+            lambda: {"K3": 24 * steps + 12 * evals, "K3+lse": 24 * steps,
+                     "K4a": 12 * steps, "K4b": 12 * steps}, what)
+        return dict(got, records=rec["steps"],
+                    steps_seen=[r["step"] for r in rec["steps"]])
+
+    with patched((R, "make_finetune_train_step", timed_steps(
+                      torch, R.make_finetune_train_step, rec,
+                      ("loss", "grad_norm"))),
+                 (R, "make_eval_step", checked_eval_step(
+                     torch, R.make_eval_step, "stage-2 recipe entry")),
+                 (CK, "restore_train_state", restoring),
+                 (VR.NativeVideoReader, "get_batch",
+                  counting(VR.NativeVideoReader)),
+                 (VR.CV2VideoReader, "get_batch",
+                  counting(VR.CV2VideoReader))):
+        first = call(["--stop_after_steps", "6"], 6, val_calls,
+                     "stage-2 recipe entry call 1")
+        best = CK.load_checkpoint(out / "checkpoint-best.pth")
+        mid = CK.load_checkpoint(out / "checkpoint-latest.pth")
+        mus = {m["mu"].dtype for m in mid["optimizer"]["moments"].values()}
+        if (first["steps_seen"] != list(range(1, 7))
+                or best["epoch"] != 0 or best["extra"]["step"] != 4
+                or mid["epoch"] != 1 or mid["extra"]["epoch_step"] != 2
+                or mid["extra"]["step"] != 6 or mus != {torch.bfloat16}):
+            raise AssertionError(
+                f"stage-2 recipe call 1: steps {first['steps_seen']}, best "
+                f"{best['epoch']} {best['extra']}, latest {mid['epoch']} "
+                f"{mid['extra']}, first moments {mus}")
+        second = call(["--auto_resume", "true"], 2, val_calls + test_calls,
+                      "stage-2 recipe entry call 2")
+        last = CK.load_checkpoint(out / "checkpoint-latest.pth")
+        log = entry_log(out)
+        if (second["steps_seen"] != [7, 8] or last["epoch"] != 1
+                or last["extra"]["step"] != 2 * steps_per_epoch
+                or [r["epoch"] for r in log] != [0, 1, 2]
+                or any("class_acc" in r or "train_class_acc" in r
+                       for r in log)):
+            raise AssertionError(
+                f"stage-2 recipe call 2: steps {second['steps_seen']}, "
+                f"latest {last['epoch']} {last['extra']}, log {log}")
+    if (len(rec["restored"]) != 1 or rec["restored"][0]["differ"]
+            or rec["errors"] or not rec["decoded"].get(want_reader.__name__)
+            or set(rec["decoded"]) != {want_reader.__name__}):
+        raise AssertionError(
+            f"stage-2 recipe entry: restored {rec['restored']}, decode "
+            f"errors {rec['errors']}, frames decoded by reader "
+            f"{rec['decoded']} (expected {want_reader.__name__})")
+    vals = step_values(first["records"] + second["records"],
+                       ("loss", "grad_norm"))
+    check_finite(vals)
+    test = {k: log[-1][k] for k in ("test_acc1", "test_acc5")}
+    if not all(0.0 <= v <= 100.0 for v in test.values()):
+        raise AssertionError(f"stage-2 recipe test: {test}")
+    ts = [r["t"] for r in first["records"]]
+    launches = {k: first["launches"][k] + second["launches"][k]
+                for k in first["launches"]}
+    res = dict(
+        first_step_s=ts[0] - first["t0"],
+        clips_per_s_steps_2_4=7 * 3 / (ts[3] - ts[0]),
+        plain_entry_first_step_s=entry2["first_step_s"],
+        plain_entry_clips_per_s_steps_2_4=entry2["prefetched_clips_per_s"],
+        peak_mem_gb=[first["peak_mem_gb"], second["peak_mem_gb"]],
+        plain_entry_peak_mem_gb=entry2["peak_mem_gb"],
+        bare_steps=bare, attn_dropout=route, reader=want_reader.__name__,
+        frames_decoded=rec["decoded"], restored_moments=rec["restored"][0][
+            "tensors"], losses=[v[0] for v in vals], epoch_logs=log,
+        test=test, walls_s=[first["wall_s"], second["wall_s"]],
+        launches=launches)
+    print(f"stage2-recipe-b7: entry {res['clips_per_s_steps_2_4']:.2f} "
+          f"clips/s over steps 2-4 of call 1 (each waited for; the plain "
+          f"stage2-entry-b7: {res['plain_entry_clips_per_s_steps_2_4']:.2f}),"
+          f" first step after {res['first_step_s']:.2f} s (plain "
+          f"{res['plain_entry_first_step_s']:.2f} s), peak memory "
+          f"{max(res['peak_mem_gb']):.2f} GB (plain "
+          f"{max(res['plain_entry_peak_mem_gb']):.2f} GB); bare B=7 step "
+          f"plain {bare['plain']['clips_per_s']:.2f} / recipe "
+          f"{bare['recipe']['clips_per_s']:.2f} clips/s; "
+          f"{res['restored_moments']} bf16 moments restored bit for bit; "
+          f"frames decoded {rec['decoded']}; launches {launches}; "
+          f"{json.dumps(res)} on {card_line()}", flush=True)
+    return res
+
+
 def main() -> int:
     try:
         import torch
@@ -2919,10 +3505,14 @@ def main() -> int:
     m075_rel = card_vs_cpu(torch, mask_ratio=0.75)
     m075 = main_path(torch, A, mask_ratio=0.75)
     torch.cuda.empty_cache()
+    remat = stage1_remat(torch, A)
+    torch.cuda.empty_cache()
     mark("stage-1 paths")
     # each entry's output stays until the next stage's entry has read it
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as work:
         work = Path(work)
+        decode, clips = native_decode(torch, work)
+        mark("native decode")
         entry = stage1_entry(torch, A, m075, work)
         torch.cuda.empty_cache()
         mark("stage-1 entry")
@@ -2938,6 +3528,11 @@ def main() -> int:
         kr.update(kr_b7)
         torch.cuda.empty_cache()
         mark("stage-2 entry")
+        recipe = stage2_recipe_entry(
+            torch, A, work / "stage1" / "run" / "checkpoint-latest.pth",
+            clips, decode["built"], work, entry2)
+        torch.cuda.empty_cache()
+        mark("stage-2 recipe")
         s3_rel = {f"cls={cls}": stage3_card_vs_cpu(torch, cls)
                   for cls in (False, True)}
         s3, state, _ = stage3_path(torch, A, cls=False)
@@ -2967,6 +3562,14 @@ def main() -> int:
             ("K2/student", "fused_qkv_bwd[student S=320]",
              "unite_torch/csrc/short_bwd_wgmma.cu",
              "unite_tpu/ops/attention.py:773", mp["k2_launches"]),
+            ("K1/student", "fused_qkv_fwd[stage1-remat-b64 student S=320, "
+             "recomputed in the backward]",
+             "unite_torch/csrc/short_attn_wgmma.cu",
+             "unite_tpu/ops/attention.py:678", remat["remat"]["k1_student"]),
+            ("K2/student", "fused_qkv_bwd[stage1-remat-b64 student S=320]",
+             "unite_torch/csrc/short_bwd_wgmma.cu",
+             "unite_tpu/ops/attention.py:773",
+             remat["remat"]["launches"]["K2"]),
             ("K3/train", "packed_flash_fwd[train B=8 S=1568]",
              "unite_torch/csrc/flash_fwd_wgmma.cu",
              "unite_tpu/ops/attention.py:913", s2["k3_launches"]),
@@ -2988,6 +3591,21 @@ def main() -> int:
             ("K4b/b7", "packed_flash_dkv[stage-2 entry train B=7 S=1568]",
              "unite_torch/csrc/flash_bwd_wgmma.cu",
              "unite_tpu/ops/attention.py:1014", entry2["launches"]["K4b"]),
+            ("K3/train/b7", "packed_flash_fwd[stage2-recipe-b7 train B=7 "
+             "S=1568, recomputed in the backward]",
+             "unite_torch/csrc/flash_fwd_wgmma.cu",
+             "unite_tpu/ops/attention.py:913",
+             recipe["launches"]["K3+lse"]),
+            ("K3/eval", "packed_flash_fwd[stage2-recipe-b7 eval B=32 "
+             "S=1568]", "unite_torch/csrc/flash_fwd_wgmma.cu",
+             "unite_tpu/ops/attention.py:913",
+             recipe["launches"]["K3"] - recipe["launches"]["K3+lse"]),
+            ("K4a/b7", "packed_flash_dq[stage2-recipe-b7 train B=7 S=1568]",
+             "unite_torch/csrc/flash_bwd_wgmma.cu",
+             "unite_tpu/ops/attention.py:983", recipe["launches"]["K4a"]),
+            ("K4b/b7", "packed_flash_dkv[stage2-recipe-b7 train B=7 S=1568]",
+             "unite_torch/csrc/flash_bwd_wgmma.cu",
+             "unite_tpu/ops/attention.py:1014", recipe["launches"]["K4b"]),
             ("K1/teacher/s3", "fused_qkv_fwd[stage-3 entry teachers B=40 "
              "S=197]", "unite_torch/csrc/short_attn_wgmma.cu",
              "unite_tpu/ops/attention.py:678",
@@ -3065,6 +3683,8 @@ def main() -> int:
                       "stage1_m075_step": m075,
                       "stage1_m075_card_vs_cpu_rel": m075_rel,
                       "stage1_entry": entry, "stage2_entry": entry2,
+                      "native_decode": decode, "stage1_remat": remat,
+                      "stage2_recipe": recipe,
                       "stage3_entry": entry3,
                       "stage2_step": s2,
                       "stage2_eval": ev, "stage2_card_vs_cpu_rel": s2_rel,

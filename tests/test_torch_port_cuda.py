@@ -730,3 +730,117 @@ def test_stage3_entry_runs_on_card(cuda, tmp_path):
     head = vit.state_dict()
     assert torch.equal(saved["model"]["classifier.weight"].cpu(),
                        head["head.weight"])
+
+
+@pytest.mark.cuda
+def test_remat_is_bit_equal_on_card_through_k1_k2(cuda):
+    # an adaptation student of width 128 (2 heads) over 4 frames of 64^2
+    # (64 tokens: K1 forward, K2 backward) at drop path 0.1 and dropout
+    # 0.1, bf16: with every block recomputed the output and the gradients
+    # are the plain step's bit for bit, and K1 runs twice per block
+    from unite_torch.models.adaptation import AdaptationVisionTransformer
+
+    kw = dict(img_size=64, patch_size=16, encoder_embed_dim=128,
+              encoder_depth=2, encoder_num_heads=2, num_frames=4,
+              tubelet_size=1, clip_decoder_embed_dim=128,
+              clip_output_dim=64, clip_return_layers=(0, 1),
+              drop_path_rate=0.1, drop_rate=0.1, dtype=torch.bfloat16)
+    torch.manual_seed(0)
+    sd = AdaptationVisionTransformer(**kw).state_dict()
+    x = torch.randn(3, 4, 64, 64, 3, device=cuda)
+    w = torch.randn(2, 3, 64, 64, device=cuda)
+    results = []
+    for remat in (False, True):
+        m = AdaptationVisionTransformer(**kw, remat=remat).to(cuda).train()
+        m.load_state_dict(sd)
+        g = torch.Generator(device="cuda").manual_seed(5)
+        k1, k2 = TA.fused_qkv_fwd.launches, TA.fused_qkv_bwd.launches
+        out = m(x, clip_only=True, generator=g)
+        (out.float() * w).sum().backward()
+        torch.cuda.synchronize()
+        results.append((out, {n: p.grad for n, p in m.named_parameters()},
+                        TA.fused_qkv_fwd.launches - k1,
+                        TA.fused_qkv_bwd.launches - k2))
+    (o0, g0, k1_0, k2_0), (o1, g1, k1_1, k2_1) = results
+    assert (k1_0, k2_0, k1_1, k2_1) == (2, 2, 4, 2)
+    assert torch.equal(o0, o1)
+    for n in g0:
+        assert torch.equal(g0[n], g1[n]), n
+
+
+@pytest.mark.cuda
+def test_attention_dropout_skips_the_kernels_in_training_on_card(cuda):
+    # JAX's routing: attention dropout in training takes the plain
+    # attention; evaluation keeps K3 (784 tokens)
+    from unite_torch.models.vit import VisionTransformer
+
+    m = VisionTransformer(embed_dim=128, depth=2, num_heads=2, mlp_ratio=2,
+                          num_classes=3, all_frames=4, tubelet_size=1,
+                          attn_drop_rate=0.1, dtype=torch.bfloat16).to(cuda)
+    x = torch.randn(2, 4, 224, 224, 3, device=cuda)
+    g = torch.Generator(device="cuda").manual_seed(1)
+    before = TA.packed_flash_fwd.launches
+    m.train()(x, g).float().sum().backward()
+    torch.cuda.synchronize()
+    assert TA.packed_flash_fwd.launches == before
+    with torch.no_grad():
+        m.eval()(x)
+    torch.cuda.synchronize()
+    assert TA.packed_flash_fwd.launches == before + 2
+
+
+@pytest.mark.cuda
+def test_stage2_recipe_entry_runs_on_card(cuda, tmp_path):
+    # run_stage2.main on the card at a tiny width with the finetune recipe:
+    # mixup and cutmix, dropout, every block recomputed (K3 twice per block
+    # and step), a bf16 first moment; 2 train steps of 2, one validation
+    # and one test call
+    import json
+
+    from unite_torch.config import parse_with_config
+    from unite_torch.models.vit import VisionTransformer
+    from unite_torch.train import run_stage2
+    from unite_torch.train.args import stage2_parser
+    from unite_torch.utils import checkpoint as ck
+    from unite_torch.utils.registry import _MODEL_REGISTRY, register_model
+
+    if "vit_card_tiny" not in _MODEL_REGISTRY:
+        @register_model
+        def vit_card_tiny(**kwargs):
+            return VisionTransformer(embed_dim=128, depth=2, num_heads=2,
+                                     mlp_ratio=2, **kwargs)
+
+    for name, n in (("train", 4), ("val", 3), ("test", 2)):
+        (tmp_path / f"{name}.csv").write_text("".join(
+            f"{name}/v{i}.mp4,{i % 3}\n" for i in range(n)))
+    args = parse_with_config(stage2_parser(), [
+        "--model", "vit_card_tiny", "--nb_classes", "3", "--num_frames", "4",
+        "--tubelet_size", "1", "--input_size", "224",
+        "--short_side_size", "224", "--batch_size", "2",
+        "--batch_size_val", "4", "--epochs", "1", "--warmup_epochs", "0",
+        "--test_num_segment", "1", "--test_num_crop", "1", "--split", ",",
+        "--synthetic_data", "true", "--device_normalize", "true",
+        "--num_workers", "2", "--output_dir", str(tmp_path / "run"),
+        "--mixup", "0.8", "--cutmix", "1.0", "--mixup_prob", "1.0",
+        "--smoothing", "0.1", "--drop", "0.1", "--fc_drop_rate", "0.5",
+        "--use_checkpoint", "true", "--mu_dtype", "bfloat16",
+        "--ann_file_train", str(tmp_path / "train.csv"),
+        "--ann_file_val", str(tmp_path / "val.csv"),
+        "--ann_file_test", str(tmp_path / "test.csv")])
+    kernels = (TA.packed_flash_fwd, TA.packed_flash_dq, TA.packed_flash_dkv)
+    before = [k.launches for k in kernels]
+    lse_before = TA.packed_flash_fwd.lse_launches
+    run_stage2.main(args)
+    launched = [k.launches - b for k, b in zip(kernels, before)]
+    # 2 blocks: 2 steps forward twice (remat) and backward once, 1 val and
+    # 1 test call forward
+    assert launched == [2 * (2 * 2 + 1 + 1), 2 * 2, 2 * 2]
+    assert TA.packed_flash_fwd.lse_launches - lse_before == 2 * 2 * 2
+    logs = [json.loads(x) for x in
+            (tmp_path / "run" / "log.txt").read_text().splitlines()]
+    assert [r["epoch"] for r in logs] == [0, 1]
+    assert torch.isfinite(torch.tensor(logs[0]["train_loss"]))
+    assert "train_class_acc" not in logs[0]
+    saved = ck.load_checkpoint(str(tmp_path / "run" / "checkpoint-latest.pth"))
+    assert {m["mu"].dtype for m in saved["optimizer"]["moments"].values()} \
+        == {torch.bfloat16}

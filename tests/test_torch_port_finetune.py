@@ -104,9 +104,33 @@ def test_readout_variants_match_jax(kw):
               jm.apply({"params": p}, jnp.asarray(x), True))
 
 
-def test_dropout_is_refused():
-    with pytest.raises(NotImplementedError, match="item 4"):
-        tvit.VisionTransformer(**dict(CFG, drop_rate=0.1))
+def test_dropout_is_refused(monkeypatch):
+    # ported since: the three rates as JAX applies them, the identity in
+    # evaluation and JAX's masks (injected) in training
+    from tests.test_torch_port_recipe import Draws
+
+    cfg = dict(CFG, depth=1, all_frames=2, drop_rate=0.1,
+               attn_drop_rate=0.1, fc_drop_rate=0.3, drop_path_rate=0.1)
+    jm = jvit.VisionTransformer(**cfg)
+    x = np.random.default_rng(4).standard_normal(
+        (2, 2, 224, 224, 3)).astype(np.float32)
+    p = perturb(jm.init(jax.random.PRNGKey(2), jnp.asarray(x))["params"], 5)
+    tm = tvit.VisionTransformer(**cfg)
+    tm.load_state_dict(flax_to_state_dict(p), strict=True)
+    with torch.no_grad():
+        close(tm.eval()(torch.from_numpy(x)),
+              jm.apply({"params": p}, jnp.asarray(x), True))
+    draws = Draws(monkeypatch)
+    draws.record_jax()
+    ref = jm.apply({"params": p}, jnp.asarray(x), False,
+                   rngs={"dropout": jax.random.PRNGKey(3)})
+    # positions, attention probabilities, proj, MLP, features (block 0's
+    # drop path rate is 0)
+    assert len(draws.masks) == 5
+    draws.into_port()
+    with torch.no_grad():
+        close(tm.train()(torch.from_numpy(x),
+                         torch.Generator().manual_seed(0)), ref)
 
 
 @pytest.mark.parametrize("name,frames,tubelet,kw", [
@@ -352,7 +376,45 @@ def test_eval_step_matches_jax(vit_pair, use_ema):
     assert torch.equal(out["labels"], torch.from_numpy(labels))
 
 
-def test_mixup_waits_for_its_port():
-    tm = tvit.VisionTransformer(**dict(CFG, depth=1))
-    with pytest.raises(NotImplementedError, match="mixup"):
-        tft.make_finetune_train_step(tm, mixup=object(), device="cpu")
+def test_mixup_waits_for_its_port(vit_pair, monkeypatch):
+    # ported since: the step mixes the normalized videos with the step's
+    # draws and trains on soft targets; with both packages' draw functions
+    # fixed to the same draws (a cutmix row, a mixup row) it is JAX's step
+    from tests.test_torch_port_recipe import _fixed_draws
+    from unite_tpu.ops.mixup import Mixup as JMixup
+    from unite_torch.ops.mixup import Mixup as TMixup
+
+    _fixed_draws(monkeypatch, 2)
+    jm, p = vit_pair
+    kw = dict(mixup_alpha=0.8, cutmix_alpha=1.0, mode="elem",
+              label_smoothing=0.1, num_classes=12)
+    lr_tab = jsched.cosine_scheduler(5e-4, 1e-5, 1, 3)
+    wd_tab = jsched.cosine_scheduler(0.05, 0.05, 1, 3)
+    # eps 1e-4: the jitted JAX mix fuses x*lam + x_flip*(1-lam) on the CPU
+    # and differs from its own op-by-op result (which the port's equals) by
+    # one bf16 ulp in ~0.1% of the mixed pixels; the patch embedding's
+    # near-zero gradients then turn that into larger moves at eps 1e-6
+    tx, _ = jfactory.create_optimizer(
+        "adamw", lr=lr_tab, params=p, weight_decay=wd_tab,
+        betas=(0.9, 0.999), eps=1e-4, num_layers=2, layer_decay=0.65,
+        trainable_mask=jrun2.trainable_mask(STAGE2, p))
+    jstate = JaxTrainState.create(jax.tree.map(jnp.asarray, p), tx)
+    jstep = jax.jit(jft.make_finetune_train_step(jm, mixup=JMixup(**kw)))
+    state, _ = _port_state_and_step(p, lr_tab, wd_tab, 1e-4, None)
+    step = tft.make_finetune_train_step(state.model, mixup=TMixup(**kw),
+                                        device="cpu")
+    for i in range(2):
+        vids, labels = batch_np(seed=20 + i)
+        jstate, jm_ = jstep(jstate, {"videos": jnp.asarray(vids),
+                                     "labels": jnp.asarray(labels)},
+                            jax.random.PRNGKey(0))
+        m = step(state, {"videos": torch.from_numpy(vids),
+                         "labels": torch.from_numpy(labels)},
+                 torch.Generator().manual_seed(i))
+        assert set(m) == set(jm_) == {"loss", "grad_norm"}
+        for k in m:
+            np.testing.assert_allclose(m[k].item(), float(jm_[k]), rtol=1e-5,
+                                       err_msg=k)
+    ref = flax_to_state_dict(jax.tree.map(np.asarray, jstate.params))
+    for k, v in state.model.state_dict().items():
+        close(v, ref[k], rtol=1e-5, atol=1e-6)

@@ -371,14 +371,22 @@ def test_ssv2_raw_frame_dataset_matches_jax(tmp_path, mode):
 
 
 def test_raw_frame_reader_refuses_the_native_decoder(tmp_path, monkeypatch):
-    with pytest.raises(NotImplementedError, match="queue 1, item 6"):
-        tdx.RawFrameReader(use_native=True)
+    # ported since: use_native=True decodes through the port's own build of
+    # the native library's jd_* entry points, bit-equal to JAX's reader,
+    # and without OpenCV the reader takes it, as JAX's does
+    anno = _frame_folders(tmp_path)
+    folder = open(anno).readline().split(" ")[0]
+    port, ref = tdx.RawFrameReader(use_native=True), \
+        jdx.RawFrameReader(use_native=True)
+    assert port._lib is not None
+    _same(port.get_batch(folder, [0, 2, 1, 0]),
+          ref.get_batch(folder, [0, 2, 1, 0]))
     reader = tdx.RawFrameReader()
     with pytest.raises(FileNotFoundError):
         reader.num_frames(str(tmp_path / "none"))
     monkeypatch.setitem(__import__("sys").modules, "cv2", None)
-    with pytest.raises(ImportError, match="item 6"):
-        reader.get_batch(str(tmp_path), [0])
+    _same(tdx.RawFrameReader().get_batch(folder, [1, 3]),
+          ref.get_batch(folder, [1, 3]))
 
 
 # ------------------------------------------------------------ build_dataset
@@ -453,7 +461,7 @@ def test_device_val_transform_matches_jax(shape, short, crop):
     assert tev.resize_short_side(raw, min(shape[-3], shape[-2])) is raw
 
 
-def test_cv2_reader_resizes_after_decode(tmp_path):
+def test_cv2_reader_resizes_after_decode(tmp_path, monkeypatch):
     import cv2
 
     path = str(tmp_path / "v.avi")
@@ -461,11 +469,18 @@ def test_cv2_reader_resizes_after_decode(tmp_path):
     for i in range(6):
         w.write(_gen(i).integers(0, 256, (36, 48, 3), dtype=np.uint8))
     w.release()
-    for kw in ({}, dict(short_side=24)):
+    for kw in ({}, dict(short_side=24), dict(size=(40, 30))):
         got = treader.CV2VideoReader(**kw)
         ref = jreader.CV2VideoReader(**kw)
         assert got.num_frames(path) == ref.num_frames(path) == 6
         _same(got.get_batch(path, [4, 0, 2]), ref.get_batch(path, [4, 0, 2]))
+    assert got.get_batch(path, [1]).shape == (1, 30, 40, 3)
+    # the native decoder comes first where it builds, as in JAX
+    reader = treader.default_reader(short_side=24)
+    assert isinstance(reader, treader.NativeVideoReader)
+    assert reader.short_side == 24
+    monkeypatch.setattr(treader.NativeVideoReader, "available",
+                        classmethod(lambda cls: False))
     reader = treader.default_reader(short_side=24)
     assert isinstance(reader, treader.CV2VideoReader)
     assert reader.short_side == 24

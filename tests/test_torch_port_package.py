@@ -36,7 +36,8 @@ SLICE_MODULES = ("ops.attention", "models.adaptation", "engines.finetune",
                  "tools.quant_kernel_probe", "train.run_stage2",
                  "data.functional", "data.rand_augment",
                  "data.random_erasing", "data.datasets_extra",
-                 "ops.eval_transforms")
+                 "ops.eval_transforms", "native._build", "ops.mixup",
+                 "data.collate_mixup")
 # imported only where their paths are used (a YAML file, the PIL transform
 # path, the OpenCV reader, the logging flags)
 LAZY = ("yaml", "PIL", "cv2", "tensorboardX", "wandb")

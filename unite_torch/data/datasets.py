@@ -147,15 +147,18 @@ class VideoClsDatasetSparse:
             # An exact (w, h) raster supersedes any short_side setting a
             # caller-provided reader carried (decode size is fully
             # determined), so reconstructing without it is intentional.
-            from unite_torch.data.video_reader import CV2VideoReader
+            from unite_torch.data.video_reader import (
+                CV2VideoReader,
+                NativeVideoReader,
+            )
 
-            if isinstance(self.reader, CV2VideoReader):
+            if isinstance(self.reader, (NativeVideoReader, CV2VideoReader)):
                 self.reader = type(self.reader)(
                     size=(int(new_width), int(new_height)))
             else:
                 warnings.warn(
                     f"keep_aspect_ratio=False needs a decode-time-scaling "
-                    f"reader (CV2VideoReader); "
+                    f"reader (NativeVideoReader/CV2VideoReader); "
                     f"{type(self.reader).__name__} decodes at native "
                     f"raster, so the reference's aspect-squash to "
                     f"({new_width}x{new_height}) will NOT happen")

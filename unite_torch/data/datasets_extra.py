@@ -8,13 +8,13 @@ ssv2.py:46-617 (``SSRawFrameClsDataset``, frame folders named
 ``SSVideoClsDataset`` over videos). Augmentation stacks are shared with
 data/datasets.py (kinetics.py's _aug_frame matches kinetics_sparse.py's).
 
-Frame folders decode with OpenCV. The JAX package's other JPEG backend, the
-native library's ``jd_*`` entry points, has no binding in the port yet
-(ROADMAP queue 1, item 6): asking for it raises.
+Frame folders decode with OpenCV, or with the native library's ``jd_*``
+JPEG decoder where OpenCV is missing or the caller asks for it.
 """
 
 from __future__ import annotations
 
+import ctypes
 import os
 
 import numpy as np
@@ -56,21 +56,32 @@ class VideoClsDatasetDense(VideoClsDatasetSparse):
 
 
 class RawFrameReader(VideoReaderBase):
-    """Reads pre-extracted frame folders (ssv2.py filename_tmpl) with
-    OpenCV's JPEG decoder (libjpeg-turbo), the JAX package's default
-    backend. ``use_native=True`` asks for its other backend, the native
-    library's ``jd_*`` decoder, whose binding the port does not have
-    (ROADMAP queue 1, item 6): it raises, and nothing falls back."""
+    """Reads pre-extracted frame folders (ssv2.py filename_tmpl).
+
+    JPEG backends, as in the JAX package: OpenCV (libjpeg-turbo) by
+    default, and the native library's ``jd_*`` decoder (libavcodec MJPEG
+    and swscale, unite_torch/native/videodec.cpp) where OpenCV is missing
+    or ``use_native=True`` asks for it. A forced native reader never falls
+    back: the two backends reconstruct 4:2:0 chroma differently at sharp
+    chroma edges, so a silent substitute would return other pixels."""
 
     def __init__(self, name_pattern: str = "img_{:05}.jpg", offset: int = 1,
                  use_native: bool = False):
-        if use_native:
-            raise NotImplementedError(
-                "RawFrameReader(use_native=True): the native JPEG decoder "
-                "(unite_tpu/native/videodec.cpp, jd_*) has no binding in the "
-                "port yet (ROADMAP queue 1, item 6)")
+        from unite_torch.data.video_reader import NativeVideoReader
+
         self.name_pattern = name_pattern
         self.offset = offset  # frame files index from 1
+        self._force_native = use_native
+        try:
+            import cv2  # noqa: F401
+
+            self._have_cv2 = True
+        except ImportError:
+            self._have_cv2 = False
+        self._lib = None
+        if (use_native or not self._have_cv2) \
+                and NativeVideoReader.available():
+            self._lib = NativeVideoReader.load_library()
 
     def num_frames(self, path: str) -> int:
         if not os.path.isdir(path):
@@ -81,21 +92,71 @@ class RawFrameReader(VideoReaderBase):
         return os.path.join(path, self.name_pattern.format(int(i) + self.offset))
 
     def get_batch(self, path: str, indices) -> np.ndarray:
-        try:
-            import cv2
-        except ImportError as e:
-            raise ImportError(
-                "frame folders decode with OpenCV (cv2), which is not "
-                "installed; the native JPEG decoder has no binding in the "
-                "port yet (ROADMAP queue 1, item 6)") from e
+        paths = [self._frame_path(path, i) for i in indices]
+        if self._force_native and self._lib is None:
+            raise RuntimeError(
+                "use_native=True but the native decoder library could not "
+                "be built or loaded (unite_torch/native/videodec.cpp needs "
+                "g++ and FFmpeg's development files)")
+        if self._force_native and paths and not paths[0].endswith(".jpg"):
+            raise RuntimeError(
+                "use_native=True supports JPEG frames only "
+                f"(got {os.path.basename(paths[0])})")
+        if self._lib is not None and paths and paths[0].endswith(".jpg"):
+            out = self._native_batch(paths)
+            if out is not None:
+                return out
+            if self._force_native or not self._have_cv2:
+                # no substitute where the native backend was asked for, and
+                # none without cv2: the native failure (a bad frame, sizes
+                # changing mid-folder) surfaces
+                raise RuntimeError(
+                    f"native JPEG decode failed for a frame in {path}"
+                    + ("" if self._have_cv2 else
+                       " and cv2 is unavailable for fallback"))
+        import cv2
+
         frames = []
-        for i in indices:
-            fp = self._frame_path(path, i)
+        for fp in paths:
             img = cv2.imread(fp)
             if img is None:
                 raise RuntimeError(f"missing frame {fp}")
             frames.append(cv2.cvtColor(img, cv2.COLOR_BGR2RGB))
         return np.stack(frames)
+
+    def _native_batch(self, paths):
+        """The frames through one decoder handle (codec and swscale contexts
+        reused; one handle a call keeps the loader's threads apart): frame
+        0 decoded once to learn the size and emitted from the handle, the
+        rest decoded into the batch. None where a frame cannot be decoded
+        at that size (the caller decides on a fallback); a missing file
+        raises."""
+        lib = self._lib
+        w, h = ctypes.c_int(), ctypes.c_int()
+        ctx = lib.jd_new()
+        if not ctx:
+            return None
+        try:
+            if lib.jd_probe_with(ctx, paths[0].encode(), ctypes.byref(w),
+                                 ctypes.byref(h)) != 0:
+                if not os.path.exists(paths[0]):
+                    raise RuntimeError(f"missing frame {paths[0]}")
+                return None
+            out = np.empty((len(paths), h.value, w.value, 3), np.uint8)
+            if lib.jd_emit_with(ctx, out[0].ctypes.data_as(ctypes.c_void_p),
+                                w.value, h.value) != 0:
+                return None
+            for i in range(1, len(paths)):
+                if lib.jd_decode_with(
+                        ctx, paths[i].encode(),
+                        out[i].ctypes.data_as(ctypes.c_void_p),
+                        w.value, h.value) != 0:
+                    if not os.path.exists(paths[i]):
+                        raise RuntimeError(f"missing frame {paths[i]}")
+                    return None
+            return out
+        finally:
+            lib.jd_free(ctx)
 
 
 class SSRawFrameClsDataset(VideoClsDatasetSparse):

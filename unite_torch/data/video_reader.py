@@ -1,24 +1,26 @@
-"""Video decode backends (unite_tpu/data/video_reader.py): OpenCV and
-synthetic.
+"""Video decode backends (unite_tpu/data/video_reader.py): native, OpenCV
+and synthetic.
 
 Training reads indexed frame batches (``get_batch(path, indices)``), uint8
 [N, H, W, C] RGB. Backends:
 
+* ``NativeVideoReader`` — ctypes binding to the port's own build of the
+  FFmpeg decoder (unite_torch/native/videodec.cpp, built at first use by
+  ``unite_torch.native._build``), random access by frame index, with the
+  short-side or exact-size resize done in the decode's swscale pass;
 * ``CV2VideoReader``   — OpenCV VideoCapture (sequential seek), imported
-  only when a video is opened, with an optional short-side resize after
-  decode;
+  only when a video is opened, with an optional resize after decode;
 * ``SyntheticVideoReader`` — deterministic procedurally-generated frames
   keyed by (path, index), bitwise the JAX package's, for tests and
   benchmarks without video files.
 
-The JAX package's first choice, the native FFmpeg decoder
-(unite_tpu/native/videodec.cpp), has no binding here yet (ROADMAP queue 1,
-item 6): ``default_reader`` takes OpenCV and, where OpenCV is missing too,
-raises naming the binding.
+``default_reader`` takes the native decoder where it builds and loads, else
+OpenCV, as the JAX package's does.
 """
 
 from __future__ import annotations
 
+import ctypes
 import hashlib
 from typing import Optional, Sequence
 
@@ -49,14 +51,89 @@ class VideoReaderBase:
         raise NotImplementedError
 
 
-class CV2VideoReader(VideoReaderBase):
-    """OpenCV VideoCapture. ``short_side`` resizes each batch after the
-    decode (``transforms.resize_clip``, host-side: the capture has no
-    decode-time scaling), as the JAX package's reader does; by default
-    frames keep their native raster."""
+class NativeVideoReader(VideoReaderBase):
+    """ctypes wrapper over the native FFmpeg decoder (the ``vd_*`` entry
+    points of unite_torch/native/videodec.cpp).
 
-    def __init__(self, short_side: Optional[int] = None):
+    ``short_side``: decode-time bilinear resize of the short side, the long
+    side truncated as ``transforms.resize_clip`` truncates it (the swscale
+    pass that converts to RGB24 also scales). ``size``: an exact
+    (width, height) decode, decord's ``VideoReader(width=, height=)``
+    aspect-squashing, the dataset's ``keep_aspect_ratio=False`` branch;
+    it takes precedence over ``short_side``."""
+
+    def __init__(self, short_side: Optional[int] = None,
+                 size: Optional[tuple] = None):
         self.short_side = short_side
+        self.size = size
+
+    @staticmethod
+    def load_library():
+        """The decoder library, built on first use; raises ImportError
+        (with the compiler's output) where it cannot be built or loaded."""
+        from unite_torch.native import _build
+
+        try:
+            return _build.load()
+        except (OSError, RuntimeError) as e:
+            raise ImportError(
+                f"native video decoder not available: {e}") from e
+
+    @classmethod
+    def available(cls) -> bool:
+        try:
+            cls.load_library()
+            return True
+        except ImportError:
+            return False
+
+    def _open(self, path: str):
+        lib = self.load_library()
+        if self.size:
+            w, h = self.size
+            handle = lib.vd_open_sized(path.encode(), int(w), int(h))
+        elif self.short_side:
+            handle = lib.vd_open_scaled(path.encode(), int(self.short_side))
+        else:
+            handle = lib.vd_open(path.encode())
+        if not handle:
+            raise FileNotFoundError(f"cannot open video: {path}")
+        return lib, handle
+
+    def _probe_num_frames(self, path: str) -> int:
+        lib, h = self._open(path)
+        try:
+            return int(lib.vd_num_frames(h))
+        finally:
+            lib.vd_close(h)
+
+    def get_batch(self, path: str, indices: Sequence[int]) -> np.ndarray:
+        lib, h = self._open(path)
+        try:
+            w, hh = int(lib.vd_width(h)), int(lib.vd_height(h))
+            idx = np.ascontiguousarray(indices, np.int64)
+            out = np.empty((len(idx), hh, w, 3), np.uint8)
+            rc = lib.vd_get_batch(
+                h, idx.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+                len(idx), out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)))
+            if rc != 0:
+                raise RuntimeError(f"decode failed ({rc}): {path}")
+            return out
+        finally:
+            lib.vd_close(h)
+
+
+class CV2VideoReader(VideoReaderBase):
+    """OpenCV VideoCapture. ``size`` (an exact (width, height)) or
+    ``short_side`` resizes each batch after the decode
+    (``transforms.resize_clip``, host-side: the capture has no decode-time
+    scaling), as the JAX package's reader does; by default frames keep
+    their native raster."""
+
+    def __init__(self, short_side: Optional[int] = None,
+                 size: Optional[tuple] = None):
+        self.short_side = short_side
+        self.size = size
 
     def _probe_num_frames(self, path: str) -> int:
         import cv2
@@ -89,9 +166,12 @@ class CV2VideoReader(VideoReaderBase):
                     raise RuntimeError(f"decode failed at frame {target}: {path}")
                 frames[target] = cv2.cvtColor(frame, cv2.COLOR_BGR2RGB)
             out = np.stack([frames[int(i)] for i in indices])
-            if self.short_side:
-                from unite_torch.data.transforms import resize_clip
+            from unite_torch.data.transforms import resize_clip
 
+            if self.size:
+                w, h = self.size
+                out = resize_clip(out, (int(h), int(w)))
+            elif self.short_side:
                 out = resize_clip(out, int(self.short_side))
             return out
         finally:
@@ -139,15 +219,8 @@ class SyntheticVideoReader(VideoReaderBase):
 
 
 def default_reader(short_side: Optional[int] = None) -> VideoReaderBase:
-    """OpenCV's reader (``short_side``: resize each batch's short side to
-    it). The JAX package prefers its native decoder, whose binding the port
-    does not have yet."""
-    try:
-        import cv2  # noqa: F401
-    except ImportError as e:
-        raise ImportError(
-            "no video decoder: the port has no binding for the native "
-            "decoder (unite_tpu/native/videodec.cpp, ROADMAP queue 1 item "
-            "6) and OpenCV (cv2) is not installed; use --synthetic_data "
-            "true or install opencv-python") from e
+    """The native decoder where it builds and loads, else OpenCV's reader
+    (``short_side``: the short side of each decoded frame)."""
+    if NativeVideoReader.available():
+        return NativeVideoReader(short_side=short_side)
     return CV2VideoReader(short_side=short_side)

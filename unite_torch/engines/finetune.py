@@ -1,9 +1,12 @@
 """Stage-2 finetune engine: the train step, the eval step and the multi-view
 test merge (unite_tpu/engines/finetune.py).
 
-One train step: normalize -> ViT forward and backward -> cross-entropy (or
-soft-target CE on injected ``soft_targets``) -> global grad norm (and
-optional clip) -> AdamW with layer-wise decay -> optional EMA. Every
+One train step: normalize -> optional Mixup / CutMix on the card (soft
+targets) -> ViT forward and backward -> soft-target CE under mixup (or on
+injected ``soft_targets``), else cross-entropy with label smoothing ->
+global grad norm (and optional clip) -> AdamW with layer-wise decay ->
+optional EMA. The step's generator draws the mixup, then the model's
+dropout and drop-path masks. Every
 parameter gets its gradient, frozen blocks included, as in the JAX step,
 which differentiates all params: the frozen blocks count in ``grad_norm``
 and only their update is 0 (the optimizer's "frozen" group). At 1568 tokens
@@ -43,13 +46,11 @@ def make_finetune_train_step(model: torch.nn.Module, mixup=None,
     ``state`` is updated in place. ``batch`` holds uint8 (or normalized)
     ``videos`` [B, T, H, W, C] and int ``labels`` [B]; ``soft_targets``
     [B, classes], when present, are taken as the targets of already mixed
-    videos (the injection hook of the JAX step). Metrics are 0-d tensors on
-    the device: ``loss``, the pre-clip ``grad_norm`` and, without soft
-    targets, ``class_acc`` and ``acc5`` as fractions."""
-    if mixup is not None:
-        raise NotImplementedError(
-            "device-side mixup (ops/mixup.py) is not ported yet (ROADMAP "
-            "queue 1, item 4); inject batch['soft_targets'] instead")
+    videos (the injection hook of the JAX step), else ``mixup``
+    (``ops.mixup.Mixup``) mixes the normalized videos with draws from
+    ``generator``. Metrics are 0-d tensors on the device: ``loss``, the
+    pre-clip ``grad_norm`` and, without soft targets, ``class_acc`` and
+    ``acc5`` as fractions."""
     dev = resolve_device(device)
     model.to(dev)
 
@@ -58,6 +59,8 @@ def make_finetune_train_step(model: torch.nn.Module, mixup=None,
         videos = normalize_videos(batch["videos"].to(dev, non_blocking=True))
         labels = batch["labels"].to(dev)
         soft = batch.get("soft_targets")
+        if soft is None and mixup is not None:
+            videos, soft = mixup(videos, labels, generator)
         net = state.model
         net.train()
         logits = net(videos, generator)

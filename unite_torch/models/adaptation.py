@@ -9,7 +9,11 @@ fifth of the work at mask 0.8); with ``use_cls_token`` the CLS row is
 prepended, the positional table spans N + 1, the gather follows the
 embedding and keeps CLS outside the mask, and the taps drop CLS before the
 decoders. At 8 frames of 224^2 the CLS student's full passes run 1569
-tokens, which have no divisor query block, so they take K6.
+tokens, which have no divisor query block, so they take K6. ``remat``
+recomputes the blocks in the backward (``remat_num`` >= 0: only the first
+``remat_num``), replaying their dropout and drop-path draws
+(``layers.remat_block``); ``drop_rate`` and ``attn_drop_rate`` are the
+blocks' dropout rates, as in JAX.
 
 Parameter names follow the reference checkpoints (``encoder.blocks.N...``,
 ``clip_decoder.N.head.weight``), the names
@@ -32,6 +36,8 @@ from unite_torch.models.layers import (
     gather_tokens,
     get_sinusoid_encoding_table,
     num_patches,
+    remat_block,
+    remat_blocks,
     trunc_normal_,
 )
 from unite_torch.utils.registry import register_model
@@ -46,7 +52,9 @@ class AdaptationEncoder(nn.Module):
                  tubelet_size: int = 2,
                  return_index: Sequence[int] = (6, 7, 8, 9, 10, 11),
                  norm_eps: float = 1e-6, use_learnable_pos_emb: bool = False,
-                 use_cls_token: bool = False, dtype=torch.float32):
+                 use_cls_token: bool = False, dtype=torch.float32,
+                 drop_rate: float = 0.0, attn_drop_rate: float = 0.0,
+                 remat: bool = False, remat_num: int = -1):
         super().__init__()
         self.return_index = tuple(int(i) for i in return_index)
         self.use_cls_token = use_cls_token
@@ -68,8 +76,10 @@ class AdaptationEncoder(nn.Module):
         dpr = np.linspace(0, drop_path_rate, depth)
         self.blocks = nn.ModuleList(
             Block(embed_dim, num_heads, mlp_ratio, qkv_bias, qk_scale,
-                  float(dpr[i]), init_values, norm_eps, dtype)
+                  float(dpr[i]), init_values, norm_eps, dtype,
+                  drop=drop_rate, attn_drop=attn_drop_rate)
             for i in range(depth))
+        self.remat = remat_blocks(depth, remat, remat_num)
         self.norm = LayerNorm(embed_dim, norm_eps)
         self.dtype = dtype
 
@@ -95,7 +105,10 @@ class AdaptationEncoder(nn.Module):
         for i, blk in enumerate(self.blocks):
             if clip_only and i > max_ret:
                 break  # early exit: these blocks get no gradient
-            x = blk(x, generator)
+            if self.remat[i] and torch.is_grad_enabled():
+                x = remat_block(blk, x, generator)
+            else:
+                x = blk(x, generator)
             if i in self.return_index:
                 taps.append(x)
         x_clip_vis = self.norm(torch.stack(taps))  # [K, B, N_vis, C]
@@ -117,7 +130,9 @@ class AdaptationVisionTransformer(nn.Module):
                  clip_norm_type: str = "l2",
                  clip_return_layers: Sequence[int] = (6, 7, 8, 9, 10, 11),
                  norm_eps: float = 1e-6, use_learnable_pos_emb: bool = False,
-                 use_cls_token: bool = False, dtype=torch.float32):
+                 use_cls_token: bool = False, dtype=torch.float32,
+                 drop_rate: float = 0.0, attn_drop_rate: float = 0.0,
+                 remat: bool = False, remat_num: int = -1):
         super().__init__()
         self.drop_path_rate = drop_path_rate
         self.use_cls_token = use_cls_token
@@ -125,7 +140,8 @@ class AdaptationVisionTransformer(nn.Module):
             img_size, patch_size, encoder_embed_dim, encoder_depth,
             encoder_num_heads, mlp_ratio, qkv_bias, qk_scale, drop_path_rate,
             init_values, num_frames, tubelet_size, clip_return_layers,
-            norm_eps, use_learnable_pos_emb, use_cls_token, dtype)
+            norm_eps, use_learnable_pos_emb, use_cls_token, dtype,
+            drop_rate, attn_drop_rate, remat, remat_num)
         n = num_patches(img_size, patch_size, num_frames, tubelet_size)
         self.register_buffer(
             "clip_pos_embed",

@@ -12,8 +12,13 @@ Counterpart of unite_tpu/models/layers.py, with the same conventions:
   package keeps them;
 * LayerNorm statistics in fp32, output in the input dtype;
 * attention through ``ops.attention.self_attention``, the JAX package's
-  dispatch (K1/K2, K3/K4 or K6);
-* stochastic depth draws from an explicit ``torch.Generator``.
+  dispatch (K1/K2, K3/K4 or K6; dropout on the probabilities in training
+  takes the plain attention, as in JAX);
+* dropout and stochastic depth draw from an explicit ``torch.Generator``
+  (flax's ``dropout`` rng), in JAX's order within a block: attention
+  probabilities, the projection's output, drop path, the MLP's output,
+  drop path; ``remat_block`` recomputes a block in the backward with the
+  same draws (flax ``nn.remat``).
 
 Parameter names are the reference torch names (``blocks.N.attn.qkv.weight``,
 ``q_bias``, ``mlp.fc1``, ...), so published checkpoints load unchanged.
@@ -28,8 +33,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
-from unite_torch.ops.attention import self_attention
+from unite_torch.ops.attention import keep_mask, self_attention
 
 
 # flax truncated_normal(stddev): a standard normal cut at +-2, rescaled so
@@ -104,7 +110,27 @@ class DropPath(nn.Module):
             return x
         keep = 1.0 - self.rate
         shape = (x.shape[0],) + (1,) * (x.ndim - 1)
-        mask = torch.rand(shape, generator=generator, device=x.device) < keep
+        mask = keep_mask(shape, keep, generator, x.device)
+        return torch.where(mask, x / keep, torch.zeros_like(x))
+
+
+class Dropout(nn.Module):
+    """flax ``nn.Dropout``: in training each element is kept with
+    probability 1 - rate and scaled by 1 / (1 - rate), the mask drawn from
+    ``generator`` (``F.dropout`` would draw from the global generator);
+    nothing is drawn at rate 0 or in evaluation."""
+
+    def __init__(self, rate: float = 0.0):
+        super().__init__()
+        self.rate = rate
+
+    def forward(self, x, generator: Optional[torch.Generator] = None):
+        if self.rate == 0.0 or not self.training:
+            return x
+        if self.rate == 1.0:
+            return torch.zeros_like(x)
+        keep = 1.0 - self.rate
+        mask = keep_mask(x.shape, keep, generator, x.device)
         return torch.where(mask, x / keep, torch.zeros_like(x))
 
 
@@ -116,28 +142,36 @@ def gelu_for(dtype):
 
 
 class Mlp(nn.Module):
-    """fc1 -> act -> fc2; ``act`` defaults to ``gelu_for(dtype)`` and
-    ``out_features`` to ``dim``."""
+    """fc1 -> act -> fc2 -> dropout (JAX's one dropout, after fc2);
+    ``act`` defaults to ``gelu_for(dtype)`` and ``out_features`` to
+    ``dim``."""
 
     def __init__(self, dim: int, hidden_features: int, dtype=torch.float32,
-                 out_features: Optional[int] = None, act=None):
+                 out_features: Optional[int] = None, act=None,
+                 drop: float = 0.0):
         super().__init__()
         self.fc1 = Linear(dim, hidden_features, dtype=dtype)
         self.fc2 = Linear(hidden_features, out_features or dim, dtype=dtype)
         self.act = act or gelu_for(dtype)
+        self.drop = Dropout(drop)
 
-    def forward(self, x):
-        return self.fc2(self.act(self.fc1(x)))
+    def forward(self, x, generator: Optional[torch.Generator] = None):
+        return self.drop(self.fc2(self.act(self.fc1(x))), generator)
 
 
 class Attention(nn.Module):
     """Multi-head self-attention with the reference's q/v-only bias: the qkv
-    bias is cat(q_bias, 0, v_bias)."""
+    bias is cat(q_bias, 0, v_bias). ``attn_drop`` drops attention
+    probabilities in training (the plain attention, not a kernel: JAX's
+    routing), ``proj_drop`` the projection's output."""
 
     def __init__(self, dim: int, num_heads: int, qkv_bias: bool = False,
-                 qk_scale: Optional[float] = None, dtype=torch.float32):
+                 qk_scale: Optional[float] = None, dtype=torch.float32,
+                 attn_drop: float = 0.0, proj_drop: float = 0.0):
         super().__init__()
         self.num_heads = num_heads
+        self.attn_drop = attn_drop
+        self.proj_drop = Dropout(proj_drop)
         self.scale = qk_scale or (dim // num_heads) ** -0.5
         self.qkv = Linear(dim, 3 * dim, bias=False, dtype=dtype)
         if qkv_bias:
@@ -147,7 +181,7 @@ class Attention(nn.Module):
             self.q_bias = self.v_bias = None
         self.proj = Linear(dim, dim, dtype=dtype)
 
-    def forward(self, x):
+    def forward(self, x, generator: Optional[torch.Generator] = None):
         dt = self.qkv.dtype
         bias = None
         if self.q_bias is not None:
@@ -156,9 +190,10 @@ class Attention(nn.Module):
         qkv = F.linear(x.to(dt), self.qkv.weight.to(dt), bias)
         # fwd_only is JAX's deterministic (models/layers.py:174-175): the
         # training route takes K5 at 385-512 tokens even under no_grad
-        return self.proj(self_attention(qkv, self.num_heads, self.scale,
-                                        dim=x.shape[-1],
-                                        fwd_only=not self.training))
+        out = self_attention(qkv, self.num_heads, self.scale,
+                             dim=x.shape[-1], fwd_only=not self.training,
+                             dropout_rate=self.attn_drop, generator=generator)
+        return self.proj_drop(self.proj(out), generator)
 
 
 class Block(nn.Module):
@@ -167,13 +202,15 @@ class Block(nn.Module):
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0,
                  qkv_bias: bool = False, qk_scale: Optional[float] = None,
                  drop_path: float = 0.0, init_values: Optional[float] = None,
-                 norm_eps: float = 1e-6, dtype=torch.float32):
+                 norm_eps: float = 1e-6, dtype=torch.float32,
+                 drop: float = 0.0, attn_drop: float = 0.0):
         super().__init__()
         self.norm1 = LayerNorm(dim, norm_eps)
-        self.attn = Attention(dim, num_heads, qkv_bias, qk_scale, dtype)
+        self.attn = Attention(dim, num_heads, qkv_bias, qk_scale, dtype,
+                              attn_drop=attn_drop, proj_drop=drop)
         self.drop_path = DropPath(drop_path)
         self.norm2 = LayerNorm(dim, norm_eps)
-        self.mlp = Mlp(dim, int(dim * mlp_ratio), dtype)
+        self.mlp = Mlp(dim, int(dim * mlp_ratio), dtype, drop=drop)
         if init_values is not None and init_values > 0:
             self.gamma_1 = nn.Parameter(torch.full((dim,), float(init_values)))
             self.gamma_2 = nn.Parameter(torch.full((dim,), float(init_values)))
@@ -181,14 +218,51 @@ class Block(nn.Module):
             self.gamma_1 = self.gamma_2 = None
 
     def forward(self, x, generator: Optional[torch.Generator] = None):
-        a = self.attn(self.norm1(x))
+        a = self.attn(self.norm1(x), generator)
         if self.gamma_1 is not None:
             a = a * self.gamma_1.to(a.dtype)
         x = x + self.drop_path(a, generator)
-        m = self.mlp(self.norm2(x))
+        m = self.mlp(self.norm2(x), generator)
         if self.gamma_2 is not None:
             m = m * self.gamma_2.to(m.dtype)
         return x + self.drop_path(m, generator)
+
+
+def remat_block(block: nn.Module, x,
+                generator: Optional[torch.Generator] = None):
+    """``block(x, generator)`` with its activations recomputed in the
+    backward instead of kept (non-reentrant ``torch.utils.checkpoint``),
+    with flax ``nn.remat``'s semantics: the recompute replays the forward's
+    random draws. ``checkpoint``'s ``preserve_rng_state`` saves only the
+    global CPU and CUDA generators, and a recompute from the explicit
+    ``generator`` as it stands after the forward would draw other masks
+    and give wrong gradients without an error; so the generator's state is
+    saved before the block, and the recompute draws from a copy of it. The
+    caller's generator moves once, in the forward, as without
+    checkpointing. The block's kernels run forward twice (their launch
+    counters count both)."""
+    if generator is None:
+        return checkpoint(block, x, None, use_reentrant=False)
+    saved = generator.get_state()
+    calls = []
+
+    def run(inp):
+        gen = generator
+        if calls:  # the recompute
+            gen = torch.Generator(device=generator.device)
+            gen.set_state(saved)
+        calls.append(1)
+        return block(inp, gen)
+
+    return checkpoint(run, x, use_reentrant=False)
+
+
+def remat_blocks(depth: int, remat: bool, remat_num: int) -> tuple:
+    """Whether each block is recomputed: all under ``remat`` with
+    ``remat_num`` < 0, else the first ``remat_num`` (JAX's rule, the
+    reference's ``use_checkpoint and idx < checkpoint_num``)."""
+    return tuple(remat and (remat_num < 0 or i < remat_num)
+                 for i in range(depth))
 
 
 class TubeletProjection(nn.Module):

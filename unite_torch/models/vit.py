@@ -12,6 +12,14 @@ blocks' attention takes the packed flash kernels K3/K4; with a CLS token
 (``use_mean_pooling=False``) it is 1569, which has no divisor query block,
 and takes K6.
 
+Dropout as in JAX: ``drop_rate`` after the positional table and on each
+block's projection and MLP outputs, ``attn_drop_rate`` on the attention
+probabilities (in training that takes the plain attention, as JAX's
+routing does), ``fc_drop_rate`` on the pooled features before the head;
+every mask drawn from the forward's generator. ``remat`` recomputes the
+blocks in the backward (``remat_num`` >= 0: only the first ``remat_num``),
+replaying their draws (``layers.remat_block``).
+
 Parameter names are the reference torch names (``patch_embed.proj.weight``
 in Conv3d shape, ``blocks.N.attn.q_bias``, ``fc_norm.weight``,
 ``head.weight``), the names unite_tpu/utils/torch_export.py produces.
@@ -27,12 +35,15 @@ from torch import nn
 
 from unite_torch.models.layers import (
     Block,
+    Dropout,
     LayerNorm,
     Linear,
     Mlp,
     PatchEmbed,
     get_sinusoid_encoding_table,
     num_patches,
+    remat_block,
+    remat_blocks,
     trunc_normal_,
 )
 from unite_torch.utils.registry import register_model
@@ -49,14 +60,9 @@ class VisionTransformer(nn.Module):
                  tubelet_size: int = 2, use_mean_pooling: bool = True,
                  classifier_type: str = "linear",
                  classifier_hidden_dim: int = 256, norm_eps: float = 1e-6,
-                 dtype=torch.float32):
+                 dtype=torch.float32, remat: bool = False,
+                 remat_num: int = -1):
         super().__init__()
-        rates = dict(drop_rate=drop_rate, attn_drop_rate=attn_drop_rate,
-                     fc_drop_rate=fc_drop_rate)
-        if any(r > 0.0 for r in rates.values()):
-            raise NotImplementedError(
-                f"dropout {rates} is not ported yet (ROADMAP queue 1, item "
-                "4); the stage-2 config keeps every dropout rate at 0")
         if classifier_type not in ("linear", "mlp"):
             raise NotImplementedError(classifier_type)
         self.depth, self.dtype = depth, dtype
@@ -76,15 +82,19 @@ class VisionTransformer(nn.Module):
                 "pos_embed",
                 torch.from_numpy(get_sinusoid_encoding_table(seq, embed_dim)),
                 persistent=False)
+        self.pos_drop = Dropout(drop_rate)
         dpr = np.linspace(0, drop_path_rate, depth)
         self.blocks = nn.ModuleList(
             Block(embed_dim, num_heads, mlp_ratio, qkv_bias, qk_scale,
-                  float(dpr[i]), init_values, norm_eps, dtype)
+                  float(dpr[i]), init_values, norm_eps, dtype,
+                  drop=drop_rate, attn_drop=attn_drop_rate)
             for i in range(depth))
+        self.remat = remat_blocks(depth, remat, remat_num)
         if use_mean_pooling:
             self.fc_norm = LayerNorm(embed_dim, norm_eps)
         else:
             self.norm = LayerNorm(embed_dim, norm_eps)
+        self.fc_drop = Dropout(fc_drop_rate)
         if num_classes > 0:
             if classifier_type == "linear":
                 self.head = Linear(embed_dim, num_classes, dtype=torch.float32)
@@ -110,14 +120,18 @@ class VisionTransformer(nn.Module):
         if not self.use_mean_pooling:
             cls = self.cls_token.to(x.dtype).expand(x.shape[0], -1, -1)
             x = torch.cat([cls, x], dim=1)
-        x = x + self.pos_embed.to(x.dtype)
-        for blk in self.blocks:
-            x = blk(x, generator)
+        x = self.pos_drop(x + self.pos_embed.to(x.dtype), generator)
+        for blk, remat in zip(self.blocks, self.remat):
+            if remat and torch.is_grad_enabled():
+                x = remat_block(blk, x, generator)
+            else:
+                x = blk(x, generator)
         if self.use_mean_pooling:
             # jnp.mean on bf16: an fp32 sum, rounded once
             feat = self.fc_norm(x.float().mean(dim=1).to(x.dtype))
         else:
             feat = self.norm(x)[:, 0]
+        feat = self.fc_drop(feat, generator)
         if self.num_classes <= 0:
             return feat
         return self.head(feat.float())

@@ -100,7 +100,8 @@ def use_fused_qkv(seq: int, fwd_only: bool = False,
 
 
 def self_attention(qkv, heads: int, scale: float, dim: Optional[int] = None,
-                   fwd_only: bool = False):
+                   fwd_only: bool = False, dropout_rate: float = 0.0,
+                   generator: Optional[torch.Generator] = None):
     """The models' attention: qkv [B, S, 3*H*D] -> [B, S, H*D].
 
     K1/K2 or K3/K4 where ``use_fused_qkv`` accepts, else K5 (S <= 512) or
@@ -108,7 +109,18 @@ def self_attention(qkv, heads: int, scale: float, dim: Optional[int] = None,
     [B, S, H, D] memory so the head merge is a view. ``dim`` and
     ``fwd_only`` as in ``use_fused_qkv``: the ViT blocks pass their width
     and ``not self.training`` (JAX's ``deterministic``), CLIP passes no
-    width and ``fwd_only=True``."""
+    width and ``fwd_only=True``.
+
+    ``dropout_rate`` > 0 in training (not ``fwd_only``) drops attention
+    probabilities, drawn from ``generator``: that takes the plain
+    ``attention_reference``, the JAX package's own routing of attention
+    dropout to XLA (models/layers.py:173-186 -> ops/attention.py:1219-1229),
+    as no kernel computes it. Evaluation keeps the kernels."""
+    if dropout_rate > 0.0 and not fwd_only:
+        q, k, v = _split_heads(qkv, heads)
+        return _merge_heads(attention_reference(
+            q, k, v, scale=scale, dropout_rate=dropout_rate,
+            generator=generator))
     if use_fused_qkv(qkv.shape[1], fwd_only, dim):
         return fused_qkv_attention(qkv, heads, scale)
     q, k, v = _split_heads(qkv, heads)
@@ -116,6 +128,14 @@ def self_attention(qkv, heads: int, scale: float, dim: Optional[int] = None,
 
 
 # --------------------------------------------------------- plain versions
+
+
+def keep_mask(shape, keep: float, generator: Optional[torch.Generator],
+              device) -> torch.Tensor:
+    """Bernoulli(``keep``) draws of ``shape`` from ``generator``: the keep
+    mask of every dropout and drop path of the port (JAX's
+    ``jax.random.bernoulli`` sites)."""
+    return torch.rand(shape, generator=generator, device=device) < keep
 
 
 def attention_reference(q, k, v, *, scale=None, return_probs: bool = False,
@@ -130,8 +150,8 @@ def attention_reference(q, k, v, *, scale=None, return_probs: bool = False,
     probs = torch.softmax(scores, dim=-1)
     probs_out = probs
     if dropout_rate > 0.0:
-        keep = torch.rand(probs.shape, generator=generator,
-                          device=probs.device) < 1.0 - dropout_rate
+        keep = keep_mask(probs.shape, 1.0 - dropout_rate, generator,
+                         probs.device)
         probs = probs * keep / (1.0 - dropout_rate)
     out = torch.einsum("bhqk,bhkd->bhqd", probs.to(v.dtype).float(),
                        v.float()).to(q.dtype)

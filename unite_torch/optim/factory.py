@@ -5,9 +5,16 @@ layer-wise lr decay (unite_tpu/optim/factory.py, the ``adamw`` path of
 The update is optax's ``scale_by_adam`` followed by the decoupled decay of
 ``scheduled_optimizer``:
 
-    mu = b1*mu + (1-b1)*g,   nu = b2*nu + (1-b2)*g^2
+    mu = (1-b1)*g + b1*mu,   nu = b2*nu + (1-b2)*g^2
     u  = (mu/(1-b1^n)) / (sqrt(nu/(1-b2^n)) + eps) + wd_t*p   (decay groups)
     p  = p - lr_t*scale*u
+
+With ``mu_dtype`` (--mu_dtype bfloat16) the first moment is stored in that
+dtype, in optax's ``scale_by_adam(mu_dtype=)`` order: b1*mu is taken in the
+stored dtype (as JAX multiplies a bf16 array by a Python scalar) and
+promoted, the new moment summed in fp32, the update taken from the fp32
+moment, and only then the moment cast (round to nearest even) for storage;
+nu stays fp32.
 
 with lr_t and wd_t read from their tables at the optimizer's schedule
 count, clamped at the last entry. The schedule count is the step count
@@ -112,10 +119,12 @@ class ScheduledAdamW(torch.optim.Optimizer):
 
     def __init__(self, param_groups, lr_table, wd_table,
                  betas: Tuple[float, float] = (0.9, 0.999), eps: float = 1e-8,
-                 every_k: int = 1, clip_grad: Optional[float] = None):
+                 every_k: int = 1, clip_grad: Optional[float] = None,
+                 mu_dtype: Optional[torch.dtype] = None):
         super().__init__(param_groups, {"lr_scale": 1.0, "decay": True})
         self.lr_table, self.wd_table = _table(lr_table), _table(wd_table)
         self.betas, self.eps = betas, eps
+        self.mu_dtype = mu_dtype  # None: the parameters' dtype
         self.count = 0  # drives bias correction
         self.schedule_offset = 0  # tables index count + schedule_offset
         self.every_k, self.clip_grad = int(every_k), clip_grad
@@ -167,23 +176,39 @@ class ScheduledAdamW(torch.optim.Optimizer):
             grads = [p.grad for p in params]
             for p in params:
                 if not self.state[p]:
-                    self.state[p]["mu"] = torch.zeros_like(p)
+                    self.state[p]["mu"] = torch.zeros_like(
+                        p, dtype=self.mu_dtype or p.dtype)
                     self.state[p]["nu"] = torch.zeros_like(p)
             mus = [self.state[p]["mu"] for p in params]
             nus = [self.state[p]["nu"] for p in params]
-            torch._foreach_mul_(mus, b1)
-            torch._foreach_add_(mus, grads, alpha=1.0 - b1)
+            # optax's (1-b1)*g + b1*mu: b1*mu in the stored moment's dtype
+            # (b1, a weak-typed scalar there, rounded to it first), the sum
+            # in the parameters' dtype
+            if self.mu_dtype is None:
+                new_mus = mus
+                torch._foreach_mul_(new_mus, b1)
+            else:
+                b1_mu = float(torch.tensor(b1, dtype=self.mu_dtype))
+                new_mus = [m.to(p.dtype) for m, p in zip(
+                    torch._foreach_mul(mus, b1_mu), params)]
+            torch._foreach_add_(new_mus, torch._foreach_mul(grads, 1.0 - b1))
             torch._foreach_mul_(nus, b2)
             torch._foreach_addcmul_(nus, grads, grads, value=1.0 - b2)
             denom = torch._foreach_div(nus, bc2)
             torch._foreach_sqrt_(denom)
             torch._foreach_add_(denom, self.eps)
-            upd = torch._foreach_div(mus, bc1)
+            upd = torch._foreach_div(new_mus, bc1)
             torch._foreach_div_(upd, denom)
             if group["decay"]:
                 torch._foreach_add_(upd, params, alpha=wd_t)
             torch._foreach_add_(params, upd, alpha=-(lr_t * group["lr_scale"]))
+            if self.mu_dtype is not None:
+                torch._foreach_copy_(mus, new_mus)
         self.count += 1
+
+    def moment_dtype(self, key: str, param: torch.Tensor) -> torch.dtype:
+        """The dtype a moment ``key`` ("mu" or "nu") is kept in."""
+        return (self.mu_dtype or param.dtype) if key == "mu" else param.dtype
 
 
 def create_optimizer(opt: str, lr, model: torch.nn.Module,
@@ -194,11 +219,13 @@ def create_optimizer(opt: str, lr, model: torch.nn.Module,
                      trainable: Optional[Callable[[str], bool]] = None,
                      num_layers: Optional[int] = None,
                      layer_decay: Optional[float] = None,
+                     mu_dtype: Optional[torch.dtype] = None,
                      device=None):
     """Build the optimizer for ``model``'s parameters, which must lie on
     ``device`` (CUDA when None). ``lr`` and ``weight_decay`` are per-step
     tables or constants; ``layer_decay`` < 1 with the model's
-    ``num_layers`` scales each group's lr by layer. Returns (optimizer,
+    ``num_layers`` scales each group's lr by layer; ``mu_dtype`` stores the
+    first moment in that dtype (None: fp32). Returns (optimizer,
     groups)."""
     name = opt.lower()
     if name != "adamw":
@@ -220,7 +247,8 @@ def create_optimizer(opt: str, lr, model: torch.nn.Module,
                      "decay": g["weight_decay"] > 0.0}
                     for g in groups.values()]
     tx = ScheduledAdamW(torch_groups, lr, weight_decay,
-                        betas=betas or (0.9, 0.999), eps=eps)
+                        betas=betas or (0.9, 0.999), eps=eps,
+                        mu_dtype=mu_dtype)
     return tx, groups
 
 

@@ -6,9 +6,8 @@ argparse defines the schema; ``--config`` YAML overlays defaults;
 ``--dataset`` pulls annotation paths / nb_classes / student_init from
 dataset_mappings.yaml; explicitly-passed CLI flags win
 (unite_torch.config.parse_with_config). Flags that name the JAX package's
-layouts (``--zero1``, ``--fsdp``, ``--tp``, ``--mu_dtype``) are part of the
-schema; the port's entries refuse the layouts until they are ported
-(ROADMAP slice E). The reference's distributed knobs (dist_url, deepspeed,
+layouts (``--zero1``, ``--fsdp``, ``--tp``) are part of the schema; the
+port's entries refuse the layouts until they are ported (ROADMAP slice E). The reference's distributed knobs (dist_url, deepspeed,
 ...) are accepted for config-file compatibility and have no effect.
 """
 
@@ -125,8 +124,9 @@ def common_parser(desc: str) -> argparse.ArgumentParser:
     p.add_argument("--mu_dtype", default=None,
                    choices=[None, "float32", "bfloat16"],
                    help="adam-family first-moment storage dtype (fp32 "
-                        "state is the reference-parity default; the port's "
-                        "AdamW keeps fp32 moments and refuses bfloat16)")
+                        "state is the reference-parity default; bfloat16 "
+                        "stores AdamW's first moment in bf16, optax's "
+                        "scale_by_adam(mu_dtype=) order)")
     p.add_argument("--opt_eps", type=float, default=1e-8)
     # default None as in the reference (run_stage2.py:95): betas reach the
     # optimizer only when set (CLI or YAML — every shipped config sets

@@ -86,14 +86,13 @@ def compute_dtype(args) -> torch.dtype:
     return {"bfloat16": torch.bfloat16, "float32": torch.float32}[name]
 
 
-def check_mu_dtype(args) -> None:
-    """--mu_dtype: the port's AdamW keeps fp32 moments (the reference-parity
-    default); a bf16 first moment is not ported."""
+def mu_dtype_for(args) -> Optional[torch.dtype]:
+    """--mu_dtype: the storage dtype of AdamW's first moment (None: fp32,
+    the reference-parity default; bfloat16 halves the moment's traffic)."""
     name = getattr(args, "mu_dtype", None)
-    if name and name != "float32":
-        raise NotImplementedError(
-            f"--mu_dtype {name}: the port's AdamW keeps fp32 moments "
-            "(ROADMAP queue 1, item 4)")
+    if not name or name == "float32":
+        return None
+    return {"bfloat16": torch.bfloat16}[name]
 
 
 def betas_for(args):

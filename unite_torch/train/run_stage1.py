@@ -54,10 +54,8 @@ def unused_block_mask(max_ret: int, freeze_clip_decoders: bool = False):
 
 
 def build_student(args, device=None):
-    """run_stage1.py:273-292 get_model."""
-    if args.use_checkpoint:
-        raise NotImplementedError(
-            "--use_checkpoint (activation checkpointing) is not ported yet")
+    """run_stage1.py:273-292 get_model; --use_checkpoint recomputes the
+    blocks in the backward (all, or the first --checkpoint_num)."""
     return create_model(
         args.model, device=device, dtype=common.compute_dtype(args),
         num_frames=args.num_frames, tubelet_size=args.tubelet_size,
@@ -67,7 +65,9 @@ def build_student(args, device=None):
         clip_decoder_embed_dim=args.clip_decoder_embed_dim,
         clip_output_dim=args.clip_output_dim,
         clip_norm_type=args.clip_norm_type,
-        clip_return_layers=tuple(args.clip_return_layers))
+        clip_return_layers=tuple(args.clip_return_layers),
+        remat=args.use_checkpoint,
+        remat_num=getattr(args, "checkpoint_num", -1))
 
 
 def build_teacher(args, device=None):
@@ -146,7 +146,6 @@ def main(args, device=None):
     """Train stage 1 on CUDA, or on ``device``."""
     start = time.time()
     dev = common.setup_run(args, device)
-    common.check_mu_dtype(args)
     tb = maybe_tensorboard(args)
     wb = maybe_wandb(args)
     reader = common.reader_for(args)
@@ -198,7 +197,7 @@ def main(args, device=None):
         trainable=unused_block_mask(
             max(int(i) for i in args.clip_return_layers),
             getattr(args, "freeze_clip_decoders", False)),
-        device=dev)
+        mu_dtype=common.mu_dtype_for(args), device=dev)
     state = TrainState(student, tx)
 
     start_epoch, skip0 = args.start_epoch, 0

@@ -33,6 +33,7 @@ from unite_torch.data.loader import device_prefetch, echo_batches, to_device
 from unite_torch.engines.finetune import (make_eval_step,
                                           make_finetune_train_step)
 from unite_torch.ops.eval_transforms import make_device_val_transform
+from unite_torch.ops.mixup import Mixup
 from unite_torch.optim.factory import create_optimizer, set_schedule_count
 from unite_torch.train import common
 from unite_torch.train.args import stage2_parser
@@ -45,11 +46,8 @@ from unite_torch.utils.registry import create_model
 
 def build_model(args, device=None):
     """The classification ViT as the stage-2 entry builds it, on ``device``
-    (CUDA when None)."""
-    if getattr(args, "use_checkpoint", False):
-        raise NotImplementedError(
-            "activation checkpointing (--use_checkpoint) is not ported yet "
-            "(ROADMAP queue 1, item 4)")
+    (CUDA when None); --use_checkpoint recomputes the blocks in the
+    backward (all, or the first --checkpoint_num)."""
     return create_model(
         args.model, device=device, dtype=common.compute_dtype(args),
         num_classes=args.nb_classes, all_frames=args.num_frames,
@@ -59,7 +57,9 @@ def build_model(args, device=None):
         use_learnable_pos_emb=args.use_learnable_pos_emb,
         use_mean_pooling=args.use_mean_pooling, init_scale=args.init_scale,
         classifier_type=args.head_type,
-        classifier_hidden_dim=args.head_hidden_dim)
+        classifier_hidden_dim=args.head_hidden_dim,
+        remat=getattr(args, "use_checkpoint", False),
+        remat_num=getattr(args, "checkpoint_num", -1))
 
 
 def trainable_mask(args, model: torch.nn.Module,
@@ -124,21 +124,20 @@ def load_finetune_ckpt(args, model: torch.nn.Module) -> None:
     ti.merge_state(model, state)
 
 
-def check_refused(args) -> None:
-    """What the stage-2 config leaves off and the port does not have yet
-    (``setup_run`` refuses the scale-out flags)."""
-    if args.mixup > 0 or args.cutmix > 0:
-        raise NotImplementedError(
-            f"--mixup {args.mixup} / --cutmix {args.cutmix}: device-side "
-            "mixup is not ported yet (ROADMAP queue 1, item 4); the stage-2 "
-            "config keeps both at 0")
-    common.check_mu_dtype(args)
+def build_mixup(args):
+    """--mixup / --cutmix: the in-step ``Mixup`` as run_stage2.py:217-231
+    of the JAX package builds it (None when both are 0)."""
+    if not (args.mixup > 0 or args.cutmix > 0):
+        return None
+    return Mixup(mixup_alpha=args.mixup, cutmix_alpha=args.cutmix,
+                 prob=args.mixup_prob, switch_prob=args.mixup_switch_prob,
+                 mode=args.mixup_mode, label_smoothing=args.smoothing,
+                 num_classes=args.nb_classes)
 
 
 def main(args, device=None):
     """Finetune on CUDA, or on ``device``."""
     start = time.time()
-    check_refused(args)
     dev = common.setup_run(args, device)
     tb = maybe_tensorboard(args)
     wb = maybe_wandb(args)
@@ -181,7 +180,7 @@ def main(args, device=None):
             betas=common.betas_for(args), eps=args.opt_eps,
             trainable=mask.__getitem__, num_layers=model.depth,
             layer_decay=args.layer_decay if args.layer_decay < 1.0 else None,
-            device=dev)
+            mu_dtype=common.mu_dtype_for(args), device=dev)
         opt_groups.clear()
         opt_groups.update(groups)  # the current phase's groups (meters)
         return common.wrap_update_freq(tx, args.update_freq, args.clip_grad)
@@ -214,7 +213,7 @@ def main(args, device=None):
                                sched_every_k=args.update_freq)
 
     step_fn = make_finetune_train_step(
-        model, label_smoothing=args.smoothing,
+        model, mixup=build_mixup(args), label_smoothing=args.smoothing,
         # under accumulation the clip acts on the averaged gradient
         # (wrap_update_freq); the step still logs each pre-clip norm
         clip_grad=args.clip_grad if args.update_freq == 1 else None,

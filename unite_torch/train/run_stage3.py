@@ -94,7 +94,8 @@ def build_optimizer(args, model: nn.ModuleDict, lr, weight_decay,
     mask = trainable_mask(args, model)
     return create_optimizer(args.opt, lr, model, weight_decay=weight_decay,
                             betas=common.betas_for(args), eps=args.opt_eps,
-                            trainable=mask.__getitem__, device=device)
+                            trainable=mask.__getitem__,
+                            mu_dtype=common.mu_dtype_for(args), device=device)
 
 
 def _head_from_file(path: str, model_key: str
@@ -169,7 +170,6 @@ def check_preconditions(args) -> None:
 def main(args, device=None):
     """Self-train on CUDA, or on ``device``."""
     start = time.time()
-    common.check_mu_dtype(args)
     dev = common.setup_run(args, device)
     tb = maybe_tensorboard(args)
     wb = maybe_wandb(args)

@@ -221,7 +221,10 @@ def restore_train_state(state, payload: Dict[str, Any],
         opt.state.clear()
         for name, mom in moments.items():
             p = params[name]
-            opt.state[p] = {k: v.to(p.device, p.dtype) for k, v in mom.items()}
+            # the moments as the optimizer keeps them (a bf16 first moment
+            # under --mu_dtype stays bf16, bit for bit)
+            opt.state[p] = {k: v.to(p.device, opt.moment_dtype(k, p))
+                            for k, v in mom.items()}
         opt.count = int(saved.get("count", step))
         set_schedule_count(opt, int(saved.get("schedule_count", opt.count)))
         opt.mini_step = int(acc.get("mini_step", 0))
