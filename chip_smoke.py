@@ -162,7 +162,30 @@ toolkit. In order:
    exact launch counts, in all and K1's and K3's by shape, the
    checkpoints' epochs and steps, the entry's clips/s beside the bare
    step's, val and test views/s and the host data path's items/s;
-17. one JSON line of every kernel's numbers, the card line again, and the
+17. ``scaleout-nccl-w{N}`` (N = the cards on the machine): the three
+   entries launched by ``python -m torch.distributed.run --standalone
+   --nproc_per_node N`` over NCCL, each rank running this script as
+   ``--rank-entries`` (seven calls of the entries' own parsers and
+   ``main``, the launch counters read around each): stage 1
+   (``STAGE1_ARGS``, an epoch of 2 steps of 32 + 32 clips a rank) under
+   DDP, --zero1 and --fsdp; stage 2
+   chained from the DDP checkpoint and stage 3 from stage 2's
+   checkpoint-best, each under DDP and --fsdp, with validation and the
+   multi-view test; every rank's launches held to the single-process
+   entries' counts, any rank's non-zero exit fails, and every checkpoint
+   restored into one process bit for bit;
+18. ``scaleout-step-b64``: phase 5's step at world 1 over NCCL, plain,
+   under DDP and under FSDP from the same weights, 3 steps in turns (DDP
+   bit-equal to the plain step, FSDP within ``STEP_RTOL``), then timed
+   in turns: step ms, peak memory, DDP's and FSDP's overhead;
+19. ``scaleout-gloo-2on1``: two ranks on the one card over gloo (CUDA
+   tensors), the full-width stage-1 step on 2 x 8 clips under DDP and
+   --zero1 against the one-process step on the 16: losses, grad norms and
+   the 3 steps' update within ``STEP_RTOL``, ZeRO-1's moment bytes a
+   rank at most 0.6 of DDP's. With two cards or more, --fsdp and --tp 2
+   over NCCL at world N against world 1 the same way (on one card it
+   says that this check needs two and goes on);
+20. one JSON line of every kernel's numbers, the card line again, and the
    last line ``{"ok": true, "device": {...}}``.
 
 Any failed check raises and the script exits non-zero. With no CUDA device,
@@ -1066,12 +1089,15 @@ def step_flops(b: int, frames: int = 8, width: int = 768, layers: int = 12,
 
 def build_step(torch, b: int, dtype, device: str, drop_path: float,
                state_dict=None, teacher_state=None, mask_ratio: float = 0.8,
-               remat: bool = False):
+               remat: bool = False, layout=None):
     """The stage-1 step as run_stage1.main builds it, with the
-    configs/stage1_config.yaml values (``remat``: --use_checkpoint)."""
+    configs/stage1_config.yaml values (``remat``: --use_checkpoint;
+    ``layout``: (--tp, --zero1, --fsdp) of ``parallel.mesh.state_layout``
+    on the process group set up, applied before the optimizer)."""
     from unite_torch import create_model
     from unite_torch.engines.pretrain_umt import make_pretrain_train_step
     from unite_torch.optim.factory import create_optimizer
+    from unite_torch.parallel import mesh as pm
     from unite_torch.train.train_state import TrainState
     from unite_torch.utils.schedules import cosine_scheduler, scaled_lr
 
@@ -1092,13 +1118,17 @@ def build_step(torch, b: int, dtype, device: str, drop_path: float,
                               epochs, niter, start_warmup_value=scaled_lr(
                                   1e-6, b))
     wd_tab = cosine_scheduler(0.05, 0.05, epochs, niter)
+    lay = None
+    if layout is not None:
+        tp, zero1, fsdp = layout
+        lay = pm.state_layout(student, tp=tp, zero1=zero1, fsdp=fsdp)
     tx, _ = create_optimizer("adamw", lr_tab, student, weight_decay=wd_tab,
                              betas=(0.9, 0.95), eps=1e-8, device=device)
     step = make_pretrain_train_step(
         student, teacher, num_patches=frames * 196, frames=frames,
         mask_ratio=mask_ratio, source_batch_size=b, clip_loss_data="mixed",
         clip_grad=None, clip_input_resolution=224, device=device)
-    return TrainState(student, tx), teacher, step
+    return TrainState(student, tx, layout=lay), teacher, step
 
 
 def random_batch(torch, b: int, seed: int, with_vis_idx: bool,
@@ -2074,7 +2104,7 @@ def stage3_card_vs_cpu(torch, cls: bool, card: str = "cuda"):
                           .reshape(2, -1), 320)
 
     def logits(model, dev):
-        student, head = model["model"].eval(), model["classifier"]
+        student, head = model.model.eval(), model.classifier
         with torch.no_grad():
             full = head(pool_outputs(student.encoder(normalize_videos(
                 batch["videos_t"].to(dev)))[0], cls)).float().cpu()
@@ -3447,6 +3477,633 @@ def stage2_recipe_entry(torch, A, finetune: Path, clips: list,
     return res
 
 
+# ------------------------------------------------------------- scale-out
+# (--tp, --zero1, --fsdp) of each layout the scale-out phases run
+LAYOUT_FLAGS = {"ddp": (1, False, False), "zero1": (1, True, False),
+                "fsdp": (1, False, True), "tp2": (2, False, False)}
+ENTRY_LAYOUT_ARGS = {"ddp": [], "zero1": ["--zero1", "true"],
+                     "fsdp": ["--fsdp", "true"]}
+SCALEOUT_STEPS = 2     # each torchrun entry call: an epoch of 2 steps
+SCALEOUT_B = 16        # the rank steps' global batch (8 a rank at 2 ranks)
+SCALEOUT_TIMEOUT = 300  # seconds a torchrun call may take
+# the step builders, eval-step builders and (stage 3) the zero-shot
+# teacher the rank entries count calls of
+ENTRY_STEP = {"stage1": "make_pretrain_train_step",
+              "stage2": "make_finetune_train_step",
+              "stage3": "make_selftrain_step"}
+ENTRY_EVAL = {"stage2": "make_eval_step", "stage3": "make_selftrain_eval_step"}
+
+
+def torchrun(nproc: int, argv, log: Path,
+             timeout: int = SCALEOUT_TIMEOUT) -> None:
+    """``python -m torch.distributed.run --standalone --nproc_per_node
+    nproc chip_smoke.py argv`` (torchrun picks a free port), its output to
+    ``log``. Any rank's non-zero exit (torchrun's exit code then) or the
+    timeout fails; on a timeout the whole process group is killed."""
+    import os
+    import signal
+
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           f"--nproc_per_node={nproc}", str(ROOT / "chip_smoke.py"), *argv]
+    with open(log, "w") as f:
+        proc = subprocess.Popen(cmd, stdout=f, stderr=subprocess.STDOUT,
+                                cwd=str(ROOT), start_new_session=True)
+        try:
+            rc = proc.wait(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+            rc = "timeout"
+    if rc != 0:
+        raise AssertionError(f"torchrun {' '.join(argv[:2])} on {nproc} "
+                             f"ranks: exit {rc}\n{log.read_text()[-4000:]}")
+
+
+def layout_args(name: str, backend: str):
+    tp, zero1, fsdp = LAYOUT_FLAGS[name]
+    return SimpleNamespace(tp=tp, zero1=zero1, fsdp=fsdp,
+                           dist_backend=backend, dist_url="env://",
+                           world_size=1)
+
+
+def rank_entry(torch, A, stage: str, argv) -> dict:
+    """One entry call on a torchrun rank: ``run_STAGE.main`` on the command
+    line ``python -m unite_torch.train.run_STAGE ARGS...`` parses, with
+    the rank's launches, steps (each waited for), eval calls and zero-shot
+    calls counted around it."""
+    import importlib
+
+    from unite_torch.config import parse_with_config
+    from unite_torch.parallel import mesh as pm
+    from unite_torch.train import args as T
+
+    R = importlib.import_module(f"unite_torch.train.run_{stage}")
+    parser = getattr(T, f"{stage}_parser")()
+    if stage != "stage2":  # as the entries' __main__ adds it
+        parser.add_argument("--clip_init", default="")
+    rec = {"steps": [], "eval_calls": 0, "zs_calls": 0}
+
+    def counted_step(build):
+        def make(*a, **k):
+            step = build(*a, **k)
+
+            def run(state, batch, gen=None):
+                out = step(state, batch, gen)
+                torch.cuda.synchronize()
+                rec["steps"].append(time.perf_counter())
+                return out
+
+            return run
+
+        return make
+
+    def counted_eval(build):
+        def make(*a, **k):
+            step = build(*a, **k)
+
+            def run(state, batch):
+                rec["eval_calls"] += 1
+                return step(state, batch)
+
+            return run
+
+        return make
+
+    def counted_zero_shot(build):
+        def make(*a, **k):
+            fn = build(*a, **k)
+
+            def call(*x, **y):
+                rec["zs_calls"] += 1
+                return fn(*x, **y)
+
+            return None if fn is None else call
+
+        return make
+
+    subs = [(R, ENTRY_STEP[stage],
+             counted_step(getattr(R, ENTRY_STEP[stage])))]
+    if stage in ENTRY_EVAL:
+        subs.append((R, ENTRY_EVAL[stage],
+                     counted_eval(getattr(R, ENTRY_EVAL[stage]))))
+    if stage == "stage3":
+        subs.append((R, "build_zero_shot_fn",
+                     counted_zero_shot(R.build_zero_shot_fn)))
+    args = parse_with_config(parser, argv)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(A)
+    t0 = time.perf_counter()
+    with patched(*subs):
+        R.main(args)
+    torch.cuda.synchronize()
+    mesh = pm.current()
+    ts = rec["steps"]
+    return dict(rank=mesh.rank, world=mesh.world, backend=mesh.backend,
+                device=str(mesh.device), wall_s=time.perf_counter() - t0,
+                steps=len(ts), first_step_s=(ts[0] - t0) if ts else None,
+                step_s=[b - a for a, b in zip(ts, ts[1:])],
+                eval_calls=rec["eval_calls"], zs_calls=rec["zs_calls"],
+                launches=read_counts(A),
+                by_shape={k: {f"{b}x{s}": n for (b, s), n in v.items()}
+                          for k, v in read_shapes(A).items()},
+                peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+
+
+def rank_entries(torch, A, spec_path: str) -> None:
+    """One rank of a torchrun launch (``chip_smoke.py --rank-entries
+    SPEC``): the spec's entry calls in turn in this process, one process
+    group for all (as a user's script of several runs would keep it), each
+    call's counts written to OUT.rankR.json."""
+    import gc
+
+    from unite_torch.parallel import mesh as pm
+
+    spec = json.loads(Path(spec_path).read_text())
+    out = {}
+    for name, stage, argv in spec["calls"]:
+        out[name] = rank_entry(torch, A, stage, argv)
+        gc.collect()
+        torch.cuda.empty_cache()
+    Path(f"{spec['out']}.rank{pm.current().rank}.json").write_text(
+        json.dumps(out))
+    pm.shutdown()
+
+
+def single_process_restore(torch, model, path: Path) -> dict:
+    """A checkpoint of any layout into one process on the card (no process
+    group): ``restore_train_state`` into ``model`` and a fresh AdamW, then
+    every parameter and moment held bit for bit to the file."""
+    from unite_torch.optim.factory import create_optimizer
+    from unite_torch.train.train_state import TrainState
+    from unite_torch.utils import checkpoint as ck
+
+    payload = ck.load_checkpoint(path)
+    tx, _ = create_optimizer("adamw", 1e-4, model, device="cuda")
+    state = TrainState(model, tx)
+    ck.restore_train_state(state, payload)
+    named = dict(model.named_parameters())
+    bad = [k for k, v in model.state_dict().items()
+           if not torch.equal(v.cpu(), payload["model"][k])]
+    n_mom = 0
+    for n, mom in payload["optimizer"]["moments"].items():
+        for k, v in mom.items():
+            n_mom += 1
+            if not torch.equal(tx.state[named[n]][k].cpu(), v):
+                bad.append(f"{n}.{k}")
+    if bad or not n_mom:
+        raise AssertionError(f"{path}: not restored bit for bit into one "
+                             f"process: {bad[:5]} ({n_mom} moments)")
+    return dict(params=len(payload["model"]), moments=n_mom,
+                epoch=payload["epoch"], step=payload["extra"]["step"])
+
+
+def scaleout_entries(torch, A, workdir: Path, nproc: int) -> dict:
+    """Phase ``scaleout-nccl-w{N}``: the stage entries under one launch of
+    ``python -m torch.distributed.run --standalone --nproc_per_node N``
+    (one rank a card, NCCL), each rank making seven entry calls in turn
+    in one process group (``rank_entries``; a launch each would add ~14 s
+    of start-up to each): ``run_stage1.main``
+    with ``STAGE1_ARGS`` (mask 0.8, 32 + 32 clips a step a rank) on
+    synthetic clips, an epoch of 2 steps and its checkpoint, under DDP,
+    --zero1 and --fsdp; ``run_stage2.main`` (``STAGE2_ARGS``, --epochs 1,
+    --eval_freq 1) chained from the DDP checkpoint under DDP and --fsdp:
+    2 steps of 7 a rank, validation (8 clips), checkpoint-best reloaded
+    and the 12-view test of 2 videos; ``run_stage3.main`` (``STAGE3_ARGS``,
+    --epochs 1) chained from the stage-2 DDP run's checkpoint-best under DDP
+    and --fsdp: the initial validation, 2 steps of 5 + 5 clips a rank, the
+    zero-shot teacher on each batch, validation and the 15-view test. Each
+    rank's launches are held to the single-process entries' counts (a
+    stage-1 step 24 K1 + 12 K2; stage 2 12 K3 with lse + 12 K4a + 12 K4b a
+    step and 12 K3 an eval call; stage 3 as ``stage3_entry``), and each
+    checkpoint is restored into one process bit for bit."""
+    import numpy as np
+
+    from unite_torch.train import run_stage1, run_stage2, run_stage3
+
+    tmp = workdir / f"scaleout-w{nproc}"
+    tmp.mkdir()
+    n1, n2, n3 = (b * SCALEOUT_STEPS * nproc
+                  for b in (ENTRY_BATCH, 7, 5))
+    write_annotations(tmp, {"s1_source": n1, "s1_target": n1,
+                            "s2_train": n2, "s2_val": 8, "s2_test": 2,
+                            "s3_source": n3, "s3_target": n3, "s3_val": 8,
+                            "s3_test": 2})
+    feats = tmp / "text_features.npy"
+    np.save(feats, np.random.default_rng(12).standard_normal(
+        (12, 512)).astype(np.float32))
+    common = ["--synthetic_data", "true", "--device_normalize", "true"]
+    calls, wants = [], {}
+
+    def call(stage, name, argv, want, clips_a_step):
+        calls.append([name, stage, common + ["--output_dir", str(tmp / name)]
+                      + argv])
+        wants[name] = (want, clips_a_step)
+        return tmp / name
+
+    def s1_want(r):
+        n = r["steps"]
+        return {"K1": 24 * n, "K2": 12 * n}
+
+    def s2_want(r):
+        n = r["steps"]
+        return {"K3": 12 * (n + r["eval_calls"]), "K3+lse": 12 * n,
+                "K4a": 12 * n, "K4b": 12 * n}
+
+    def s3_want(r):
+        n, zs = r["steps"], r["zs_calls"]
+        if zs != n:
+            raise AssertionError(f"stage 3 rank {r['rank']}: {zs} zero-shot "
+                                 f"calls for {n} steps")
+        return {"K1": 12 * (2 * n + zs), "K2": 12 * n,
+                "K3": 12 * (2 * n + r["eval_calls"]), "K3+lse": 12 * n,
+                "K4a": 12 * n, "K4b": 12 * n}
+
+    s1 = ["--batch_size", str(ENTRY_BATCH),
+          "--stop_after_steps", str(SCALEOUT_STEPS),
+          "--ann_file_train", str(tmp / "s1_source.csv"),
+          "--ann_file_train_target", str(tmp / "s1_target.csv")]
+    s1_runs = {layout: call("stage1", f"stage1-{layout}",
+                            STAGE1_ARGS + s1 + flags, s1_want,
+                            2 * ENTRY_BATCH)
+               for layout, flags in ENTRY_LAYOUT_ARGS.items()}
+    s2 = ["--epochs", "1", "--warmup_epochs", "0", "--eval_freq", "1",
+          "--finetune", str(s1_runs["ddp"] / "checkpoint-latest.pth"),
+          "--ann_file_train", str(tmp / "s2_train.csv"),
+          "--ann_file_val", str(tmp / "s2_val.csv"),
+          "--ann_file_test", str(tmp / "s2_test.csv")]
+    s2_runs = {layout: call("stage2", f"stage2-{layout}",
+                            STAGE2_ARGS + s2 + ENTRY_LAYOUT_ARGS[layout],
+                            s2_want, 7)
+               for layout in ("ddp", "fsdp")}
+    s3 = ["--epochs", "1", "--warmup_epochs", "0",
+          "--clip_text_features", str(feats),
+          "--student_init", str(s2_runs["ddp"] / "checkpoint-best.pth"),
+          "--ann_file_train", str(tmp / "s3_source.csv"),
+          "--ann_file_train_target", str(tmp / "s3_target.csv"),
+          "--ann_file_val", str(tmp / "s3_val.csv"),
+          "--ann_file_test", str(tmp / "s3_test.csv")]
+    s3_runs = {layout: call("stage3", f"stage3-{layout}",
+                            STAGE3_ARGS + s3 + ENTRY_LAYOUT_ARGS[layout],
+                            s3_want, 15)
+               for layout in ("ddp", "fsdp")}
+    spec = tmp / "entries.json"
+    spec.write_text(json.dumps({"calls": calls, "out": str(tmp / "counts")}))
+    t0 = time.perf_counter()
+    torchrun(nproc, ["--rank-entries", str(spec)], tmp / "entries.log",
+             timeout=2 * SCALEOUT_TIMEOUT)
+    res = {"torchrun_wall_s": time.perf_counter() - t0}
+    ranks = [json.loads(Path(f"{tmp / 'counts'}.rank{r}.json").read_text())
+             for r in range(nproc)]
+    for name, (want, clips_a_step) in wants.items():
+        for r in (x[name] for x in ranks):
+            what = f"scaleout-nccl-w{nproc} {name} rank {r['rank']}"
+            if (r["backend"], r["world"]) != ("nccl", nproc):
+                raise AssertionError(f"{what}: {r['backend']} world "
+                                     f"{r['world']}")
+            if r["steps"] != SCALEOUT_STEPS:
+                raise AssertionError(f"{what}: {r['steps']} steps")
+            expect_counts(r["launches"], want(r), what)
+        r0 = ranks[0][name]
+        res[name] = dict(
+            entry_wall_s=r0["wall_s"], first_step_s=r0["first_step_s"],
+            clips_per_s=clips_a_step * nproc / r0["step_s"][-1],
+            peak_mem_gb=[x[name]["peak_mem_gb"] for x in ranks],
+            eval_calls=r0["eval_calls"], zero_shot_calls=r0["zs_calls"],
+            launches=r0["launches"], by_shape=r0["by_shape"])
+    # every checkpoint into one process, bit for bit
+    from unite_torch.config import parse_with_config
+    from unite_torch.train.args import stage1_parser, stage2_parser, \
+        stage3_parser
+
+    a1 = parse_with_config(stage1_parser(), STAGE1_ARGS)
+    a2 = parse_with_config(stage2_parser(), STAGE2_ARGS)
+    a3 = parse_with_config(stage3_parser(), STAGE3_ARGS)
+    restored = {}
+    for layout, out in s1_runs.items():
+        restored[f"stage1-{layout}"] = single_process_restore(
+            torch, run_stage1.build_student(a1, "cuda"),
+            out / "checkpoint-latest.pth")
+    for layout, out in s2_runs.items():
+        restored[f"stage2-{layout}"] = single_process_restore(
+            torch, run_stage2.build_model(a2, "cuda"),
+            out / "checkpoint-latest.pth")
+    for layout, out in s3_runs.items():
+        student = run_stage1.build_student(a3, "cuda")
+        model = run_stage3.combine(student, run_stage3.build_classifier(
+            a3, student.encoder.norm.weight.shape[0], "cuda"))
+        restored[f"stage3-{layout}"] = single_process_restore(
+            torch, model, out / "checkpoint-latest.pth")
+    # the stage-1 layouts' checkpoints side by side (reported)
+    from unite_torch.utils.checkpoint import load_checkpoint
+
+    ref = load_checkpoint(s1_runs["ddp"] / "checkpoint-latest.pth")["model"]
+    for layout in ("zero1", "fsdp"):
+        got = load_checkpoint(s1_runs[layout] / "checkpoint-latest.pth")[
+            "model"]
+        res[f"stage1-{layout}"]["max_abs_param_diff_vs_ddp"] = max(
+            (got[k] - ref[k]).abs().max().item() for k in ref)
+    res["restored_into_one_process"] = restored
+    print(f"scaleout-nccl-w{nproc}: {json.dumps(res)} on {card_line()}",
+          flush=True)
+    return res
+
+
+def scaleout_step_b64(torch, A, b: int = 64, steps: int = 3,
+                      rounds: int = 2) -> dict:
+    """Phase ``scaleout-step-b64``: stage1-b16-b64's step (B=64, mask 0.8,
+    full ViT-B/16 widths) at world 1 over NCCL, plain (no wrapper), under
+    DDP and under FSDP, from the same weights. ``steps`` steps in turns on
+    the same batches (injected visible tokens, drop path 0): after each,
+    the loss, the gradients (after the first) and every parameter against
+    the plain step's. DDP's must be bit-equal; FSDP's backward is not (its
+    gradients differ by single bf16 ulps from the first step on), so its
+    losses and its update of the whole model are held within
+    ``STEP_RTOL`` of the plain step's and the differences reported (the config's clip_grad is null, so FSDP's norm,
+    summed in another order, does not reach the parameters). Then
+    ``rounds`` rounds
+    in turns (plain, DDP, FSDP, FSDP, DDP, plain), each step waited for:
+    step ms (median), peak memory, and DDP's and FSDP's overhead against
+    the plain step; 24 K1 and 12 K2 a step under each."""
+    from unite_torch.parallel import mesh as pm
+
+    mesh = pm.init_distributed(layout_args("fsdp", "nccl"))
+    if (mesh.backend, mesh.world) != ("nccl", 1):
+        raise AssertionError(f"scaleout-step-b64: {mesh.backend} world "
+                             f"{mesh.world}")
+    torch.manual_seed(21)
+    plain, teacher, step = build_step(torch, b, torch.bfloat16, "cuda", 0.0)
+    sd = {k: v.clone() for k, v in plain.model.state_dict().items()}
+    td = teacher.state_dict()
+    runs = {"plain": (plain, step)}
+    for name in ("ddp", "fsdp"):
+        st, _, stp = build_step(torch, b, torch.bfloat16, "cuda", 0.0, sd, td,
+                                layout=LAYOUT_FLAGS[name])
+        runs[name] = (st, stp)
+    batches = []
+    for i in range(steps):
+        batch = random_batch(torch, b, 50 + i, with_vis_idx=True)
+        batch["videos"] = batch["videos"].pin_memory()
+        batches.append(batch)
+    rec = {name: dict(losses=[], norms=[], ms=[], peak=[]) for name in runs}
+    total = {"K1": 0, "K2": 0}
+    from unite_torch.parallel.mesh import local_tensor
+
+    def whole(name, grads=False):
+        """The variant's parameters (or gradients), whole, by name."""
+        lay = runs[name][0].layout
+        if not grads:
+            return lay.full_state_dict()
+        return {n: local_tensor(p.grad).clone()
+                for n, p in lay.named_parameters() if p.grad is not None}
+
+    def diff(a, b) -> dict:
+        bad = [k for k in b if not torch.equal(a[k], b[k])]
+        return dict(differ=len(bad), of=len(b), first=bad[:3],
+                    max_abs=max([(a[k] - b[k]).abs().max().item()
+                                 for k in bad] or [0.0]))
+
+    def one(name, batch, timed):
+        state, stp = runs[name]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts(A)
+        t0 = time.perf_counter()
+        m = stp(state, batch)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        expect_counts(read_counts(A), {"K1": 24, "K2": 12},
+                      f"scaleout-step-b64 {name}")
+        total["K1"] += 24
+        total["K2"] += 12
+        r = rec[name]
+        r["peak"].append(torch.cuda.max_memory_allocated() / 1e9)
+        if timed:
+            r["ms"].append(dt * 1e3)
+        else:
+            r["losses"].append(m["loss"].detach().clone())
+            r["norms"].append(m["grad_norm"].item())
+
+    # after each step, each wrapper's loss, gradients (after the first)
+    # and parameters against the plain step's, bit for bit
+    diag = {name: [] for name in ("ddp", "fsdp")}
+    for i, batch in enumerate(batches):
+        for name in runs:
+            one(name, batch, timed=False)
+        want = whole("plain")
+        grads = whole("plain", grads=True) if i == 0 else None
+        for name in diag:
+            d = dict(step=i + 1, loss_equal=torch.equal(
+                rec[name]["losses"][i], rec["plain"]["losses"][i]),
+                params=diff(whole(name), want))
+            if grads is not None:
+                d["grads"] = diff(whole(name, grads=True), grads)
+            diag[name].append(d)
+    equal = {name: not any(not x["loss_equal"] or x["params"]["differ"]
+                           or x.get("grads", {}).get("differ") for x in d)
+             for name, d in diag.items()}
+    if not equal["ddp"]:
+        raise AssertionError(f"scaleout-step-b64: DDP not bit-equal to the "
+                             f"plain step: {json.dumps(diag['ddp'])}")
+    # FSDP's backward is not bit-equal at world 1 on the card (its gradients
+    # differ from the plain step's by single bf16 ulps from the first step
+    # on, its forward and loss do not): held to the plain step as the
+    # gloo and multi-card ranks are, within STEP_RTOL
+    got = whole("fsdp")
+    fsdp_rel = dict(
+        loss=max(abs(x.item() - y.item()) / abs(y.item()) for x, y in zip(
+            rec["fsdp"]["losses"], rec["plain"]["losses"])),
+        params=max(((got[k] - want[k]).norm() / want[k].norm()).item()
+                   for k in want))
+    # the 3 steps' update against the plain one's, whole model (the
+    # largest tensor distance, "params", is reported)
+    fsdp_rel["update"] = (sum(((got[k] - want[k]) ** 2).sum() for k in want)
+                          / sum(((want[k] - sd[k]) ** 2).sum() for k in want)
+                          ).sqrt().item()
+    if not equal["fsdp"] and max(fsdp_rel["loss"],
+                                 fsdp_rel["update"]) > STEP_RTOL:
+        raise AssertionError(f"scaleout-step-b64: FSDP off the plain step: "
+                             f"{fsdp_rel}; {json.dumps(diag['fsdp'])}")
+    check_finite([[x.item()] for x in rec["plain"]["losses"]])
+    for _ in range(rounds):
+        for name in ("plain", "ddp", "fsdp", "fsdp", "ddp", "plain"):
+            one(name, batches[0], timed=True)
+    res = {name: dict(step_ms=statistics.median(r["ms"]),
+                      step_ms_all=r["ms"], peak_mem_gb=max(r["peak"]),
+                      losses=[x.item() for x in r["losses"]],
+                      grad_norms=r["norms"],
+                      moment_bytes=sum(v.numel() * v.element_size()
+                                       for s in runs[name][0].optimizer
+                                       .state.values() for v in s.values()))
+           for name, r in rec.items()}
+    for name in ("ddp", "fsdp"):
+        res[name]["overhead_vs_plain"] = (res[name]["step_ms"]
+                                          / res["plain"]["step_ms"] - 1.0)
+    res["bit_equal"] = equal
+    res["fsdp_rel"] = fsdp_rel
+    res["checks"] = diag
+    res["launches"] = total
+    print(f"scaleout-step-b64: after {steps} steps DDP "
+          f"{'bit-equal to' if equal['ddp'] else 'off'} the plain step, FSDP "
+          f"{'bit-equal' if equal['fsdp'] else 'within'} ({fsdp_rel}); "
+          f"step ms plain "
+          f"{res['plain']['step_ms']:.2f}, DDP {res['ddp']['step_ms']:.2f} "
+          f"({100 * res['ddp']['overhead_vs_plain']:+.1f}%), FSDP "
+          f"{res['fsdp']['step_ms']:.2f} "
+          f"({100 * res['fsdp']['overhead_vs_plain']:+.1f}%); "
+          f"{json.dumps(res)} on {card_line()}", flush=True)
+    del runs, plain, teacher, step, want, got, sd
+    pm.shutdown()
+    torch.cuda.empty_cache()
+    return res
+
+
+def rank_step(torch, A, spec_path: str) -> None:
+    """One rank of ``scaleout_rank_steps`` (``chip_smoke.py --rank-step
+    SPEC``): for each layout of the spec, the stage-1 step at full width
+    from the spec's weights on this replica's rows of the global batches,
+    3 steps; the global loss, the grad norm, launches and time of each
+    step, this rank's optimizer-state bytes, and (rank 0) the whole
+    parameters against the one-process reference."""
+    from unite_torch.parallel import mesh as pm
+
+    spec = json.loads(Path(spec_path).read_text())
+    init = torch.load(spec["init"], map_location="cpu")
+    ref = torch.load(spec["ref"], map_location="cpu")
+    import torch.distributed as dist
+
+    out = {}
+    for name in spec["layouts"]:
+        mesh = pm.init_distributed(layout_args(name, spec["backend"]))
+        per = spec["b"] // mesh.dp
+        rows = slice(mesh.dp_rank * per, (mesh.dp_rank + 1) * per)
+        # built at the global batch: the lr scales by it, as the entry's
+        state, _, step = build_step(torch, spec["b"], torch.bfloat16, "cuda",
+                                    0.0, init["student"], init["teacher"],
+                                    layout=LAYOUT_FLAGS[name])
+        metrics = []
+        for seed in spec["seeds"]:
+            batch = random_batch(torch, spec["b"], seed, with_vis_idx=True)
+            batch = {k: v[rows] for k, v in batch.items()}
+            torch.cuda.synchronize()
+            reset_counts(A)
+            t0 = time.perf_counter()
+            m = step(state, batch)
+            loss = m["loss"].detach().float().clone()
+            dist.all_reduce(loss)
+            torch.cuda.synchronize()
+            metrics.append(dict(loss=loss.item() / mesh.world,
+                                grad_norm=m["grad_norm"].item(),
+                                ms=(time.perf_counter() - t0) * 1e3,
+                                launches=read_counts(A)))
+        full = state.layout.full_state_dict()
+        res = dict(metrics=metrics, layout=state.layout.name,
+                   backend=mesh.backend, world=mesh.world,
+                   moment_bytes=sum(v.numel() * v.element_size()
+                                    for s in state.optimizer.state.values()
+                                    for v in s.values()))
+        if mesh.rank == 0:
+            p0, p1 = init["student"], ref["params"]
+            rel = {k: ((full[k].cpu() - p1[k]).norm() / p1[k].norm()).item()
+                   for k in p1}
+            res["param_rel_worst"] = max(rel, key=rel.get)
+            res["param_rel"] = rel[res["param_rel_worst"]]
+            num = sum(((full[k].cpu() - p1[k]) ** 2).sum() for k in p1)
+            den = sum(((p1[k] - p0[k]) ** 2).sum() for k in p1)
+            res["update_rel"] = (num / den).sqrt().item()
+        out[name] = res
+        del state, step, full
+        torch.cuda.empty_cache()
+    Path(f"{spec['out']}.rank{pm.current().rank}.json").write_text(
+        json.dumps(out))
+    pm.shutdown()
+
+
+def scaleout_rank_steps(torch, A, workdir: Path, nproc: int, backend: str,
+                        layouts, what: str) -> dict:
+    """Phases ``scaleout-gloo-2on1`` (two ranks on the one card over gloo,
+    CUDA tensors: DDP and --zero1) and, on two cards or more, the
+    multi-card check (NCCL at world N: --fsdp and --tp 2): the stage-1 step
+    at full width (ViT-B/16, mask 0.8) on a global batch of ``SCALEOUT_B``
+    clips split over the replicas, 3 steps from the same weights, against
+    the one-process step on the whole batch in this process. Each step's
+    global loss and grad norm, and the 3 steps' update of the whole model
+    (its distance from the one-process update over that update's norm),
+    within ``STEP_RTOL`` of the one-process step; the largest distance of
+    a parameter tensor relative to its norm reported (a tensor that starts
+    near 0, a bias, is all update, where Adam turns a gradient's last bits
+    into its update's sign); each rank's
+    optimizer-state bytes (ZeRO-1's at most 0.6 of DDP's); 24 K1 + 12 K2 a
+    step on every rank."""
+    tmp = workdir / what
+    tmp.mkdir()
+    torch.manual_seed(31)
+    state, teacher, step = build_step(torch, SCALEOUT_B, torch.bfloat16,
+                                      "cuda", 0.0)
+    init = {"student": {k: v.detach().cpu().clone()
+                        for k, v in state.model.state_dict().items()},
+            "teacher": {k: v.detach().cpu()
+                        for k, v in teacher.state_dict().items()}}
+    torch.save(init, tmp / "init.pt")
+    seeds = [60, 61, 62]
+    ref = []
+    for seed in seeds:
+        m = step(state, random_batch(torch, SCALEOUT_B, seed,
+                                     with_vis_idx=True))
+        ref.append({k: m[k].item() for k in ("loss", "grad_norm")})
+    torch.save({"params": {k: v.detach().cpu() for k, v in
+                           state.model.state_dict().items()},
+                "metrics": ref}, tmp / "ref.pt")
+    del state, teacher, step, init
+    torch.cuda.empty_cache()
+    spec = dict(backend=backend, layouts=list(layouts), b=SCALEOUT_B,
+                seeds=seeds, init=str(tmp / "init.pt"),
+                ref=str(tmp / "ref.pt"), out=str(tmp / "result"))
+    (tmp / "spec.json").write_text(json.dumps(spec))
+    t0 = time.perf_counter()
+    torchrun(nproc, ["--rank-step", str(tmp / "spec.json")],
+             tmp / "ranks.log")
+    wall = time.perf_counter() - t0
+    ranks = [json.loads(Path(f"{spec['out']}.rank{r}.json").read_text())
+             for r in range(nproc)]
+    res = dict(torchrun_wall_s=wall, reference=ref)
+    for name in layouts:
+        rs = [r[name] for r in ranks]
+        for i, r in enumerate(rs):
+            if (r["backend"], r["world"]) != (backend, nproc):
+                raise AssertionError(f"{what} {name} rank {i}: "
+                                     f"{r['backend']} world {r['world']}")
+            for m in r["metrics"]:
+                expect_counts(m["launches"], {"K1": 24, "K2": 12},
+                              f"{what} {name} rank {i}")
+        rel = [{k: abs(m[k] - want[k]) / abs(want[k])
+                for k in ("loss", "grad_norm")}
+               for m, want in zip(rs[0]["metrics"], ref)]
+        worst = max(max(x.values()) for x in rel)
+        if worst > STEP_RTOL or rs[0]["update_rel"] > STEP_RTOL:
+            raise AssertionError(f"{what} {name}: off the one-process step: "
+                                 f"metrics rel {rel}, update "
+                                 f"{rs[0]['update_rel']}, parameters "
+                                 f"{rs[0]['param_rel']} "
+                                 f"({rs[0]['param_rel_worst']})")
+        res[name] = dict(layout=rs[0]["layout"], metrics_rel=rel,
+                         param_rel=rs[0]["param_rel"],
+                         param_rel_worst=rs[0]["param_rel_worst"],
+                         update_rel=rs[0]["update_rel"],
+                         moment_bytes=[r["moment_bytes"] for r in rs],
+                         step_ms=[[m["ms"] for m in r["metrics"]]
+                                  for r in rs],
+                         losses=[m["loss"] for m in rs[0]["metrics"]])
+    if "zero1" in layouts and "ddp" in layouts:
+        frac = max(res["zero1"]["moment_bytes"]) / max(
+            res["ddp"]["moment_bytes"])
+        res["zero1_moment_share_of_ddp"] = frac
+        if frac > 0.6:
+            raise AssertionError(f"{what}: ZeRO-1 keeps {frac:.2f} of DDP's "
+                                 "moment bytes a rank")
+    print(f"{what}: {json.dumps(res)} on {card_line()}", flush=True)
+    return res
+
+
 def main() -> int:
     try:
         import torch
@@ -3467,6 +4124,13 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # the ranks the scale-out phases launch through torchrun
+    if sys.argv[1:2] == ["--rank-entries"]:
+        rank_entries(torch, A, sys.argv[2])
+        return 0
+    if sys.argv[1:2] == ["--rank-step"]:
+        rank_step(torch, A, sys.argv[2])
+        return 0
     card = card_line()
     print(f"card: {card}; torch {torch.__version__}; cuda "
           f"{torch.version.cuda}", flush=True)
@@ -3548,8 +4212,28 @@ def main() -> int:
             torch, A, work / "stage2" / "run" / "checkpoint-best.pth", s3,
             work)
         kr.update(kr_s3)
+        torch.cuda.empty_cache()
+        mark("stage-3 entry")
+        cards = torch.cuda.device_count()
+        scale = scaleout_entries(torch, A, work, cards)
+        mark(f"scaleout-nccl-w{cards}")
+        scale_b64 = scaleout_step_b64(torch, A)
+        mark("scaleout-step-b64")
+        gloo = scaleout_rank_steps(torch, A, work, 2, "gloo",
+                                   ("ddp", "zero1"), "scaleout-gloo-2on1")
+        mark("scaleout-gloo-2on1")
+        multi = None
+        if cards >= 2:
+            multi = scaleout_rank_steps(
+                torch, A, work, cards, "nccl",
+                ("fsdp",) + (("tp2",) if cards % 2 == 0 else ()),
+                f"scaleout-nccl-w{cards}-fsdp-tp")
+            mark("multi-card --fsdp and --tp 2")
+        else:
+            print("scaleout: --tp 2 and --fsdp over NCCL at world >= 2 "
+                  "against world 1 need two cards; this machine has one, "
+                  "so that check does not run here", flush=True)
     torch.cuda.empty_cache()
-    mark("stage-3 entry")
 
     kernels = []
     for key, name, src, rep, launches in (
@@ -3671,7 +4355,34 @@ def main() -> int:
               for layer, (m, k, n) in L14_DENSE.items()),
             ("K7b/probe", "bf16_matmul[probe 38400x768x3072]",
              "unite_torch/csrc/blocked_matmul_wgmma.cu",
-             "tools/quant_kernel_probe.py:53", probe["launches"]["K7b"])):
+             "tools/quant_kernel_probe.py:53", probe["launches"]["K7b"]),
+            ("K1/student", "fused_qkv_fwd[scaleout-step-b64 teacher S=197 "
+             "and student S=320, plain, DDP and FSDP at world 1]",
+             "unite_torch/csrc/short_attn_wgmma.cu",
+             "unite_tpu/ops/attention.py:678", scale_b64["launches"]["K1"]),
+            ("K2/student", "fused_qkv_bwd[scaleout-step-b64 student S=320]",
+             "unite_torch/csrc/short_bwd_wgmma.cu",
+             "unite_tpu/ops/attention.py:773", scale_b64["launches"]["K2"]),
+            *((key, f"{name}[scaleout-nccl-w{cards} torchrun entries, "
+               "rank 0]", src, rep, sum(
+                   r["launches"][k] for r in scale.values()
+                   if isinstance(r, dict) and "launches" in r))
+              for k, key, name, src, rep in (
+                  ("K1", "K1/teacher/s3", "fused_qkv_fwd",
+                   "unite_torch/csrc/short_attn_wgmma.cu",
+                   "unite_tpu/ops/attention.py:678"),
+                  ("K2", "K2/student/s3", "fused_qkv_bwd",
+                   "unite_torch/csrc/short_bwd_wgmma.cu",
+                   "unite_tpu/ops/attention.py:773"),
+                  ("K3", "K3/train/b5", "packed_flash_fwd",
+                   "unite_torch/csrc/flash_fwd_wgmma.cu",
+                   "unite_tpu/ops/attention.py:913"),
+                  ("K4a", "K4a/b5", "packed_flash_dq",
+                   "unite_torch/csrc/flash_bwd_wgmma.cu",
+                   "unite_tpu/ops/attention.py:983"),
+                  ("K4b", "K4b/b5", "packed_flash_dkv",
+                   "unite_torch/csrc/flash_bwd_wgmma.cu",
+                   "unite_tpu/ops/attention.py:1014")))):
         r = kr[key]
         kernels.append({"name": name, "route": "cuda", "source": src,
                         "replaces": rep, "launches": launches,
@@ -3686,6 +4397,9 @@ def main() -> int:
                       "native_decode": decode, "stage1_remat": remat,
                       "stage2_recipe": recipe,
                       "stage3_entry": entry3,
+                      "scaleout_nccl": scale, "scaleout_step_b64": scale_b64,
+                      "scaleout_gloo_2on1": gloo,
+                      "scaleout_multi_card": multi,
                       "stage2_step": s2,
                       "stage2_eval": ev, "stage2_card_vs_cpu_rel": s2_rel,
                       "stage3_step": s3, "stage3_cls_step": s3c,

@@ -82,7 +82,7 @@ def test_stage2_vit_nests_under_encoder(tmp_path):
 @pytest.mark.parametrize("layout", ["nested", "module_dict"])
 def test_stage3_tree_is_unwrapped(tmp_path, layout):
     # stage 3 keeps {"model": student, "classifier": head}: a nested tree, or
-    # the flat state dict of run_stage3's nn.ModuleDict
+    # the flat state dict of run_stage3's combined module
     src = _student(4)
     head = {"weight": torch.ones(5, 32), "bias": torch.zeros(5)}
     if layout == "nested":

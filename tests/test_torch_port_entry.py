@@ -440,12 +440,14 @@ def test_preempted_run_resumes_bitwise(tmp_path):
 def test_entry_refuses_what_it_does_not_have(tmp_path, monkeypatch):
     # --mu_dtype and --use_checkpoint are ported (tests/
     # test_torch_port_recipe.py holds them to the JAX entry)
-    for kw, match in ((dict(zero1=True), "slice E"), (dict(tp=2), "slice E")):
-        with pytest.raises(NotImplementedError, match=match):
-            run_stage1.main(_entry_args(tmp_path, tmp_path / "r", **kw),
-                            device="cpu")
+    # the layouts run under torchrun (tests/test_torch_port_scaleout*.py);
+    # one process cannot hold a tensor-parallel group of 2, and a world
+    # without ranks is no launch
+    with pytest.raises(ValueError, match="must divide the local world"):
+        run_stage1.main(_entry_args(tmp_path, tmp_path / "r", tp=2),
+                        device="cpu")
     monkeypatch.setenv("WORLD_SIZE", "2")
-    with pytest.raises(NotImplementedError, match="one process"):
+    with pytest.raises(RuntimeError, match="launch the entry with torchrun"):
         run_stage1.main(_entry_args(tmp_path, tmp_path / "r"), device="cpu")
 
 

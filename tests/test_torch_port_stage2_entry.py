@@ -551,16 +551,18 @@ def test_entry_refuses_what_it_does_not_have(tmp_path, monkeypatch):
     base = dict(finetune="")
     # mixup, dropout, --use_checkpoint and --mu_dtype are ported
     # (tests/test_torch_port_recipe.py holds them to the JAX entry)
-    for kw, match in ((dict(zero1=True), "item 7"), (dict(tp=2), "item 7"),
-                      (dict(fsdp=True), "item 7")):
+    # the layouts run under torchrun (tests/test_torch_port_scaleout*.py);
+    # one process cannot hold a tensor-parallel group of 2 (with or without
+    # --fsdp), and a world without ranks is no launch
+    for kw in (dict(tp=2), dict(tp=2, fsdp=True)):
         args = _port_args(_jax_args(tmp_path, tmp_path / "r", **base, **kw),
                           tmp_path / "r")
-        with pytest.raises(NotImplementedError, match=match):
+        with pytest.raises(ValueError, match="must divide the local world"):
             run_stage2.main(args, device="cpu")
     monkeypatch.setenv("WORLD_SIZE", "2")
     args = _port_args(_jax_args(tmp_path, tmp_path / "r", **base),
                       tmp_path / "r")
-    with pytest.raises(NotImplementedError, match="one process"):
+    with pytest.raises(RuntimeError, match="launch the entry with torchrun"):
         run_stage2.main(args, device="cpu")
     monkeypatch.delenv("WORLD_SIZE")
     # no card and no device="cpu": the entry refuses the CPU

@@ -559,8 +559,10 @@ def test_entry_refuses_what_it_does_not_have(tmp_path, monkeypatch):
         run_stage3.main(args(pseudolabel_threshold=0.5), device="cpu")
     # --mu_dtype and --use_checkpoint are ported (tests/
     # test_torch_port_recipe.py holds them to the JAX entry)
-    for kw, match in ((dict(zero1=True), "item 7"), (dict(tp=2), "item 7")):
-        with pytest.raises(NotImplementedError, match=match):
+    # the layouts run under torchrun (tests/test_torch_port_scaleout*.py);
+    # one process cannot hold a tensor-parallel group of 2
+    for kw in (dict(tp=2), dict(tp=2, zero1=True)):
+        with pytest.raises(ValueError, match="must divide the local world"):
             run_stage3.main(args(**kw), device="cpu")
     # no card and no device="cpu": the entry refuses the CPU
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

@@ -6,8 +6,9 @@ The reference's repetition-aware DistributedSampler
 stages 1/3 (run_stage1.py:711-752): the shorter stream gets
 ``repetitions = ceil(len_long / len_short)`` independent shuffles
 concatenated, indices are padded (or tail-dropped) to a multiple of the
-shard count, then strided by shard id. The port runs one process on one
-card (one shard) until scale-out lands (ROADMAP slice E).
+shard count, then strided by shard id. The entries shard by the
+data-parallel rank: ``num_shards = world // tp`` and ``shard_id = rank //
+tp``, so the ranks of one tensor-parallel group see the same rows.
 """
 
 from __future__ import annotations

@@ -63,7 +63,7 @@ def make_finetune_train_step(model: torch.nn.Module, mixup=None,
             videos, soft = mixup(videos, labels, generator)
         net = state.model
         net.train()
-        logits = net(videos, generator)
+        logits = state.net(videos, generator)  # DDP's hooks fire
         if soft is not None:
             loss = soft_target_cross_entropy(logits, soft.to(dev))
         else:

@@ -119,7 +119,9 @@ def make_pretrain_train_step(
 
         student = state.model
         student.train()
-        x_clip = student(videos, vis_idx, clip_only=True, generator=generator)
+        # through the step's module (a DDP wrapper's hooks must fire)
+        x_clip = state.net(videos, vis_idx, clip_only=True,
+                           generator=generator)
         loss = loss_of(x_clip, targets, batch)
         state.optimizer.zero_grad(set_to_none=True)
         loss.backward()

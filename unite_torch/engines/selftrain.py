@@ -216,20 +216,37 @@ def make_selftrain_step(
             x_vis, _ = student.encoder(videos, vis_idx, False, generator)
             return pool_outputs(x_vis, use_cls_token)
 
-        if merge_full_passes:
-            # one [B_s + B_t] pass; the target rows' features are detached,
-            # which equals the split passes at drop path 0
-            b_s = videos_s.shape[0]
-            feats = encode_pool(torch.cat([videos_s, videos_t]))
-            logits_full_s = classifier(feats[:b_s])
-            logits_full_t = classifier(feats[b_s:].detach())
-        else:
-            logits_full_s = classifier(encode_pool(videos_s))
-            with torch.no_grad():
-                feat_t = encode_pool(videos_t)
-            logits_full_t = classifier(feat_t)  # the classifier stays live
-        logits_grad_t = (classifier(encode_pool(videos_t_aug, vis_grad))
-                         if train_masked else None)
+        def passes():
+            """Every pass over the student and the classifier, in the order
+            of their draws: source, full target, grad member, votes."""
+            if merge_full_passes:
+                # one [B_s + B_t] pass; the target rows' features are
+                # detached, which equals the split passes at drop path 0
+                b_s = videos_s.shape[0]
+                feats = encode_pool(torch.cat([videos_s, videos_t]))
+                logits_full_s = classifier(feats[:b_s])
+                logits_full_t = classifier(feats[b_s:].detach())
+            else:
+                logits_full_s = classifier(encode_pool(videos_s))
+                with torch.no_grad():
+                    feat_t = encode_pool(videos_t)
+                logits_full_t = classifier(feat_t)  # the classifier is live
+            logits_grad_t = (classifier(encode_pool(videos_t_aug, vis_grad))
+                             if train_masked else None)
+            vote_preds = None
+            if n_vote:
+                with torch.no_grad():
+                    videos_tv = (torch.cat([videos_t_aug] * n_vote)
+                                 if n_vote > 1 else videos_t_aug)
+                    vote_preds = classifier(encode_pool(
+                        videos_tv, vis_vote)).reshape(n_vote, b_t, -1
+                                                      ).argmax(-1)
+            return logits_full_s, logits_full_t, logits_grad_t, vote_preds
+
+        # one call of the step's module (the combined student and
+        # classifier, or its DDP wrapper, whose hooks must see every pass)
+        logits_full_s, logits_full_t, logits_grad_t, vote_preds = \
+            state.net(passes)
 
         probs_full_t = torch.softmax(logits_full_t.detach().float(), -1)
         msp_t = probs_full_t.amax(-1)
@@ -239,12 +256,7 @@ def make_selftrain_step(
             # agreement of all k members with the full-video prediction
             parts = []
             if n_vote:
-                with torch.no_grad():
-                    videos_tv = (torch.cat([videos_t_aug] * n_vote)
-                                 if n_vote > 1 else videos_t_aug)
-                    parts.append(classifier(encode_pool(
-                        videos_tv, vis_vote)).reshape(n_vote, b_t, -1
-                                                      ).argmax(-1))
+                parts.append(vote_preds)
             if train_masked:
                 parts.append(logits_grad_t.detach().argmax(-1)[None])
             votes = (torch.cat(parts) == preds_full_t[None]).sum(0)
@@ -341,10 +353,16 @@ def make_selftrain_eval_step(student: torch.nn.Module,
     def eval_step(state: TrainState, batch: Dict) -> Dict:
         student.eval()
         classifier.eval()
-        x_vis, _ = student.encoder(transform(batch["videos"].to(
-            dev, non_blocking=True)))
-        pooled = pool_outputs(x_vis, use_cls_token)
-        logits = classifier(pooled)
+        x = transform(batch["videos"].to(dev, non_blocking=True))
+
+        def passes():
+            pooled = pool_outputs(student.encoder(x)[0], use_cls_token)
+            return pooled, classifier(pooled)
+
+        # through the combined module (an FSDP root gathers its weights);
+        # a caller without a state runs the modules as they are
+        pooled, logits = (passes() if state is None
+                          else state.model(passes))
         labels = batch["labels"].to(dev)
         acc1, acc5 = accuracy_topk(logits, labels)
         out = {"probs": torch.softmax(logits.float(), dim=-1),

@@ -83,7 +83,16 @@ class LayerNorm(nn.Module):
 
 
 class Linear(nn.Module):
-    """y = x.W^T + b with x, W and b cast to ``dtype`` (fp32 params)."""
+    """y = x.W^T + b with x, W and b cast to ``dtype`` (fp32 params).
+
+    Under tensor parallelism (``parallel.mesh.tensor_parallel_``) ``tp`` is
+    the model axis and ``tp_mode`` "col" (the weight holds this rank's
+    output rows; the bias, replicated, is sliced to them) or "row" (the
+    weight holds this rank's input columns; the partial products are summed
+    over the model group before the bias)."""
+
+    tp = None
+    tp_mode = None
 
     def __init__(self, in_features: int, out_features: int, bias: bool = True,
                  dtype=torch.float32):
@@ -94,8 +103,17 @@ class Linear(nn.Module):
         self.bias = nn.Parameter(torch.zeros(out_features)) if bias else None
 
     def forward(self, x):
-        b = self.bias.to(self.dtype) if self.bias is not None else None
-        return F.linear(x.to(self.dtype), self.weight.to(self.dtype), b)
+        tp = self.tp
+        w = self.weight.to(self.dtype)
+        if tp is not None and self.tp_mode == "row":
+            y = tp.reduce_out(F.linear(x.to(self.dtype), w))
+            return y if self.bias is None else y + self.bias.to(self.dtype)
+        b = self.bias
+        if tp is not None:  # column-parallel
+            x = tp.copy_in(x)
+            b = None if b is None else tp.part(tp.copy_in(b))
+        b = b.to(self.dtype) if b is not None else None
+        return F.linear(x.to(self.dtype), w, b)
 
 
 class DropPath(nn.Module):
@@ -163,7 +181,12 @@ class Attention(nn.Module):
     """Multi-head self-attention with the reference's q/v-only bias: the qkv
     bias is cat(q_bias, 0, v_bias). ``attn_drop`` drops attention
     probabilities in training (the plain attention, not a kernel: JAX's
-    routing), ``proj_drop`` the projection's output."""
+    routing), ``proj_drop`` the projection's output. Under tensor
+    parallelism ``tp`` is the model axis: ``qkv`` holds this rank's heads in
+    the packed layout, so the kernels run on those heads, and ``proj`` is
+    row-parallel."""
+
+    tp = None
 
     def __init__(self, dim: int, num_heads: int, qkv_bias: bool = False,
                  qk_scale: Optional[float] = None, dtype=torch.float32,
@@ -183,15 +206,23 @@ class Attention(nn.Module):
 
     def forward(self, x, generator: Optional[torch.Generator] = None):
         dt = self.qkv.dtype
+        heads, q_bias, v_bias = self.num_heads, self.q_bias, self.v_bias
+        if self.tp is not None:
+            tp = self.tp
+            x, heads = tp.copy_in(x), heads // tp.ways
+            if q_bias is not None:
+                q_bias, v_bias = (tp.part(tp.copy_in(b))
+                                  for b in (q_bias, v_bias))
         bias = None
-        if self.q_bias is not None:
-            bias = torch.cat([self.q_bias, torch.zeros_like(self.q_bias),
-                              self.v_bias]).to(dt)
+        if q_bias is not None:
+            bias = torch.cat([q_bias, torch.zeros_like(q_bias),
+                              v_bias]).to(dt)
         qkv = F.linear(x.to(dt), self.qkv.weight.to(dt), bias)
         # fwd_only is JAX's deterministic (models/layers.py:174-175): the
         # training route takes K5 at 385-512 tokens even under no_grad
-        out = self_attention(qkv, self.num_heads, self.scale,
-                             dim=x.shape[-1], fwd_only=not self.training,
+        out = self_attention(qkv, heads, self.scale,
+                             dim=qkv.shape[-1] // 3,
+                             fwd_only=not self.training,
                              dropout_rate=self.attn_drop, generator=generator)
         return self.proj_drop(self.proj(out), generator)
 

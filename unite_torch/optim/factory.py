@@ -33,6 +33,13 @@ with ``optax.MultiSteps`` semantics: each ``step()`` folds the parameters'
 and takes one AdamW step from it. The calls in between leave the parameters
 and the moments as they are; ``emitted`` says whether the last call stepped,
 which gates the EMA.
+
+Under a layout (``parallel.mesh.Layout.attach``) the optimizer works on
+this rank's pieces: ``part(p, t)`` is the piece of a parameter (or of its
+gradient) whose update the rank computes, an FSDP shard or a ZeRO-1 slice,
+and the moments have its shape; ``sync`` then broadcasts the ZeRO-1 slices
+of the stepped parameters. The running mean of ``every_k`` follows the
+gradients' pieces, and its clip takes the whole model's norm.
 """
 
 from __future__ import annotations
@@ -42,6 +49,7 @@ from typing import Callable, Dict, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from unite_torch.parallel.mesh import local_tensor
 from unite_torch.train.train_state import global_grad_norm
 from unite_torch.utils.device import resolve_device
 
@@ -130,6 +138,8 @@ class ScheduledAdamW(torch.optim.Optimizer):
         self.every_k, self.clip_grad = int(every_k), clip_grad
         self.mini_step = 0  # position in the accumulation window
         self.acc: Dict[torch.Tensor, torch.Tensor] = {}
+        self.part = None  # (param, tensor) -> this rank's piece
+        self.sync = None  # (stepped params) -> None, after each step
 
     @property
     def emitted(self) -> bool:
@@ -142,21 +152,25 @@ class ScheduledAdamW(torch.optim.Optimizer):
                   if p.grad is not None]
         n = self.mini_step
         for p in params:
+            g = local_tensor(p.grad)
             acc = self.acc.get(p)
             if acc is None:
-                acc = self.acc[p] = torch.zeros_like(p.grad)
-            acc.add_((p.grad - acc) / (n + 1))
+                acc = self.acc[p] = torch.zeros_like(g)
+            acc.add_((g - acc) / (n + 1))
         self.mini_step = (n + 1) % self.every_k
         if self.mini_step:
             return False
         grads = [self.acc.pop(p) for p in params]
         if self.clip_grad is not None:
-            norm = global_grad_norm(grads)
+            norm = global_grad_norm(grads, params)
             keep = norm < self.clip_grad
             for g in grads:
                 g.copy_(torch.where(keep, g, g / norm * self.clip_grad))
         for p, g in zip(params, grads):
-            p.grad = g
+            if local_tensor(p.grad) is p.grad:
+                p.grad = g
+            else:  # a DTensor's shard
+                local_tensor(p.grad).copy_(g)
         return True
 
     @torch.no_grad()
@@ -169,18 +183,22 @@ class ScheduledAdamW(torch.optim.Optimizer):
         wd_t = float(self.wd_table[min(i, len(self.wd_table) - 1)])
         n = self.count + 1
         bc1, bc2 = 1.0 - b1 ** n, 1.0 - b2 ** n
+        part = self.part or (lambda p, t: t)
+        stepped = []
         for group in self.param_groups:
-            params = [p for p in group["params"] if p.grad is not None]
-            if group["lr_scale"] == 0.0 or not params:
+            live = [p for p in group["params"] if p.grad is not None]
+            if group["lr_scale"] == 0.0 or not live:
                 continue
-            grads = [p.grad for p in params]
-            for p in params:
+            stepped += live
+            params = [part(p, p) for p in live]
+            grads = [part(p, p.grad) for p in live]
+            for p, piece in zip(live, params):
                 if not self.state[p]:
                     self.state[p]["mu"] = torch.zeros_like(
-                        p, dtype=self.mu_dtype or p.dtype)
-                    self.state[p]["nu"] = torch.zeros_like(p)
-            mus = [self.state[p]["mu"] for p in params]
-            nus = [self.state[p]["nu"] for p in params]
+                        piece, dtype=self.mu_dtype or p.dtype)
+                    self.state[p]["nu"] = torch.zeros_like(piece)
+            mus = [self.state[p]["mu"] for p in live]
+            nus = [self.state[p]["nu"] for p in live]
             # optax's (1-b1)*g + b1*mu: b1*mu in the stored moment's dtype
             # (b1, a weak-typed scalar there, rounded to it first), the sum
             # in the parameters' dtype
@@ -204,6 +222,8 @@ class ScheduledAdamW(torch.optim.Optimizer):
             torch._foreach_add_(params, upd, alpha=-(lr_t * group["lr_scale"]))
             if self.mu_dtype is not None:
                 torch._foreach_copy_(mus, new_mus)
+        if self.sync is not None:
+            self.sync(stepped)
         self.count += 1
 
     def moment_dtype(self, key: str, param: torch.Tensor) -> torch.dtype:

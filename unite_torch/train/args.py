@@ -6,9 +6,12 @@ argparse defines the schema; ``--config`` YAML overlays defaults;
 ``--dataset`` pulls annotation paths / nb_classes / student_init from
 dataset_mappings.yaml; explicitly-passed CLI flags win
 (unite_torch.config.parse_with_config). Flags that name the JAX package's
-layouts (``--zero1``, ``--fsdp``, ``--tp``) are part of the schema; the
-port's entries refuse the layouts until they are ported (ROADMAP slice E). The reference's distributed knobs (dist_url, deepspeed,
-...) are accepted for config-file compatibility and have no effect.
+layouts (``--zero1``, ``--fsdp``, ``--tp``) are part of the schema and
+select the port's layouts (``unite_torch.parallel.mesh.state_layout``).
+Of the reference's distributed knobs, --dist_backend (NCCL on the card and
+gloo on the CPU at its default), --dist_url and --world_size keep their
+meaning under torchrun; the rest (deepspeed, ...) are accepted for
+config-file compatibility and have no effect.
 """
 
 from __future__ import annotations

@@ -1,14 +1,18 @@
 """Shared runtime for the stage entry points (unite_tpu/train/common.py).
 
-The host-side frame around the steps: run setup (seeds, experiment dir,
-device), loader construction, the per-step lr / wd tables, gradient
-accumulation, resume arithmetic, preemption, the per-epoch train loop with
-MetricLogger (and stage 3's per-sample arrays), padded validation (the last
-short batch padded to the full batch with its last row, the padding dropped
-on the host), the kNN feature probe and the multi-view test with its
-merge. The port trains in one process on one
-card: ``--zero1``, ``--fsdp``, ``--tp`` > 1 and multi-process launches
-raise until scale-out lands (ROADMAP queue 1, item 7: slice E).
+The host-side frame around the steps: run setup (process group and mesh,
+seeds, experiment dir, device), loader construction, the per-step lr / wd
+tables, gradient accumulation, resume arithmetic, preemption, the
+per-epoch train loop with MetricLogger (and stage 3's per-sample arrays),
+padded validation (the last short batch padded to the full batch with its
+last row, the padding dropped on the host), the kNN feature probe and the
+multi-view test with its merge.
+
+Under ``torchrun`` each rank loads its own shard of the data, by its
+data-parallel rank (the ranks of one tensor-parallel group see the same
+rows); the lr tables scale by the global batch; validation, the kNN probe
+and the meters gather over the ranks; the multi-view test writes one file a
+data-parallel rank and rank 0 merges them.
 """
 
 from __future__ import annotations
@@ -27,42 +31,45 @@ from unite_torch.data.loader import DataLoader, to_device
 from unite_torch.data.sharding import ShardedSampler
 from unite_torch.data.video_reader import SyntheticVideoReader, default_reader
 from unite_torch.engines.finetune import merge, write_preds_file
-from unite_torch.utils.device import resolve_device
+from unite_torch.parallel import mesh as pm
 from unite_torch.utils.knn import knn_classifier
 from unite_torch.utils.metrics import MetricLogger, compute_ece
 from unite_torch.utils.schedules import (cosine_scheduler, scaled_lr,
                                          step_scheduler)
 
 
-def check_single_card(args) -> None:
-    """Refuse the scale-out layouts and launches the port does not have."""
-    asked = [flag for flag, on in (
-        ("--zero1", getattr(args, "zero1", False)),
-        ("--fsdp", getattr(args, "fsdp", False)),
-        (f"--tp {getattr(args, 'tp', 1)}", int(getattr(args, "tp", 1) or 1) > 1),
-        ("a multi-process launch (WORLD_SIZE > 1)",
-         int(os.environ.get("WORLD_SIZE", "1") or 1) > 1),
-    ) if on]
-    if asked:
-        raise NotImplementedError(
-            f"{', '.join(asked)}: the port trains on one card in one process; "
-            "data, ZeRO-1, FSDP and tensor parallelism come with scale-out "
-            "(ROADMAP queue 1, item 7: slice E)")
+def tp_ways(args) -> int:
+    """Tensor-parallel ways requested by --tp (1 = pure data parallel)."""
+    return int(getattr(args, "tp", 1) or 1)
 
 
 def setup_run(args, device=None) -> torch.device:
-    """Seeds, experiment dir, resolved-config dump (run_stage1 main preamble
-    :604-650); returns the device (CUDA unless ``device`` says otherwise)."""
-    check_single_card(args)
-    dev = resolve_device(device)
-    np.random.seed(args.seed)
-    random.seed(args.seed)
+    """Process group and mesh, seeds, experiment dir, resolved-config dump
+    (run_stage1 main preamble :604-650); returns the device (this rank's
+    card unless ``device`` says otherwise). numpy and ``random`` are seeded
+    with seed + rank (unite_tpu/train/common.py:46-49), torch with the seed,
+    so every rank builds the same initial weights."""
+    mesh = pm.init_distributed(args, device)
+    dev = mesh.device
+    np.random.seed(args.seed + mesh.rank)
+    random.seed(args.seed + mesh.rank)
     torch.manual_seed(args.seed)
-    prepare_output_dir(args.output_dir, args.overwrite)
-    dump_config(args, args.output_dir)
+    if pm.is_main_process():
+        prepare_output_dir(args.output_dir, args.overwrite)
+        dump_config(args, args.output_dir)
+    pm.barrier()
     name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
-    print(f"device: {dev} ({name})")
+    where = (f"rank {mesh.rank}/{mesh.world} ({mesh.backend}, tp "
+             f"{mesh.tp}), " if mesh.distributed else "")
+    print(f"device: {where}{dev} ({name})")
     return dev
+
+
+def state_layout(args, model):
+    """``parallel.mesh.state_layout`` from the entry's flags."""
+    return pm.state_layout(model, tp=tp_ways(args),
+                           zero1=getattr(args, "zero1", False),
+                           fsdp=getattr(args, "fsdp", False))
 
 
 def reader_for(args, for_eval: bool = False):
@@ -116,10 +123,12 @@ def wrap_update_freq(tx, update_freq: int, clip_grad=None):
 
 def make_loader(dataset, args, batch_size, shuffle=True, drop_last=True,
                 repetitions=1, seed=None):
-    """A loader over one shard: shuffled full batches for training,
+    """A loader over this rank's shard (its data-parallel rank's):
+    shuffled full batches of ``batch_size`` (per replica) for training,
     ``shuffle=False, drop_last=False`` for evaluation."""
+    mesh = pm.current()
     sampler = ShardedSampler(
-        len(dataset), 1, 0, shuffle=shuffle,
+        len(dataset), mesh.dp, mesh.dp_rank, shuffle=shuffle,
         seed=args.seed if seed is None else seed, drop_last=False,
         repetitions=repetitions)
     return DataLoader(dataset, batch_size=int(batch_size), sampler=sampler,
@@ -130,13 +139,15 @@ def make_loader(dataset, args, batch_size, shuffle=True, drop_last=True,
 def lr_tables(args, niter_per_ep: int, num_sample: int = 1,
               scale_rule: bool = True):
     """Per-step LR/WD tables. With ``scale_rule`` (stages 1 and 3,
-    run_stage1.py:796-800) the lrs follow lr * batch * num_sample / 256 (one
-    card, so the total batch is --batch_size); stage 2 takes --lr as it is
-    (run_stage2.py:604). Families: cosine; constant, the step schedule
-    without milestones; step, decaying by --step_fraction at
-    --lr_step_epochs (run_stage2.py:656-667)."""
+    run_stage1.py:796-800) the lrs follow lr * total_batch * num_sample /
+    256, the total batch --batch_size x world // --tp as in unite_tpu
+    (common.py:176-178); stage 2 takes --lr as it is (run_stage2.py:604).
+    Families: cosine; constant, the step schedule without milestones; step,
+    decaying by --step_fraction at --lr_step_epochs
+    (run_stage2.py:656-667)."""
     if scale_rule:
-        lr, min_lr, warmup_lr = (scaled_lr(x, args.batch_size, num_sample)
+        total = args.batch_size * pm.process_count() // tp_ways(args)
+        lr, min_lr, warmup_lr = (scaled_lr(x, total, num_sample)
                                  for x in (args.lr, args.min_lr,
                                            args.warmup_lr))
     else:
@@ -236,11 +247,28 @@ def resume_best_acc(payload) -> float:
     return -1.0 if v is None else float(v)
 
 
-def step_seed(seed: int, step: int) -> int:
+def step_seed(seed: int, step: int, rank: int = 0) -> int:
     """The seed of a train step's random draws (drop path, the attention
     mask): a function of (seed, global step), so a resumed run draws what an
-    uninterrupted one does."""
-    return int(np.random.SeedSequence([seed, step]).generate_state(1)[0])
+    uninterrupted one does, and of the data-parallel ``rank``, so ranks draw
+    apart for their different clips (rank 0 draws what one process
+    does)."""
+    key = [seed, step] + ([rank] if rank else [])
+    return int(np.random.SeedSequence(key).generate_state(1)[0])
+
+
+def seeded_step(args, dev, step_fn):
+    """``step_fn(state, batch, gen)`` as ``step(state, batch)``, its
+    generator reseeded before each step from ``step_seed(seed + 1000,
+    state.step, data-parallel rank)``."""
+    gen = torch.Generator(device=dev)
+    rank = pm.current().dp_rank
+
+    def step(state, batch):
+        gen.manual_seed(step_seed(args.seed + 1000, state.step, rank))
+        return step_fn(state, batch, gen)
+
+    return step
 
 
 class PreemptionGuard:
@@ -403,6 +431,7 @@ def train_one_epoch(state, step_fn: Callable, batches: Iterable, epoch: int,
         last_metrics = host
     if preempt_guard is not None:
         preempt_guard.steps_done = step_i
+    logger.synchronize_between_processes()
     if array_sink:
         for k, chunks in array_sink.items():
             array_sink[k] = torch.cat(chunks).cpu().numpy()
@@ -487,8 +516,11 @@ def run_validation(state, eval_step, loader, batch_size: int, device,
     """Padded-batch validation (engine_for_finetuning.py:175-237): acc1,
     acc5, ECE and the mean cross-entropy over the real rows only (the loss
     recomputed on the host from their probabilities: the step's own mean
-    would count the padding). ``save_preds_path`` keeps preds.npy,
-    labels.npy and probs.npy."""
+    would count the padding), over every data-parallel rank's rows (their
+    probabilities, labels and loss sums gathered, unite_tpu
+    common.py:647-656; the sampler's padding repeats count, as there).
+    ``save_preds_path`` keeps preds.npy, labels.npy and probs.npy (rank
+    0)."""
     all_probs, all_labels = [], []
     loss_sum = n_total = 0.0
     for probs, labels_np, true_n, _ in _eval_batches(
@@ -499,6 +531,12 @@ def run_validation(state, eval_step, loader, batch_size: int, device,
         nll = -np.log(np.maximum(probs[np.arange(true_n), labels_np], 1e-30))
         loss_sum += float(nll.sum())
         n_total += true_n
+    if pm.current().distributed:
+        parts = pm.gather_objects((all_probs, all_labels, loss_sum, n_total))
+        all_probs = [x for p in parts for x in p[0]]
+        all_labels = [x for p in parts for x in p[1]]
+        loss_sum = float(sum(p[2] for p in parts))
+        n_total = float(sum(p[3] for p in parts))
     if n_total == 0:
         return {}
     probs = np.concatenate(all_probs)
@@ -511,7 +549,7 @@ def run_validation(state, eval_step, loader, batch_size: int, device,
     stats = {"acc1": float(top1), "acc5": float(top5), "ece": float(ece),
              "loss": loss_sum / n_total}
     print(f"{header}: acc1 {top1:.2f} acc5 {top5:.2f} ece {ece:.4f}")
-    if save_preds_path:
+    if save_preds_path and pm.is_main_process():
         os.makedirs(save_preds_path, exist_ok=True)
         np.save(os.path.join(save_preds_path, "preds.npy"), pred)
         np.save(os.path.join(save_preds_path, "labels.npy"), labels)
@@ -524,7 +562,9 @@ def collect_features(state, eval_step, loader, batch_size: int, device,
                      max_videos: int = 512, cast_bf16: bool = False):
     """Pooled encoder features [N, width] and labels [N] over a loader, from
     an eval step that returns ``feats``, stopping after the batch that
-    reaches ``max_videos``; empty arrays for an empty loader."""
+    reaches ``max_videos`` (on each rank); empty arrays for an empty loader.
+    Gathered over the data-parallel ranks (unite_tpu common.py:694-703), so
+    every rank holds the same bank."""
     feats, labels = [], []
     n = 0
     for f, lab, true_n, _ in _eval_batches(state, eval_step, loader,
@@ -536,6 +576,10 @@ def collect_features(state, eval_step, loader, batch_size: int, device,
         n += true_n
         if n >= max_videos:
             break
+    if pm.current().distributed:
+        parts = pm.gather_objects((feats, labels))
+        feats = [x for p in parts for x in p[0]]
+        labels = [x for p in parts for x in p[1]]
     if not feats:
         return np.zeros((0, 1), np.float32), np.zeros((0,), np.int64)
     return np.concatenate(feats), np.concatenate(labels)
@@ -563,26 +607,35 @@ def run_knn_probe(state, eval_step, train_loader, val_loader,
 def run_final_test(state, eval_step, dataset, args, batch_size: int,
                    output_dir: str, device, cast_bf16: bool = False) -> Dict:
     """Multi-view test (engine_for_finetuning.py:241-351): every view's
-    probabilities into ``{output_dir}/0.txt`` through ``write_preds_file``,
-    then ``merge`` averages each video's views into top-1 / top-5."""
+    probabilities into ``{output_dir}/{rank}.txt`` (one file a data-parallel
+    rank) through ``write_preds_file``, then rank 0's ``merge`` averages
+    each video's views over the files into top-1 / top-5; ``{}`` on the
+    other ranks, as in unite_tpu."""
+    mesh = pm.current()
     loader = make_loader(dataset, args, batch_size, shuffle=False,
                          drop_last=False)
-    path = os.path.join(output_dir, "0.txt")
-    if os.path.exists(path):
+    path = os.path.join(output_dir, f"{mesh.dp_rank}.txt")
+    writes = mesh.tp_rank == 0  # the other ranks of a TP group agree
+    if writes and os.path.exists(path):
         os.remove(path)
     for probs, labels, true_n, (vids, chunk_nb, split_nb) in _eval_batches(
             state, eval_step, loader, batch_size, device,
             cast_bf16=cast_bf16):
-        write_preds_file(path, [
-            (vids[i], probs[i], int(labels[i]), int(chunk_nb[i]),
-             int(split_nb[i])) for i in range(true_n)])
-    top1, top5 = merge(output_dir, 1)
+        if writes:
+            write_preds_file(path, [
+                (vids[i], probs[i], int(labels[i]), int(chunk_nb[i]),
+                 int(split_nb[i])) for i in range(true_n)])
+    pm.barrier()
+    if not pm.is_main_process():
+        return {}
+    top1, top5 = merge(output_dir, mesh.dp)
     print(f"Final test: top1 {top1:.2f} top5 {top5:.2f}")
     return {"test_acc1": top1, "test_acc5": top5}
 
 
 def save_epoch_stats(args, epoch: int, stats: Dict):
-    log_stats({"epoch": epoch, **stats}, args.output_dir)
+    if pm.is_main_process():
+        log_stats({"epoch": epoch, **stats}, args.output_dir)
 
 
 def finish(start_time: float, wandb_logger=None):

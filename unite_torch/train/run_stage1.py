@@ -11,7 +11,9 @@ resumed run replays the rest of the epoch bitwise.
 Run on the card: ``python -m unite_torch.train.run_stage1 --config
 configs/stage1_config.yaml --dataset hmdb-arid``; pass ``--device_normalize
 true`` to ship uint8 clips, and call ``main(args, device="cpu")`` for the
-plain CPU path.
+plain CPU path. On several cards: ``torchrun --nproc_per_node N -m
+unite_torch.train.run_stage1 ...`` (DDP; add --zero1, --fsdp or --tp K),
+``--batch_size`` clips a card (a tensor-parallel group).
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ from unite_torch.data.sharding import repetitions_to_match
 from unite_torch.engines.pretrain_umt import make_pretrain_train_step
 from unite_torch.ops.masking import n_visible_total
 from unite_torch.optim.factory import create_optimizer
+from unite_torch.parallel import mesh as pm
 from unite_torch.train import common
 from unite_torch.train.args import stage1_parser
 from unite_torch.train.train_state import TrainState
@@ -191,6 +194,7 @@ def main(args, device=None):
     lr_tab, wd_tab, peak_lr = common.lr_tables(args, niter_per_ep,
                                                args.num_sample)
     print(f"peak lr {peak_lr:.2e}, steps/epoch {niter_per_ep}")
+    layout = common.state_layout(args, student)  # before the optimizer
     tx, opt_groups = create_optimizer(
         args.opt, lr_tab, student, weight_decay=wd_tab,
         betas=common.betas_for(args), eps=args.opt_eps,
@@ -198,7 +202,7 @@ def main(args, device=None):
             max(int(i) for i in args.clip_return_layers),
             getattr(args, "freeze_clip_decoders", False)),
         mu_dtype=common.mu_dtype_for(args), device=dev)
-    state = TrainState(student, tx)
+    state = TrainState(student, tx, layout=layout)
 
     start_epoch, skip0 = args.start_epoch, 0
     if args.auto_resume or args.resume:
@@ -225,7 +229,6 @@ def main(args, device=None):
                         else "mixed"),
         clip_grad=args.clip_grad,
         clip_input_resolution=args.clip_input_resolution, device=dev)
-    gen = torch.Generator(device=dev)
 
     def batches(epoch):
         src_loader.set_epoch(epoch)
@@ -257,10 +260,7 @@ def main(args, device=None):
                 out["videos"] = out["videos"].to(torch.bfloat16)
             yield out
 
-    def wrapped_step(state, batch):
-        gen.manual_seed(common.step_seed(args.seed + 1000, state.step))
-        return step_fn(state, batch, gen)
-
+    wrapped_step = common.seeded_step(args, dev, step_fn)
     ckpt_io = ck.AsyncCheckpointer()  # epoch N+1 overlaps epoch N's write
     guard = common.PreemptionGuard(stop_after_steps=args.stop_after_steps)
     for epoch in range(start_epoch, args.epochs):
@@ -310,3 +310,4 @@ if __name__ == "__main__":
     parser.add_argument("--clip_init", default="",
                         help="extracted OpenAI CLIP visual .pth for the teacher")
     main(parse_with_config(parser, sys.argv[1:]))
+    pm.shutdown()

@@ -13,7 +13,8 @@ its attention runs through K3 forward and K4 backward on the card.
 Run on the card: ``python -m unite_torch.train.run_stage2 --config
 configs/stage2_config.yaml --dataset ucf-hmdb --finetune
 runs/stage1/.../checkpoint-latest.pth``; call ``main(args, device="cpu")``
-for the plain CPU path.
+for the plain CPU path. On several cards: ``torchrun --nproc_per_node N -m
+unite_torch.train.run_stage2 ...`` (DDP; add --zero1, --fsdp or --tp K).
 """
 
 from __future__ import annotations
@@ -35,6 +36,7 @@ from unite_torch.engines.finetune import (make_eval_step,
 from unite_torch.ops.eval_transforms import make_device_val_transform
 from unite_torch.ops.mixup import Mixup
 from unite_torch.optim.factory import create_optimizer, set_schedule_count
+from unite_torch.parallel import mesh as pm
 from unite_torch.train import common
 from unite_torch.train.args import stage2_parser
 from unite_torch.train.train_state import TrainState
@@ -171,6 +173,7 @@ def main(args, device=None):
                                                args.num_sample,
                                                scale_rule=False)
     print(f"peak lr {peak_lr:.2e}, steps/epoch {niter_per_ep}")
+    layout = common.state_layout(args, model)  # before the optimizer
     opt_groups: Dict = {}
 
     def build_tx(lp_phase: bool):
@@ -205,7 +208,7 @@ def main(args, device=None):
 
     ema_decay = args.model_ema_decay if args.model_ema else None
     state = TrainState(model, build_tx(start_epoch < args.lp_ft_epochs),
-                       ema_decay=ema_decay)
+                       ema_decay=ema_decay, layout=layout)
     if payload is not None:
         # sched_every_k maps the batch-counting step onto the tables'
         # optimizer steps in the fallback
@@ -250,12 +253,7 @@ def main(args, device=None):
                 out["videos"] = out["videos"].to(torch.bfloat16)
             yield out
 
-    gen = torch.Generator(device=dev)
-
-    def wrapped_step(state, batch):
-        gen.manual_seed(common.step_seed(args.seed + 1000, state.step))
-        return step_fn(state, batch, gen)
-
+    wrapped_step = common.seeded_step(args, dev, step_fn)
     best_acc = common.resume_best_acc(payload)
     ckpt_io = ck.AsyncCheckpointer()  # epoch N+1 overlaps epoch N's write
     guard = common.PreemptionGuard(stop_after_steps=args.stop_after_steps)
@@ -281,7 +279,8 @@ def main(args, device=None):
             # mid-epoch at this epoch already switched before it stopped.
             print(f"LP-FT: unfreezing all layers at epoch {epoch}")
             step_now, ema = state.step, state.ema_params
-            state = TrainState(model, build_tx(False), ema_decay=ema_decay)
+            state = TrainState(model, build_tx(False), ema_decay=ema_decay,
+                               layout=layout)
             state.step = step_now
             set_schedule_count(state.optimizer, step_now // args.update_freq)
             if args.model_ema and ema is not None:
@@ -349,7 +348,7 @@ def main(args, device=None):
 
     best = os.path.join(args.output_dir, f"checkpoint-best{ck.CKPT_EXT}")
     if args.test_best and os.path.exists(best):
-        model.load_state_dict(ck.load_checkpoint(best)["model"])
+        layout.load_state_dict(ck.load_checkpoint(best)["model"])
     test_stats = common.run_final_test(state, eval_fn, ds_test, args,
                                        args.batch_size_val, args.output_dir,
                                        dev, cast_bf16=cast_bf16)
@@ -362,3 +361,4 @@ def main(args, device=None):
 
 if __name__ == "__main__":
     main(parse_with_config(stage2_parser(), sys.argv[1:]))
+    pm.shutdown()

@@ -16,7 +16,9 @@ multi-view test and its merge.
 Run on the card: ``python -m unite_torch.train.run_stage3 --config
 configs/stage3_config.yaml --dataset arid-hmdb --student_init
 runs/stage2/.../checkpoint-best.pth --clip_text_features feats.npy``; call
-``main(args, device="cpu")`` for the plain CPU path.
+``main(args, device="cpu")`` for the plain CPU path. On several cards:
+``torchrun --nproc_per_node N -m unite_torch.train.run_stage3 ...`` (DDP;
+add --zero1, --fsdp or --tp K).
 """
 
 from __future__ import annotations
@@ -44,6 +46,7 @@ from unite_torch.models.clip_text import build_zero_shot_fn
 from unite_torch.models.layers import Linear
 from unite_torch.ops.eval_transforms import make_device_val_transform
 from unite_torch.optim.factory import create_optimizer
+from unite_torch.parallel import mesh as pm
 from unite_torch.train import common
 from unite_torch.train.args import stage3_parser
 from unite_torch.train.run_stage1 import (build_student, build_teacher,
@@ -64,13 +67,27 @@ def build_classifier(args, embed_dim: int, device=None) -> Linear:
         resolve_device(device))
 
 
-def combine(student: nn.Module, classifier: nn.Module) -> nn.ModuleDict:
-    """One module over both, the JAX state's {"model", "classifier"} tree:
-    parameter names ``model.encoder...`` and ``classifier.weight``."""
-    return nn.ModuleDict({"model": student, "classifier": classifier})
+class StudentClassifier(nn.Module):
+    """The student and the classifier as one module, the JAX state's
+    {"model", "classifier"} tree: parameter names ``model.encoder...`` and
+    ``classifier.weight``. A step's passes over them run inside one call,
+    ``module(run, *args)`` -> ``run(*args)``, so that a wrapper around the
+    module (DDP's hooks, an FSDP root's gather) sees one forward a step."""
+
+    def __init__(self, student: nn.Module, classifier: nn.Module):
+        super().__init__()
+        self.model, self.classifier = student, classifier
+
+    def forward(self, run, *args, **kwargs):
+        return run(*args, **kwargs)
 
 
-def trainable_mask(args, model: nn.ModuleDict) -> Dict[str, bool]:
+def combine(student: nn.Module, classifier: nn.Module) -> StudentClassifier:
+    """One module over both (``StudentClassifier``)."""
+    return StudentClassifier(student, classifier)
+
+
+def trainable_mask(args, model: nn.Module) -> Dict[str, bool]:
     """Parameter name -> trainable. The reference registers only the
     encoder with its optimizer, so the classifier is frozen: it keeps its
     gradient (it counts in the grad norm) and is not updated. The whole
@@ -86,7 +103,7 @@ def trainable_mask(args, model: nn.ModuleDict) -> Dict[str, bool]:
     return {name: decide(name) for name, _ in model.named_parameters()}
 
 
-def build_optimizer(args, model: nn.ModuleDict, lr, weight_decay,
+def build_optimizer(args, model: nn.Module, lr, weight_decay,
                     device=None):
     """AdamW over the combined module with the stage-3 mask: ``lr`` and
     ``weight_decay`` are per-step tables or constants. Returns (optimizer,
@@ -230,8 +247,9 @@ def main(args, device=None):
     print(f"peak lr {peak_lr:.2e}, steps/epoch {niter_per_ep}")
     # the whole encoder trains (the full-clip passes run every block), the
     # head stays as loaded (run_stage3.py:1264 never registers it)
+    layout = common.state_layout(args, model)  # before the optimizer
     tx, opt_groups = build_optimizer(args, model, lr_tab, wd_tab, dev)
-    state = TrainState(model, tx)
+    state = TrainState(model, tx, layout=layout)
 
     payload = None
     start_epoch, skip0 = args.start_epoch, 0
@@ -372,12 +390,7 @@ def main(args, device=None):
                 out["clip_sim"] = zero_shot_fn(out["videos_t"])
             yield out
 
-    gen = torch.Generator(device=dev)
-
-    def wrapped_step(state, batch):
-        gen.manual_seed(common.step_seed(args.seed + 1000, state.step))
-        return step_fn(state, batch, gen)
-
+    wrapped_step = common.seeded_step(args, dev, step_fn)
     best_acc = common.resume_best_acc(payload)
     ckpt_io = ck.AsyncCheckpointer()  # epoch N+1 overlaps epoch N's write
     guard = common.PreemptionGuard(stop_after_steps=args.stop_after_steps)
@@ -453,7 +466,7 @@ def main(args, device=None):
 
     best = os.path.join(args.output_dir, f"checkpoint-best{ck.CKPT_EXT}")
     if args.test_best and os.path.exists(best):
-        model.load_state_dict(ck.load_checkpoint(best)["model"])
+        layout.load_state_dict(ck.load_checkpoint(best)["model"])
     test_stats = common.run_final_test(state, eval_fn, ds_test, args,
                                        args.batch_size_val, args.output_dir,
                                        dev, cast_bf16=cast_bf16)
@@ -470,3 +483,4 @@ if __name__ == "__main__":
     parser.add_argument("--clip_init", default="", help="extracted OpenAI "
                         "CLIP visual .pth for the teacher")
     main(parse_with_config(parser, sys.argv[1:]))
+    pm.shutdown()

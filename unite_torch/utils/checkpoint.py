@@ -17,6 +17,14 @@ global ``step`` and, for a checkpoint written on preemption, the batches
 already consumed this epoch (``epoch_step``), from which a resumed run
 replays the rest of the epoch bitwise. Writes are atomic (tmp + fsync +
 rename), so a crash never corrupts an existing file.
+
+Across ranks (unite_tpu/utils/checkpoint.py:86, :144-180, :241-245) the
+payload is layout-independent: every tensor whole, by name. Under ZeRO-1,
+FSDP and tensor parallelism the pieces are gathered first, a collective
+every rank enters in the same order; only rank 0 keeps the snapshot and
+writes it, in the background as on one card. A restore slices each whole
+tensor to the rank's piece, so a checkpoint of any layout at any world size
+loads into any other, one process included.
 """
 
 from __future__ import annotations
@@ -29,6 +37,8 @@ import threading
 from typing import Any, Dict, Optional
 
 import torch
+
+from unite_torch.parallel.mesh import Layout, is_main_process, local_tensor
 
 CKPT_PREFIX = "checkpoint"
 CKPT_EXT = ".pth"
@@ -63,7 +73,10 @@ def save_checkpoint(output_dir: str, epoch: int, model_state,
                     args: Optional[dict] = None,
                     extra: Optional[Dict[str, Any]] = None,
                     tags=("latest",)) -> None:
-    """Serialize once, write under each tag ('latest', 'best', or epoch int)."""
+    """Serialize once, write under each tag ('latest', 'best', or epoch int);
+    rank 0 writes, the other ranks return."""
+    if not is_main_process():
+        return
     payload = {"model": _to_cpu(model_state), "optimizer": _to_cpu(optimizer),
                "epoch": int(epoch), "args": dict(args) if args else {}}
     if model_ema is not None:
@@ -109,31 +122,41 @@ def auto_load_model(output_dir: str, include_numbered: bool = True):
     return load_checkpoint(path)
 
 
-def _snapshot(state) -> Dict[str, Any]:
+def _layout(state) -> Layout:
+    """The state's layout; one process for a state that keeps none."""
+    return getattr(state, "layout", None) or Layout(state.model)
+
+
+def _snapshot(state) -> Optional[Dict[str, Any]]:
     """Copies of the train state's tensors (on their device: a CUDA copy is
-    queued on the stream, so later in-place updates cannot reach it): the
-    model's state dict, the optimizer's counts, moments by parameter name
-    and accumulated gradients, the EMA, and the global step."""
-    names = {id(p): n for n, p in state.model.named_parameters()}
+    queued on the stream, so later in-place updates cannot reach it), every
+    one whole: the model's state dict, the optimizer's counts, moments by
+    parameter name and accumulated gradients, the EMA, and the global step.
+    Collective under a distributed layout; None on every rank but 0."""
+    lay = _layout(state)
     opt = state.optimizer
+    named = lay.named_parameters()
+    moments = {n: {k: lay.full_moment(n, v)
+                   for k, v in opt.state[p].items()}
+               for n, p in named if opt.state.get(p)}
     optimizer = {"count": int(opt.count),
                  "schedule_count": int(opt.count)
                  + int(getattr(opt, "schedule_offset", 0)),
-                 "moments": {names[id(p)]: {k: v.clone()
-                                            for k, v in s.items()}
-                             for p, s in opt.state.items()}}
+                 "moments": moments}
     if opt.every_k > 1:
         optimizer["accumulation"] = {
             "mini_step": int(opt.mini_step),
-            "grads": {names[id(p)]: g.clone() for p, g in opt.acc.items()}}
-    return {
-        "model": {k: v.detach().clone()
-                  for k, v in state.model.state_dict().items()},
+            "grads": {n: lay.full_param(n, opt.acc[p])
+                      for n, p in named if p in opt.acc}}
+    snap = {
+        "model": lay.full_state_dict(),
         "optimizer": optimizer,
         "model_ema": (None if state.ema_params is None else
-                      {k: v.clone() for k, v in state.ema_params.items()}),
+                      {n: lay.full_param(n, v)
+                       for n, v in state.ema_params.items()}),
         "step": int(state.step),
     }
+    return snap if is_main_process() else None
 
 
 def _save_snapshot(output_dir: str, epoch: int, snap, args=None,
@@ -150,8 +173,11 @@ def save_train_state(output_dir: str, epoch: int, state, args=None,
                      tags=("latest",)) -> None:
     """Full-state checkpoint of a TrainState: model, optimizer, global step
     and EMA (the reference saves {model, optimizer, epoch, scaler, args,
-    model_ema}, utils.py:699-717; bf16 training has no scaler)."""
-    _save_snapshot(output_dir, epoch, _snapshot(state), args, extra, tags)
+    model_ema}, utils.py:699-717; bf16 training has no scaler). Every rank
+    calls it; rank 0 writes."""
+    snap = _snapshot(state)
+    if snap is not None:
+        _save_snapshot(output_dir, epoch, snap, args, extra, tags)
 
 
 class AsyncCheckpointer:
@@ -183,7 +209,9 @@ class AsyncCheckpointer:
                          extra: Optional[Dict[str, Any]] = None,
                          tags=("latest",)) -> None:
         self.wait()
-        snap = _snapshot(state)
+        snap = _snapshot(state)  # the collective part, on every rank
+        if snap is None:
+            return
 
         def _work():
             try:
@@ -206,16 +234,23 @@ def restore_train_state(state, payload: Dict[str, Any],
     model's parameters, only the schedule continues, at optimizer step
     ``step // sched_every_k`` (``state.step`` counts batches, the tables
     optimizer steps: stage 2 passes its --update_freq), with fresh moments
-    (unite_tpu's fallback). Returns ``state``, updated in place."""
+    (unite_tpu's fallback). Each whole tensor is sliced to this rank's
+    piece under a distributed layout. Returns ``state``, updated in
+    place."""
     from unite_torch.optim.factory import set_schedule_count
 
-    state.model.load_state_dict(payload["model"])
+    lay = _layout(state)
+    lay.load_state_dict(payload["model"])
     step = int((payload.get("extra") or {}).get("step", 0) or 0)
     opt = state.optimizer
     saved = payload.get("optimizer") or {}
-    params = dict(state.model.named_parameters())
+    params = dict(lay.named_parameters())
     moments = saved.get("moments", {})
     acc = saved.get("accumulation") or {}
+
+    def dev(name):
+        return local_tensor(params[name]).device
+
     if set(moments) <= set(params) and set(acc.get("grads", {})) <= set(
             params):
         opt.state.clear()
@@ -223,19 +258,21 @@ def restore_train_state(state, payload: Dict[str, Any],
             p = params[name]
             # the moments as the optimizer keeps them (a bf16 first moment
             # under --mu_dtype stays bf16, bit for bit)
-            opt.state[p] = {k: v.to(p.device, opt.moment_dtype(k, p))
-                            for k, v in mom.items()}
+            opt.state[p] = {k: lay.local_moment(name, v).to(
+                dev(name), opt.moment_dtype(k, p)).clone()
+                for k, v in mom.items()}
         opt.count = int(saved.get("count", step))
         set_schedule_count(opt, int(saved.get("schedule_count", opt.count)))
         opt.mini_step = int(acc.get("mini_step", 0))
-        opt.acc = {params[n]: g.to(params[n].device)
+        opt.acc = {params[n]: lay.local_param(n, g).to(dev(n)).clone()
                    for n, g in acc.get("grads", {}).items()}
     else:
         print("WARNING: optimizer state not restored (parameter names "
               "differ); continuing the schedule only")
         set_schedule_count(opt, step // max(1, int(sched_every_k)))
     if payload.get("model_ema") is not None and state.ema_params is not None:
-        state.ema_params = {k: v.to(state.ema_params[k].device)
-                            for k, v in payload["model_ema"].items()}
+        state.ema_params = {
+            k: lay.local_param(k, v).to(state.ema_params[k].device).clone()
+            for k, v in payload["model_ema"].items()}
     state.step = step
     return state

@@ -19,6 +19,8 @@ import os
 import time
 from typing import Optional
 
+from unite_torch.parallel.mesh import is_main_process
+
 
 class TensorboardLogger:
     """Explicit-step scalar writer (utils.py:426-447 API parity)."""
@@ -118,9 +120,10 @@ class WandbLogger:
 
 
 def maybe_wandb(args) -> Optional[WandbLogger]:
-    """Disabled by --disable_wandb or 'scrap' in output_dir
-    (run_stage1.py:634-637 policy); the port runs one process, rank 0."""
-    if getattr(args, "disable_wandb", True):
+    """Rank 0 only (unite_tpu/utils/logging.py:128); disabled by
+    --disable_wandb or 'scrap' in output_dir (run_stage1.py:634-637
+    policy)."""
+    if not is_main_process() or getattr(args, "disable_wandb", True):
         return None
     if "scrap" in (args.output_dir or ""):
         return None
@@ -128,8 +131,9 @@ def maybe_wandb(args) -> Optional[WandbLogger]:
 
 
 def maybe_tensorboard(args) -> Optional[TensorboardLogger]:
+    """Rank 0 only, under --log_dir."""
     log_dir = getattr(args, "log_dir", None)
-    if not log_dir:
+    if not log_dir or not is_main_process():
         return None
     try:
         return TensorboardLogger(log_dir)

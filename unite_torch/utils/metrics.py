@@ -39,6 +39,17 @@ class SmoothedValue:
         self.count += n
         self.total += value * n
 
+    def synchronize_between_processes(self):
+        """Sum [count, total] over the ranks (reference utils.py:233-249,
+        unite_tpu/utils/metrics.py:59-68); nothing without a process
+        group. The window stays this rank's."""
+        from unite_torch.parallel import mesh as pm
+
+        if not pm.current().distributed:
+            return
+        count, total = pm.all_reduce_sum([self.count, self.total])
+        self.count, self.total = int(count), float(total)
+
     @property
     def median(self):
         return float(np.median(self.deque)) if self.deque else 0.0
@@ -93,6 +104,10 @@ class MetricLogger:
 
     def add_meter(self, name, meter):
         self.meters[name] = meter
+
+    def synchronize_between_processes(self):
+        for meter in self.meters.values():
+            meter.synchronize_between_processes()
 
     def __str__(self):
         return self.delimiter.join(
