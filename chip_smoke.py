@@ -79,6 +79,23 @@ toolkit. In order:
    recomputed in the backward (--use_checkpoint): losses and every
    parameter bit-equal after 3 steps, K1 by shape exact (the student's 12
    a step become 24), both step times and peak memories;
+6b. the pretraining families: K1 at the masked CLIP teacher's
+   [512, 41, 2304] and K1/K2 at the VideoMAE encoder's [32, 160, 2304],
+   K3 (with lse), K4a and K4b at the VideoMAE decoder's [32, 1568, 1152]
+   with 6 heads (each of ``BWD_REPEATS`` backwards bit-equal to the
+   first), against their plain versions with timings beside SDPA's; one
+   VideoMAE step on the card in bf16 against the CPU in fp32 (B=2, full
+   width; the CPU step's operations counted by FlopCounterMode); then
+   ``videomae-b16-b32``: ``pretrain_videomae_base_patch16_224`` over 16
+   frames of 224^2, tubelet 2, per-clip tube masks of 0.9 (160 visible,
+   1408 masked), B=32, AdamW (betas 0.9, 0.95, wd 0.05, no clip), 2
+   warm-up and 5 timed steps of 12 K1 + 12 K2 + 8 K3 + 8 K4a + 8 K4b,
+   with clips/s, MFU and a profiled step; ``umt-pretrain-b64``:
+   ``pretrain_umt_base_patch16_224`` at 8 frames, tubelet 1, tube mask
+   0.8, taps 6-11, card against CPU at B=2, then forward and backward at
+   B=64 (12 K1 + 12 K2 at [64, 320] a pass); ``clip-masked``:
+   ``clip_b16`` with ``return_cls`` on the same masks, card against CPU at
+   B=2, then B=64 (12 K1 at [512, 41] a call);
 6a. ``native-decode``: the port's native decoder
    (unite_torch/native/videodec.cpp, g++, into build/unite_torch_native/)
    on 16 mp4v clips of 64 frames at 340x256 and a 16-frame JPEG folder
@@ -473,18 +490,20 @@ def expect_counts(counts: dict, want: dict, what: str) -> None:
 
 
 def check_kernels(torch, A, heads: int = HEADS, batches=(512, 64),
-                  tag: str = ""):
+                  tag: str = "", lengths=(197, 320)):
     """Phase 3: K1 at the teacher's [B, 197, 3*H*64] (forward only) and K1
     and K2 at the student's [B, 320, 3*H*64] against their plain versions,
     with timings; K2's repeats equal bit for bit. ViT-B/16 (12 heads) by
     default; ``tag`` "/l14" at the ViT-L/14 path's 16 heads and batches
-    (192 frames, 24 clips)."""
+    (192 frames, 24 clips); ``tag`` "/masked" at the masked CLIP
+    teacher's 41 tokens of 512 frames and the VideoMAE encoder's 160 tokens
+    of 32 clips (``lengths``)."""
     import torch.nn.functional as F
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     results = {}
-    for label, (b, s) in (("teacher", (batches[0], 197)),
-                          ("student", (batches[1], 320))):
+    for label, (b, s) in (("teacher", (batches[0], lengths[0])),
+                          ("student", (batches[1], lengths[1]))):
         qkv = torch.randn((b, s, 3 * heads * 64), generator=gen,
                           device="cuda").to(torch.bfloat16)
         with_lse = label == "student"  # the student trains, the teacher not
@@ -1305,22 +1324,25 @@ def profile_step(torch, run_step, dest_name: str) -> dict:
 
 
 def check_packed_kernels(torch, A, shapes=(("train", 8, True),
-                                           ("eval", 32, False)), tag=""):
+                                           ("eval", 32, False)), tag="",
+                         heads: int = HEADS, repeats: int = 0):
     """Phase 3, stage 2: K3 and K4 against their plain versions at the
     stage-2 shapes, with timings: ``shapes`` holds (label, batch, with lse);
     K4 runs at the "train" one. The stage-2 entry's phase passes its B=7
-    with ``tag`` "/b7"."""
+    with ``tag`` "/b7"; the VideoMAE decoder's, 6 ``heads`` at B=32 with
+    ``tag`` "/h6", where each of ``repeats`` K4 backwards must equal the
+    first bit for bit."""
     import torch.nn.functional as F
 
     gen = torch.Generator(device="cuda").manual_seed(4)
-    s, hd = STAGE2_TOKENS, HEADS * 64
+    s, hd = STAGE2_TOKENS, heads * 64
     results = {}
     for label, b, with_lse in shapes:
         qkv = torch.randn((b, s, 3 * hd), generator=gen,
                           device="cuda").to(torch.bfloat16)
-        out, lse = A.packed_flash_fwd(qkv, HEADS, SCALE, with_lse=with_lse)
+        out, lse = A.packed_flash_fwd(qkv, heads, SCALE, with_lse=with_lse)
         torch.cuda.synchronize()
-        ref, ref_lse = A.packed_flash_reference(qkv, HEADS, SCALE)
+        ref, ref_lse = A.packed_flash_reference(qkv, heads, SCALE)
         err = (out.float() - ref.float()).abs()
         if not bool(torch.isfinite(out).all()) or err.max().item() > FWD_TOL:
             raise AssertionError(f"K3 {label}: max abs err {err.max().item()}"
@@ -1331,19 +1353,20 @@ def check_packed_kernels(torch, A, shapes=(("train", 8, True),
                 raise AssertionError(f"K3 lse err {lse_err}")
             train = (qkv, out, lse)
         del ref, ref_lse
-        ms = median_ms(lambda: A.packed_flash_fwd(qkv, HEADS, SCALE,
-                                                  with_lse))
-        plain_ms = median_ms(lambda: A.packed_flash_reference(qkv, HEADS,
+        run = partial(A.packed_flash_fwd, qkv, heads, SCALE, with_lse)
+        ms, dev_ms = median_ms(run), device_ms(run)
+        plain_ms = median_ms(lambda: A.packed_flash_reference(qkv, heads,
                                                               SCALE))
-        q, k, v = (t.contiguous() for t in A._split_heads(qkv, HEADS))
-        lib_ms = median_ms(lambda: F.scaled_dot_product_attention(
-            q, k, v, scale=SCALE))
-        nbytes = b * s * 4 * hd * 2 + (b * HEADS * s * 4 if with_lse else 0)
-        bms, by = bound(nbytes, 4.0 * b * HEADS * s * s * 64)
+        q, k, v = (t.contiguous() for t in A._split_heads(qkv, heads))
+        sdpa = partial(F.scaled_dot_product_attention, q, k, v, scale=SCALE)
+        lib_ms, lib_dev_ms = median_ms(sdpa), device_ms(sdpa)
+        nbytes = b * s * 4 * hd * 2 + (b * heads * s * 4 if with_lse else 0)
+        bms, by = bound(nbytes, 4.0 * b * heads * s * s * 64)
         results[f"K3/{label}{tag}"] = dict(
             shape=[b, s, 3 * hd], max_abs_err=err.max().item(),
-            mean_abs_err=err.mean().item(), ms=ms, plain_ms=plain_ms,
-            bound_ms=bms, bound_by=by, library_ms=lib_ms,
+            mean_abs_err=err.mean().item(), ms=ms, device_ms=dev_ms,
+            plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=lib_ms,
+            library_device_ms=lib_dev_ms,
             library="scaled_dot_product_attention forward")
         print(f"K3 packed_flash_fwd {label}{tag} "
               f"{results[f'K3/{label}{tag}']}", flush=True)
@@ -1354,9 +1377,9 @@ def check_packed_kernels(torch, A, shapes=(("train", 8, True),
     qkv, out, lse = train
     b = qkv.shape[0]
     do = torch.randn(out.shape, generator=gen, device="cuda").to(torch.bfloat16)
-    dqkv = A.packed_flash_bwd(qkv, out, lse, do, HEADS, SCALE)
+    dqkv = A.packed_flash_bwd(qkv, out, lse, do, heads, SCALE)
     torch.cuda.synchronize()
-    ref = A.packed_flash_reference_bwd(qkv, out, lse, do, HEADS, SCALE).float()
+    ref = A.packed_flash_reference_bwd(qkv, out, lse, do, heads, SCALE).float()
     errs = {}
     for i, part in enumerate(("dq", "dk", "dv")):
         sl = slice(i * hd, (i + 1) * hd)
@@ -1366,19 +1389,24 @@ def check_packed_kernels(torch, A, shapes=(("train", 8, True),
             raise AssertionError(f"K4 {part}: max abs err {e} > {tol}")
         errs[part] = (e, tol)
     del ref
+    for i in range(repeats):
+        if not torch.equal(A.packed_flash_bwd(qkv, out, lse, do, heads,
+                                              SCALE), dqkv):
+            raise AssertionError(f"K4{tag}: repeat {i + 1} of {repeats} "
+                                 "differs from the first")
     buf = torch.empty_like(qkv)
-    delta = torch.empty((b, HEADS, s), dtype=torch.float32, device="cuda")
+    delta = torch.empty((b, heads, s), dtype=torch.float32, device="cuda")
     ms_dq = median_ms(lambda: A.packed_flash_dq(qkv, out, lse, do, buf, delta,
-                                                HEADS, SCALE))
+                                                heads, SCALE))
     ms_dkv = median_ms(lambda: A.packed_flash_dkv(qkv, do, lse, delta, buf,
-                                                  HEADS, SCALE))
+                                                  heads, SCALE))
     plain_dq = median_ms(lambda: A._packed_dq_reference(qkv, out, lse, do,
-                                                        HEADS, SCALE))
+                                                        heads, SCALE))
     plain_dkv = median_ms(lambda: A._packed_dkv_reference(qkv, lse, delta, do,
-                                                          HEADS, SCALE))
+                                                          heads, SCALE))
     q, k, v = (t.detach().contiguous().requires_grad_(True)
-               for t in A._split_heads(qkv, HEADS))
-    do_h = do.reshape(b, s, HEADS, 64).transpose(1, 2).contiguous()
+               for t in A._split_heads(qkv, heads))
+    do_h = do.reshape(b, s, heads, 64).transpose(1, 2).contiguous()
 
     def sdpa_fwd_bwd():
         F.scaled_dot_product_attention(q, k, v, scale=SCALE).backward(do_h)
@@ -1391,11 +1419,11 @@ def check_packed_kernels(torch, A, shapes=(("train", 8, True),
 
     bwd_ms, bwd_dev_ms = median_ms(sdpa_bwd), device_ms(sdpa_bwd)
     dev_dq = device_ms(lambda: A.packed_flash_dq(qkv, out, lse, do, buf, delta,
-                                                 HEADS, SCALE))
+                                                 heads, SCALE))
     dev_dkv = device_ms(lambda: A.packed_flash_dkv(qkv, do, lse, delta, buf,
-                                                   HEADS, SCALE))
+                                                   heads, SCALE))
     tok = b * s * hd * 2  # bytes of one [B, S, H*D] bf16 tensor
-    stat = b * HEADS * s * 4  # one fp32 row statistic
+    stat = b * heads * s * 4  # one fp32 row statistic
     # K4a reads qkv, o, do, lse and writes dq, delta: 3 products (s, dp,
     # dq); K4b reads qkv, do, lse, delta and writes dk, dv: 4 products
     for key, name, ms, dev, plain, nbytes, flops, e in (
@@ -1403,7 +1431,7 @@ def check_packed_kernels(torch, A, shapes=(("train", 8, True),
              errs["dq"]),
             ("K4b", "dkv", ms_dkv, dev_dkv, plain_dkv, 6 * tok + 2 * stat, 8.0,
              max(errs["dk"], errs["dv"]))):
-        bms, by = bound(nbytes, flops * b * HEADS * s * s * 64)
+        bms, by = bound(nbytes, flops * b * heads * s * s * 64)
         results[key + tag] = dict(
             shape=[b, s, 3 * hd], max_abs_err=e[0], tol=e[1], ms=ms,
             device_ms=dev, plain_ms=plain, bound_ms=bms, bound_by=by,
@@ -3479,6 +3507,318 @@ def stage2_recipe_entry(torch, A, finetune: Path, clips: list,
 
 # ------------------------------------------------------------- scale-out
 # (--tp, --zero1, --fsdp) of each layout the scale-out phases run
+# the VideoMAE pretraining cell (VideoMAE's ViT-B Kinetics recipe: 16
+# frames of 224^2, tubelet 2, tube mask 0.9, batch 32 a GPU, AdamW with
+# betas (0.9, 0.95) and weight decay 0.05, no gradient clip): 8 x 196
+# patches, 176 of each frame's 196 masked, so 160 visible tokens run the
+# encoder (K1/K2) and 1568 the 384-wide, 6-head decoder (K3/K4)
+MAE_FRAMES, MAE_TUBELET, MAE_MASK = 16, 2, 0.9
+MAE_GRID = (MAE_FRAMES // MAE_TUBELET, 14, 14)
+MAE_VISIBLE = MAE_GRID[0] * (196 - int(MAE_MASK * 196))  # 160
+MAE_HEADS = 6
+# the UMT pretrain student and the masked CLIP teacher: 8 frames of 224^2,
+# tubelet 1, tube mask 0.8 (40 of 196 patches a frame), six taps (6-11)
+UMT_MASK, UMT_TAPS = 0.8, 6
+UMT_VISIBLE = 8 * (196 - int(UMT_MASK * 196))  # 320
+
+
+def tube_batch(torch, b: int, seed: int, frames: int, grid, ratio: float):
+    """Seeded uint8 clips [b, frames, 224, 224, 3] and per-clip tube masks
+    as (vis_idx, mask_idx) (``engines.pretrain_videomae.mask_indices``)."""
+    import numpy as np
+
+    from unite_torch.engines.pretrain_videomae import mask_indices
+    from unite_torch.ops.masking import TubeMaskingGenerator
+
+    rng = np.random.default_rng(seed)
+    videos = rng.integers(0, 256, (b, frames, 224, 224, 3), dtype=np.uint8)
+    gen = TubeMaskingGenerator(grid, ratio)
+    vis, msk = mask_indices(np.stack([gen(rng) for _ in range(b)]))
+    return {"videos": torch.from_numpy(videos),
+            "vis_idx": torch.from_numpy(vis),
+            "mask_idx": torch.from_numpy(msk)}
+
+
+def videomae_clip_flops() -> float:
+    """Model operations of one clip's VideoMAE train step (forward and
+    backward as three forwards; matrix products and attention): the patch
+    embedding of all 1568 patches, 12 encoder blocks at 160 tokens, the
+    map to the decoder's width, 8 decoder blocks at 1568 tokens and the
+    head at the 1408 masked ones."""
+    from unite_torch.utils.flops import vit_block_flops
+
+    n = MAE_GRID[0] * 196
+    fwd = (2 * n * (MAE_TUBELET * 16 * 16 * 3) * 768
+           + 12 * vit_block_flops(MAE_VISIBLE, 768)
+           + 2 * MAE_VISIBLE * 768 * 384
+           + 8 * vit_block_flops(n, 384)
+           + 2 * (n - MAE_VISIBLE) * 384 * 1536)
+    return 3.0 * fwd
+
+
+def build_videomae(torch, b: int, dtype, device: str, state_dict=None):
+    """``pretrain_videomae_base_patch16_224`` with its optimizer and step
+    (the VideoMAE recipe above; lr 1.5e-4 scaled by the batch, cosine)."""
+    from unite_torch import create_model
+    from unite_torch.engines.pretrain_videomae import make_videomae_train_step
+    from unite_torch.optim.factory import create_optimizer
+    from unite_torch.train.train_state import TrainState
+    from unite_torch.utils.schedules import cosine_scheduler, scaled_lr
+
+    model = create_model("pretrain_videomae_base_patch16_224", device=device,
+                         dtype=dtype, num_frames=MAE_FRAMES,
+                         tubelet_size=MAE_TUBELET)
+    if state_dict is not None:
+        model.load_state_dict(state_dict)
+    lr_tab = cosine_scheduler(scaled_lr(1.5e-4, b), scaled_lr(1e-5, b), 20,
+                              100, start_warmup_value=scaled_lr(1e-6, b))
+    tx, _ = create_optimizer("adamw", lr_tab, model, weight_decay=0.05,
+                             betas=(0.9, 0.95), eps=1e-8, device=device)
+    step = make_videomae_train_step(model, patch_size=16,
+                                    tubelet_size=MAE_TUBELET, clip_grad=None,
+                                    device=device)
+    return TrainState(model, tx), step
+
+
+def videomae_card_vs_cpu(torch):
+    """One VideoMAE step on the card (bf16) against the CPU (fp32) at B=2,
+    full width: the same weights, clips and masks. The CPU step's
+    operations are counted by ``utils.flops.count_flops``
+    (FlopCounterMode; there the attention runs its plain versions)."""
+    from unite_torch.utils.flops import count_flops
+
+    torch.manual_seed(13)
+    cpu_state, cpu_step = build_videomae(torch, 2, torch.float32, "cpu")
+    sd = {k: v.clone() for k, v in cpu_state.model.state_dict().items()}
+    gpu_state, gpu_step = build_videomae(torch, 2, torch.bfloat16, "cuda", sd)
+    batch = tube_batch(torch, 2, 14, MAE_FRAMES, MAE_GRID, MAE_MASK)
+    from unite_torch.ops.normalize import normalize_videos
+
+    with torch.no_grad():
+        vids = normalize_videos(batch["videos"])
+        p_cpu = cpu_state.model.eval()(vids, batch["vis_idx"],
+                                       batch["mask_idx"])
+        p_gpu = gpu_state.model.eval()(
+            vids.cuda(), batch["vis_idx"].cuda(),
+            batch["mask_idx"].cuda()).float().cpu()
+    pred_rel = ((p_gpu - p_cpu).abs().max() / p_cpu.abs().max()).item()
+    m_gpu = {k: v.item() for k, v in gpu_step(gpu_state, batch).items()}
+    m_cpu = {}
+    counted = count_flops(lambda: m_cpu.update(
+        {k: v.item() for k, v in cpu_step(cpu_state, batch).items()}))
+    rel = {k: abs(m_gpu[k] - m_cpu[k]) / abs(m_cpu[k])
+           for k in ("loss", "grad_norm")}
+    rel["predictions"] = pred_rel
+    print(f"videomae step card bf16 vs cpu fp32 (B=2): card {m_gpu} cpu "
+          f"{m_cpu} rel {rel}; CPU step counted {counted} flop",
+          flush=True)
+    if not all(r <= STEP_RTOL for r in rel.values()):
+        raise AssertionError(f"videomae card step disagrees with the CPU: "
+                             f"{rel}")
+    return dict(rel, counted_flop_per_clip=None if counted is None
+                else counted / 2)
+
+
+def videomae_path(torch, A, counted_per_clip, b: int = 32,
+                  warmup: int = 2, timed: int = 5):
+    """Phase ``videomae-b16-b32``: the VideoMAE pixel-reconstruction step
+    at B=32 on pinned seeded uint8 clips (normalized on the card), each
+    step 12 K1 + 12 K2 at the encoder's [32, 160] and 8 K3 (with lse) + 8
+    K4a + 8 K4b at the decoder's [32, 1568] with 6 heads; a profiled
+    step. Its model FLOP utilization comes from the closed form
+    (``videomae_clip_flops``) and from ``counted_per_clip``, the CPU
+    step's count (None where it could not be taken)."""
+    torch.manual_seed(15)
+    state, step = build_videomae(torch, b, torch.bfloat16, "cuda")
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    batch = tube_batch(torch, b, 17, MAE_FRAMES, MAE_GRID, MAE_MASK)
+    batch["videos"] = batch["videos"].pin_memory()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(A)
+    metrics = [step(state, batch, gen) for _ in range(warmup)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(timed):
+        metrics.append(step(state, batch, gen))
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts, shapes = read_counts(A), read_shapes(A)
+    n = warmup + timed
+    vals = [(m["loss"].item(), m["grad_norm"].item()) for m in metrics]
+    print(f"videomae-b16-b32 losses/grad norms: {vals}", flush=True)
+    check_finite(vals)
+    expect_counts(counts, {"K1": 12 * n, "K2": 12 * n, "K3": 8 * n,
+                           "K3+lse": 8 * n, "K4a": 8 * n, "K4b": 8 * n},
+                  f"videomae-b16-b32, {n} steps")
+    want = {"K1": {(b, MAE_VISIBLE): 12 * n}, "K3": {(b, 1568): 8 * n}}
+    if shapes != want:
+        raise AssertionError(f"videomae-b16-b32: launches by (B, S) "
+                             f"{shapes}, expected {want}")
+    flops = b * videomae_clip_flops()
+    counted = None if counted_per_clip is None else b * counted_per_clip
+    res = dict(clips_per_s=b * timed / dt, step_ms=dt / timed * 1e3,
+               model_tflop_per_step=flops / 1e12,
+               model_flops_util=flops * timed / dt / PEAK_BF16,
+               counted_tflop_per_step=counted and counted / 1e12,
+               counted_flops_util=counted and counted * timed / dt / PEAK_BF16,
+               peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+               steps=n, visible_tokens=MAE_VISIBLE, launches=counts)
+    print(f"videomae-b16-b32 B={b}: {res} on {card_line()}", flush=True)
+    res["profile"] = profile_step(torch, lambda: step(state, batch, gen),
+                                  "chip_smoke_profile_videomae.json")
+    res["device_share_of_timed_step"] = (res["profile"]["device_ms"]
+                                         / res["step_ms"])
+    return res
+
+
+def umt_pretrain_model(torch, dtype, device: str, state_dict=None):
+    from unite_torch import create_model
+
+    model = create_model("pretrain_umt_base_patch16_224", device=device,
+                         dtype=dtype, num_frames=8, tubelet_size=1,
+                         clip_return_layer=UMT_TAPS,
+                         clip_student_return_interval=1)
+    if state_dict is not None:
+        model.load_state_dict(state_dict)
+    return model.train()
+
+
+def umt_pass(torch, model, batch, targets, device: str):
+    """Forward and the gradient of sum((out - t)^2) against seeded targets
+    (sum(out^2) alone is constant under the decoders' L2 norm): the
+    loss, the gradients' global norm and the outputs."""
+    from unite_torch.ops.normalize import normalize_videos
+    from unite_torch.train.train_state import global_grad_norm
+
+    model.zero_grad(set_to_none=True)
+    out = model(normalize_videos(batch["videos"].to(device)),
+                batch["vis_idx"].to(device))
+    loss = torch.sum((out.float() - targets.to(device)) ** 2)
+    loss.backward()
+    norm = global_grad_norm([p.grad for p in model.parameters()])
+    return loss.detach(), norm, out.detach()
+
+
+def umt_pretrain(torch, A, b: int = 64, timed: int = 3):
+    """Phase ``umt-pretrain-b64``: ``pretrain_umt_base_patch16_224`` at 8
+    frames, tubelet 1, tube mask 0.8 (320 visible tokens), taps 6-11: its
+    forward and backward at B=64 (12 K1 + 12 K2 at [64, 320] a pass,
+    finite outputs), and at B=2 on the card (bf16) against the CPU (fp32)
+    from the same weights, clips and masks."""
+    torch.manual_seed(18)
+    cpu = umt_pretrain_model(torch, torch.float32, "cpu")
+    sd = {k: v.clone() for k, v in cpu.state_dict().items()}
+    gpu = umt_pretrain_model(torch, torch.bfloat16, "cuda", sd)
+    small = tube_batch(torch, 2, 19, 8, (8, 14, 14), UMT_MASK)
+    gen = torch.Generator().manual_seed(20)
+    t_small = torch.randn((UMT_TAPS, 2, UMT_VISIBLE, 512), generator=gen)
+    l_cpu, n_cpu, o_cpu = umt_pass(torch, cpu, small, t_small, "cpu")
+    l_gpu, n_gpu, o_gpu = umt_pass(torch, gpu, small, t_small, "cuda")
+    rel = {"loss": abs(l_gpu.item() - l_cpu.item()) / abs(l_cpu.item()),
+           "grad_norm": abs(n_gpu.item() - n_cpu.item()) / abs(n_cpu.item())}
+    out_err = (o_gpu.float().cpu() - o_cpu).abs().max().item()
+    print(f"umt-pretrain card bf16 vs cpu fp32 (B=2): loss {l_gpu.item()} / "
+          f"{l_cpu.item()}, grad norm {n_gpu.item()} / {n_cpu.item()}, rel "
+          f"{rel}, x_clip max abs err {out_err}", flush=True)
+    if not all(r <= STEP_RTOL for r in rel.values()) or out_err > 5e-2:
+        raise AssertionError(f"umt-pretrain card pass disagrees with the "
+                             f"CPU: {rel}, x_clip err {out_err}")
+    del cpu
+    batch = tube_batch(torch, b, 21, 8, (8, 14, 14), UMT_MASK)
+    batch["videos"] = batch["videos"].pin_memory()
+    targets = torch.randn((UMT_TAPS, b, UMT_VISIBLE, 512), generator=gen,
+                          device="cpu").cuda()
+    umt_pass(torch, gpu, batch, targets, "cuda")  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(A)
+    t0 = time.perf_counter()
+    outs = [umt_pass(torch, gpu, batch, targets, "cuda")
+            for _ in range(timed)]
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts, shapes = read_counts(A), read_shapes(A)["K1"]
+    expect_counts(counts, {"K1": 12 * timed, "K2": 12 * timed},
+                  f"umt-pretrain-b64, {timed} passes")
+    if shapes != {(b, UMT_VISIBLE): 12 * timed}:
+        raise AssertionError(f"umt-pretrain-b64: K1 by (B, S) {shapes}")
+    out = outs[-1][2]
+    if out.shape != (UMT_TAPS, b, UMT_VISIBLE, 512) or not bool(
+            torch.isfinite(out).all()):
+        raise AssertionError(f"umt-pretrain-b64: output {tuple(out.shape)} "
+                             "not finite or of the wrong shape")
+    check_finite([(l.item(), g.item()) for l, g, _ in outs])
+    res = dict(card_vs_cpu_rel=rel, x_clip_max_abs_err=out_err,
+               pass_ms=dt / timed * 1e3,
+               clips_per_s=b * timed / dt,
+               peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+               passes=timed, launches=counts)
+    print(f"umt-pretrain-b64 B={b}: {res} on {card_line()}", flush=True)
+    del gpu, outs, out
+    torch.cuda.empty_cache()
+    return res
+
+
+def clip_masked(torch, A, b: int = 64, timed: int = 3):
+    """Phase ``clip-masked``: the ``clip_b16`` teacher with ``return_cls``
+    on a tube mask of 0.8 over 8 frames of 224^2 (40 of 196 patches a
+    frame): at B=64, 12 K1 at [512, 41] a forward, finite features and CLS
+    rows; at B=2 on the card (bf16) against the CPU (fp32)."""
+    from unite_torch import create_model
+    from unite_torch.ops.normalize import normalize_videos
+
+    def teacher(dtype, device, sd=None):
+        m = create_model("clip_b16", device=device, dtype=dtype,
+                         input_resolution=224, return_cls=True,
+                         return_index=tuple(range(6, 12)))
+        if sd is not None:
+            m.load_state_dict(sd)
+        return m.eval()
+
+    def forward(m, batch, device):
+        with torch.no_grad():
+            return m(normalize_videos(batch["videos"].to(device)),
+                     vis_idx=batch["vis_idx"].to(device))
+
+    torch.manual_seed(22)
+    cpu = teacher(torch.float32, "cpu")
+    gpu = teacher(torch.bfloat16, "cuda", cpu.state_dict())
+    small = tube_batch(torch, 2, 23, 8, (8, 14, 14), UMT_MASK)
+    (z_c, cls_c), (z_g, cls_g) = (forward(cpu, small, "cpu"),
+                                  forward(gpu, small, "cuda"))
+    rel = {name: ((g.float().cpu() - c).abs().max() / c.abs().max()).item()
+           for name, g, c in (("z", z_g, z_c), ("cls", cls_g, cls_c))}
+    print(f"clip-masked card bf16 vs cpu fp32 (B=2): rel {rel}", flush=True)
+    if not all(r <= STEP_RTOL for r in rel.values()):
+        raise AssertionError(f"clip-masked disagrees with the CPU: {rel}")
+    del cpu
+    batch = tube_batch(torch, b, 24, 8, (8, 14, 14), UMT_MASK)
+    batch["videos"] = batch["videos"].pin_memory()
+    forward(gpu, batch, "cuda")  # warm-up
+    torch.cuda.synchronize()
+    reset_counts(A)
+    t0 = time.perf_counter()
+    outs = [forward(gpu, batch, "cuda") for _ in range(timed)]
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = read_counts(A)
+    expect_counts(counts, {"K1": 12 * timed}, f"clip-masked, {timed} calls")
+    expect_k1_shapes(A, {(8 * b, 41): 12 * timed}, "clip-masked")
+    z, cls = outs[-1]
+    if (z.shape != (UMT_TAPS, b, UMT_VISIBLE, 512) or cls.shape != (8 * b, 768)
+            or not bool(torch.isfinite(z).all())
+            or not bool(torch.isfinite(cls).all())):
+        raise AssertionError(f"clip-masked: z {tuple(z.shape)}, cls "
+                             f"{tuple(cls.shape)}, or not finite")
+    res = dict(card_vs_cpu_rel=rel, call_ms=dt / timed * 1e3,
+               clips_per_s=b * timed / dt, calls=timed, launches=counts)
+    print(f"clip-masked B={b}: {res} on {card_line()}", flush=True)
+    del gpu, outs, z, cls
+    torch.cuda.empty_cache()
+    return res
+
+
 LAYOUT_FLAGS = {"ddp": (1, False, False), "zero1": (1, True, False),
                 "fsdp": (1, False, True), "tp2": (2, False, False)}
 ENTRY_LAYOUT_ARGS = {"ddp": [], "zero1": ["--zero1", "true"],
@@ -4172,6 +4512,17 @@ def main() -> int:
     remat = stage1_remat(torch, A)
     torch.cuda.empty_cache()
     mark("stage-1 paths")
+    kr.update(check_kernels(torch, A, batches=(8 * 64, 32),
+                            lengths=(41, MAE_VISIBLE), tag="/masked"))
+    kr.update(check_packed_kernels(torch, A, shapes=(("train", 32, True),),
+                                   tag="/h6", heads=MAE_HEADS,
+                                   repeats=BWD_REPEATS))
+    mae_rel = videomae_card_vs_cpu(torch)
+    mae = videomae_path(torch, A, mae_rel["counted_flop_per_clip"])
+    torch.cuda.empty_cache()
+    umt = umt_pretrain(torch, A)
+    clipm = clip_masked(torch, A)
+    mark("videomae-b16-b32, umt-pretrain-b64, clip-masked")
     # each entry's output stays until the next stage's entry has read it
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as work:
         work = Path(work)
@@ -4353,6 +4704,30 @@ def main() -> int:
                "tools/quant_kernel_probe.py:22",
                l14q["k7a_by_shape"][f"{m}x{k}x{n}"])
               for layer, (m, k, n) in L14_DENSE.items()),
+            ("K1/student/masked", "fused_qkv_fwd[videomae-b16-b32 encoder "
+             f"B=32 S={MAE_VISIBLE}]", "unite_torch/csrc/short_attn_wgmma.cu",
+             "unite_tpu/ops/attention.py:678", mae["launches"]["K1"]),
+            ("K2/student/masked", "fused_qkv_bwd[videomae-b16-b32 encoder "
+             f"B=32 S={MAE_VISIBLE}]", "unite_torch/csrc/short_bwd_wgmma.cu",
+             "unite_tpu/ops/attention.py:773", mae["launches"]["K2"]),
+            ("K3/train/h6", "packed_flash_fwd[videomae-b16-b32 decoder B=32 "
+             "S=1568 H=6]", "unite_torch/csrc/flash_fwd_wgmma.cu",
+             "unite_tpu/ops/attention.py:913", mae["launches"]["K3+lse"]),
+            ("K4a/h6", "packed_flash_dq[videomae-b16-b32 decoder B=32 S=1568 "
+             "H=6]", "unite_torch/csrc/flash_bwd_wgmma.cu",
+             "unite_tpu/ops/attention.py:983", mae["launches"]["K4a"]),
+            ("K4b/h6", "packed_flash_dkv[videomae-b16-b32 decoder B=32 "
+             "S=1568 H=6]", "unite_torch/csrc/flash_bwd_wgmma.cu",
+             "unite_tpu/ops/attention.py:1014", mae["launches"]["K4b"]),
+            ("K1/student", "fused_qkv_fwd[umt-pretrain-b64 student B=64 "
+             "S=320]", "unite_torch/csrc/short_attn_wgmma.cu",
+             "unite_tpu/ops/attention.py:678", umt["launches"]["K1"]),
+            ("K2/student", "fused_qkv_bwd[umt-pretrain-b64 student B=64 "
+             "S=320]", "unite_torch/csrc/short_bwd_wgmma.cu",
+             "unite_tpu/ops/attention.py:773", umt["launches"]["K2"]),
+            ("K1/teacher/masked", "fused_qkv_fwd[clip-masked teacher B=512 "
+             "S=41]", "unite_torch/csrc/short_attn_wgmma.cu",
+             "unite_tpu/ops/attention.py:678", clipm["launches"]["K1"]),
             ("K7b/probe", "bf16_matmul[probe 38400x768x3072]",
              "unite_torch/csrc/blocked_matmul_wgmma.cu",
              "tools/quant_kernel_probe.py:53", probe["launches"]["K7b"]),
@@ -4395,7 +4770,9 @@ def main() -> int:
                       "stage1_m075_card_vs_cpu_rel": m075_rel,
                       "stage1_entry": entry, "stage2_entry": entry2,
                       "native_decode": decode, "stage1_remat": remat,
-                      "stage2_recipe": recipe,
+                      "stage2_recipe": recipe, "videomae_step": mae,
+                      "videomae_card_vs_cpu_rel": mae_rel,
+                      "umt_pretrain": umt, "clip_masked": clipm,
                       "stage3_entry": entry3,
                       "scaleout_nccl": scale, "scaleout_step_b64": scale_b64,
                       "scaleout_gloo_2on1": gloo,

@@ -1,3 +1,9 @@
 """Model families; importing this module registers them."""
 
-from unite_torch.models import adaptation, clip, vit  # noqa: F401
+from unite_torch.models import (  # noqa: F401
+    adaptation,
+    clip,
+    pretrain_umt,
+    pretrain_videomae,
+    vit,
+)

@@ -5,7 +5,10 @@ no bias, a class token and 2-D positional embedding, ``ln_pre``, residual
 blocks with QuickGELU and a full qkv bias, taps at ``return_index`` layers
 and, on request, the last layer's head-averaged CLS->patch attention row.
 With ``cls_features`` it is the image encoder of the stage-3 zero-shot
-teacher: the per-frame L2-normed ``ln_post(cls) @ proj``. With ``quantize``
+teacher: the per-frame L2-normed ``ln_post(cls) @ proj``. With ``vis_idx``
+it is the masked teacher: only the visible patch tokens run, refolded to
+per-frame sequences behind their CLS (40 + 1 tokens a frame at mask 0.8);
+``return_cls`` also returns the last layer's CLS tokens. With ``quantize``
 the four dense layers of each block (``in_proj``, ``out_proj``,
 ``mlp.c_fc``, ``mlp.c_proj``) are int8 (``ops.quant``); their weights come
 from a state dict or from ``quantize_clip_`` on an fp32 tower.
@@ -28,6 +31,7 @@ from unite_torch.models.layers import (
     LayerNorm,
     Linear,
     TubeletProjection,
+    gather_tokens,
     layer_norm,
     patchify,
 )
@@ -135,13 +139,15 @@ class CLIPVisionTransformer(nn.Module):
                  output_dim: int = 512, clip_norm_type: str = "l2",
                  kernel_size: int = 1, return_attn: bool = False,
                  return_index: Sequence[int] = (6, 7, 8, 9, 10, 11),
-                 dtype=torch.float32, quantize: bool = False):
+                 return_cls: bool = False, dtype=torch.float32,
+                 quantize: bool = False):
         super().__init__()
         if clip_norm_type not in ("l2", "none"):
             raise NotImplementedError(clip_norm_type)
         self.input_resolution, self.patch_size = input_resolution, patch_size
         self.width, self.kernel_size = width, kernel_size
         self.clip_norm_type, self.return_attn = clip_norm_type, return_attn
+        self.return_cls = return_cls
         self.return_index = tuple(int(i) for i in return_index)
         self.dtype, self.quantize = dtype, quantize
         hw = (input_resolution // patch_size) ** 2
@@ -156,18 +162,28 @@ class CLIPVisionTransformer(nn.Module):
         self.ln_post = LayerNorm(width, 1e-5)
         self.proj = nn.Parameter(torch.randn(width, output_dim) * std)
 
-    def forward(self, x, raw_taps: bool = False, cls_features: bool = False):
-        """x [B, T, H, W, 3] -> z, or (z, attn) when ``return_attn``.
+    def forward(self, x, raw_taps: bool = False, cls_features: bool = False,
+                vis_idx=None):
+        """x [B, T, H, W, 3] -> z, then attn when ``return_attn``, then cls
+        when ``return_cls`` (a tuple when more than z).
 
         ``cls_features``: the image-encoder mode (unite_tpu ``cls_features``,
         OpenAI ``encode_image``): only the per-frame L2-normed
         ``ln_post(cls) @ proj``, fp32 [B*T', output_dim], from all layers,
         with no taps and no attention row.
 
-        z: [K, B, T'*HW, output_dim] L2-normed features, or with
-        ``raw_taps`` the tap stack before ln_post/proj/L2 [K, B, T'*HW, width]
-        (CLS stripped), for ``project_clip_taps`` after a visible gather.
-        attn: [B*T', HW] last-layer head-averaged CLS->patch probabilities.
+        ``vis_idx`` [B, N_vis] (the masked teacher): visible-token indices
+        over the whole video's T'*HW patch grid, N_vis a multiple of T';
+        after ``ln_pre`` the other patch tokens are dropped and each frame
+        runs 1 + N_vis/T' tokens, its CLS first.
+
+        z: [K, B, T'*HW_vis, output_dim] L2-normed features, or with
+        ``raw_taps`` the tap stack before ln_post/proj/L2
+        [K, B, T'*HW_vis, width] (CLS stripped), for ``project_clip_taps``
+        after a visible gather.
+        attn: [B*T', HW] last-layer head-averaged CLS->patch probabilities,
+        None with ``vis_idx``.
+        cls: [B*T', width] the last layer's CLS tokens.
         """
         r = self.input_resolution
         if tuple(x.shape[-3:-1]) != (r, r):
@@ -184,11 +200,21 @@ class CLIPVisionTransformer(nn.Module):
         cls = self.class_embedding.to(x.dtype).expand(b * t, 1, self.width)
         x = torch.cat([cls, x], dim=1) + self.positional_embedding.to(x.dtype)
         x = self.ln_pre(x)
+        hw_vis = hw
+        if vis_idx is not None:
+            # drop the masked patches over the whole video's grid, then
+            # refold to per-frame sequences behind each frame's CLS
+            patches = gather_tokens(x[:, 1:].reshape(b, t * hw, self.width),
+                                    vis_idx)
+            hw_vis = patches.shape[1] // t
+            x = torch.cat([x[:, :1], patches.reshape(b * t, hw_vis,
+                                                     self.width)], dim=1)
 
         taps, attn = [], None
         blocks = self.transformer.resblocks
         for i, blk in enumerate(blocks):
-            if self.return_attn and i == len(blocks) - 1 and not cls_features:
+            if (self.return_attn and i == len(blocks) - 1 and vis_idx is None
+                    and not cls_features):
                 x, probs = blk(x, cls_probs=True)
                 attn = probs[:, 1:]
             else:
@@ -199,10 +225,15 @@ class CLIPVisionTransformer(nn.Module):
         if cls_features:
             return project_clip_taps(self, x[:, 0], "l2", torch.float32)
         z = torch.stack(taps)[:, :, 1:, :]  # strip CLS
-        z = z.reshape(z.shape[0], b, t * hw, self.width)
+        z = z.reshape(z.shape[0], b, t * hw_vis, self.width)
         if not raw_taps:
             z = project_clip_taps(self, z, self.clip_norm_type, self.dtype)
-        return (z, attn) if self.return_attn else z
+        outs = [z]
+        if self.return_attn:
+            outs.append(attn)
+        if self.return_cls:
+            outs.append(x[:, 0])
+        return outs[0] if len(outs) == 1 else tuple(outs)
 
 
 def project_clip_taps(teacher: CLIPVisionTransformer, taps,

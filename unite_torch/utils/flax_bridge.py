@@ -1,14 +1,16 @@
 """Carry weights from a flax param tree (nested dict of numpy arrays) into
 the port's ``state_dict`` names.
 
-Students and ViTs take the keys of unite_tpu/utils/torch_export.py
-(``blocks_N`` -> ``blocks.N``, LayerNorm ``scale`` -> ``weight``, Dense
-``kernel`` [in, out] -> ``weight`` [out, in], the patch-embed kernel
-[kt*kh*kw*C, D] -> Conv3d ``weight`` [D, C, kt, kh, kw]); an adaptation
-student's ``cls_token`` and learnable ``pos_embed`` keep their names
-(``encoder.cls_token``). CLIP takes the OpenAI visual tower's keys, the
-inverse of unite_tpu/utils/torch_import.py::clip_key_to_flax, and the text
-tower's (``token_embedding.weight``, ``ln_final``, ``attn.in_proj_*``), the
+Students (ViTs, adaptation and UMT students, VideoMAE) take the keys of
+unite_tpu/utils/torch_export.py (``blocks_N`` -> ``blocks.N``, LayerNorm
+``scale`` -> ``weight``, Dense ``kernel`` [in, out] -> ``weight``
+[out, in], the patch-embed kernel [kt*kh*kw*C, D] -> Conv3d ``weight``
+[D, C, kt, kh, kw]); an adaptation student's ``cls_token`` and learnable
+``pos_embed`` keep their names (``encoder.cls_token``), as does VideoMAE's
+``mask_token``; a leaf outside that layout raises. CLIP takes the OpenAI
+visual tower's keys, the inverse of
+unite_tpu/utils/torch_import.py::clip_key_to_flax, and the text tower's
+(``token_embedding.weight``, ``ln_final``, ``attn.in_proj_*``), the
 inverse of unite_tpu/models/clip_text.py::text_state_to_flax_params. An
 int8 CLIP tree (unite_tpu ``quantize_clip_params``) maps its dense layers'
 ``kernel_q`` [in, out] int8 to the int8 ``weight`` [out, in] and
@@ -52,13 +54,49 @@ def conv3d_weight(kernel: np.ndarray, patch_size: int,
     return w.transpose(4, 3, 0, 1, 2)
 
 
+# the reference students' module and leaf names: ViTs, adaptation and UMT
+# students (``encoder``, ``clip_decoder.N``), VideoMAE (``decoder``,
+# ``encoder_to_decoder``, ``mask_token``)
+STUDENT_MODULES = frozenset((
+    "encoder", "decoder", "encoder_to_decoder", "patch_embed", "proj",
+    "blocks", "norm1", "norm2", "attn", "qkv", "mlp", "fc1", "fc2", "norm",
+    "fc_norm", "head", "clip_decoder"))
+STUDENT_LEAVES = frozenset((
+    "weight", "bias", "cls_token", "pos_embed", "q_bias", "v_bias",
+    "gamma_1", "gamma_2", "mask_token"))
+_FLAX_LEAVES = {"scale": "weight", "kernel": "weight"}
+
+
+def student_key_ok(key: str) -> bool:
+    """Whether a dotted key is a reference student's parameter name: known
+    module names (an index only after ``blocks`` or ``clip_decoder``) and a
+    known leaf."""
+    parts = key.split(".")
+    if parts[-1] not in STUDENT_LEAVES:
+        return False
+    prev = None
+    for p in parts[:-1]:
+        if p.isdigit():
+            if prev not in ("blocks", "clip_decoder"):
+                return False
+        elif p not in STUDENT_MODULES:
+            return False
+        prev = p
+    return True
+
+
 def student_key(path: Tuple[str, ...], arr: np.ndarray, patch_size: int,
                 in_chans: int = 3) -> Tuple[str, np.ndarray]:
+    """A student's flax (path, array) -> (port key, array); a path outside
+    the reference layout raises."""
     parts = []
     for p in path:
         m = _INDEXED.match(p)
         parts.extend(m.groups() if m else (p,))
     leaf = parts[-1]
+    if not student_key_ok(".".join(parts[:-1] + [_FLAX_LEAVES.get(leaf,
+                                                                  leaf)])):
+        raise ValueError(f"unhandled student param: {'/'.join(path)}")
     if leaf == "scale":
         parts[-1] = "weight"
     elif leaf == "kernel":
@@ -116,8 +154,8 @@ def flax_to_state_dict(params: dict, *, kind: str = "student",
                        patch_size: int = 16) -> Dict[str, torch.Tensor]:
     """Nested flax params -> flat state dict of fp32 (int8 for quantized
     weights) CPU tensors in the port's names. ``kind`` is "student"
-    (adaptation students, ViTs) or "clip" (the visual and the text
-    tower)."""
+    (adaptation and UMT students, ViTs, VideoMAE) or "clip" (the visual
+    and the text tower)."""
     if kind not in ("student", "clip"):
         raise ValueError(f"kind must be 'student' or 'clip', got {kind!r}")
     state = {}
