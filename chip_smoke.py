@@ -96,6 +96,19 @@ toolkit. In order:
    B=64 (12 K1 + 12 K2 at [64, 320] a pass); ``clip-masked``:
    ``clip_b16`` with ``return_cls`` on the same masks, card against CPU at
    B=2, then B=64 (12 K1 at [512, 41] a call);
+6c. head dim 80: K1/K2 at the huge VideoMAE encoder's [16, 160, 3840] (16
+   heads of 80 lanes) and K3 (with lse), K4a and K4b at its decoder's
+   [16, 1568, 1920] (8 heads of 80), each of ``BWD_REPEATS`` backwards
+   bit-equal to the first, with timings beside SDPA's; the short forward
+   and backward sweeps (K1 up to its guard of 512, K2 likewise) and the
+   K3/K4 sweeps over ``SWEEP_LENGTHS``, packed lanes, at 2 and 8 heads;
+   one step of ``pretrain_videomae_huge_patch16_224`` at full widths cut
+   to 4 encoder and 2 decoder blocks on the card in bf16 against the CPU
+   in fp32 (B=2); then ``videomae-h16-b16``: the huge model at full width
+   and depth (32 x 1280 encoder, 8 x 640 decoder) on the base cell's
+   clips and masks at B=16, 2 warm-up and 3 timed steps of 32 K1 + 32 K2
+   at [16, 160] and 8 K3 + 8 K4a + 8 K4b at [16, 1568], exact by shape,
+   with clips/s, MFU, peak memory and a profiled step;
 6a. ``native-decode``: the port's native decoder
    (unite_torch/native/videodec.cpp, g++, into build/unite_torch_native/)
    on 16 mp4v clips of 64 frames at 340x256 and a 16-frame JPEG folder
@@ -490,21 +503,24 @@ def expect_counts(counts: dict, want: dict, what: str) -> None:
 
 
 def check_kernels(torch, A, heads: int = HEADS, batches=(512, 64),
-                  tag: str = "", lengths=(197, 320)):
-    """Phase 3: K1 at the teacher's [B, 197, 3*H*64] (forward only) and K1
-    and K2 at the student's [B, 320, 3*H*64] against their plain versions,
-    with timings; K2's repeats equal bit for bit. ViT-B/16 (12 heads) by
-    default; ``tag`` "/l14" at the ViT-L/14 path's 16 heads and batches
-    (192 frames, 24 clips); ``tag`` "/masked" at the masked CLIP
+                  tag: str = "", lengths=(197, 320), head_dim: int = 64):
+    """Phase 3: K1 at the teacher's [B, 197, 3*H*D] (forward only) and K1
+    and K2 at the student's [B, 320, 3*H*D] against their plain versions,
+    with timings; K2's repeats equal bit for bit. ViT-B/16 (12 heads of
+    64) by default; ``tag`` "/l14" at the ViT-L/14 path's 16 heads and
+    batches (192 frames, 24 clips); ``tag`` "/masked" at the masked CLIP
     teacher's 41 tokens of 512 frames and the VideoMAE encoder's 160 tokens
-    of 32 clips (``lengths``)."""
+    of 32 clips (``lengths``); ``tag`` "/d80" at the huge VideoMAE
+    encoder's 16 heads of ``head_dim`` 80, [16, 160, 3840]. The softmax
+    scale is head_dim^-0.5."""
     import torch.nn.functional as F
 
+    SCALE = head_dim ** -0.5
     gen = torch.Generator(device="cuda").manual_seed(0)
     results = {}
     for label, (b, s) in (("teacher", (batches[0], lengths[0])),
                           ("student", (batches[1], lengths[1]))):
-        qkv = torch.randn((b, s, 3 * heads * 64), generator=gen,
+        qkv = torch.randn((b, s, 3 * heads * head_dim), generator=gen,
                           device="cuda").to(torch.bfloat16)
         with_lse = label == "student"  # the student trains, the teacher not
         out, lse = A.fused_qkv_fwd(qkv, heads, SCALE, with_lse=with_lse)
@@ -537,12 +553,12 @@ def check_kernels(torch, A, heads: int = HEADS, batches=(512, 64),
         # yardstick of the short forward's design
         flash = partial(A.packed_flash_fwd, qkv, heads, SCALE, with_lse)
         flash_ms, flash_dev_ms = median_ms(flash), device_ms(flash)
-        nbytes = b * s * 4 * heads * 64 * 2 + (b * heads * s * 4 if with_lse
-                                               else 0)
-        bms, by = bound(nbytes, 4.0 * b * heads * s * s * 64)
+        nbytes = b * s * 4 * heads * head_dim * 2 + (
+            b * heads * s * 4 if with_lse else 0)
+        bms, by = bound(nbytes, 4.0 * b * heads * s * s * head_dim)
         key = f"K1/{label}{tag}"
         results[key] = dict(
-            shape=[b, s, 3 * heads * 64], max_abs_err=err.max().item(),
+            shape=[b, s, 3 * heads * head_dim], max_abs_err=err.max().item(),
             mean_abs_err=err.mean().item(), lse_err=lse_err, ms=ms,
             device_ms=dev_ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
             library_ms=lib_ms, library_device_ms=lib_dev_ms,
@@ -578,7 +594,7 @@ def check_kernels(torch, A, heads: int = HEADS, batches=(512, 64),
     flash_ms, flash_dev_ms = median_ms(flash), device_ms(flash)
     q, k, v = (t.detach().contiguous().requires_grad_(True)
                for t in A._split_heads(qkv, heads))
-    do_h = do.reshape(b, s, heads, 64).transpose(1, 2).contiguous()
+    do_h = do.reshape(b, s, heads, head_dim).transpose(1, 2).contiguous()
 
     def sdpa_fwd_bwd():
         F.scaled_dot_product_attention(q, k, v, scale=SCALE).backward(do_h)
@@ -592,11 +608,12 @@ def check_kernels(torch, A, heads: int = HEADS, batches=(512, 64),
     lib_ms, lib_dev_ms = median_ms(sdpa_bwd), device_ms(sdpa_bwd)
     # reads qkv, o, do and lse2, writes dqkv (and delta, read back): the
     # function's 10 S^2*D flops a head (the kernels do 7: s and dp twice)
-    nbytes = b * s * (3 + 1 + 1 + 3) * heads * 64 * 2 + b * heads * s * 4
-    bms, by = bound(nbytes, 10.0 * b * heads * s * s * 64)
+    nbytes = (b * s * (3 + 1 + 1 + 3) * heads * head_dim * 2
+              + b * heads * s * 4)
+    bms, by = bound(nbytes, 10.0 * b * heads * s * s * head_dim)
     key = f"K2/student{tag}"
     results[key] = dict(
-        shape=[b, s, 3 * heads * 64], max_abs_err=err.max().item(),
+        shape=[b, s, 3 * heads * head_dim], max_abs_err=err.max().item(),
         mean_abs_err=err.mean().item(), tol=tol, ms=ms, device_ms=dev_ms,
         plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=lib_ms,
         library_device_ms=lib_dev_ms,
@@ -1325,17 +1342,21 @@ def profile_step(torch, run_step, dest_name: str) -> dict:
 
 def check_packed_kernels(torch, A, shapes=(("train", 8, True),
                                            ("eval", 32, False)), tag="",
-                         heads: int = HEADS, repeats: int = 0):
+                         heads: int = HEADS, repeats: int = 0,
+                         head_dim: int = 64):
     """Phase 3, stage 2: K3 and K4 against their plain versions at the
     stage-2 shapes, with timings: ``shapes`` holds (label, batch, with lse);
     K4 runs at the "train" one. The stage-2 entry's phase passes its B=7
     with ``tag`` "/b7"; the VideoMAE decoder's, 6 ``heads`` at B=32 with
-    ``tag`` "/h6", where each of ``repeats`` K4 backwards must equal the
-    first bit for bit."""
+    ``tag`` "/h6", and the huge VideoMAE decoder's 8 heads of ``head_dim``
+    80 at B=16 with ``tag`` "/d80", where each of ``repeats`` K4 backwards
+    must equal the first bit for bit. The softmax scale is
+    head_dim^-0.5."""
     import torch.nn.functional as F
 
+    SCALE = head_dim ** -0.5
     gen = torch.Generator(device="cuda").manual_seed(4)
-    s, hd = STAGE2_TOKENS, heads * 64
+    s, hd = STAGE2_TOKENS, heads * head_dim
     results = {}
     for label, b, with_lse in shapes:
         qkv = torch.randn((b, s, 3 * hd), generator=gen,
@@ -1361,7 +1382,7 @@ def check_packed_kernels(torch, A, shapes=(("train", 8, True),
         sdpa = partial(F.scaled_dot_product_attention, q, k, v, scale=SCALE)
         lib_ms, lib_dev_ms = median_ms(sdpa), device_ms(sdpa)
         nbytes = b * s * 4 * hd * 2 + (b * heads * s * 4 if with_lse else 0)
-        bms, by = bound(nbytes, 4.0 * b * heads * s * s * 64)
+        bms, by = bound(nbytes, 4.0 * b * heads * s * s * head_dim)
         results[f"K3/{label}{tag}"] = dict(
             shape=[b, s, 3 * hd], max_abs_err=err.max().item(),
             mean_abs_err=err.mean().item(), ms=ms, device_ms=dev_ms,
@@ -1406,7 +1427,7 @@ def check_packed_kernels(torch, A, shapes=(("train", 8, True),
                                                           heads, SCALE))
     q, k, v = (t.detach().contiguous().requires_grad_(True)
                for t in A._split_heads(qkv, heads))
-    do_h = do.reshape(b, s, heads, 64).transpose(1, 2).contiguous()
+    do_h = do.reshape(b, s, heads, head_dim).transpose(1, 2).contiguous()
 
     def sdpa_fwd_bwd():
         F.scaled_dot_product_attention(q, k, v, scale=SCALE).backward(do_h)
@@ -1431,7 +1452,7 @@ def check_packed_kernels(torch, A, shapes=(("train", 8, True),
              errs["dq"]),
             ("K4b", "dkv", ms_dkv, dev_dkv, plain_dkv, 6 * tok + 2 * stat, 8.0,
              max(errs["dk"], errs["dv"]))):
-        bms, by = bound(nbytes, flops * b * heads * s * s * 64)
+        bms, by = bound(nbytes, flops * b * heads * s * s * head_dim)
         results[key + tag] = dict(
             shape=[b, s, 3 * hd], max_abs_err=e[0], tol=e[1], ms=ms,
             device_ms=dev, plain_ms=plain, bound_ms=bms, bound_by=by,
@@ -1659,23 +1680,27 @@ def check_ptxas(paths) -> dict:
     return report
 
 
-def check_flash_lengths(torch, A):
+def check_flash_lengths(torch, A, head_dim: int = 64, heads=(2, HEADS)):
     """Phase 3: the K3/K6 forward (csrc/flash_fwd_wgmma.cu) against its
     plain version at every length of ``SWEEP_LENGTHS`` (B=2, 2 and 12
     heads), on contiguous [B, H, S, 64] tensors and strided qkv views (K6)
     and on the packed lanes of qkv (K3), with and without the lse; the two
-    outputs must be equal. Returns the largest errors by length."""
+    outputs must be equal. At ``head_dim`` 80 (``heads`` 2 and 8), K3 on the
+    packed lanes only: K6 takes head dim 64. Returns the largest errors by
+    length."""
+    SCALE = head_dim ** -0.5
     gen = torch.Generator(device="cuda").manual_seed(12)
     worst = {}
     for s in SWEEP_LENGTHS:
-        for h in (2, HEADS):
-            qkv = torch.randn((2, s, 3 * h * 64), generator=gen,
+        for h in heads:
+            qkv = torch.randn((2, s, 3 * h * head_dim), generator=gen,
                               device="cuda").to(torch.bfloat16)
             views = A._split_heads(qkv, h)
             dense = [t.contiguous() for t in views]
             ref, ref_lse = A.flash_reference(*dense, scale=SCALE)
             runs = {layout: (lambda lse, x=x: A.flash_fwd(*x, SCALE, lse))
-                    for layout, x in (("contiguous", dense), ("views", views))}
+                    for layout, x in (("contiguous", dense), ("views", views))
+                    if head_dim == A.VIEW_HEAD_DIM}
             runs["packed"] = lambda lse: A.packed_flash_fwd(qkv, h, SCALE, lse)
             for layout, run in runs.items():
                 out, lse = run(True)
@@ -1687,19 +1712,23 @@ def check_flash_lengths(torch, A):
                 if (not bool(torch.isfinite(out).all()) or e > FWD_TOL
                         or le > 1e-3 or not torch.equal(out_nl, out)):
                     raise AssertionError(
-                        f"K3/K6 forward S={s} H={h} {layout}: max abs err {e}"
+                        f"K3/K6 forward S={s} H={h} D={head_dim} {layout}: "
+                        f"max abs err {e}"
                         f" (tol {FWD_TOL}), lse err {le}, equal without lse "
                         f"{torch.equal(out_nl, out)}")
                 w = worst.setdefault(s, {"max_abs_err": 0.0, "lse_err": 0.0})
                 w["max_abs_err"] = max(w["max_abs_err"], e)
                 w["lse_err"] = max(w["lse_err"], le)
             del qkv, views, dense, ref, ref_lse, out, lse, out_nl
-    print(f"K3/K6 forward lengths {list(SWEEP_LENGTHS)} x heads (2, {HEADS}) "
-          f"x (contiguous, views, packed) x lse: {worst}", flush=True)
+    print(f"K3/K6 forward at head dim {head_dim}: lengths "
+          f"{list(SWEEP_LENGTHS)} x heads {tuple(heads)} x "
+          f"({'contiguous, views, ' if head_dim == 64 else ''}packed) x "
+          f"lse: {worst}", flush=True)
     return worst
 
 
-def check_flash_bwd_lengths(torch, A):
+def check_flash_bwd_lengths(torch, A, head_dim: int = 64,
+                            heads=(2, HEADS)):
     """Phase 3: the flash backward (csrc/flash_bwd_wgmma.cu: K4a/K4b and
     K6's dq and dk/dv) against its plain versions at every length of
     ``SWEEP_LENGTHS`` (B=2, 2 and 12 heads), on the packed lane slices of
@@ -1708,13 +1737,15 @@ def check_flash_bwd_lengths(torch, A):
     lse2, within ``BWD_TOL`` times the largest |dq|, |dk| or |dv| of the
     plain version (at S = 1, dq and dk are 0 up to rounding noise, so no
     tolerance relative to them alone holds); a repeat must be equal bit for
-    bit (no atomics). Returns the largest errors over that scale, by
-    length."""
+    bit (no atomics). At ``head_dim`` 80 (``heads`` 2 and 8), K4 on the
+    packed lanes only: K6 takes head dim 64. Returns the largest errors
+    over that scale, by length."""
+    SCALE = head_dim ** -0.5
     gen = torch.Generator(device="cuda").manual_seed(14)
     worst = {}
     for s in SWEEP_LENGTHS:
-        for h in (2, HEADS):
-            qkv = torch.randn((2, s, 3 * h * 64), generator=gen,
+        for h in heads:
+            qkv = torch.randn((2, s, 3 * h * head_dim), generator=gen,
                               device="cuda").to(torch.bfloat16)
             views = A._split_heads(qkv, h)
             dense = [t.contiguous() for t in views]
@@ -1728,6 +1759,8 @@ def check_flash_bwd_lengths(torch, A):
                                                       SCALE),
                     "views": lambda: A.flash_bwd(*views, o_rows, lse,
                                                  do_rows, SCALE)}
+            if head_dim != A.VIEW_HEAD_DIM:
+                runs = {}
             out_p, do_p = A._merge_heads(o), A._merge_heads(do)
             runs["packed"] = lambda: [
                 A._heads_of(x, h) for x in A.packed_flash_bwd(
@@ -1743,27 +1776,33 @@ def check_flash_bwd_lengths(torch, A):
                     if (not bool(torch.isfinite(a).all()) or e > tol
                             or not torch.equal(a, a2)):
                         raise AssertionError(
-                            f"flash backward S={s} H={h} {layout} {name}: max "
+                            f"flash backward S={s} H={h} D={head_dim} "
+                            f"{layout} {name}: max "
                             f"abs err {e} (tol {tol}), repeat equal "
                             f"{torch.equal(a, a2)}")
                     w = worst.setdefault(s, {})
                     w[name] = max(w.get(name, 0.0), e / top)
             del qkv, views, dense, o, lse, do, refs, o_rows, do_rows, got
-    print(f"flash backward lengths {list(SWEEP_LENGTHS)} x heads (2, "
-          f"{HEADS}) x (packed, views, contiguous): max abs err / max |ref| "
-          f"{worst}", flush=True)
+    print(f"flash backward at head dim {head_dim}: lengths "
+          f"{list(SWEEP_LENGTHS)} x heads {tuple(heads)} x (packed"
+          f"{', views, contiguous' if head_dim == 64 else ''}): max abs err "
+          f"/ max |ref| {worst}", flush=True)
     return worst
 
 
-def check_short_lengths(torch, A):
+def check_short_lengths(torch, A, head_dim: int = 64,
+                        heads=(2, HEADS, 16)):
     """Phase 3: the short forward (csrc/short_attn_wgmma.cu) against its
     plain versions at every length of ``SHORT_LENGTHS`` (B=2; 2, 12 and 16
     heads): K1 on the packed lanes of qkv with and without the lse, K5 on
     strided qkv views and contiguous tensors with and without m and l; each
     repeated launch equal bit for bit. Then k = -q at 197, 320, 392 (K1 and
     K5) and 768 (K1), where every real score is negative, so a zero-filled
-    key past S entering the row max would show. Returns the largest errors
-    by length."""
+    key past S entering the row max would show. At ``head_dim`` 80
+    (``heads`` 2 and 8) K1 only, k = -q up to its guard of 512: K5 takes
+    head dim 64. Returns the largest errors by length."""
+    SCALE = head_dim ** -0.5
+    grouped = head_dim == A.VIEW_HEAD_DIM
     gen = torch.Generator(device="cuda").manual_seed(13)
     worst = {}
 
@@ -1809,30 +1848,35 @@ def check_short_lengths(torch, A):
         note(s, k5_err=e, k5_m_err=me, k5_l_rel_err=lr)
 
     for s in SHORT_LENGTHS:
-        for h in (2, HEADS, 16):
-            qkv = torch.randn((2, s, 3 * h * 64), generator=gen,
+        for h in heads:
+            qkv = torch.randn((2, s, 3 * h * head_dim), generator=gen,
                               device="cuda").to(torch.bfloat16)
             k1(qkv, h, s)
-            views = A._split_heads(qkv, h)
-            k5(*views, s, "views")
-            k5(*(t.contiguous() for t in views), s, "contiguous")
-            del qkv, views
-    for s in (197, 320, M075_TOKENS, A.FUSED_QKV_MAX_SEQ):
-        q = torch.randn((2, s, 2, 64), generator=gen, device="cuda").abs()
-        v = torch.randn((2, s, 2, 64), generator=gen, device="cuda")
-        qkv = torch.cat([q, -q, v], dim=2).reshape(2, s, 6 * 64).to(
+            if grouped:
+                views = A._split_heads(qkv, h)
+                k5(*views, s, "views")
+                k5(*(t.contiguous() for t in views), s, "contiguous")
+                del views
+            del qkv
+    for s in (197, 320, M075_TOKENS, A.RESIDENT_MAX_SEQ[head_dim]):
+        q = torch.randn((2, s, 2, head_dim), generator=gen,
+                        device="cuda").abs()
+        v = torch.randn((2, s, 2, head_dim), generator=gen, device="cuda")
+        qkv = torch.cat([q, -q, v], dim=2).reshape(2, s, 6 * head_dim).to(
             torch.bfloat16)
         k1(qkv, 2, f"{s} k=-q")
-        if s <= A.GROUPED_MAX_SEQ:
+        if grouped and s <= A.GROUPED_MAX_SEQ:
             k5(*(t.contiguous() for t in A._split_heads(qkv, 2)),
                f"{s} k=-q", "contiguous")
-    print(f"short forward lengths {list(SHORT_LENGTHS)} x heads (2, {HEADS}, "
-          f"16) x (K1 packed, K5 views, K5 contiguous) x statistics, and "
-          f"k = -q: {worst}", flush=True)
+    print(f"short forward at head dim {head_dim}: lengths "
+          f"{list(SHORT_LENGTHS)} x heads {tuple(heads)} x (K1 packed"
+          f"{', K5 views, K5 contiguous' if grouped else ''}) x statistics, "
+          f"and k = -q: {worst}", flush=True)
     return worst
 
 
-def check_short_bwd_lengths(torch, A):
+def check_short_bwd_lengths(torch, A, head_dim: int = 64,
+                            heads=(2, HEADS, 16)):
     """Phase 3: the short backward (csrc/short_bwd_wgmma.cu) against its
     plain versions at every length of ``SHORT_LENGTHS`` (B=2): K2 on the
     packed lanes of qkv from K1's out and lse2 (2, 12 and 16 heads, and at
@@ -1840,8 +1884,11 @@ def check_short_bwd_lengths(torch, A):
     qkv views (do laid out as the models lay it out) and contiguous tensors
     from the K5 forward's m and l (2 and 12 heads); within ``BWD_TOL``
     times the largest |dq|, |dk| or |dv| of the plain version, and each
-    repeat equal bit for bit. Returns the largest errors over that scale,
-    by length."""
+    repeat equal bit for bit. At ``head_dim`` 80 (``heads`` 2 and 8) K2
+    only, up to its guard of 512: K5 takes head dim 64. Returns the largest
+    errors over that scale, by length."""
+    SCALE = head_dim ** -0.5
+    guard = A.RESIDENT_MAX_SEQ[head_dim]
     gen = torch.Generator(device="cuda").manual_seed(15)
     worst = {}
 
@@ -1859,9 +1906,10 @@ def check_short_bwd_lengths(torch, A):
             w[f"{what.split()[0]}_{name}"] = max(
                 w.get(f"{what.split()[0]}_{name}", 0.0), e / top)
 
-    for s in SHORT_LENGTHS + (A.FUSED_QKV_MAX_SEQ,):
-        for h in (2, HEADS, 16):
-            qkv = torch.randn((2, s, 3 * h * 64), generator=gen,
+    for s in SHORT_LENGTHS + ((guard,) if guard not in SHORT_LENGTHS
+                              else ()):
+        for h in heads:
+            qkv = torch.randn((2, s, 3 * h * head_dim), generator=gen,
                               device="cuda").to(torch.bfloat16)
             out, lse = A.fused_qkv_fwd(qkv, h, SCALE, with_lse=True)
             do = torch.randn(out.shape, generator=gen, device="cuda").to(
@@ -1875,8 +1923,9 @@ def check_short_bwd_lengths(torch, A):
             torch.cuda.synchronize()
             refs = [A._heads_of(x, h) for x in A.qkv_attention_reference_bwd(
                 qkv, do, h, SCALE).chunk(3, dim=-1)]
-            check(f"K2 H={h}", s, got, again, refs)
-            if s > A.GROUPED_MAX_SEQ or h == 16:
+            check(f"K2 H={h} D={head_dim}", s, got, again, refs)
+            if (s > A.GROUPED_MAX_SEQ or h == 16
+                    or head_dim != A.VIEW_HEAD_DIM):
                 continue
             views = A._split_heads(qkv, h)
             dense = [x.contiguous() for x in views]
@@ -1889,10 +1938,11 @@ def check_short_bwd_lengths(torch, A):
                 again = A.grouped_bwd(*x, gl, m, l, SCALE)
                 torch.cuda.synchronize()
                 check(f"K5 H={h} {layout}", s, got, again, refs)
-    print(f"short backward lengths {list(SHORT_LENGTHS)} (K2 also "
-          f"{A.FUSED_QKV_MAX_SEQ}) x heads (2, {HEADS}, 16 for K2) x (K2 "
-          f"packed, K5 views, K5 contiguous): max abs err / max |ref| "
-          f"{worst}", flush=True)
+    print(f"short backward at head dim {head_dim}: lengths "
+          f"{list(SHORT_LENGTHS)} (K2 also {guard}) x heads {tuple(heads)} "
+          f"(16 for K2 only) x (K2 packed"
+          f"{', K5 views, K5 contiguous' if head_dim == 64 else ''}): max "
+          f"abs err / max |ref| {worst}", flush=True)
     return worst
 
 
@@ -3516,6 +3566,18 @@ MAE_FRAMES, MAE_TUBELET, MAE_MASK = 16, 2, 0.9
 MAE_GRID = (MAE_FRAMES // MAE_TUBELET, 14, 14)
 MAE_VISIBLE = MAE_GRID[0] * (196 - int(MAE_MASK * 196))  # 160
 MAE_HEADS = 6
+# the models' geometry by name: encoder and decoder widths, depths and heads
+# (unite_torch/models/pretrain_videomae.py); base has 64-lane heads, huge
+# 80-lane ones in both towers
+MAE_BASE = SimpleNamespace(
+    name="pretrain_videomae_base_patch16_224", tag="videomae-b16-b32",
+    width=768, depth=12, heads=12, dec_width=384, dec_depth=8, dec_heads=6)
+MAE_HUGE = SimpleNamespace(
+    name="pretrain_videomae_huge_patch16_224", tag="videomae-h16-b16",
+    width=1280, depth=32, heads=16, dec_width=640, dec_depth=8, dec_heads=8)
+HUGE_B = 16             # the huge cell's batch
+HUGE_CHECK_DEPTH = (4, 2)  # its card-vs-CPU step: encoder and decoder blocks
+D80_HEADS = (2, 8)      # the head-dim-80 length sweeps
 # the UMT pretrain student and the masked CLIP teacher: 8 frames of 224^2,
 # tubelet 1, tube mask 0.8 (40 of 196 patches a frame), six taps (6-11)
 UMT_MASK, UMT_TAPS = 0.8, 6
@@ -3539,35 +3601,57 @@ def tube_batch(torch, b: int, seed: int, frames: int, grid, ratio: float):
             "mask_idx": torch.from_numpy(msk)}
 
 
-def videomae_clip_flops() -> float:
+def videomae_clip_flops(cfg=MAE_BASE) -> float:
     """Model operations of one clip's VideoMAE train step (forward and
     backward as three forwards; matrix products and attention): the patch
-    embedding of all 1568 patches, 12 encoder blocks at 160 tokens, the
-    map to the decoder's width, 8 decoder blocks at 1568 tokens and the
-    head at the 1408 masked ones."""
+    embedding of all 1568 patches, the encoder's blocks at 160 tokens, the
+    map to the decoder's width, the decoder's blocks at 1568 tokens and the
+    head at the 1408 masked ones, at ``cfg``'s widths and depths."""
     from unite_torch.utils.flops import vit_block_flops
 
     n = MAE_GRID[0] * 196
-    fwd = (2 * n * (MAE_TUBELET * 16 * 16 * 3) * 768
-           + 12 * vit_block_flops(MAE_VISIBLE, 768)
-           + 2 * MAE_VISIBLE * 768 * 384
-           + 8 * vit_block_flops(n, 384)
-           + 2 * (n - MAE_VISIBLE) * 384 * 1536)
+    fwd = (2 * n * (MAE_TUBELET * 16 * 16 * 3) * cfg.width
+           + cfg.depth * vit_block_flops(MAE_VISIBLE, cfg.width)
+           + 2 * MAE_VISIBLE * cfg.width * cfg.dec_width
+           + cfg.dec_depth * vit_block_flops(n, cfg.dec_width)
+           + 2 * (n - MAE_VISIBLE) * cfg.dec_width * 1536)
     return 3.0 * fwd
 
 
-def build_videomae(torch, b: int, dtype, device: str, state_dict=None):
-    """``pretrain_videomae_base_patch16_224`` with its optimizer and step
-    (the VideoMAE recipe above; lr 1.5e-4 scaled by the batch, cosine)."""
+def videomae_model(torch, cfg, dtype, device: str, depths=None):
+    """``cfg``'s model from the registry, or at full widths with
+    ``depths`` (encoder, decoder) blocks: the registry's huge factory fixes
+    its encoder depth, so a cut model is built from its widths."""
     from unite_torch import create_model
+    from unite_torch.models.pretrain_videomae import PretrainVideoMAE
+
+    if depths is None:
+        model = create_model(cfg.name, device=device, dtype=dtype,
+                             num_frames=MAE_FRAMES, tubelet_size=MAE_TUBELET)
+        if (len(model.encoder.blocks), len(model.decoder.blocks)) != (
+                cfg.depth, cfg.dec_depth):
+            raise AssertionError(f"{cfg.name}: depths differ from {cfg}")
+        return model
+    return PretrainVideoMAE(
+        img_size=224, patch_size=16, encoder_embed_dim=cfg.width,
+        encoder_depth=depths[0], encoder_num_heads=cfg.heads,
+        decoder_num_classes=1536, decoder_embed_dim=cfg.dec_width,
+        decoder_depth=depths[1], decoder_num_heads=cfg.dec_heads,
+        mlp_ratio=4, qkv_bias=True, norm_eps=1e-6, num_frames=MAE_FRAMES,
+        tubelet_size=MAE_TUBELET, dtype=dtype).to(device)
+
+
+def build_videomae(torch, b: int, dtype, device: str, state_dict=None,
+                   cfg=MAE_BASE, depths=None):
+    """``cfg``'s VideoMAE (``pretrain_videomae_base_patch16_224`` by
+    default; ``depths`` cuts it) with its optimizer and step (the VideoMAE
+    recipe above; lr 1.5e-4 scaled by the batch, cosine)."""
     from unite_torch.engines.pretrain_videomae import make_videomae_train_step
     from unite_torch.optim.factory import create_optimizer
     from unite_torch.train.train_state import TrainState
     from unite_torch.utils.schedules import cosine_scheduler, scaled_lr
 
-    model = create_model("pretrain_videomae_base_patch16_224", device=device,
-                         dtype=dtype, num_frames=MAE_FRAMES,
-                         tubelet_size=MAE_TUBELET)
+    model = videomae_model(torch, cfg, dtype, device, depths)
     if state_dict is not None:
         model.load_state_dict(state_dict)
     lr_tab = cosine_scheduler(scaled_lr(1.5e-4, b), scaled_lr(1e-5, b), 20,
@@ -3580,17 +3664,21 @@ def build_videomae(torch, b: int, dtype, device: str, state_dict=None):
     return TrainState(model, tx), step
 
 
-def videomae_card_vs_cpu(torch):
+def videomae_card_vs_cpu(torch, cfg=MAE_BASE, depths=None,
+                         count: bool = True):
     """One VideoMAE step on the card (bf16) against the CPU (fp32) at B=2,
-    full width: the same weights, clips and masks. The CPU step's
-    operations are counted by ``utils.flops.count_flops``
-    (FlopCounterMode; there the attention runs its plain versions)."""
+    full width (``depths`` blocks where given): the same weights, clips and
+    masks. With ``count``, the CPU step's operations are counted by
+    ``utils.flops.count_flops`` (FlopCounterMode; there the attention runs
+    its plain versions)."""
     from unite_torch.utils.flops import count_flops
 
     torch.manual_seed(13)
-    cpu_state, cpu_step = build_videomae(torch, 2, torch.float32, "cpu")
+    cpu_state, cpu_step = build_videomae(torch, 2, torch.float32, "cpu",
+                                         cfg=cfg, depths=depths)
     sd = {k: v.clone() for k, v in cpu_state.model.state_dict().items()}
-    gpu_state, gpu_step = build_videomae(torch, 2, torch.bfloat16, "cuda", sd)
+    gpu_state, gpu_step = build_videomae(torch, 2, torch.bfloat16, "cuda", sd,
+                                         cfg=cfg, depths=depths)
     batch = tube_batch(torch, 2, 14, MAE_FRAMES, MAE_GRID, MAE_MASK)
     from unite_torch.ops.normalize import normalize_videos
 
@@ -3604,32 +3692,41 @@ def videomae_card_vs_cpu(torch):
     pred_rel = ((p_gpu - p_cpu).abs().max() / p_cpu.abs().max()).item()
     m_gpu = {k: v.item() for k, v in gpu_step(gpu_state, batch).items()}
     m_cpu = {}
-    counted = count_flops(lambda: m_cpu.update(
-        {k: v.item() for k, v in cpu_step(cpu_state, batch).items()}))
+
+    def cpu_run():
+        m_cpu.update({k: v.item() for k, v in cpu_step(cpu_state,
+                                                       batch).items()})
+
+    counted = count_flops(cpu_run) if count else cpu_run()
     rel = {k: abs(m_gpu[k] - m_cpu[k]) / abs(m_cpu[k])
            for k in ("loss", "grad_norm")}
     rel["predictions"] = pred_rel
-    print(f"videomae step card bf16 vs cpu fp32 (B=2): card {m_gpu} cpu "
-          f"{m_cpu} rel {rel}; CPU step counted {counted} flop",
+    what = f"{cfg.name}" + (f" at depths {depths}" if depths else "")
+    print(f"videomae step card bf16 vs cpu fp32 (B=2, {what}): card {m_gpu} "
+          f"cpu {m_cpu} rel {rel}; CPU step counted {counted} flop",
           flush=True)
     if not all(r <= STEP_RTOL for r in rel.values()):
-        raise AssertionError(f"videomae card step disagrees with the CPU: "
-                             f"{rel}")
+        raise AssertionError(f"videomae card step ({what}) disagrees with "
+                             f"the CPU: {rel}")
     return dict(rel, counted_flop_per_clip=None if counted is None
                 else counted / 2)
 
 
 def videomae_path(torch, A, counted_per_clip, b: int = 32,
-                  warmup: int = 2, timed: int = 5):
+                  warmup: int = 2, timed: int = 5, cfg=MAE_BASE,
+                  profile_name: str = "chip_smoke_profile_videomae.json"):
     """Phase ``videomae-b16-b32``: the VideoMAE pixel-reconstruction step
     at B=32 on pinned seeded uint8 clips (normalized on the card), each
     step 12 K1 + 12 K2 at the encoder's [32, 160] and 8 K3 (with lse) + 8
     K4a + 8 K4b at the decoder's [32, 1568] with 6 heads; a profiled
-    step. Its model FLOP utilization comes from the closed form
-    (``videomae_clip_flops``) and from ``counted_per_clip``, the CPU
-    step's count (None where it could not be taken)."""
+    step. With ``cfg`` MAE_HUGE, ``videomae-h16-b16``: the huge model at
+    B=16, 32 K1 + 32 K2 at [16, 160] (16 heads of 80 lanes) and 8 of each
+    decoder kernel at [16, 1568] (8 heads of 80). Its model FLOP
+    utilization comes from the closed form (``videomae_clip_flops``) and
+    from ``counted_per_clip``, the CPU step's count (None where it could
+    not be taken)."""
     torch.manual_seed(15)
-    state, step = build_videomae(torch, b, torch.bfloat16, "cuda")
+    state, step = build_videomae(torch, b, torch.bfloat16, "cuda", cfg=cfg)
     gen = torch.Generator(device="cuda").manual_seed(16)
     batch = tube_batch(torch, b, 17, MAE_FRAMES, MAE_GRID, MAE_MASK)
     batch["videos"] = batch["videos"].pin_memory()
@@ -3646,16 +3743,17 @@ def videomae_path(torch, A, counted_per_clip, b: int = 32,
     counts, shapes = read_counts(A), read_shapes(A)
     n = warmup + timed
     vals = [(m["loss"].item(), m["grad_norm"].item()) for m in metrics]
-    print(f"videomae-b16-b32 losses/grad norms: {vals}", flush=True)
+    tag = cfg.tag
+    print(f"{tag} losses/grad norms: {vals}", flush=True)
     check_finite(vals)
-    expect_counts(counts, {"K1": 12 * n, "K2": 12 * n, "K3": 8 * n,
-                           "K3+lse": 8 * n, "K4a": 8 * n, "K4b": 8 * n},
-                  f"videomae-b16-b32, {n} steps")
-    want = {"K1": {(b, MAE_VISIBLE): 12 * n}, "K3": {(b, 1568): 8 * n}}
+    enc, dec = cfg.depth * n, cfg.dec_depth * n
+    expect_counts(counts, {"K1": enc, "K2": enc, "K3": dec, "K3+lse": dec,
+                           "K4a": dec, "K4b": dec}, f"{tag}, {n} steps")
+    want = {"K1": {(b, MAE_VISIBLE): enc}, "K3": {(b, 1568): dec}}
     if shapes != want:
-        raise AssertionError(f"videomae-b16-b32: launches by (B, S) "
-                             f"{shapes}, expected {want}")
-    flops = b * videomae_clip_flops()
+        raise AssertionError(f"{tag}: launches by (B, S) {shapes}, "
+                             f"expected {want}")
+    flops = b * videomae_clip_flops(cfg)
     counted = None if counted_per_clip is None else b * counted_per_clip
     res = dict(clips_per_s=b * timed / dt, step_ms=dt / timed * 1e3,
                model_tflop_per_step=flops / 1e12,
@@ -3663,10 +3761,13 @@ def videomae_path(torch, A, counted_per_clip, b: int = 32,
                counted_tflop_per_step=counted and counted / 1e12,
                counted_flops_util=counted and counted * timed / dt / PEAK_BF16,
                peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
-               steps=n, visible_tokens=MAE_VISIBLE, launches=counts)
-    print(f"videomae-b16-b32 B={b}: {res} on {card_line()}", flush=True)
+               steps=n, visible_tokens=MAE_VISIBLE, launches=counts,
+               launches_by_shape={k: {f"{x}x{y}": c for (x, y), c in
+                                      v.items()} for k, v in shapes.items()},
+               head_dim=cfg.width // cfg.heads)
+    print(f"{tag} B={b}: {res} on {card_line()}", flush=True)
     res["profile"] = profile_step(torch, lambda: step(state, batch, gen),
-                                  "chip_smoke_profile_videomae.json")
+                                  profile_name)
     res["device_share_of_timed_step"] = (res["profile"]["device_ms"]
                                          / res["step_ms"])
     return res
@@ -4523,6 +4624,27 @@ def main() -> int:
     umt = umt_pretrain(torch, A)
     clipm = clip_masked(torch, A)
     mark("videomae-b16-b32, umt-pretrain-b64, clip-masked")
+    # head dim 80: K1-K4 at the huge VideoMAE's shapes, the sweeps, its
+    # cut step against the CPU, then the full model
+    kr.update(check_kernels(torch, A, heads=MAE_HUGE.heads,
+                            batches=(HUGE_B, HUGE_B),
+                            lengths=(MAE_VISIBLE, MAE_VISIBLE), tag="/d80",
+                            head_dim=80))
+    kr.update(check_packed_kernels(torch, A, shapes=(("train", HUGE_B, True),),
+                                   tag="/d80", heads=MAE_HUGE.dec_heads,
+                                   repeats=BWD_REPEATS, head_dim=80))
+    d80_lengths = {
+        "short_fwd": check_short_lengths(torch, A, 80, D80_HEADS),
+        "short_bwd": check_short_bwd_lengths(torch, A, 80, D80_HEADS),
+        "flash_fwd": check_flash_lengths(torch, A, 80, D80_HEADS),
+        "flash_bwd": check_flash_bwd_lengths(torch, A, 80, D80_HEADS)}
+    mark("head dim 80: K1-K4 checked")
+    mae_h_rel = videomae_card_vs_cpu(torch, MAE_HUGE, HUGE_CHECK_DEPTH,
+                                     count=False)
+    mae_h = videomae_path(torch, A, None, b=HUGE_B, timed=3, cfg=MAE_HUGE,
+                          profile_name="chip_smoke_profile_videomae_h16.json")
+    torch.cuda.empty_cache()
+    mark("videomae-h16-b16")
     # each entry's output stays until the next stage's entry has read it
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as work:
         work = Path(work)
@@ -4719,6 +4841,26 @@ def main() -> int:
             ("K4b/h6", "packed_flash_dkv[videomae-b16-b32 decoder B=32 "
              "S=1568 H=6]", "unite_torch/csrc/flash_bwd_wgmma.cu",
              "unite_tpu/ops/attention.py:1014", mae["launches"]["K4b"]),
+            ("K1/student/d80", "fused_qkv_fwd[videomae-h16-b16 encoder "
+             f"B={HUGE_B} S={MAE_VISIBLE} H=16 D=80]",
+             "unite_torch/csrc/short_attn_wgmma.cu",
+             "unite_tpu/ops/attention.py:678", mae_h["launches"]["K1"]),
+            ("K2/student/d80", "fused_qkv_bwd[videomae-h16-b16 encoder "
+             f"B={HUGE_B} S={MAE_VISIBLE} H=16 D=80]",
+             "unite_torch/csrc/short_bwd_wgmma.cu",
+             "unite_tpu/ops/attention.py:773", mae_h["launches"]["K2"]),
+            ("K3/train/d80", "packed_flash_fwd[videomae-h16-b16 decoder "
+             f"B={HUGE_B} S=1568 H=8 D=80]",
+             "unite_torch/csrc/flash_fwd_wgmma.cu",
+             "unite_tpu/ops/attention.py:913", mae_h["launches"]["K3+lse"]),
+            ("K4a/d80", "packed_flash_dq[videomae-h16-b16 decoder "
+             f"B={HUGE_B} S=1568 H=8 D=80]",
+             "unite_torch/csrc/flash_bwd_wgmma.cu",
+             "unite_tpu/ops/attention.py:983", mae_h["launches"]["K4a"]),
+            ("K4b/d80", "packed_flash_dkv[videomae-h16-b16 decoder "
+             f"B={HUGE_B} S=1568 H=8 D=80]",
+             "unite_torch/csrc/flash_bwd_wgmma.cu",
+             "unite_tpu/ops/attention.py:1014", mae_h["launches"]["K4b"]),
             ("K1/student", "fused_qkv_fwd[umt-pretrain-b64 student B=64 "
              "S=320]", "unite_torch/csrc/short_attn_wgmma.cu",
              "unite_tpu/ops/attention.py:678", umt["launches"]["K1"]),
@@ -4772,6 +4914,9 @@ def main() -> int:
                       "native_decode": decode, "stage1_remat": remat,
                       "stage2_recipe": recipe, "videomae_step": mae,
                       "videomae_card_vs_cpu_rel": mae_rel,
+                      "videomae_h16_step": mae_h,
+                      "videomae_h16_card_vs_cpu_rel": mae_h_rel,
+                      "head_dim80_lengths": d80_lengths,
                       "umt_pretrain": umt, "clip_masked": clipm,
                       "stage3_entry": entry3,
                       "scaleout_nccl": scale, "scaleout_step_b64": scale_b64,

@@ -496,6 +496,78 @@ def test_short_backward_repeats_at_main_path_batch_on_card(cuda, kernel):
         assert all(torch.equal(a, b) for a, b in zip(run(), first)), kernel
 
 
+# head dim 80 (pretrain_videomae_huge_patch16_224: the encoder's 16 heads
+# of 80 lanes, [B, S, 3840], and the decoder's 8, [B, 1568, 1920]): K1 at
+# the short lengths up to its route's 512, K2 up to its 384
+D80 = 80
+SCALE80 = D80 ** -0.5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", SHORT_LENGTHS)
+def test_head_dim80_short_kernels_on_card(cuda, s):
+    heads = 16
+    gen = torch.Generator(device=cuda).manual_seed(600 + s)
+    x = torch.randn((2, s, 3 * heads * D80), generator=gen, device=cuda
+                    ).to(torch.bfloat16)
+    out, lse = TA.fused_qkv_fwd(x, heads, SCALE80, with_lse=True)
+    ref, ref_lse = TA.qkv_attention_reference(x, heads, SCALE80)
+    assert (out.float() - ref.float()).abs().max().item() <= 1e-2
+    assert (lse - ref_lse).abs().max().item() <= 1e-3
+    out_nl, none = TA.fused_qkv_fwd(x, heads, SCALE80)
+    assert none is None and torch.equal(out_nl, out)
+    if s > TA.FUSED_QKV_TRAIN_MAX_SEQ:
+        return
+    do = torch.randn(out.shape, generator=gen, device=cuda).to(torch.bfloat16)
+    dqkv = TA.fused_qkv_bwd(x, out, lse, do, heads, SCALE80)
+    assert torch.equal(TA.fused_qkv_bwd(x, out, lse, do, heads, SCALE80),
+                       dqkv)
+    dref = TA.qkv_attention_reference_bwd(x, do, heads, SCALE80)
+    _bwd_within([TA._heads_of(t, heads) for t in dqkv.chunk(3, dim=-1)],
+                [TA._heads_of(t, heads) for t in dref.chunk(3, dim=-1)],
+                "packed")
+
+
+@pytest.mark.cuda
+def test_head_dim80_packed_kernels_on_card(cuda):
+    """K3 with lse, K4a and K4b on the huge decoder's lanes: 8 heads of 80,
+    [2, 1568, 1920], each repeat of the backward equal to the first."""
+    heads, s = 8, 1568
+    gen = torch.Generator(device=cuda).manual_seed(80)
+    x = torch.randn((2, s, 3 * heads * D80), generator=gen, device=cuda
+                    ).to(torch.bfloat16)
+    out, lse = TA.packed_flash_fwd(x, heads, SCALE80, with_lse=True)
+    ref, ref_lse = TA.packed_flash_reference(x, heads, SCALE80)
+    assert (out.float() - ref.float()).abs().max().item() <= 1e-2
+    assert (lse - ref_lse).abs().max().item() <= 1e-3
+    do = torch.randn(out.shape, generator=gen, device=cuda).to(torch.bfloat16)
+    dqkv = TA.packed_flash_bwd(x, out, lse, do, heads, SCALE80)
+    dref = TA.packed_flash_reference_bwd(x, out, lse, do, heads,
+                                         SCALE80).float()
+    for part in range(3):  # dq, dk, dv
+        sl = slice(part * heads * D80, (part + 1) * heads * D80)
+        tol = 2e-2 * dref[..., sl].abs().max().item()
+        assert (dqkv[..., sl].float() - dref[..., sl]).abs().max().item() \
+            <= tol, part
+    for _ in range(3):
+        assert torch.equal(TA.packed_flash_bwd(x, out, lse, do, heads,
+                                               SCALE80), dqkv)
+
+
+@pytest.mark.cuda
+def test_head_dim80_refusals_on_card(cuda):
+    # K1-K4 take head dims 64 and 80, K5 and K6 64: no plain fallback
+    x = torch.zeros((1, 160, 3 * 2 * 96), device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match=r"head dims \(64, 80\)"):
+        TA.fused_qkv_fwd(x, 2, 96 ** -0.5)
+    q = torch.zeros((1, 2, 392, D80), device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="ROADMAP queue 2"):
+        TA.multi_head_attention(q, q, q, scale=SCALE80)
+    x = torch.zeros((1, 513, 3 * 2 * D80), device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="K3"):
+        TA.fused_qkv_fwd(x, 2, SCALE80)
+
+
 # K7's card shapes: ragged M and N (N % 4 != 0 and N % 8 != 0 take the
 # direct store, the others the TMA store), K not a multiple of the kernel's
 # 128-byte box (32, 96, 800 elements), one row, M below and above one wave

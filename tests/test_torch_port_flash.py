@@ -305,7 +305,7 @@ def test_forward_kernel_builds_from_the_wgmma_source(monkeypatch):
     lib = SimpleNamespace(unite_flash_fwd=SimpleNamespace())
     _build._declare(lib)
     assert lib.unite_flash_fwd.restype is ctypes.c_int
-    assert len(lib.unite_flash_fwd.argtypes) == 11
+    assert len(lib.unite_flash_fwd.argtypes) == 12
     calls = []
 
     def load(name):
@@ -314,12 +314,12 @@ def test_forward_kernel_builds_from_the_wgmma_source(monkeypatch):
 
     monkeypatch.setattr(_build, "load", load)
     strides = TA._strides_arg((1,) * 12)
-    TA._launch_fwd([16, 32, 48, 64], strides, None, (1, 2, 3), 0.125, 0)
+    TA._launch_fwd([16, 32, 48, 64], strides, None, (1, 2, 3, 80), 0.125, 0)
     (name, args), = calls
     assert name == "flash_fwd_wgmma"
     assert args[:6] == (16, 32, 48, 64, None, strides)
-    assert args[6:9] == (1, 3, 2)  # B, S, H
-    np.testing.assert_allclose(args[9], 0.125 * TA.INV_LN2)
+    assert args[6:10] == (1, 3, 2, 80)  # B, S, H, D
+    np.testing.assert_allclose(args[10], 0.125 * TA.INV_LN2)
 
 
 # ------------------------------------------------- the backward's C entries
@@ -356,7 +356,8 @@ def test_backward_kernels_build_from_the_wgmma_source():
         fn = getattr(lib, name)
         assert fn.restype is ctypes.c_int
         assert fn.argtypes[:8] == [p] * 8  # 6 views, lse, delta
-        assert fn.argtypes[9:] == [i, i, i, f, f, p]  # B, S, H, c, scale
+        # B, S, H, D, c, scale, stream
+        assert fn.argtypes[9:] == [i, i, i, i, f, f, p]
 
 
 @pytest.fixture
@@ -395,13 +396,13 @@ def _arena(dtype):
     return take
 
 
-def _check_call(call, entry, ptrs, strides, b, s, h):
+def _check_call(call, entry, ptrs, strides, b, s, h, d=64):
     lib, name, args = call
     assert (lib, name) == ("flash_bwd_wgmma", entry)
     assert args[:8] == tuple(ptrs)
     assert list(args[8]) == list(strides)
-    assert args[9:12] == (b, s, h)
-    assert args[12:] == (SCALE * TA.INV_LN2, SCALE, 7)  # c, scale, stream
+    assert args[9:13] == (b, s, h, d)
+    assert args[13:] == (SCALE * TA.INV_LN2, SCALE, 7)  # c, scale, stream
 
 
 @pytest.mark.parametrize("b,s,h", [(8, 1568, 12), (2, 600, 3)])

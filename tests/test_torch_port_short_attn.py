@@ -21,7 +21,8 @@ import unite_torch.ops.attention as TA
 from unite_torch.ops import _build
 
 SCALE = 64 ** -0.5
-ENTRIES = {"unite_short_qkv_fwd": 11, "unite_short_grouped_fwd": 12}
+# entry -> (arguments, integers after the strides: B, S, H and K1's D)
+ENTRIES = {"unite_short_qkv_fwd": (12, 4), "unite_short_grouped_fwd": (12, 3)}
 
 
 def test_short_source_is_built_and_declared():
@@ -30,7 +31,7 @@ def test_short_source_is_built_and_declared():
     assert '#include "hopper.cuh"' in text
     lib = SimpleNamespace(**{name: SimpleNamespace() for name in ENTRIES})
     _build._declare(lib)
-    for name, n in ENTRIES.items():
+    for name, (n, ints) in ENTRIES.items():
         assert f'extern "C" int {name}(' in text
         fn = getattr(lib, name)
         assert fn.restype is ctypes.c_int
@@ -38,7 +39,8 @@ def test_short_source_is_built_and_declared():
         # every pointer and the stream as a pointer, the strides as an array
         assert fn.argtypes[-1] is ctypes.c_void_p
         assert fn.argtypes[-2] is ctypes.c_float
-        assert fn.argtypes[-6] is ctypes.POINTER(ctypes.c_longlong)
+        assert fn.argtypes[-2 - ints:-2] == [ctypes.c_int] * ints
+        assert fn.argtypes[-3 - ints] is ctypes.POINTER(ctypes.c_longlong)
 
 
 @pytest.fixture
@@ -77,9 +79,9 @@ def test_k1_wrapper_passes_the_packed_lanes(entry, b, s, h, with_lse):
     width = 3 * h * 64
     assert tuple(args[5]) == (s * width, 64, width) * 3 + (s * h * 64, 64,
                                                            h * 64)
-    assert args[6:9] == (b, s, h)
-    assert args[9] == pytest.approx(SCALE * TA.INV_LN2)
-    assert args[10] == 0
+    assert args[6:10] == (b, s, h, 64)  # B, S, H, D
+    assert args[10] == pytest.approx(SCALE * TA.INV_LN2)
+    assert args[11] == 0
 
 
 @pytest.mark.parametrize("with_stats", [False, True])

@@ -55,8 +55,10 @@ def test_short_bwd_source_is_built_and_declared():
         assert f'extern "C" int {name}(' in text
         fn = getattr(lib, name)
         assert fn.restype is ctypes.c_int
+        # B, S, H (and K2's D), c, scale, the stream
+        ints = [i] * (4 if name == "unite_short_qkv_bwd" else 3)
         assert fn.argtypes == [p] * n + [ctypes.POINTER(ctypes.c_longlong),
-                                         i, i, i, f, f, p]
+                                         *ints, f, f, p]
 
 
 def test_kernel_names_are_in_the_profiles_attention_class():
@@ -129,10 +131,10 @@ def test_k2_wrapper_passes_the_packed_lanes(entry, b, s, h):
     assert tuple(args[10]) == ((s * width, 64, width) * 3
                                + (s * hd, 64, hd) * 2
                                + (s * width, 64, width) * 3)
-    assert args[11:14] == (b, s, h)
-    assert args[14] == pytest.approx(SCALE * TA.INV_LN2)  # c
-    assert args[15] == pytest.approx(SCALE)
-    assert args[16] == 0  # the stream
+    assert args[11:15] == (b, s, h, 64)  # B, S, H, D
+    assert args[15] == pytest.approx(SCALE * TA.INV_LN2)  # c
+    assert args[16] == pytest.approx(SCALE)
+    assert args[17] == 0  # the stream
 
 
 def _grouped_inputs(layout, b=2, s=392, h=12):

@@ -1,12 +1,15 @@
 // Shared pieces of the attention kernels (the wgmma forwards K1, K3, K5 and
 // K6, the flash backward K4 and K6's, and the short backward K2 and K5's):
-// the bf16 type, the [B, H, S, 64] views the entry points describe with
+// the bf16 type, the [B, H, S, D] views the entry points describe with
 // strides, packing, quad reductions and exp2.
 //
 // Layout: qkv is the qkv projection's natural [B, S, 3*H*D] row-major bf16
 // output. Head h reads q at lanes [h*D, (h+1)*D), k at +H*D, v at +2*H*D;
 // the kernels index those slices with strides, so no head split/merge is
-// ever materialized in device memory. D is fixed at 64 (every shipped model).
+// ever materialized in device memory. D is 64 (the ViT-B/L students, the
+// CLIP teachers, VideoMAE base) or 80 (VideoMAE huge: 1280 wide with 16
+// heads, its decoder 640 wide with 8); K1-K4 are built for both, K5 and K6
+// for 64.
 //
 // Accumulator and A-fragment layouts of the tensor-core products (PTX ISA,
 // lane = 4*g + t, per warp of 16 rows):
@@ -24,11 +27,11 @@ namespace unite {
 
 typedef __nv_bfloat16 bf16;
 
-// A [B, H, S, 64] bf16 view: element (b, h, s, d) at p[b*sb + h*sh + s*sr + d].
+// A [B, H, S, D] bf16 view: element (b, h, s, d) at p[b*sb + h*sh + s*sr + d].
 // Row starts are 16-byte aligned (the wrappers check it). The packed layout
-// is one such view per q/k/v lane slice of qkv [B, S, 3*H*64]:
-// (sb, sh, sr) = (S*3*H*64, 64, 3*H*64), and o [B, S, H*64] is
-// (S*H*64, 64, H*64); a contiguous [B, H, S, 64] tensor is (H*S*64, S*64, 64).
+// is one such view per q/k/v lane slice of qkv [B, S, 3*H*D]:
+// (sb, sh, sr) = (S*3*H*D, D, 3*H*D), and o [B, S, H*D] is
+// (S*H*D, D, H*D); a contiguous [B, H, S, D] tensor is (H*S*D, S*D, D).
 struct View {
   bf16* p;
   long long sb, sh, sr;
@@ -41,6 +44,13 @@ struct View {
 inline View view_of(const void* p, const long long* s, int i) {
   return View{static_cast<bf16*>(const_cast<void*>(p)), s[3 * i], s[3 * i + 1],
               s[3 * i + 2]};
+}
+
+// Accumulators a thread of an m64n16 product's lanes 64-79 at head dim D
+// (one, unused, at 64).
+template <int D>
+__host__ __device__ constexpr int tail_regs() {
+  return D == 80 ? 8 : 1;
 }
 
 // Two bf16 values into one 32-bit register, the lower index in the low half.

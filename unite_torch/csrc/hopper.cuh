@@ -4,8 +4,12 @@
 // Conventions:
 // * Shared-memory tiles that wgmma reads are rows of 128 bytes (64 bf16
 //   or 128 int8) written by TMA with CU_TENSOR_MAP_SWIZZLE_128B, each tile
-//   1024-byte aligned: 8 rows make one 1024-byte swizzle atom.
-// * A tile [rows][64] is K-major when its 64 lanes are the product's
+//   1024-byte aligned: 8 rows make one 1024-byte swizzle atom. An attention
+//   head of 80 lanes keeps lanes 0-63 in such a tile and lanes 64-79 in a
+//   second one of 32-byte rows (16 bf16) written with
+//   CU_TENSOR_MAP_SWIZZLE_32B, 256-byte aligned: 8 rows make one 256-byte
+//   atom (desc_b32).
+// * A tile [rows][lanes] is K-major when its lanes are the product's
 //   depth (q and k in q.k^T), MN-major when its rows are (v in p.v).
 // * mbarrier phases: a waiter holds the parity of the phase it waits for,
 //   starting at 0 for a full barrier; a producer waits on an empty barrier
@@ -242,6 +246,18 @@ __device__ __forceinline__ uint64_t desc_b128(const void* p, uint32_t lbo,
   return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) |
          ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
          ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
+}
+
+// Descriptor of a 32-byte-swizzled operand tile at `p` (256-byte aligned):
+// layout 3 (B32). A row is 32 bytes, one k-step of 16 bf16, so a K-major
+// tile needs no step inside the atom: sbo = 256 (the next 8 rows). MN-major
+// (16 columns, one atom wide): sbo = 256 (the next 8 rows of depth), lbo
+// unused.
+__device__ __forceinline__ uint64_t desc_b32(const void* p, uint32_t lbo,
+                                             uint32_t sbo) {
+  return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) |
+         ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (3ull << 62);
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -603,19 +619,42 @@ __device__ __forceinline__ void wgmma_m64n16k16_rs(float (&d)[8],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
 }
 
-// The 4-D map (64 lanes, then the row, head and batch dimensions) of a
-// [B, H, S, 64] bf16 view with element strides st = (batch, head, row), in
-// boxes of `box_rows` rows with 128-byte swizzle. cuTensorMapEncodeTiled's
-// documentation gives each stride as at least the span of the dimensions
-// inside it, which lane slices of a packed qkv (head stride 64, row stride
-// 3*H*64) break in (row, head, batch) order: so dimensions of extent > 1 go
-// in order of stride, and one of extent 1 goes after them with the stride
-// of a packed layout (its own stride may be anything). *perm gets, 2 bits
-// each, the map dimension of the row, head and batch coordinates. Returns
-// a CUDA error code; `who` names the caller in the message of a failure.
+// d (+)= A . B, 64 x 16 x 16, A from registers, B MN-major in shared
+// memory (its 16 columns contiguous, the transpose bit set): an 80-lane
+// head's lanes 64-79 in p.v and the backwards' gradient products.
+__device__ __forceinline__ void wgmma_m64n16k16_rs_tb(float (&d)[8],
+                                                      const uint32_t (&a)[4],
+                                                      uint64_t b,
+                                                      int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7},"
+      " {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+}
+
+// The 4-D map (`lanes` lanes, then the row, head and batch dimensions) of
+// a [B, H, S, D] bf16 view with element strides st = (batch, head, row), in
+// boxes of `box_rows` rows: 64 lanes with 128-byte swizzle (lanes 0-63 of
+// the head at `base`), or 16 with 32-byte swizzle (an 80-lane head's lanes
+// 64-79: `base` is the view's pointer plus 64 elements).
+// cuTensorMapEncodeTiled's documentation gives each stride as at least the
+// span of the dimensions inside it, which lane slices of a packed qkv (head
+// stride D, row stride 3*H*D) break in (row, head, batch) order: so
+// dimensions of extent > 1 go in order of stride, and one of extent 1 goes
+// after them with the stride of a packed layout (its own stride may be
+// anything). *perm gets, 2 bits each, the map dimension of the row, head
+// and batch coordinates. Returns a CUDA error code; `who` names the caller
+// in the message of a failure.
 inline int encode_view(CUtensorMap* map, const void* base, const long long* st,
                        int B, int H, int S, int box_rows, int* perm,
-                       const char* who) {
+                       const char* who, int lanes = 64) {
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return (int)cudaErrorNotSupported;
   struct Dim {
@@ -632,10 +671,11 @@ inline int encode_view(CUtensorMap* map, const void* base, const long long* st,
       d[j] = d[j - 1];
       d[j - 1] = tmp;
     }
+  if (lanes != 64 && lanes != 16) return (int)cudaErrorInvalidValue;
   const cuuint64_t elem_bytes = 2;  // bf16
-  cuuint64_t dims[4] = {64, 0, 0, 0}, strides[3];
-  cuuint32_t box[4] = {64, 1, 1, 1}, elem[4] = {1, 1, 1, 1};
-  cuuint64_t span = 64 * elem_bytes;
+  cuuint64_t dims[4] = {(cuuint64_t)lanes, 0, 0, 0}, strides[3];
+  cuuint32_t box[4] = {(cuuint32_t)lanes, 1, 1, 1}, elem[4] = {1, 1, 1, 1};
+  cuuint64_t span = lanes * elem_bytes;
   *perm = 0;
   for (int i = 0; i < 3; ++i) {
     dims[i + 1] = (cuuint64_t)d[i].extent;
@@ -647,19 +687,32 @@ inline int encode_view(CUtensorMap* map, const void* base, const long long* st,
   const CUresult r = encode(
       map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
       strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+      lanes == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_32B,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   if (r != CUDA_SUCCESS) {
     fprintf(stderr,
             "%s: cuTensorMapEncodeTiled failed (%d) for dims "
-            "(64, %llu, %llu, %llu), strides (%llu, %llu, %llu) bytes\n",
-            who, (int)r, (unsigned long long)dims[1],
+            "(%d, %llu, %llu, %llu), strides (%llu, %llu, %llu) bytes\n",
+            who, (int)r, lanes, (unsigned long long)dims[1],
             (unsigned long long)dims[2], (unsigned long long)dims[3],
             (unsigned long long)strides[0], (unsigned long long)strides[1],
             (unsigned long long)strides[2]);
     return (int)cudaErrorInvalidValue;
   }
   return 0;
+}
+
+// The maps of an attention view of head dim D (64 or 80): lanes 0-63
+// (encode_view at 64 lanes) and, at D = 80, lanes 64-79 (16 lanes from 64
+// elements further); both take one row/head/batch order, *perm.
+inline int encode_view_d(CUtensorMap* map, CUtensorMap* tail, int D,
+                         const void* base, const long long* st, int B, int H,
+                         int S, int box_rows, int* perm, const char* who) {
+  if (D != 64 && D != 80) return (int)cudaErrorInvalidValue;
+  int err = encode_view(map, base, st, B, H, S, box_rows, perm, who);
+  if (err != 0 || D == 64) return err;
+  return encode_view(tail, static_cast<const uint8_t*>(base) + 64 * 2, st, B,
+                     H, S, box_rows, perm, who, 16);
 }
 
 // The 2-D map of a row-major [rows, inner] tensor of `elem_bytes`-byte

@@ -4,7 +4,8 @@
 //
 //   K1 replaces unite_tpu/ops/attention.py::_fused_qkv_kernel (called from
 //      _fused_qkv_fwd): q, k, v are lane slices of the packed qkv
-//      [B, S, 3*H*64] and o is written into [B, S, H*64]; l is the row sum
+//      [B, S, 3*H*D] and o is written into [B, S, H*D], D = 64 or 80
+//      (up to 512 keys at 80); l is the row sum
 //      of the ROUNDED p, and the base-2 row log-sum-exp lse2 = m*c + log2(l)
 //      is saved, [B, H, S] fp32, when the caller trains (K2 reads it);
 //   K5 replaces unite_tpu/ops/attention.py::_grouped_fwd_kernel (called
@@ -59,6 +60,14 @@
 // whose real scores are all negative); query rows past S are computed on
 // zeros and never stored. Every chunk a sweep takes is loaded, so every
 // key row a product reads is a real row or a TMA zero.
+// Head dim 80 (the kernel is templated on D; D = 64 is the body above):
+// lanes 64-79 of every q, k, v and o row go through a second map into
+// tiles of 32-byte rows (32-byte swizzle) beside the 64-lane ones; q.k^T
+// takes a fifth k-step on them, p.v a second product (m64n16k16, v's 16
+// lanes MN-major, 8 more accumulators a thread), and o's lanes 64-79 are
+// staged and stored by TMA through their own map. K and V then take 160
+// bytes a key: one buffer of them (not two) at 257-320 keys, and at most
+// 512 keys (206 KB; 768 would need 240 KB of K and V).
 #include "fused_qkv_common.cuh"
 #include "hopper.cuh"
 
@@ -75,23 +84,45 @@ constexpr int BOX_BYTES = 64 * ROW_BYTES;  // a 64-row TMA box: 8 KB
 constexpr int CONSUMERS = 256;             // threads of the two consumers
 constexpr int THREADS = CONSUMERS + 128;   // and the producer warpgroup
 constexpr uint64_t CHUNK_UNITS = (CHUNK * ROW_BYTES) >> 4;  // descriptor units
-constexpr int MAX_SEQ = 768;
+// D = 80: lanes 64-79 of a row, of a 64-row box and of a chunk
+constexpr int TAIL_ROW = 16 * 2;
+constexpr int TAIL_BOX = 64 * TAIL_ROW;  // 2 KB
+constexpr uint64_t CHUNK_TAIL_UNITS = (CHUNK * TAIL_ROW) >> 4;
+
+// The longest sequence a head dim takes (K and V of a head resident).
+template <int D>
+constexpr int max_seq() {
+  return D == 80 ? 512 : 768;
+}
 
 // The shared-memory plan of a launch: MULTI sweeps groups of 256 keys
 // twice; `rows` key rows are loaded (a multiple of the keys a sweep takes,
 // so every row a product reads is loaded) into KV_STAGES buffers; q tiles
 // come through a ring of Q_STAGES; 1 KB of bf16 ones is the B operand of
 // the row sums; each consumer stages its o tile in 8 KB of its own. 768
-// keys take 231,472 bytes of the 232,448 a block may have.
-template <bool MULTI>
+// keys take 231,472 bytes of the 232,448 a block may have. At D = 80 each
+// row, box and staging tile has a 32-byte-row tail beside it, and one KV
+// buffer serves 320 keys as well.
+template <int NC, bool MULTI, int D>
 struct Layout {
-  static constexpr int KV_STAGES = MULTI ? 1 : 2;
+  static constexpr int KV_STAGES = MULTI || (D == 80 && NC == 5) ? 1 : 2;
   static constexpr int Q_STAGES = MULTI ? 2 : 4;
+  static constexpr int TROW = D == 80 ? TAIL_ROW : 0;
+  static constexpr int TBOX = D == 80 ? TAIL_BOX : 0;
   static __host__ __device__ int bytes(int rows) {
-    return 1024 + 1024 + KV_STAGES * 2 * rows * ROW_BYTES +
-           (Q_STAGES + 2) * BOX_BYTES + 8 * 2 * (Q_STAGES + KV_STAGES);
+    return 1024 + 1024 + KV_STAGES * 2 * rows * (ROW_BYTES + TROW) +
+           (Q_STAGES + 2) * (BOX_BYTES + TBOX) +
+           8 * 2 * (Q_STAGES + KV_STAGES);
   }
 };
+
+// The lanes-64-79 maps of q, k, v and o at D = 80 (none at 64).
+template <int D>
+struct TailMaps {
+  CUtensorMap q, k, v, o;
+};
+template <>
+struct TailMaps<64> {};
 
 struct Smem {
   bf16* ones;  // 512 bf16 ones
@@ -99,6 +130,10 @@ struct Smem {
   bf16* v;
   bf16* q;     // Q_STAGES tiles
   bf16* o;     // two staging tiles, one a consumer
+  bf16* kt;    // D = 80: lanes 64-79 of each, laid out as they are
+  bf16* vt;
+  bf16* qt;
+  bf16* ot;
   uint64_t* q_full;
   uint64_t* q_empty;
   uint64_t* kv_full;
@@ -110,11 +145,17 @@ struct Smem {
   __device__ __forceinline__ bf16* v_at(int st) const {
     return v + (size_t)st * rows * 64;
   }
+  __device__ __forceinline__ bf16* kt_at(int st) const {
+    return kt + (size_t)st * rows * 16;
+  }
+  __device__ __forceinline__ bf16* vt_at(int st) const {
+    return vt + (size_t)st * rows * 16;
+  }
 };
 
-template <bool MULTI>
+template <int NC, bool MULTI, int D>
 __device__ __forceinline__ Smem carve(uint8_t* raw, int rows) {
-  using L = Layout<MULTI>;
+  using L = Layout<NC, MULTI, D>;
   const uint32_t pad = (1024 - (smem_u32(raw) & 1023)) & 1023;
   uint8_t* p = raw + pad;
   Smem s;
@@ -129,6 +170,17 @@ __device__ __forceinline__ Smem carve(uint8_t* raw, int rows) {
   p += L::Q_STAGES * BOX_BYTES;
   s.o = reinterpret_cast<bf16*>(p);
   p += 2 * BOX_BYTES;
+  s.kt = s.vt = s.qt = s.ot = nullptr;
+  if (D == 80) {  // each a multiple of 2 KB from a 1024-aligned start
+    s.kt = reinterpret_cast<bf16*>(p);
+    p += L::KV_STAGES * rows * TAIL_ROW;
+    s.vt = reinterpret_cast<bf16*>(p);
+    p += L::KV_STAGES * rows * TAIL_ROW;
+    s.qt = reinterpret_cast<bf16*>(p);
+    p += L::Q_STAGES * TAIL_BOX;
+    s.ot = reinterpret_cast<bf16*>(p);
+    p += 2 * TAIL_BOX;
+  }
   uint64_t* bars = reinterpret_cast<uint64_t*>(p);
   s.q_full = bars;
   s.q_empty = bars + L::Q_STAGES;
@@ -154,12 +206,13 @@ __device__ __forceinline__ float (&wide(float (&s)[NC][32], int c0))[N] {
 // keys from `kd`, as few products as the widths allow (64 x 128 at NC = 2,
 // 64 x 256 at 4, and 64 x 64 beside it at 5: q, re-read from shared memory
 // by every product, is read once a k-step); four k-steps of 16 lanes, each
-// 32 bytes further into the swizzle atom; waits for the products. The
-// accumulators are zeroed first so that nothing of an earlier tile stays
-// live across the loop.
-template <int NC>
+// 32 bytes further into the swizzle atom, and at D = 80 a fifth on the
+// 32-byte tiles (qtd, ktd); waits for the products. The accumulators are
+// zeroed first so that nothing of an earlier tile stays live across the
+// loop.
+template <int NC, int D>
 __device__ __forceinline__ void qk(float (&s)[NC][32], uint64_t qd,
-                                   uint64_t kd) {
+                                   uint64_t kd, uint64_t qtd, uint64_t ktd) {
   static_assert(NC == 2 || NC == 4 || NC == 5, "chunks a sweep");
 #pragma unroll
   for (int c = 0; c < NC; ++c)
@@ -178,20 +231,32 @@ __device__ __forceinline__ void qk(float (&s)[NC][32], uint64_t qd,
         wgmma_m64n64k16_ss(s[4], q, k + 4 * CHUNK_UNITS, kk);
     }
   }
+  if constexpr (D == 80) {
+    if constexpr (NC == 2) {
+      wgmma_m64n128k16_ss(wide<64>(s, 0), qtd, ktd, 1);
+    } else {
+      wgmma_m64n256k16_ss(wide<128>(s, 0), qtd, ktd, 1);
+      if constexpr (NC == 5)
+        wgmma_m64n64k16_ss(s[4], qtd, ktd + 4 * CHUNK_TAIL_UNITS, 1);
+    }
+  }
   wgmma_commit();
   wgmma_wait<0>();
   fence_all(s);
 }
 
 // acc += p . v for NC chunks of keys from `vd`: four k-steps of 16 keys a
-// chunk, each 16 rows (2048 bytes) further into the buffer; with ONES also
-// lsum += p . 1 (B a block of bf16 ones at `onesd`), the row sums of the
-// rounded p in fp32 (every column of lsum holds its row's sum); waits.
-template <bool ONES, int NC>
-__device__ __forceinline__ void pv(float (&acc)[32], float (&lsum)[4],
-                                   uint32_t (&p)[NC][4][4], uint64_t vd,
-                                   uint64_t onesd) {
+// chunk, each 16 rows (2048 bytes) further into the buffer; at D = 80 also
+// acc_t += p . v's lanes 64-79 (vtd, 16 rows of 32 bytes a k-step); with
+// ONES also lsum += p . 1 (B a block of bf16 ones at `onesd`), the row
+// sums of the rounded p in fp32 (every column of lsum holds its row's
+// sum); waits.
+template <bool ONES, int NC, int D, int NT>
+__device__ __forceinline__ void pv(float (&acc)[32], float (&acc_t)[NT],
+                                   float (&lsum)[4], uint32_t (&p)[NC][4][4],
+                                   uint64_t vd, uint64_t vtd, uint64_t onesd) {
   reg_fence(acc);
+  if constexpr (D == 80) reg_fence(acc_t);
   reg_fence(lsum);
 #pragma unroll
   for (int c = 0; c < NC; ++c)
@@ -203,11 +268,14 @@ __device__ __forceinline__ void pv(float (&acc)[32], float (&lsum)[4],
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) {
       wgmma_m64n64k16_rs_tb(acc, p[c][kk], vd + 128 * (4 * c + kk), 1);
+      if constexpr (D == 80)
+        wgmma_m64n16k16_rs_tb(acc_t, p[c][kk], vtd + 32 * (4 * c + kk), 1);
       if (ONES) wgmma_m64n8k16_rs(lsum, p[c][kk], onesd, 1);
     }
   wgmma_commit();
   wgmma_wait<0>();
   reg_fence(acc);
+  if constexpr (D == 80) reg_fence(acc_t);
   reg_fence(lsum);
 }
 
@@ -316,9 +384,12 @@ __device__ __forceinline__ float max4(const float (&m)[4]) {
 // What a consumer's tile needs besides its registers.
 struct Tile {
   uint64_t qd, kd, vd, onesd;  // descriptors: q tile, the item's K and V, ones
+  uint64_t qtd, ktd, vtd;      // D = 80: lanes 64-79 of the q tile, K and V
   uint64_t* q_empty;           // the q tile's slot, freed after the last q.k^T
   bf16* stage;                 // this warpgroup's o staging tile (8 KB)
+  bf16* stage_t;               // D = 80: its lanes 64-79 (2 KB)
   const CUtensorMap* o_map;
+  const CUtensorMap* ot_map;   // D = 80: o's lanes 64-79
   int po, row, h, b;           // o's map order; the tile's first row, item
   float* st0;                  // K1: lse2; K5: m (null: no statistics)
   float* st1;                  // K5: l
@@ -328,13 +399,14 @@ struct Tile {
 // One consumer's 64-query tile of one (batch, head): o rows (staged in
 // shared memory and stored by TMA, which drops rows past S) and their
 // statistics.
-template <int NC, bool MULTI, bool GROUPED>
+template <int NC, bool MULTI, bool GROUPED, int D>
 __device__ __forceinline__ void tile(const Tile& a, int S, float c) {
+  constexpr int NT = tail_regs<D>();  // o's lanes 64-79
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const int r = ((threadIdx.x >> 5) & 3) * 16 + g;  // row g in the tile
   float s[NC][32];
   uint32_t p[NC][4][4];
-  float acc[32], lsum[4];
+  float acc[32], acc_t[NT], lsum[4];
   float mx[2][4], lp[2][4];
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
@@ -344,30 +416,36 @@ __device__ __forceinline__ void tile(const Tile& a, int S, float c) {
   }
 #pragma unroll
   for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < NT; ++i) acc_t[i] = 0.f;
   float m0, m1;
   constexpr uint64_t GROUP_UNITS = NC * CHUNK_UNITS;
+  constexpr uint64_t GROUP_TAIL_UNITS = NC * CHUNK_TAIL_UNITS;
   if constexpr (!MULTI) {
     // the whole row in registers: one q.k^T
-    qk(s, a.qd, a.kd);
+    qk<NC, D>(s, a.qd, a.kd, a.qtd, a.ktd);
     mbar_arrive(a.q_empty);
     row_max(s, S, t, mx);
     m0 = quad_max(max4(mx[0]));
     m1 = quad_max(max4(mx[1]));
     row_exp<GROUPED>(s, p, S, t, m0 * c, m1 * c, c, lp);
-    pv<!GROUPED>(acc, lsum, p, a.vd, a.onesd);
+    pv<!GROUPED, NC, D>(acc, acc_t, lsum, p, a.vd, a.vtd, a.onesd);
   } else {
     // groups of NC chunks, swept twice over the resident K
     const int groups = (S + NC * CHUNK - 1) / (NC * CHUNK);
     for (int gi = 0; gi < groups; ++gi) {
-      qk(s, a.qd, a.kd + gi * GROUP_UNITS);
+      qk<NC, D>(s, a.qd, a.kd + gi * GROUP_UNITS, a.qtd,
+                a.ktd + gi * GROUP_TAIL_UNITS);
       row_max(s, S - gi * NC * CHUNK, t, mx);
     }
     m0 = quad_max(max4(mx[0]));
     m1 = quad_max(max4(mx[1]));
     for (int gi = 0; gi < groups; ++gi) {
-      qk(s, a.qd, a.kd + gi * GROUP_UNITS);
+      qk<NC, D>(s, a.qd, a.kd + gi * GROUP_UNITS, a.qtd,
+                a.ktd + gi * GROUP_TAIL_UNITS);
       row_exp<GROUPED>(s, p, S - gi * NC * CHUNK, t, m0 * c, m1 * c, c, lp);
-      pv<!GROUPED>(acc, lsum, p, a.vd + gi * GROUP_UNITS, a.onesd);
+      pv<!GROUPED, NC, D>(acc, acc_t, lsum, p, a.vd + gi * GROUP_UNITS,
+                          a.vtd + gi * GROUP_TAIL_UNITS, a.onesd);
     }
     mbar_arrive(a.q_empty);
   }
@@ -396,10 +474,25 @@ __device__ __forceinline__ void tile(const Tile& a, int S, float c) {
     *reinterpret_cast<uint32_t*>(st + 8 * ROW_BYTES + off) =
         pack_f32(acc[4 * i + 2] * inv1, acc[4 * i + 3] * inv1);
   }
+  if constexpr (D == 80) {
+    // lanes 64-79 in the 32-byte swizzle (16-byte column block i of row r
+    // at block i ^ ((r >> 2) & 1); rows r and r + 8 share the pattern)
+    uint8_t* stt = reinterpret_cast<uint8_t*>(a.stage_t) + r * TAIL_ROW + 4 * t;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int off = (i ^ ((r >> 2) & 1)) << 4;
+      *reinterpret_cast<uint32_t*>(stt + off) =
+          pack_f32(acc_t[4 * i] * inv0, acc_t[4 * i + 1] * inv0);
+      *reinterpret_cast<uint32_t*>(stt + 8 * TAIL_ROW + off) =
+          pack_f32(acc_t[4 * i + 2] * inv1, acc_t[4 * i + 3] * inv1);
+    }
+  }
   fence_async_smem();
   named_sync(1 + (threadIdx.x >> 7), 128);
   if (lead) {
     tma_store_view(a.o_map, a.stage, a.po, a.row, a.h, a.b);
+    if constexpr (D == 80)
+      tma_store_view(a.ot_map, a.stage_t, a.po, a.row, a.h, a.b);
     bulk_commit();
   }
   const int row0 = a.row + r;
@@ -415,29 +508,72 @@ __device__ __forceinline__ void tile(const Tile& a, int S, float c) {
   }
 }
 
+// A producer thread: for each of the block's items, once its buffer is
+// free, TMA loads of the item's whole K and V, then of its q tiles into the
+// ring. TAIL: lanes 64-79 (D = 80) into their tiles, through the tail maps,
+// by a second thread beside the first (each full barrier then counts two
+// arrivals): one thread issuing both spilled even at 40 registers.
+template <int NC, bool MULTI, int D, bool TAIL>
+__device__ __forceinline__ void produce(const Smem& sm, const CUtensorMap* q_map,
+                                        const CUtensorMap* k_map,
+                                        const CUtensorMap* v_map, int perms,
+                                        int H, int items, int rows, int ntq) {
+  using L = Layout<NC, MULTI, D>;
+  constexpr int KVS = L::KV_STAGES, QS = L::Q_STAGES;
+  constexpr int ROW = TAIL ? TAIL_ROW : ROW_BYTES;  // bytes a row and a box
+  constexpr int BOX = TAIL ? TAIL_BOX : BOX_BYTES;
+  bf16* const k = TAIL ? sm.kt : sm.k;
+  bf16* const v = TAIL ? sm.vt : sm.v;
+  bf16* const q = TAIL ? sm.qt : sm.q;
+  tma_prefetch(q_map);
+  tma_prefetch(k_map);
+  tma_prefetch(v_map);
+  const int pq = perms & 63, pk = (perms >> 6) & 63, pvm = (perms >> 12) & 63;
+  int n = 0;  // the block's q tiles so far
+  for (int j = 0, item = blockIdx.x; item < items; item += gridDim.x, ++j) {
+    const int b = item / H, h = item % H;
+    const int ks = j % KVS;
+    mbar_wait(&sm.kv_empty[ks], ((j / KVS) & 1) ^ 1);
+    mbar_expect_tx(&sm.kv_full[ks], 2 * rows * ROW);
+    for (int r = 0; r < rows; r += 64) {
+      const size_t at = ((size_t)ks * rows + r) * (ROW / 2);
+      tma_load_view(k + at, k_map, &sm.kv_full[ks], pk, r, h, b);
+      tma_load_view(v + at, v_map, &sm.kv_full[ks], pvm, r, h, b);
+    }
+    for (int qt = 0; qt < ntq; ++qt, ++n) {
+      const int qs = n % QS;
+      mbar_wait(&sm.q_empty[qs], ((n / QS) & 1) ^ 1);
+      mbar_expect_tx(&sm.q_full[qs], BOX);
+      tma_load_view(q + qs * (BOX / 2), q_map, &sm.q_full[qs], pq,
+                    qt * TILE_Q, h, b);
+    }
+  }
+}
+
 // st0, st1: K1 lse2 and null; K5 m and l; or both null (no statistics).
-template <int NC, bool MULTI, bool GROUPED>
+template <int NC, bool MULTI, bool GROUPED, int D>
 __global__ void __launch_bounds__(THREADS, 1)
     short_attn_kernel(const __grid_constant__ CUtensorMap q_map,
                       const __grid_constant__ CUtensorMap k_map,
                       const __grid_constant__ CUtensorMap v_map,
                       const __grid_constant__ CUtensorMap o_map,
+                      const __grid_constant__ TailMaps<D> tails,
                       float* __restrict__ st0, float* __restrict__ st1, int S,
                       int H, int items, int rows, float c, int perms) {
-  using L = Layout<MULTI>;
+  using L = Layout<NC, MULTI, D>;
   constexpr int KVS = L::KV_STAGES, QS = L::Q_STAGES;
   extern __shared__ __align__(1024) uint8_t smem_raw[];
-  const Smem sm = carve<MULTI>(smem_raw, rows);
+  const Smem sm = carve<NC, MULTI, D>(smem_raw, rows);
   const int ntq = (S + TILE_Q - 1) / TILE_Q;  // q tiles an item
   const int wg = threadIdx.x >> 7;
 
   if (threadIdx.x == 0) {
     for (int i = 0; i < QS; ++i) {
-      mbar_init(&sm.q_full[i], 1);
+      mbar_init(&sm.q_full[i], D == 80 ? 2 : 1);  // a producer thread each
       mbar_init(&sm.q_empty[i], 128);
     }
     for (int i = 0; i < KVS; ++i) {
-      mbar_init(&sm.kv_full[i], 1);
+      mbar_init(&sm.kv_full[i], D == 80 ? 2 : 1);
       mbar_init(&sm.kv_empty[i], ntq * 128);
     }
     fence_mbar_init();
@@ -450,42 +586,37 @@ __global__ void __launch_bounds__(THREADS, 1)
 
   if (wg == 2) {
     // ------------------------------------------------------- producer
-    setmaxnreg_dec<24>();
-    if (threadIdx.x == CONSUMERS) {
-      tma_prefetch(&q_map);
-      tma_prefetch(&k_map);
-      tma_prefetch(&v_map);
-      const int pq = perms & 63, pk = (perms >> 6) & 63,
-                pvm = (perms >> 12) & 63;
-      int n = 0;  // the block's q tiles so far
-      for (int j = 0, item = blockIdx.x; item < items;
-           item += gridDim.x, ++j) {
-        const int b = item / H, h = item % H;
-        const int ks = j % KVS;
-        mbar_wait(&sm.kv_empty[ks], ((j / KVS) & 1) ^ 1);
-        mbar_expect_tx(&sm.kv_full[ks], 2 * rows * ROW_BYTES);
-        for (int r = 0; r < rows; r += 64) {
-          tma_load_view(sm.k_at(ks) + r * 64, &k_map, &sm.kv_full[ks], pk, r,
-                        h, b);
-          tma_load_view(sm.v_at(ks) + r * 64, &v_map, &sm.kv_full[ks], pvm, r,
-                        h, b);
-        }
-        for (int qt = 0; qt < ntq; ++qt, ++n) {
-          const int qs = n % QS;
-          mbar_wait(&sm.q_empty[qs], ((n / QS) & 1) ^ 1);
-          mbar_expect_tx(&sm.q_full[qs], BOX_BYTES);
-          tma_load_view(sm.q + qs * (BOX_BYTES / 2), &q_map, &sm.q_full[qs],
-                        pq, qt * TILE_Q, h, b);
-        }
-      }
+    // D = 80: the two producer threads' tail pointers and maps take the
+    // producer warpgroup to 40 registers (24 spilled), the consumers to 232
+    if constexpr (D == 80)
+      setmaxnreg_dec<40>();
+    else
+      setmaxnreg_dec<24>();
+    if (threadIdx.x == CONSUMERS)
+      produce<NC, MULTI, D, false>(sm, &q_map, &k_map, &v_map, perms, H,
+                                   items, rows, ntq);
+    if constexpr (D == 80) {
+      if (threadIdx.x == CONSUMERS + 32)
+        produce<NC, MULTI, D, true>(sm, &tails.q, &tails.k, &tails.v, perms,
+                                    H, items, rows, ntq);
     }
   } else {
     // ------------------------------------------------------ consumers
-    setmaxnreg_inc<240>();
+    if constexpr (D == 80)
+      setmaxnreg_inc<232>();
+    else
+      setmaxnreg_inc<240>();
     Tile a;
     a.onesd = desc_b128(sm.ones, 16, 1024);
     a.stage = sm.o + wg * (BOX_BYTES / 2);
     a.o_map = &o_map;
+    a.qtd = a.ktd = a.vtd = 0;
+    a.stage_t = nullptr;
+    a.ot_map = nullptr;
+    if constexpr (D == 80) {
+      a.stage_t = sm.ot + wg * (TAIL_BOX / 2);
+      a.ot_map = &tails.o;
+    }
     a.po = perms >> 18;
     a.st0 = st0;
     a.st1 = st1;
@@ -497,6 +628,10 @@ __global__ void __launch_bounds__(THREADS, 1)
       const int ks = j % KVS;
       a.kd = desc_b128(sm.k_at(ks), 16, 1024);
       a.vd = desc_b128(sm.v_at(ks), 0, 1024);
+      if constexpr (D == 80) {
+        a.ktd = desc_b32(sm.kt_at(ks), 16, 256);
+        a.vtd = desc_b32(sm.vt_at(ks), 0, 256);
+      }
       a.stat_row = ((size_t)a.b * H + a.h) * S;
       for (int qt = 0; qt < ntq; ++qt, ++n) {
         if ((n & 1) != wg) continue;
@@ -504,9 +639,11 @@ __global__ void __launch_bounds__(THREADS, 1)
         mbar_wait(&sm.kv_full[ks], (j / KVS) & 1);
         mbar_wait(&sm.q_full[qs], (n / QS) & 1);
         a.qd = desc_b128(sm.q + qs * (BOX_BYTES / 2), 16, 1024);
+        if constexpr (D == 80)
+          a.qtd = desc_b32(sm.qt + qs * (TAIL_BOX / 2), 16, 256);
         a.q_empty = &sm.q_empty[qs];
         a.row = qt * TILE_Q;
-        tile<NC, MULTI, GROUPED>(a, S, c);
+        tile<NC, MULTI, GROUPED, D>(a, S, c);
         mbar_arrive(&sm.kv_empty[ks]);
       }
     }
@@ -514,11 +651,12 @@ __global__ void __launch_bounds__(THREADS, 1)
   }
 }
 
-template <int NC, bool MULTI, bool GROUPED>
-int launch(const CUtensorMap (&maps)[4], float* st0, float* st1, int B,
-           int S, int H, int rows, float c, int perms, cudaStream_t stream) {
-  auto kernel = short_attn_kernel<NC, MULTI, GROUPED>;
-  const int smem = Layout<MULTI>::bytes(rows);
+template <int NC, bool MULTI, bool GROUPED, int D>
+int launch(const CUtensorMap (&maps)[4], const TailMaps<D>& tails,
+           float* st0, float* st1, int B, int S, int H, int rows, float c,
+           int perms, cudaStream_t stream) {
+  auto kernel = short_attn_kernel<NC, MULTI, GROUPED, D>;
+  const int smem = Layout<NC, MULTI, D>::bytes(rows);
   static int allowed = 0;  // the shared memory this kernel may take so far
   if (smem > allowed) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -529,59 +667,75 @@ int launch(const CUtensorMap (&maps)[4], float* st0, float* st1, int B,
   const int items = B * H;
   const int grid = items < sm_count() ? items : sm_count();
   kernel<<<grid, THREADS, smem, stream>>>(maps[0], maps[1], maps[2], maps[3],
-                                          st0, st1, S, H, items, rows, c,
-                                          perms);
+                                          tails, st0, st1, S, H, items, rows,
+                                          c, perms);
   return (int)cudaGetLastError();
 }
 
 // The plan for S keys: NC chunks in registers (S <= 128: 2, <= 256: 4,
 // <= 320: 5, one sweep), else 256-key groups swept twice; the key rows
 // loaded cover every chunk a sweep takes.
-template <bool GROUPED>
+template <bool GROUPED, int D>
 int run(const void* q, const void* k, const void* v, void* o, float* st0,
         float* st1, const long long* strides, int B, int S, int H, float c,
         void* stream) {
-  if (S < 1 || S > MAX_SEQ || B < 1 || H < 1) return (int)cudaErrorInvalidValue;
-  CUtensorMap maps[4];
+  if (S < 1 || S > max_seq<D>() || B < 1 || H < 1)
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap maps[4], tmaps[4];
+  TailMaps<D> tails;
   int perm[4];
   const void* ptrs[4] = {q, k, v, o};
   for (int i = 0; i < 4; ++i) {
-    const int err = encode_view(&maps[i], ptrs[i], strides + 3 * i, B, H, S,
-                                64, &perm[i], "unite_short_attn");
+    const int err = encode_view_d(&maps[i], &tmaps[i], D, ptrs[i],
+                                  strides + 3 * i, B, H, S, 64, &perm[i],
+                                  "unite_short_attn");
     if (err != 0) return err;
+  }
+  if constexpr (D == 80) {
+    tails.q = tmaps[0];
+    tails.k = tmaps[1];
+    tails.v = tmaps[2];
+    tails.o = tmaps[3];
   }
   const int perms =
       perm[0] | (perm[1] << 6) | (perm[2] << 12) | (perm[3] << 18);
   const cudaStream_t st = (cudaStream_t)stream;
   if (S <= 2 * CHUNK)
-    return launch<2, false, GROUPED>(maps, st0, st1, B, S, H, 2 * CHUNK, c,
-                                     perms, st);
+    return launch<2, false, GROUPED, D>(maps, tails, st0, st1, B, S, H,
+                                        2 * CHUNK, c, perms, st);
   if (S <= 4 * CHUNK)
-    return launch<4, false, GROUPED>(maps, st0, st1, B, S, H, 4 * CHUNK, c,
-                                     perms, st);
+    return launch<4, false, GROUPED, D>(maps, tails, st0, st1, B, S, H,
+                                        4 * CHUNK, c, perms, st);
   if (S <= 5 * CHUNK)
-    return launch<5, false, GROUPED>(maps, st0, st1, B, S, H, 5 * CHUNK, c,
-                                     perms, st);
+    return launch<5, false, GROUPED, D>(maps, tails, st0, st1, B, S, H,
+                                        5 * CHUNK, c, perms, st);
   const int rows = (S + GROUP - 1) / GROUP * GROUP;
-  return launch<GROUP / CHUNK, true, GROUPED>(maps, st0, st1, B, S, H, rows,
-                                              c, perms, st);
+  return launch<GROUP / CHUNK, true, GROUPED, D>(maps, tails, st0, st1, B, S,
+                                                 H, rows, c, perms, st);
 }
 
 }  // namespace
 
-// K1: q, k, v -> o, each a [B, H, S, 64] bf16 view (in practice the lane
+// K1: q, k, v -> o, each a [B, H, S, D] bf16 view (in practice the lane
 // slices of qkv and out) whose (batch, head, row) strides in elements are
 // strides[3i..3i+2] for i = q, k, v, o; lse [B, H, S] fp32 contiguous
 // (lse2 = m*c + log2(l), l the sum of the rounded p), or null. c =
-// scale*log2(e); 1 <= S <= 768. q, k and v need 16-byte aligned bases and
-// strides that are multiples of 8 elements (for a dimension of extent > 1).
-// Launches on `stream`; returns a CUDA error code.
+// scale*log2(e); D = 64 with 1 <= S <= 768, or D = 80 with 1 <= S <= 512
+// (cudaErrorInvalidValue otherwise). q, k and v need 16-byte aligned bases
+// and strides that are multiples of 8 elements (for a dimension of extent
+// > 1). Launches on `stream`; returns a CUDA error code.
 extern "C" int unite_short_qkv_fwd(const void* q, const void* k, const void* v,
                                    void* o, void* lse,
                                    const long long* strides, int B, int S,
-                                   int H, float c, void* stream) {
-  return run<false>(q, k, v, o, static_cast<float*>(lse), nullptr, strides, B,
-                    S, H, c, stream);
+                                   int H, int D, float c, void* stream) {
+  float* l = static_cast<float*>(lse);
+  if (D == 64)
+    return run<false, 64>(q, k, v, o, l, nullptr, strides, B, S, H, c,
+                          stream);
+  if (D == 80)
+    return run<false, 80>(q, k, v, o, l, nullptr, strides, B, S, H, c,
+                          stream);
+  return (int)cudaErrorInvalidValue;
 }
 
 // K5: the same views; m and l [B, H, S] fp32 contiguous (the raw row max of
@@ -592,6 +746,6 @@ extern "C" int unite_short_grouped_fwd(const void* q, const void* k,
                                        void* l, const long long* strides,
                                        int B, int S, int H, float c,
                                        void* stream) {
-  return run<true>(q, k, v, o, static_cast<float*>(m), static_cast<float*>(l),
-                   strides, B, S, H, c, stream);
+  return run<true, 64>(q, k, v, o, static_cast<float*>(m),
+                       static_cast<float*>(l), strides, B, S, H, c, stream);
 }

@@ -6,8 +6,9 @@
 //
 //   K2 replaces unite_tpu/ops/attention.py::_fused_qkv_bwd_kernel (called
 //      from _fused_qkv_bwd): q, k, v, o and do are lane slices of the
-//      packed qkv [B, S, 3*H*64] and [B, S, H*64], and dq, dk, dv are
-//      written straight into the lane slices of the packed dqkv;
+//      packed qkv [B, S, 3*H*D] and [B, S, H*D], and dq, dk, dv are
+//      written straight into the lane slices of the packed dqkv, at D = 64
+//      or 80 (up to 512 keys at 80);
 //   K5's backward replaces unite_tpu/ops/attention.py::_grouped_bwd_kernel
 //      (called from _grouped_attention_bwd): every tensor is a [B, H, S, 64]
 //      view, contiguous or strided (392 = stage 1 at mask 0.75).
@@ -67,6 +68,12 @@
 // Ragged edges: keys past S get p = e = 0 in dq, and a last chunk of at
 // most 16 keys (392 = 6*64 + 8) takes products 16 keys wide; rows past S
 // are computed on zero rows and never stored.
+// Head dim 80 (K2 only; the kernels are templated on D, and D = 64 is the
+// body above): lanes 64-79 of every tile and chunk come through a second
+// map into tiles of 32-byte rows (32-byte swizzle); a tile's are read into
+// one more A fragment a tensor (the fifth k-step of its score products),
+// a chunk's are the B operand of that k-step and of a second gradient
+// product, m64n16k16, into 8 more accumulators a thread.
 #include "attn_bwd_wgmma.cuh"
 #include "fused_qkv_common.cuh"
 #include "hopper.cuh"
@@ -83,24 +90,45 @@ constexpr uint64_t TILE_UNITS = TILE_BYTES >> 4;  // in descriptor units
 constexpr int CONSUMERS = 256;               // threads of the two consumers
 constexpr int THREADS = CONSUMERS + 128;     // and the producer warpgroup
 constexpr int PREP = 64;                     // dkv: threads of the prep warps
-constexpr int MAX_SEQ = 768;
 constexpr int SMEM_MAX = 232448;             // what a block may have
+// D = 80: lanes 64-79 of a 64-row tile or chunk, 32-byte rows
+constexpr int TAIL_BYTES = TILE * 16 * 2;
+constexpr uint64_t TAIL_UNITS = TAIL_BYTES >> 4;
+
+// The longest sequence a head dim takes (a head's resident side).
+template <int D>
+constexpr int max_seq() {
+  return D == 80 ? 512 : 768;
+}
 
 // The shared-memory plan of a launch: `res` resident tensors of `nch`
 // 64-row chunks (dq: k, v; dkv: q, do, and K5's bf16(do * il)), `nstat`
 // column statistics of 64 values a chunk (dkv), a ring of `qs` slots of
-// two 64-row tiles (dq: q, do; dkv: k, v), and the barriers.
+// two 64-row tiles (dq: q, do; dkv: k, v), and the barriers; at D = 80 a
+// tail of lanes 64-79 beside each chunk and tile.
 struct Plan {
   int nch, res, nstat, qs;
+  template <int D>
   __host__ __device__ int bytes() const {
-    return 1024 + (res * nch + 2 * qs) * TILE_BYTES + nstat * nch * TILE * 4 +
-           8 * (3 * nch + 2 + qs);
+    return 1024 +
+           (res * nch + 2 * qs) * (TILE_BYTES + (D == 80 ? TAIL_BYTES : 0)) +
+           nstat * nch * TILE * 4 + 8 * (3 * nch + 2 + qs);
   }
 };
+
+// The lanes-64-79 maps of q, k, v and do at D = 80 (none at 64).
+template <int D>
+struct TailMaps {
+  CUtensorMap q, k, v, dout;
+};
+template <>
+struct TailMaps<64> {};
 
 struct Smem {
   uint8_t* res;       // tensor r's chunk c at (r * nch + c) tiles
   uint8_t* ring;      // slot s's two tiles at 2s, 2s + 1
+  uint8_t* res_t;     // D = 80: lanes 64-79 of each, laid out as they are
+  uint8_t* ring_t;
   float* stats;       // statistic k of chunk c at (k * nch + c) * 64
   uint64_t* full;     // a chunk's TMA loads, nch
   uint64_t* prep;     // dkv: a chunk's statistics (and K5's do * il), nch
@@ -114,11 +142,18 @@ struct Smem {
   __device__ __forceinline__ bf16* slot(int s, int i) const {
     return reinterpret_cast<bf16*>(ring + (size_t)(2 * s + i) * TILE_BYTES);
   }
+  __device__ __forceinline__ bf16* chunk_t(int r, int c) const {
+    return reinterpret_cast<bf16*>(res_t + (size_t)(r * nch + c) * TAIL_BYTES);
+  }
+  __device__ __forceinline__ bf16* slot_t(int s, int i) const {
+    return reinterpret_cast<bf16*>(ring_t + (size_t)(2 * s + i) * TAIL_BYTES);
+  }
   __device__ __forceinline__ float* stat(int k, int c) const {
     return stats + (k * nch + c) * TILE;
   }
 };
 
+template <int D>
 __device__ __forceinline__ Smem carve(uint8_t* raw, const Plan& pl) {
   const uint32_t pad = (1024 - (smem_u32(raw) & 1023)) & 1023;
   uint8_t* p = raw + pad;
@@ -128,6 +163,13 @@ __device__ __forceinline__ Smem carve(uint8_t* raw, const Plan& pl) {
   p += pl.res * pl.nch * TILE_BYTES;
   s.ring = p;
   p += 2 * pl.qs * TILE_BYTES;
+  s.res_t = s.ring_t = nullptr;
+  if (D == 80) {  // multiples of 2 KB from a 1024-aligned start
+    s.res_t = p;
+    p += pl.res * pl.nch * TAIL_BYTES;
+    s.ring_t = p;
+    p += 2 * pl.qs * TAIL_BYTES;
+  }
   s.stats = reinterpret_cast<float*>(p);
   p += pl.nstat * pl.nch * TILE * 4;
   uint64_t* bars = reinterpret_cast<uint64_t*>(p);
@@ -167,23 +209,31 @@ __device__ __forceinline__ void init_barriers(const Smem& sm, const Plan& pl,
 // need nothing of this head), then the head's resident chunks (each once
 // both consumers are done with it for the head before), then the rest of
 // its tiles. r0, r1: the resident maps; m0, m1: the tiles' maps; each
-// with its map order.
+// with its map order; at D = 80 each with its lanes-64-79 map in `tl`
+// (r0, r1, m0, m1).
+template <int D>
 __device__ __forceinline__ void produce(const Smem& sm, const Plan& pl,
                                         const CUtensorMap* r0, int pr0,
                                         const CUtensorMap* r1, int pr1,
                                         const CUtensorMap* m0, int pm0,
                                         const CUtensorMap* m1, int pm1,
+                                        const CUtensorMap* const* tl,
                                         int ntiles, int ntq, int H) {
+  constexpr int BOX = TILE_BYTES + (D == 80 ? TAIL_BYTES : 0);
   int t0, t1;
   block_range(ntiles, t0, t1);
   auto load_tile = [&](int n, int h, int b) {
     const int li = n - t0, s = li % pl.qs;
     uint64_t* full = &sm.t_full[li & 1];
     mbar_wait(&sm.t_empty[s], ((li / pl.qs) & 1) ^ 1);
-    mbar_expect_tx(full, 2 * TILE_BYTES);
+    mbar_expect_tx(full, 2 * BOX);
     const int row = (n % ntq) * TILE;
     tma_load_view(sm.slot(s, 0), m0, full, pm0, row, h, b);
     tma_load_view(sm.slot(s, 1), m1, full, pm1, row, h, b);
+    if constexpr (D == 80) {
+      tma_load_view(sm.slot_t(s, 0), tl[2], full, pm0, row, h, b);
+      tma_load_view(sm.slot_t(s, 1), tl[3], full, pm1, row, h, b);
+    }
   };
   int u = 0;
   for (int a = t0; a < t1; ++u) {
@@ -193,9 +243,15 @@ __device__ __forceinline__ void produce(const Smem& sm, const Plan& pl,
     for (; n < min(a + pl.qs, e); ++n) load_tile(n, h, b);
     for (int c = 0; c < pl.nch; ++c) {
       mbar_wait(&sm.empty[c], (u & 1) ^ 1);
-      mbar_expect_tx(&sm.full[c], 2 * TILE_BYTES);
+      mbar_expect_tx(&sm.full[c], 2 * BOX);
       tma_load_view(sm.chunk(0, c), r0, &sm.full[c], pr0, c * TILE, h, b);
       tma_load_view(sm.chunk(1, c), r1, &sm.full[c], pr1, c * TILE, h, b);
+      if constexpr (D == 80) {
+        tma_load_view(sm.chunk_t(0, c), tl[0], &sm.full[c], pr0, c * TILE, h,
+                      b);
+        tma_load_view(sm.chunk_t(1, c), tl[1], &sm.full[c], pr1, c * TILE, h,
+                      b);
+      }
     }
     for (; n < e; ++n) load_tile(n, h, b);
     a = e;
@@ -286,50 +342,43 @@ __device__ __forceinline__ void col_ds(const float (&s)[N], float (&dp)[N],
 // m64n16k16 score products, a quarter of their width, and one k-step of 16
 // keys in its gradient product instead of four; keys 16..63 of the chunk
 // are past S, zero-filled, and would only add zeros. (dk/dv measured no
-// faster with it, and spilled: it keeps the full chunk.)
+// faster with it, and spilled: it keeps the full chunk.) At D = 80 the
+// score products take the fifth k-step (xt, ut against ytd, wtd).
+template <int D>
 __device__ __forceinline__ void narrow_scores_start(
     float (&a)[8], float (&b)[8], const uint32_t (&xa)[4][4], uint64_t yd,
-    const uint32_t (&ua)[4][4], uint64_t wd) {
+    const uint32_t (&xt)[4], uint64_t ytd, const uint32_t (&ua)[4][4],
+    uint64_t wd, const uint32_t (&ut)[4], uint64_t wtd) {
   reg_fence(a);
   wgmma_fence();
 #pragma unroll
   for (int kk = 0; kk < 4; ++kk)
     wgmma_m64n16k16_rs(a, xa[kk], yd + 2 * kk, kk);
+  if constexpr (D == 80) wgmma_m64n16k16_rs(a, xt, ytd, 1);
   wgmma_commit();
   reg_fence(b);
   wgmma_fence();
 #pragma unroll
   for (int kk = 0; kk < 4; ++kk)
     wgmma_m64n16k16_rs(b, ua[kk], wd + 2 * kk, kk);
+  if constexpr (D == 80) wgmma_m64n16k16_rs(b, ut, wtd, 1);
   wgmma_commit();
 }
 
-// acc += p . x[0:16] (x MN-major: one k-step), one commit group.
+// acc += p . x[0:16] (x MN-major: one k-step), and at D = 80 acc_t += p .
+// x's lanes 64-79 (xtd), one commit group.
+template <int D, int NT>
 __device__ __forceinline__ void narrow_grad_start(float (&acc)[32],
+                                                  float (&acc_t)[NT],
                                                   uint32_t (&p)[1][4],
-                                                  uint64_t xd) {
+                                                  uint64_t xd, uint64_t xtd) {
   reg_fence(acc);
+  if constexpr (D == 80) reg_fence(acc_t);
   reg_fence(p[0]);
   wgmma_fence();
   wgmma_m64n64k16_rs_tb(acc, p[0], xd, 1);
+  if constexpr (D == 80) wgmma_m64n16k16_rs_tb(acc_t, p[0], xtd, 1);
   wgmma_commit();
-}
-
-// Store a 64x64 fp32 accumulator times m0 (row `row`) and m1 (row
-// `row + 8`) as bf16 rows of a view's head; rows at or past S are dropped.
-__device__ __forceinline__ void store_rows(bf16* base, long long sr,
-                                           const float (&acc)[32], int row,
-                                           int S, int t, float m0, float m1) {
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int col = 8 * i + 2 * t;
-    if (row < S)
-      *reinterpret_cast<uint32_t*>(base + row * sr + col) =
-          bf2(acc[4 * i] * m0, acc[4 * i + 1] * m0);
-    if (row + 8 < S)
-      *reinterpret_cast<uint32_t*>(base + (row + 8) * sr + col) =
-          bf2(acc[4 * i + 2] * m1, acc[4 * i + 3] * m1);
-  }
 }
 
 // rowsum(x * y) over this lane's part of two bf16 pairs' rows.
@@ -386,35 +435,46 @@ __device__ __forceinline__ void dq_form(float (&s)[N], float (&dp)[N], int j,
 // dq's gradient sweep over the resident chunks: acc += ds.k, with
 // ds = exp2(s*c - x) * (dp - delta) rounded, x and delta of rows g and
 // g + 8; with NARROW the last chunk is narrow. kd, vd: the resident k and v
-// K-major; kt: k MN-major.
-template <bool NARROW>
-__device__ __forceinline__ void dq_sweep(float (&acc)[32],
+// K-major; kt: k MN-major; at D = 80 their lanes 64-79 (ktd, vtd, ktt),
+// the tile's q and do lanes 64-79 in qt, dot, and dq's in acc_t.
+template <bool NARROW, int D, int NT>
+__device__ __forceinline__ void dq_sweep(float (&acc)[32], float (&acc_t)[NT],
                                          const uint32_t (&qa)[4][4],
+                                         const uint32_t (&qt)[4],
                                          const uint32_t (&doa)[4][4],
+                                         const uint32_t (&dot)[4],
                                          const Smem& sm, const Walk& w,
                                          int S, int t, float c, float x0,
                                          float x1, float d0, float d1) {
   const uint64_t kd = kmajor(sm.chunk(0, 0)), vd = kmajor(sm.chunk(1, 0));
   const uint64_t kt = mnmajor(sm.chunk(0, 0));
+  uint64_t ktd = 0, vtd = 0, ktt = 0;
+  if constexpr (D == 80) {
+    ktd = kmajor_t(sm.chunk_t(0, 0));
+    vtd = kmajor_t(sm.chunk_t(1, 0));
+    ktt = mnmajor_t(sm.chunk_t(0, 0));
+  }
   const int nch = sm.nch, par = w.u & 1;
   const int nfull = NARROW ? nch - 1 : nch;  // full chunks
   float s[32], dp[32];
   uint32_t ds[4][4];
   if (!NARROW || nfull > 0) {
     mbar_wait(&sm.full[0], par);
-    scores_start(s, dp, qa, kd, doa, vd);
+    scores_start<D>(s, dp, qa, kd, qt, ktd, doa, vd, dot, vtd);
     dq_form<1, 0>(s, dp, 0, S, t, c, x0, x1, d0, d1);
     pack_pairs(s, ds);
   }
   for (int j = 0; j + 1 < nfull; ++j) {
     mbar_wait(&sm.full[j + 1], par);
-    scores_start(s, dp, qa, kd + (j + 1) * TILE_UNITS, doa,
-                 vd + (j + 1) * TILE_UNITS);
-    grad_start(acc, ds, kt + j * TILE_UNITS);
+    scores_start<D>(s, dp, qa, kd + (j + 1) * TILE_UNITS, qt,
+                    ktd + (j + 1) * TAIL_UNITS, doa,
+                    vd + (j + 1) * TILE_UNITS, dot,
+                    vtd + (j + 1) * TAIL_UNITS);
+    grad_start<D>(acc, acc_t, ds, kt + j * TILE_UNITS, ktt + j * TAIL_UNITS);
     // products retire in order: s, then dp, then the gradient
     dq_form<2, 1>(s, dp, j + 1, S, t, c, x0, x1, d0, d1);
     wgmma_wait<0>();
-    reg_fence(acc);
+    acc_fence<D>(acc, acc_t);
     if (w.last) mbar_arrive(&sm.empty[j]);
     pack_pairs(s, ds);
   }
@@ -423,24 +483,28 @@ __device__ __forceinline__ void dq_sweep(float (&acc)[32],
     float sn[8], dpn[8];
     uint32_t dsn[1][4];
     mbar_wait(&sm.full[jn], par);
-    narrow_scores_start(sn, dpn, qa, kd + jn * TILE_UNITS, doa,
-                        vd + jn * TILE_UNITS);
+    narrow_scores_start<D>(sn, dpn, qa, kd + jn * TILE_UNITS, qt,
+                           ktd + jn * TAIL_UNITS, doa, vd + jn * TILE_UNITS,
+                           dot, vtd + jn * TAIL_UNITS);
     if (nfull > 0) {
-      grad_start(acc, ds, kt + (jn - 1) * TILE_UNITS);
+      grad_start<D>(acc, acc_t, ds, kt + (jn - 1) * TILE_UNITS,
+                    ktt + (jn - 1) * TAIL_UNITS);
       dq_form<2, 1>(sn, dpn, jn, S, t, c, x0, x1, d0, d1);
       wgmma_wait<0>();
-      reg_fence(acc);
+      acc_fence<D>(acc, acc_t);
       if (w.last) mbar_arrive(&sm.empty[jn - 1]);
     } else {
       dq_form<1, 0>(sn, dpn, jn, S, t, c, x0, x1, d0, d1);
     }
     pack_pairs(sn, dsn);
-    narrow_grad_start(acc, dsn, kt + jn * TILE_UNITS);
+    narrow_grad_start<D>(acc, acc_t, dsn, kt + jn * TILE_UNITS,
+                         ktt + jn * TAIL_UNITS);
   } else {
-    grad_start(acc, ds, kt + (nch - 1) * TILE_UNITS);
+    grad_start<D>(acc, acc_t, ds, kt + (nch - 1) * TILE_UNITS,
+                  ktt + (nch - 1) * TAIL_UNITS);
   }
   wgmma_wait<0>();
-  reg_fence(acc);
+  acc_fence<D>(acc, acc_t);
   if (w.last) mbar_arrive(&sm.empty[nch - 1]);
 }
 
@@ -472,7 +536,8 @@ __device__ __forceinline__ void delta_sweep(const uint32_t (&qa)[4][4],
   for (int j = 0; j < nfull; ++j) {
     float s[32], dp[32];
     mbar_wait(&sm.full[j], w.u & 1);
-    scores_start(s, dp, qa, kd + j * TILE_UNITS, doa, vd + j * TILE_UNITS);
+    scores_start<64>(s, dp, qa, kd + j * TILE_UNITS, 0, 0, doa,
+                     vd + j * TILE_UNITS, 0, 0);
     wgmma_wait<1>();
     reg_fence(s);
     chunk_exp(s, j, S, t, c, x0, x1);
@@ -484,8 +549,9 @@ __device__ __forceinline__ void delta_sweep(const uint32_t (&qa)[4][4],
     const int jn = sm.nch - 1;
     float s[8], dp[8];
     mbar_wait(&sm.full[jn], w.u & 1);
-    narrow_scores_start(s, dp, qa, kd + jn * TILE_UNITS, doa,
-                        vd + jn * TILE_UNITS);
+    const uint32_t none[4] = {0u, 0u, 0u, 0u};  // no lanes 64-79 at D = 64
+    narrow_scores_start<64>(s, dp, qa, kd + jn * TILE_UNITS, none, 0, doa,
+                            vd + jn * TILE_UNITS, none, 0);
     wgmma_wait<1>();
     reg_fence(s);
     chunk_exp(s, jn, S, t, c, x0, x1);
@@ -499,19 +565,22 @@ __device__ __forceinline__ void delta_sweep(const uint32_t (&qa)[4][4],
 
 // st0, st1: K2 lse2 and null; K5 m and l. o: K2's forward output (delta).
 // NARROW: the last chunk holds at most 16 rows before S.
-template <bool GROUPED, bool NARROW>
+template <bool GROUPED, bool NARROW, int D>
 __global__ void __launch_bounds__(THREADS, 1)
     short_attn_dq_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
                                const __grid_constant__ CUtensorMap k_map,
                                const __grid_constant__ CUtensorMap v_map,
                                const __grid_constant__ CUtensorMap do_map,
+                               const __grid_constant__ TailMaps<D> tails,
                                View o, const float* __restrict__ st0,
                                const float* __restrict__ st1,
                                float* __restrict__ delta, View dq, int S,
                                int H, int ntiles, float c, float scale,
                                int perms, Plan pl) {
+  static_assert(D == 64 || !GROUPED, "K5 takes head dim 64");
+  constexpr int NT = tail_regs<D>();
   extern __shared__ __align__(1024) uint8_t smem_raw[];
-  const Smem sm = carve(smem_raw, pl);
+  const Smem sm = carve<D>(smem_raw, pl);
   const int ntq = pl.nch;  // tiles a head (a kernel parameter, no register)
   const int wg = threadIdx.x >> 7;
   init_barriers(sm, pl, false);
@@ -524,9 +593,17 @@ __global__ void __launch_bounds__(THREADS, 1)
       tma_prefetch(&k_map);
       tma_prefetch(&v_map);
       tma_prefetch(&do_map);
-      produce(sm, pl, &k_map, (perms >> 6) & 63, &v_map, (perms >> 12) & 63,
-              &q_map, perms & 63, &do_map, (perms >> 18) & 63, ntiles, ntq,
-              H);
+      // lanes 64-79 (D = 80): resident k, v, then the tiles' q, do
+      const CUtensorMap* tl[4] = {nullptr, nullptr, nullptr, nullptr};
+      if constexpr (D == 80) {
+        tl[0] = &tails.k;
+        tl[1] = &tails.v;
+        tl[2] = &tails.q;
+        tl[3] = &tails.dout;
+      }
+      produce<D>(sm, pl, &k_map, (perms >> 6) & 63, &v_map,
+                 (perms >> 12) & 63, &q_map, perms & 63, &do_map,
+                 (perms >> 18) & 63, tl, ntiles, ntq, H);
     }
     return;
   }
@@ -548,12 +625,14 @@ __global__ void __launch_bounds__(THREADS, 1)
       const int li = n - t0, slot = li % pl.qs;
       const int row = (n - bh * ntq) * TILE + 16 * w + g;  // and row + 8
       const bool ok0 = row < S, ok1 = row + 8 < S;
-      uint32_t ov[4][4];  // K2: o at this lane's places of do's fragments
+      // K2: o at this lane's places of do's fragments (kk = 4: lanes 64-79
+      // at D = 80)
+      uint32_t ov[D / 16][4];
       if (!GROUPED) {
         const bf16* o0 = o.head(b, h) + (size_t)row * o.sr + 2 * t;
         const bf16* o1 = o0 + 8 * o.sr;
 #pragma unroll
-        for (int kk = 0; kk < 4; ++kk) {
+        for (int kk = 0; kk < D / 16; ++kk) {
           ov[kk][0] = ok0 ? *reinterpret_cast<const uint32_t*>(o0 + 16 * kk) : 0u;
           ov[kk][1] = ok1 ? *reinterpret_cast<const uint32_t*>(o1 + 16 * kk) : 0u;
           ov[kk][2] = ok0 ? *reinterpret_cast<const uint32_t*>(o0 + 16 * kk + 8) : 0u;
@@ -567,10 +646,14 @@ __global__ void __launch_bounds__(THREADS, 1)
         il0 = ok0 ? 1.f / st1[stat + row] : 0.f;
         il1 = ok1 ? 1.f / st1[stat + row + 8] : 0.f;
       }
-      uint32_t qa[4][4], doa[4][4];
+      uint32_t qa[4][4], doa[4][4], qt[4], dot[4];
       mbar_wait(&sm.t_full[wg], (li >> 1) & 1);
       load_frags(qa, sm.slot(slot, 0), w, g, t);
       load_frags(doa, sm.slot(slot, 1), w, g, t);
+      if constexpr (D == 80) {
+        load_tail_frag(qt, sm.slot_t(slot, 0), w, g, t);
+        load_tail_frag(dot, sm.slot_t(slot, 1), w, g, t);
+      }
       release_slot(sm, slot);
 
       // the row statistic x of exp2(s*c - x), and delta
@@ -586,6 +669,10 @@ __global__ void __launch_bounds__(THREADS, 1)
           d0 += dot2(doa[kk][0], ov[kk][0]) + dot2(doa[kk][2], ov[kk][2]);
           d1 += dot2(doa[kk][1], ov[kk][1]) + dot2(doa[kk][3], ov[kk][3]);
         }
+        if constexpr (D == 80) {
+          d0 += dot2(dot[0], ov[4][0]) + dot2(dot[2], ov[4][2]);
+          d1 += dot2(dot[1], ov[4][1]) + dot2(dot[3], ov[4][3]);
+        }
         d0 = quad_sum(d0);
         d1 = quad_sum(d1);
       }
@@ -593,12 +680,16 @@ __global__ void __launch_bounds__(THREADS, 1)
         if (ok0) delta[stat + row] = d0;
         if (ok1) delta[stat + row + 8] = d1;
       }
-      float acc[32];
+      float acc[32], acc_t[NT];
 #pragma unroll
       for (int i = 0; i < 32; ++i) acc[i] = 0.f;
-      dq_sweep<NARROW>(acc, qa, doa, sm, walk, S, t, c, x0, x1, d0, d1);
-      store_rows(dq.head(b, h), dq.sr, acc, row, S, t,
-                 GROUPED ? scale * il0 : scale, GROUPED ? scale * il1 : scale);
+#pragma unroll
+      for (int i = 0; i < NT; ++i) acc_t[i] = 0.f;
+      dq_sweep<NARROW, D>(acc, acc_t, qa, qt, doa, dot, sm, walk, S, t, c, x0,
+                          x1, d0, d1);
+      store_rows<D>(dq.head(b, h), dq.sr, acc, acc_t, row, S, t,
+                    GROUPED ? scale * il0 : scale,
+                    GROUPED ? scale * il1 : scale);
     }
     a = e;
   }
@@ -674,19 +765,22 @@ __device__ __forceinline__ void prep(const Smem& sm, int r,
 }
 
 // st0, st1: K2 lse2 and null; K5 m and l. delta: from the dq kernel.
-template <bool GROUPED>
+template <bool GROUPED, int D>
 __global__ void __launch_bounds__(THREADS, 1)
     short_attn_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
                                 const __grid_constant__ CUtensorMap k_map,
                                 const __grid_constant__ CUtensorMap v_map,
                                 const __grid_constant__ CUtensorMap do_map,
+                                const __grid_constant__ TailMaps<D> tails,
                                 const float* __restrict__ st0,
                                 const float* __restrict__ st1,
                                 const float* __restrict__ delta, View dk,
                                 View dv, int S, int H, int ntiles, float c,
                                 float scale, int perms, Plan pl) {
+  static_assert(D == 64 || !GROUPED, "K5 takes head dim 64");
+  constexpr int NT = tail_regs<D>();
   extern __shared__ __align__(1024) uint8_t smem_raw[];
-  const Smem sm = carve(smem_raw, pl);
+  const Smem sm = carve<D>(smem_raw, pl);
   const int ntq = pl.nch;  // tiles a head (a kernel parameter, no register)
   const int wg = threadIdx.x >> 7;
   init_barriers(sm, pl, true);
@@ -699,9 +793,17 @@ __global__ void __launch_bounds__(THREADS, 1)
       tma_prefetch(&k_map);
       tma_prefetch(&v_map);
       tma_prefetch(&do_map);
-      produce(sm, pl, &q_map, perms & 63, &do_map, (perms >> 18) & 63,
-              &k_map, (perms >> 6) & 63, &v_map, (perms >> 12) & 63, ntiles,
-              ntq, H);
+      // lanes 64-79 (D = 80): resident q, do, then the tiles' k, v
+      const CUtensorMap* tl[4] = {nullptr, nullptr, nullptr, nullptr};
+      if constexpr (D == 80) {
+        tl[0] = &tails.q;
+        tl[1] = &tails.dout;
+        tl[2] = &tails.k;
+        tl[3] = &tails.v;
+      }
+      produce<D>(sm, pl, &q_map, perms & 63, &do_map, (perms >> 18) & 63,
+                 &k_map, (perms >> 6) & 63, &v_map, (perms >> 12) & 63, tl,
+                 ntiles, ntq, H);
     } else if (threadIdx.x >= CONSUMERS + 32 &&
                threadIdx.x < CONSUMERS + 32 + PREP) {
       prep<GROUPED>(sm, threadIdx.x - CONSUMERS - 32, st0, st1, delta, S, H,
@@ -724,14 +826,20 @@ __global__ void __launch_bounds__(THREADS, 1)
     for (; n < e; n += 2) {
       const int li = n - t0, slot = li % pl.qs;
       const int row = (n - bh * ntq) * TILE + 16 * w + g;  // and row + 8
-      uint32_t ka[4][4], va[4][4];
+      uint32_t ka[4][4], va[4][4], kt[4], vt4[4];
       mbar_wait(&sm.t_full[wg], (li >> 1) & 1);
       load_frags(ka, sm.slot(slot, 0), w, g, t);
       load_frags(va, sm.slot(slot, 1), w, g, t);
+      if constexpr (D == 80) {
+        load_tail_frag(kt, sm.slot_t(slot, 0), w, g, t);
+        load_tail_frag(vt4, sm.slot_t(slot, 1), w, g, t);
+      }
       release_slot(sm, slot);
-      float dk_acc[32], dv_acc[32];
+      float dk_acc[32], dv_acc[32], dk_t[NT], dv_t[NT];
 #pragma unroll
       for (int i = 0; i < 32; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+#pragma unroll
+      for (int i = 0; i < NT; ++i) dk_t[i] = dv_t[i] = 0.f;
       const bool last = n + 2 >= e;
       const int par = u & 1;
       // the resident q and do K-major, q MN-major, and dv's right operand:
@@ -739,41 +847,81 @@ __global__ void __launch_bounds__(THREADS, 1)
       const uint64_t qd = kmajor(sm.chunk(0, 0)), dod = kmajor(sm.chunk(1, 0));
       const uint64_t qt = mnmajor(sm.chunk(0, 0));
       const uint64_t vt = mnmajor(sm.chunk(GROUPED ? 2 : 1, 0));
+      // D = 80: lanes 64-79 of the resident q and do, K-major and MN-major
+      uint64_t qtd = 0, dotd = 0, qtt = 0, dott = 0;
+      if constexpr (D == 80) {
+        qtd = kmajor_t(sm.chunk_t(0, 0));
+        dotd = kmajor_t(sm.chunk_t(1, 0));
+        qtt = mnmajor_t(sm.chunk_t(0, 0));
+        dott = mnmajor_t(sm.chunk_t(1, 0));
+      }
       float s[32], dp[32];
       uint32_t pa[4][4], dsa[4][4];
       auto ready = [&](int j) {
         mbar_wait(&sm.full[j], par);
         mbar_wait(&sm.prep[j], par);
       };
+      const int nch = sm.nch;
+      if constexpr (D == 80) {
+        // one chunk at a time: chunk j + 1's score products do not run
+        // under chunk j's gradient products, so s, dp and their packed
+        // copies are never live at once beside the 80-lane accumulators
+        // and fragments (232 registers do not hold them all)
+        for (int j = 0; j < nch; ++j) {
+          ready(j);
+          scores_start<D>(s, dp, ka, qd + j * TILE_UNITS, kt,
+                          qtd + j * TAIL_UNITS, va, dod + j * TILE_UNITS, vt4,
+                          dotd + j * TAIL_UNITS);
+          dkv_form<1, 0, GROUPED>(s, dp, sm, j, t, c);
+          pack_pairs(s, pa);
+          pack_pairs(dp, dsa);
+          grads_start<D>(dv_acc, dv_t, pa, vt + j * TILE_UNITS,
+                         dott + j * TAIL_UNITS, dk_acc, dk_t, dsa,
+                         qt + j * TILE_UNITS, qtt + j * TAIL_UNITS);
+          wgmma_wait<0>();
+          acc_fence<D>(dv_acc, dv_t);
+          acc_fence<D>(dk_acc, dk_t);
+          if (last) mbar_arrive(&sm.empty[j]);
+        }
+        store_rows<D>(dk.head(b, h), dk.sr, dk_acc, dk_t, row, S, t, scale,
+                      scale);
+        store_rows<D>(dv.head(b, h), dv.sr, dv_acc, dv_t, row, S, t, 1.f,
+                      1.f);
+        continue;
+      }
       ready(0);
-      scores_start(s, dp, ka, qd, va, dod);
+      scores_start<D>(s, dp, ka, qd, kt, qtd, va, dod, vt4, dotd);
       dkv_form<1, 0, GROUPED>(s, dp, sm, 0, t, c);
       pack_pairs(s, pa);
       pack_pairs(dp, dsa);
-      const int nch = sm.nch;
       for (int j = 0; j + 1 < nch; ++j) {
         ready(j + 1);
-        scores_start(s, dp, ka, qd + (j + 1) * TILE_UNITS, va,
-                     dod + (j + 1) * TILE_UNITS);
-        grads_start(dv_acc, pa, vt + j * TILE_UNITS, dk_acc, dsa,
-                    qt + j * TILE_UNITS);
+        scores_start<D>(s, dp, ka, qd + (j + 1) * TILE_UNITS, kt,
+                        qtd + (j + 1) * TAIL_UNITS, va,
+                        dod + (j + 1) * TILE_UNITS, vt4,
+                        dotd + (j + 1) * TAIL_UNITS);
+        grads_start<D>(dv_acc, dv_t, pa, vt + j * TILE_UNITS,
+                       dott + j * TAIL_UNITS, dk_acc, dk_t, dsa,
+                       qt + j * TILE_UNITS, qtt + j * TAIL_UNITS);
         // products retire in order: s^T, then dp^T, then the gradients
         dkv_form<2, 1, GROUPED>(s, dp, sm, j + 1, t, c);
         wgmma_wait<0>();
-        reg_fence(dv_acc);
-        reg_fence(dk_acc);
+        acc_fence<D>(dv_acc, dv_t);
+        acc_fence<D>(dk_acc, dk_t);
         if (last) mbar_arrive(&sm.empty[j]);
         pack_pairs(s, pa);
         pack_pairs(dp, dsa);
       }
-      grads_start(dv_acc, pa, vt + (nch - 1) * TILE_UNITS, dk_acc, dsa,
-                  qt + (nch - 1) * TILE_UNITS);
+      grads_start<D>(dv_acc, dv_t, pa, vt + (nch - 1) * TILE_UNITS,
+                     dott + (nch - 1) * TAIL_UNITS, dk_acc, dk_t, dsa,
+                     qt + (nch - 1) * TILE_UNITS, qtt + (nch - 1) * TAIL_UNITS);
       wgmma_wait<0>();
-      reg_fence(dv_acc);
-      reg_fence(dk_acc);
+      acc_fence<D>(dv_acc, dv_t);
+      acc_fence<D>(dk_acc, dk_t);
       if (last) mbar_arrive(&sm.empty[nch - 1]);
-      store_rows(dk.head(b, h), dk.sr, dk_acc, row, S, t, scale, scale);
-      store_rows(dv.head(b, h), dv.sr, dv_acc, row, S, t, 1.f, 1.f);
+      store_rows<D>(dk.head(b, h), dk.sr, dk_acc, dk_t, row, S, t, scale,
+                    scale);
+      store_rows<D>(dv.head(b, h), dv.sr, dv_acc, dv_t, row, S, t, 1.f, 1.f);
     }
     a = e;
   }
@@ -781,26 +929,36 @@ __global__ void __launch_bounds__(THREADS, 1)
 
 // The plan of a kernel at S keys: two ring slots where they fit, else one;
 // nch = 0 where not even that fits.
+template <int D>
 Plan plan_for(bool dkv, bool grouped, int S) {
   Plan p{(S + TILE - 1) / TILE, dkv && grouped ? 3 : 2,
          dkv ? (grouped ? 3 : 2) : 0, 2};
-  if (p.bytes() > SMEM_MAX) p.qs = 1;
-  if (p.bytes() > SMEM_MAX) p.nch = 0;
+  if (p.bytes<D>() > SMEM_MAX) p.qs = 1;
+  if (p.bytes<D>() > SMEM_MAX) p.nch = 0;
   return p;
 }
 
 // The maps of q, k, v and do (views 0..3 of `ptrs`, strides[3i..3i+2]) in
-// 64-row boxes; *perms packs their orders, 6 bits each.
-int encode_maps(CUtensorMap (&maps)[4], int* perms, const void* const* ptrs,
-                const long long* strides, int B, int H, int S,
-                const char* who) {
+// 64-row boxes, and at D = 80 their lanes-64-79 maps; *perms packs their
+// orders, 6 bits each.
+template <int D>
+int encode_maps(CUtensorMap (&maps)[4], TailMaps<D>& tails, int* perms,
+                const void* const* ptrs, const long long* strides, int B,
+                int H, int S, const char* who) {
+  CUtensorMap tmaps[4];
   *perms = 0;
   for (int i = 0; i < 4; ++i) {
     int perm = 0;
-    const int err = encode_view(&maps[i], ptrs[i], strides + 3 * i, B, H, S,
-                                TILE, &perm, who);
+    const int err = encode_view_d(&maps[i], &tmaps[i], D, ptrs[i],
+                                  strides + 3 * i, B, H, S, TILE, &perm, who);
     if (err != 0) return err;
     *perms |= perm << (6 * i);
+  }
+  if constexpr (D == 80) {
+    tails.q = tmaps[0];
+    tails.k = tmaps[1];
+    tails.v = tmaps[2];
+    tails.dout = tmaps[3];
   }
   return 0;
 }
@@ -808,7 +966,7 @@ int encode_maps(CUtensorMap (&maps)[4], int* perms, const void* const* ptrs,
 // The launch of one kernel instantiation: it may take all of shared
 // memory (set once), one block an SM, each with at least two tiles where
 // there are fewer.
-template <typename K, typename... Args>
+template <int D, typename K, typename... Args>
 int launch(K kernel, bool& allowed, const Plan& pl, int ntiles,
            cudaStream_t stream, Args... args) {
   if (!allowed) {
@@ -819,117 +977,139 @@ int launch(K kernel, bool& allowed, const Plan& pl, int ntiles,
   }
   const int want = (ntiles + 1) / 2;
   const int grid = want < sm_count() ? want : sm_count();
-  kernel<<<grid, THREADS, pl.bytes(), stream>>>(args...);
+  kernel<<<grid, THREADS, pl.bytes<D>(), stream>>>(args...);
   return (int)cudaGetLastError();
 }
 
 // Whether the last chunk of S rows takes the narrow products.
 bool narrow(int S) { return S % TILE != 0 && S % TILE <= 16; }
 
-template <bool GROUPED, bool NARROW>
-int launch_dq(const CUtensorMap (&m)[4], const void* const* views,
-              const long long* strides, const float* st0, const float* st1,
-              float* delta, int S, int H, int ntiles, float c, float scale,
-              int perms, const Plan& pl, cudaStream_t stream) {
+template <bool GROUPED, bool NARROW, int D>
+int launch_dq(const CUtensorMap (&m)[4], const TailMaps<D>& tails,
+              const void* const* views, const long long* strides,
+              const float* st0, const float* st1, float* delta, int S, int H,
+              int ntiles, float c, float scale, int perms, const Plan& pl,
+              cudaStream_t stream) {
   static bool allowed = false;
-  return launch(short_attn_dq_wgmma_kernel<GROUPED, NARROW>, allowed, pl,
-                ntiles, stream, m[0], m[1], m[2], m[3],
-                view_of(views[4], strides, 4), st0, st1, delta,
-                view_of(views[5], strides, 5), S, H, ntiles, c, scale, perms,
-                pl);
+  return launch<D>(short_attn_dq_wgmma_kernel<GROUPED, NARROW, D>, allowed,
+                   pl, ntiles, stream, m[0], m[1], m[2], m[3], tails,
+                   view_of(views[4], strides, 4), st0, st1, delta,
+                   view_of(views[5], strides, 5), S, H, ntiles, c, scale,
+                   perms, pl);
 }
 
-template <bool GROUPED>
-int launch_dkv(const CUtensorMap (&m)[4], const void* const* views,
-               const long long* strides, const float* st0, const float* st1,
-               const float* delta, int S, int H, int ntiles, float c,
-               float scale, int perms, const Plan& pl, cudaStream_t stream) {
+template <bool GROUPED, int D>
+int launch_dkv(const CUtensorMap (&m)[4], const TailMaps<D>& tails,
+               const void* const* views, const long long* strides,
+               const float* st0, const float* st1, const float* delta, int S,
+               int H, int ntiles, float c, float scale, int perms,
+               const Plan& pl, cudaStream_t stream) {
   static bool allowed = false;
-  return launch(short_attn_dkv_wgmma_kernel<GROUPED>, allowed, pl, ntiles,
-                stream, m[0], m[1], m[2], m[3], st0, st1, delta,
-                view_of(views[4], strides, 4), view_of(views[5], strides, 5),
-                S, H, ntiles, c, scale, perms, pl);
+  return launch<D>(short_attn_dkv_wgmma_kernel<GROUPED, D>, allowed, pl,
+                   ntiles, stream, m[0], m[1], m[2], m[3], tails, st0, st1,
+                   delta, view_of(views[4], strides, 4),
+                   view_of(views[5], strides, 5), S, H, ntiles, c, scale,
+                   perms, pl);
 }
 
 // views: q, k, v, do (the maps' order), then o (K2; unused by K5) and dq.
-template <bool GROUPED>
+template <bool GROUPED, int D>
 int run_dq(const void* const* views, const long long* strides,
            const float* st0, const float* st1, float* delta, int B, int S,
            int H, float c, float scale, cudaStream_t stream,
            const char* who) {
-  const Plan pl = plan_for(false, GROUPED, S);
-  if (S < 1 || S > MAX_SEQ || B < 1 || H < 1 || pl.nch == 0)
+  const Plan pl = plan_for<D>(false, GROUPED, S);
+  if (S < 1 || S > max_seq<D>() || B < 1 || H < 1 || pl.nch == 0)
     return (int)cudaErrorInvalidValue;
   CUtensorMap maps[4];
+  TailMaps<D> tails;
   int perms = 0;
-  const int err = encode_maps(maps, &perms, views, strides, B, H, S, who);
+  const int err = encode_maps<D>(maps, tails, &perms, views, strides, B, H,
+                                 S, who);
   if (err != 0) return err;
   const int ntiles = B * H * pl.nch;
   return narrow(S)
-             ? launch_dq<GROUPED, true>(maps, views, strides, st0, st1, delta,
-                                        S, H, ntiles, c, scale, perms, pl,
-                                        stream)
-             : launch_dq<GROUPED, false>(maps, views, strides, st0, st1,
-                                         delta, S, H, ntiles, c, scale, perms,
-                                         pl, stream);
+             ? launch_dq<GROUPED, true, D>(maps, tails, views, strides, st0,
+                                           st1, delta, S, H, ntiles, c, scale,
+                                           perms, pl, stream)
+             : launch_dq<GROUPED, false, D>(maps, tails, views, strides, st0,
+                                            st1, delta, S, H, ntiles, c,
+                                            scale, perms, pl, stream);
 }
 
 // views: q, k, v, do, then dk and dv.
-template <bool GROUPED>
+template <bool GROUPED, int D>
 int run_dkv(const void* const* views, const long long* strides,
             const float* st0, const float* st1, const float* delta, int B,
             int S, int H, float c, float scale, cudaStream_t stream,
             const char* who) {
-  const Plan pl = plan_for(true, GROUPED, S);
-  if (S < 1 || S > MAX_SEQ || B < 1 || H < 1 || pl.nch == 0)
+  const Plan pl = plan_for<D>(true, GROUPED, S);
+  if (S < 1 || S > max_seq<D>() || B < 1 || H < 1 || pl.nch == 0)
     return (int)cudaErrorInvalidValue;
   CUtensorMap maps[4];
+  TailMaps<D> tails;
   int perms = 0;
-  const int err = encode_maps(maps, &perms, views, strides, B, H, S, who);
+  const int err = encode_maps<D>(maps, tails, &perms, views, strides, B, H,
+                                 S, who);
   if (err != 0) return err;
   const int ntiles = B * H * pl.nch;
-  return launch_dkv<GROUPED>(maps, views, strides, st0, st1, delta, S, H,
-                             ntiles, c, scale, perms, pl, stream);
+  return launch_dkv<GROUPED, D>(maps, tails, views, strides, st0, st1, delta,
+                                S, H, ntiles, c, scale, perms, pl, stream);
 }
 
-}  // namespace
-
-// K2: q, k, v, o, do, dq, dk, dv, each a [B, H, S, 64] bf16 view (in
-// practice the lane slices of qkv, out, do and dqkv) whose (batch, head,
-// row) strides in elements are strides[3i..3i+2] in that order; lse (K1's
-// lse2, in) and delta (out, then in) [B, H, S] fp32 contiguous. c =
-// scale*log2(e); 1 <= S <= 768. q, k, v and do need 16-byte aligned bases
-// and strides that are multiples of 8 elements (for a dimension of extent
-// > 1). Launches the dq kernel, then the dk/dv kernel, on `stream`;
-// returns a CUDA error code (the first launch's, or a tensor map's).
-extern "C" int unite_short_qkv_bwd(const void* q, const void* k,
-                                   const void* v, const void* o,
-                                   const void* dout, void* dq, void* dk,
-                                   void* dv, const void* lse, void* delta,
-                                   const long long* strides, int B, int S,
-                                   int H, float c, float scale,
-                                   void* stream) {
+// K2 at head dim D: dq, then dk/dv (views as unite_short_qkv_bwd takes
+// them).
+template <int D>
+int run_qkv_bwd(const void* const* all, const long long* strides,
+                const float* lse, float* delta, int B, int S, int H, float c,
+                float scale, cudaStream_t s) {
   static const int perm_dq[6] = {0, 1, 2, 4, 3, 5};
   static const int perm_dkv[6] = {0, 1, 2, 4, 6, 7};
   long long st[18];
-  const void* all[8] = {q, k, v, o, dout, dq, dk, dv};
   const void* views[6];
-  const cudaStream_t s = (cudaStream_t)stream;
   for (int i = 0; i < 6; ++i) {
     views[i] = all[perm_dq[i]];
     for (int j = 0; j < 3; ++j) st[3 * i + j] = strides[3 * perm_dq[i] + j];
   }
-  int err = run_dq<false>(views, st, static_cast<const float*>(lse), nullptr,
-                          static_cast<float*>(delta), B, S, H, c, scale, s,
-                          "unite_short_qkv_bwd");
+  int err = run_dq<false, D>(views, st, lse, nullptr, delta, B, S, H, c,
+                             scale, s, "unite_short_qkv_bwd");
   if (err != 0) return err;
   for (int i = 0; i < 6; ++i) {
     views[i] = all[perm_dkv[i]];
     for (int j = 0; j < 3; ++j) st[3 * i + j] = strides[3 * perm_dkv[i] + j];
   }
-  return run_dkv<false>(views, st, static_cast<const float*>(lse), nullptr,
-                        static_cast<const float*>(delta), B, S, H, c, scale,
-                        s, "unite_short_qkv_bwd");
+  return run_dkv<false, D>(views, st, lse, nullptr, delta, B, S, H, c, scale,
+                           s, "unite_short_qkv_bwd");
+}
+
+}  // namespace
+
+// K2: q, k, v, o, do, dq, dk, dv, each a [B, H, S, D] bf16 view (in
+// practice the lane slices of qkv, out, do and dqkv) whose (batch, head,
+// row) strides in elements are strides[3i..3i+2] in that order; lse (K1's
+// lse2, in) and delta (out, then in) [B, H, S] fp32 contiguous. c =
+// scale*log2(e); D = 64 with 1 <= S <= 768, or D = 80 with 1 <= S <= 512
+// (cudaErrorInvalidValue otherwise). q, k, v and do need 16-byte aligned
+// bases and strides that are multiples of 8 elements (for a dimension of
+// extent > 1). Launches the dq kernel, then the dk/dv kernel, on
+// `stream`; returns a CUDA error code (the first launch's, or a tensor
+// map's).
+extern "C" int unite_short_qkv_bwd(const void* q, const void* k,
+                                   const void* v, const void* o,
+                                   const void* dout, void* dq, void* dk,
+                                   void* dv, const void* lse, void* delta,
+                                   const long long* strides, int B, int S,
+                                   int H, int D, float c, float scale,
+                                   void* stream) {
+  const void* all[8] = {q, k, v, o, dout, dq, dk, dv};
+  const float* l = static_cast<const float*>(lse);
+  float* dl = static_cast<float*>(delta);
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (D == 64)
+    return run_qkv_bwd<64>(all, strides, l, dl, B, S, H, c, scale, s);
+  if (D == 80)
+    return run_qkv_bwd<80>(all, strides, l, dl, B, S, H, c, scale, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 // K5's dq and delta: q, k, v, do, dq [B, H, S, 64] bf16 views with
@@ -947,7 +1127,7 @@ extern "C" int unite_short_grouped_dq(const void* q, const void* k,
   for (int i = 0; i < 12; ++i) st[i] = strides[i];
   for (int j = 0; j < 3; ++j) st[12 + j] = st[15 + j] = strides[12 + j];
   const void* views[6] = {q, k, v, dout, dq, dq};  // no o: dq in its place
-  return run_dq<true>(views, st, static_cast<const float*>(m),
+  return run_dq<true, 64>(views, st, static_cast<const float*>(m),
                       static_cast<const float*>(l),
                       static_cast<float*>(delta), B, S, H, c, scale,
                       (cudaStream_t)stream, "unite_short_grouped_dq");
@@ -964,7 +1144,7 @@ extern "C" int unite_short_grouped_dkv(const void* q, const void* k,
                                        int S, int H, float c, float scale,
                                        void* stream) {
   const void* views[6] = {q, k, v, dout, dk, dv};
-  return run_dkv<true>(views, strides, static_cast<const float*>(m),
+  return run_dkv<true, 64>(views, strides, static_cast<const float*>(m),
                        static_cast<const float*>(l),
                        static_cast<const float*>(delta), B, S, H, c, scale,
                        (cudaStream_t)stream, "unite_short_grouped_dkv");

@@ -29,6 +29,12 @@ Beside each kernel is its plain version, with the TPU kernel's math and
 rounding points; a wrapper uses it only for a tensor on the CPU. A CUDA
 tensor launches the kernel or raises.
 
+Head dims: the packed kernels K1-K4 were built for ``HEAD_DIMS`` (64, and
+80 for ``pretrain_videomae_huge_patch16_224``, whose encoder and decoder
+both have 80-lane heads); the C entry points take D and dispatch to a
+kernel body templated on it. K5 and K6 take ``VIEW_HEAD_DIM`` = 64. On
+CUDA any other head dim raises; the plain versions take any.
+
 All kernels fold the softmax scale into a base-2 exponent,
 exp(s*scale - m*scale) == exp2((s - m)*c) with c = scale*log2(e). The flash
 kernels' saved row statistic is the base-2 log-sum-exp of the scaled
@@ -49,15 +55,21 @@ import torch
 from unite_torch.ops import _build
 
 INV_LN2 = 1.4426950408889634  # log2(e)
-HEAD_DIM = 64
+# The head dims the packed kernels K1-K4 were built for, and the one of the
+# [B, H, S, D] kernels K5 and K6 (head dim 80 there: ROADMAP queue 2)
+HEAD_DIMS = (64, 80)
+VIEW_HEAD_DIM = 64
 # The route: K1/K2 up to this length (unite_tpu's FUSED_QKV_FWD_MAX_SEQ);
 # JAX's training cap FUSED_QKV_MAX_SEQ = 384 enters only use_fused_qkv.
 FUSED_QKV_FWD_MAX_SEQ = 512
 FUSED_QKV_TRAIN_MAX_SEQ = 384
 # K1/K2 (and K5's forward) hold one head's whole K and V (forward, dq) or Q
 # and dO (dkv) in shared memory, under 227 KB. The route never sends them
-# more than 512; this is their guard.
+# more than 512; this is their guard at head dim 64, and K5's.
 FUSED_QKV_MAX_SEQ = 768
+# ... by head dim: 80 lanes take 160 bytes a row, so K1's K and V of 768
+# keys (240 KB) no longer fit; 512 covers K1's route (and K2's 384).
+RESIDENT_MAX_SEQ = {64: FUSED_QKV_MAX_SEQ, 80: 512}
 # [B, H, S, D] attention: unite_tpu's grouped kernel K5 up to here, K6
 # beyond; also the guard of K5's backward, whose dK/dV kernel holds a head's
 # q, do and bf16(do/l) in shared memory
@@ -356,16 +368,19 @@ def packed_flash_reference_bwd(qkv, out, lse, do, heads: int, scale: float):
 # ------------------------------------------------------------ launching
 
 
-def _check_cuda(qkv, heads, **aux):
-    """What K1/K2 need: bf16 qkv of head dim 64, and each auxiliary tensor
-    (out, do, lse, delta, dqkv) of its shape and type, contiguous, on qkv's
-    device. K3/K4 check the same before they take strided views."""
+def _check_cuda(qkv, heads, **aux) -> int:
+    """What K1/K2 need: bf16 qkv of a head dim in ``HEAD_DIMS``, and each
+    auxiliary tensor (out, do, lse, delta, dqkv) of its shape and type,
+    contiguous, on qkv's device. K3/K4 check the same before they take
+    strided views. Returns the head dim."""
     if qkv.dtype != torch.bfloat16:
         raise TypeError(f"attention kernels take bf16 on CUDA, got {qkv.dtype}")
     b, s, thd = qkv.shape
-    if thd != 3 * heads * HEAD_DIM:
-        raise ValueError(f"attention kernels need head dim {HEAD_DIM}: "
-                         f"width {thd} with {heads} heads")
+    d = thd // (3 * heads)
+    if thd != 3 * heads * d or d not in HEAD_DIMS:
+        raise ValueError(
+            f"attention kernels K1-K4 take head dims {HEAD_DIMS}: width "
+            f"{thd} with {heads} heads is head dim {thd / (3 * heads):g}")
     want = {"out": ((b, s, thd // 3), qkv.dtype),
             "do": ((b, s, thd // 3), qkv.dtype),
             "dqkv": ((b, s, thd), qkv.dtype),
@@ -380,14 +395,15 @@ def _check_cuda(qkv, heads, **aux):
         if tuple(t.shape) != shape or t.dtype != dtype:
             raise ValueError(f"{name}: {tuple(t.shape)} {t.dtype}, the kernel "
                              f"takes {shape} {dtype}")
+    return d
 
 
-def _check_resident(qkv):
-    s = qkv.shape[1]
-    if s > FUSED_QKV_MAX_SEQ:
+def _check_resident(qkv, d: int):
+    s, cap = qkv.shape[1], RESIDENT_MAX_SEQ[d]
+    if s > cap:
         raise ValueError(
-            f"sequence {s} > {FUSED_QKV_MAX_SEQ}: one head's K/V no longer fit "
-            "in shared memory for K1/K2; sequences longer than "
+            f"sequence {s} > {cap}: one head's K/V of head dim {d} no longer "
+            "fit in shared memory for K1/K2; sequences longer than "
             f"{FUSED_QKV_FWD_MAX_SEQ} take the flash kernels K3/K4 or K6 "
             "(self_attention routes them there)")
 
@@ -405,9 +421,14 @@ def _strides_arg(strides: tuple):
 
 def _view_args(*views):
     """(data pointers, strides) of [B, H, S, 64] bf16 views for the C entry
-    points, after checking that all share one shape and device and that
-    the kernels take each as it is."""
+    points of K5 and K6, after checking that all share one shape and device
+    and that the kernels take each as it is."""
     shape, dev = views[0].shape, views[0].device
+    if len(shape) != 4 or shape[3] != VIEW_HEAD_DIM:
+        raise ValueError(
+            f"K5 and K6 take [B, H, S, {VIEW_HEAD_DIM}] on CUDA, got "
+            f"{tuple(shape)}: head dim 80 for them is ROADMAP queue 2, item 2 "
+            "(the packed kernels K1-K4 take it)")
     ptrs, strides = [], []
     for t in views:
         if t.dtype != torch.bfloat16:
@@ -417,34 +438,31 @@ def _view_args(*views):
         if (t.shape != shape or t.device != dev or st[3] != 1 or ptr % 16
                 or any(x % 8 for n, x in zip(shape[:3], st) if n > 1)):
             raise ValueError(
-                f"flash kernels take [B, H, S, {HEAD_DIM}] views of one shape "
-                "on one device, with contiguous head lanes and 16-byte "
+                f"flash kernels take [B, H, S, {VIEW_HEAD_DIM}] views of one "
+                "shape on one device, with contiguous head lanes and 16-byte "
                 f"aligned rows: shape {tuple(t.shape)} strides {st} on "
                 f"{t.device}, against {tuple(shape)} on {dev}")
         ptrs.append(ptr)
         strides += st[:3]
-    if len(shape) != 4 or shape[3] != HEAD_DIM:
-        raise ValueError(f"flash kernels take [B, H, S, {HEAD_DIM}], got "
-                         f"{tuple(shape)}")
     return ptrs, _strides_arg(tuple(strides))
 
 
-def _lanes(t, heads: int, parts):
+def _lanes(t, heads: int, d: int, parts):
     """(data pointers, strides) of lane slices ``parts`` of a contiguous
-    [B, S, n*H*64] tensor (qkv, out, do, dqkv) as [B, H, S, 64] views,
+    [B, S, n*H*D] tensor (qkv, out, do, dqkv) as [B, H, S, D] views,
     computed from its shape: the packed route makes no view objects."""
     _, s, width = t.shape
-    hd, base = heads * HEAD_DIM, t.data_ptr()
+    hd, base = heads * d, t.data_ptr()
     return ([base + t.element_size() * i * hd for i in parts],
-            (s * width, HEAD_DIM, width) * len(parts))
+            (s * width, d, width) * len(parts))
 
 
-def _packed_args(heads: int, *tensor_parts):
+def _packed_args(heads: int, d: int, *tensor_parts):
     """Pointers and strides of the packed kernels' views: pairs of a
-    [B, S, n*H*64] tensor and its lane slices, in the C entry's order."""
+    [B, S, n*H*D] tensor and its lane slices, in the C entry's order."""
     ptrs, strides = [], ()
     for t, parts in tensor_parts:
-        p, st = _lanes(t, heads, parts)
+        p, st = _lanes(t, heads, d, parts)
         ptrs += p
         strides += st
     return ptrs, _strides_arg(strides)
@@ -472,33 +490,33 @@ def _empty_like_rows(x):
 
 def _launch_fwd(ptrs, strides, lse, dims, scale: float, stream):
     """The strided forward kernel (K3 or K6, csrc/flash_fwd_wgmma.cu):
-    pointers of q, k, v, o."""
-    b, h, s = dims
+    pointers of q, k, v, o; ``dims`` (B, H, S, D)."""
+    b, h, s, d = dims
     err = _build.load("flash_fwd_wgmma").unite_flash_fwd(
         *ptrs, lse.data_ptr() if lse is not None else None, strides, b, s, h,
-        scale * INV_LN2, stream)
+        d, scale * INV_LN2, stream)
     _build.check(err, "flash_fwd")
 
 
 def _launch_dq(ptrs, strides, lse, delta, dims, scale: float, stream):
     """The strided dQ kernel (K4a or K6 dq, csrc/flash_bwd_wgmma.cu):
-    pointers of q, k, v, o, do, dq."""
-    b, h, s = dims
+    pointers of q, k, v, o, do, dq; ``dims`` (B, H, S, D)."""
+    b, h, s, d = dims
     q, k, v, o, do, dq = ptrs
     err = _build.load("flash_bwd_wgmma").unite_flash_dq(
         q, k, v, o, do, lse.data_ptr(), delta.data_ptr(), dq, strides, b, s,
-        h, scale * INV_LN2, scale, stream)
+        h, d, scale * INV_LN2, scale, stream)
     _build.check(err, "flash_dq")
 
 
 def _launch_dkv(ptrs, strides, lse, delta, dims, scale: float, stream):
     """The strided dK/dV kernel (K4b or K6 dkv, csrc/flash_bwd_wgmma.cu):
-    pointers of q, k, v, do, dk, dv."""
-    b, h, s = dims
+    pointers of q, k, v, do, dk, dv; ``dims`` (B, H, S, D)."""
+    b, h, s, d = dims
     q, k, v, do, dk, dv = ptrs
     err = _build.load("flash_bwd_wgmma").unite_flash_dkv(
         q, k, v, do, lse.data_ptr(), delta.data_ptr(), dk, dv, strides, b, s,
-        h, scale * INV_LN2, scale, stream)
+        h, d, scale * INV_LN2, scale, stream)
     _build.check(err, "flash_dkv")
 
 
@@ -520,13 +538,13 @@ def fused_qkv_fwd(qkv, heads: int, scale: float, with_lse: bool = False):
     if qkv.device.type == "cpu":
         out, lse = qkv_attention_reference(qkv, heads, scale)
         return out, (lse if with_lse else None)
-    _check_cuda(qkv, heads)
-    _check_resident(qkv)
+    d = _check_cuda(qkv, heads)
+    _check_resident(qkv, d)
     out, lse = _fwd_outputs(qkv, heads, with_lse)
-    ptrs, strides = _packed_args(heads, (qkv, (0, 1, 2)), (out, (0,)))
+    ptrs, strides = _packed_args(heads, d, (qkv, (0, 1, 2)), (out, (0,)))
     err = _build.load("short_attn_wgmma").unite_short_qkv_fwd(
         *ptrs, lse.data_ptr() if with_lse else None, strides, qkv.shape[0],
-        qkv.shape[1], heads, scale * INV_LN2, _stream(qkv))
+        qkv.shape[1], heads, d, scale * INV_LN2, _stream(qkv))
     _build.check(err, "fused_qkv_fwd")
     fused_qkv_fwd.launches += 1
     fused_qkv_fwd.by_shape[tuple(qkv.shape[:2])] += 1
@@ -545,15 +563,15 @@ def fused_qkv_bwd(qkv, out, lse, do, heads: int, scale: float):
     slices of qkv, out, do and dqkv."""
     if qkv.device.type == "cpu":
         return qkv_attention_reference_bwd(qkv, do, heads, scale)
-    _check_cuda(qkv, heads, out=out, lse=lse, do=do)
-    _check_resident(qkv)
+    d = _check_cuda(qkv, heads, out=out, lse=lse, do=do)
+    _check_resident(qkv, d)
     b, s, _ = qkv.shape
     dqkv = torch.empty_like(qkv)
     delta = torch.empty((b, heads, s), dtype=torch.float32, device=qkv.device)
-    ptrs, strides = _packed_args(heads, (qkv, (0, 1, 2)), (out, (0,)),
+    ptrs, strides = _packed_args(heads, d, (qkv, (0, 1, 2)), (out, (0,)),
                                  (do, (0,)), (dqkv, (0, 1, 2)))
     err = _build.load("short_bwd_wgmma").unite_short_qkv_bwd(
-        *ptrs, lse.data_ptr(), delta.data_ptr(), strides, b, s, heads,
+        *ptrs, lse.data_ptr(), delta.data_ptr(), strides, b, s, heads, d,
         scale * INV_LN2, scale, _stream(qkv))
     _build.check(err, "fused_qkv_bwd")
     fused_qkv_bwd.launches += 1
@@ -573,10 +591,10 @@ def packed_flash_fwd(qkv, heads: int, scale: float, with_lse: bool = False):
     if qkv.device.type == "cpu":
         out, lse = packed_flash_reference(qkv, heads, scale)
         return out, (lse if with_lse else None)
-    _check_cuda(qkv, heads)
+    d = _check_cuda(qkv, heads)
     out, lse = _fwd_outputs(qkv, heads, with_lse)
-    ptrs, strides = _packed_args(heads, (qkv, (0, 1, 2)), (out, (0,)))
-    _launch_fwd(ptrs, strides, lse, (qkv.shape[0], heads, qkv.shape[1]),
+    ptrs, strides = _packed_args(heads, d, (qkv, (0, 1, 2)), (out, (0,)))
+    _launch_fwd(ptrs, strides, lse, (qkv.shape[0], heads, qkv.shape[1], d),
                 scale, _stream(qkv))
     packed_flash_fwd.launches += 1
     packed_flash_fwd.by_shape[tuple(qkv.shape[:2])] += 1
@@ -599,11 +617,12 @@ def packed_flash_dq(qkv, out, lse, do, dqkv, delta, heads: int,
         dqkv[..., :hd] = dq
         delta.copy_(dl)
         return
-    _check_cuda(qkv, heads, out=out, lse=lse, do=do, dqkv=dqkv, delta=delta)
-    ptrs, strides = _packed_args(heads, (qkv, (0, 1, 2)), (out, (0,)),
+    d = _check_cuda(qkv, heads, out=out, lse=lse, do=do, dqkv=dqkv,
+                    delta=delta)
+    ptrs, strides = _packed_args(heads, d, (qkv, (0, 1, 2)), (out, (0,)),
                                  (do, (0,)), (dqkv, (0,)))
-    _launch_dq(ptrs, strides, lse, delta, (qkv.shape[0], heads, qkv.shape[1]),
-               scale, _stream(qkv))
+    _launch_dq(ptrs, strides, lse, delta,
+               (qkv.shape[0], heads, qkv.shape[1], d), scale, _stream(qkv))
     packed_flash_dq.launches += 1
 
 
@@ -619,11 +638,11 @@ def packed_flash_dkv(qkv, do, lse, delta, dqkv, heads: int, scale: float):
         dqkv[..., hd:2 * hd] = dk
         dqkv[..., 2 * hd:] = dv
         return
-    _check_cuda(qkv, heads, lse=lse, delta=delta, do=do, dqkv=dqkv)
-    ptrs, strides = _packed_args(heads, (qkv, (0, 1, 2)), (do, (0,)),
+    d = _check_cuda(qkv, heads, lse=lse, delta=delta, do=do, dqkv=dqkv)
+    ptrs, strides = _packed_args(heads, d, (qkv, (0, 1, 2)), (do, (0,)),
                                  (dqkv, (1, 2)))
     _launch_dkv(ptrs, strides, lse, delta,
-                (qkv.shape[0], heads, qkv.shape[1]), scale, _stream(qkv))
+                (qkv.shape[0], heads, qkv.shape[1], d), scale, _stream(qkv))
     packed_flash_dkv.launches += 1
 
 
@@ -672,9 +691,10 @@ def fused_qkv_attention(qkv, heads: int, scale: float):
 
 
 def flash_fwd(q, k, v, scale: float, with_lse: bool = False):
-    """K6 forward: q/k/v [B, H, S, 64] -> (o [B, H, S, 64] laid out as q,
+    """K6 forward: q/k/v [B, H, S, D] -> (o [B, H, S, D] laid out as q,
     lse2 [B, H, S] or None), any S, contiguous tensors or strided views.
-    CPU tensors take the plain version; CUDA tensors launch the kernel."""
+    CPU tensors take the plain version (any D); CUDA tensors launch the
+    kernel, at D = 64."""
     if q.device.type == "cpu":
         o, lse = flash_reference(q, k, v, scale=scale)
         return o, (lse if with_lse else None)
@@ -683,7 +703,7 @@ def flash_fwd(q, k, v, scale: float, with_lse: bool = False):
     b, h, s, _ = q.shape
     lse = (torch.empty((b, h, s), dtype=torch.float32, device=q.device)
            if with_lse else None)
-    _launch_fwd(ptrs, strides, lse, (b, h, s), scale, _stream(q))
+    _launch_fwd(ptrs, strides, lse, q.shape, scale, _stream(q))
     flash_fwd.launches += 1
     if with_lse:
         flash_fwd.lse_launches += 1
@@ -703,7 +723,7 @@ def flash_dq(q, k, v, o, do, lse, dq, delta, scale: float):
         return
     ptrs, strides = _view_args(q, k, v, o, do, dq)
     _stats(q, lse, delta)
-    _launch_dq(ptrs, strides, lse, delta, q.shape[:3], scale, _stream(q))
+    _launch_dq(ptrs, strides, lse, delta, q.shape, scale, _stream(q))
     flash_dq.launches += 1
 
 
@@ -720,7 +740,7 @@ def flash_dkv(q, k, v, do, lse, delta, dk, dv, scale: float):
         return
     ptrs, strides = _view_args(q, k, v, do, dk, dv)
     _stats(q, lse, delta)
-    _launch_dkv(ptrs, strides, lse, delta, q.shape[:3], scale, _stream(q))
+    _launch_dkv(ptrs, strides, lse, delta, q.shape, scale, _stream(q))
     flash_dkv.launches += 1
 
 
@@ -742,9 +762,9 @@ def flash_bwd(q, k, v, o, lse, do, scale: float):
 
 
 def grouped_fwd(q, k, v, scale: float, with_stats: bool = False):
-    """K5 forward: q/k/v [B, H, S, 64] -> (o laid out as q, (m, l) [B, H, S]
+    """K5 forward: q/k/v [B, H, S, D] -> (o laid out as q, (m, l) [B, H, S]
     fp32 or None), contiguous tensors or strided views. CPU tensors take
-    the plain version; CUDA tensors launch the kernel."""
+    the plain version (any D); CUDA tensors launch the kernel, at D = 64."""
     if q.device.type == "cpu":
         o, m, l = grouped_reference(q, k, v, scale=scale)
         return o, ((m, l) if with_stats else None)
