@@ -98,17 +98,24 @@ toolkit. In order:
    B=2, then B=64 (12 K1 at [512, 41] a call);
 6c. head dim 80: K1/K2 at the huge VideoMAE encoder's [16, 160, 3840] (16
    heads of 80 lanes) and K3 (with lse), K4a and K4b at its decoder's
-   [16, 1568, 1920] (8 heads of 80), each of ``BWD_REPEATS`` backwards
-   bit-equal to the first, with timings beside SDPA's; the short forward
-   and backward sweeps (K1 up to its guard of 512, K2 likewise) and the
-   K3/K4 sweeps over ``SWEEP_LENGTHS``, packed lanes, at 2 and 8 heads;
-   one step of ``pretrain_videomae_huge_patch16_224`` at full widths cut
-   to 4 encoder and 2 decoder blocks on the card in bf16 against the CPU
-   in fp32 (B=2); then ``videomae-h16-b16``: the huge model at full width
-   and depth (32 x 1280 encoder, 8 x 640 decoder) on the base cell's
+   [16, 1568, 1920] (8 heads of 80), K5 at the encoder's [16, 16, 392, 80]
+   (mask 0.75) and K6 at [2, 16, 632, 80] (mask 0.6) and
+   [2, 16, 1569, 80], on views and contiguous tensors, each of
+   ``BWD_REPEATS`` backwards bit-equal to the first, with timings beside
+   SDPA's; the short forward and backward sweeps (K1/K5 and K2/K5 up to
+   512) and the K3/K6 and K4/K6 sweeps over ``SWEEP_LENGTHS``, every
+   layout, at 2 and 8 heads; one step of
+   ``pretrain_videomae_huge_patch16_224`` at full widths cut to 4 encoder
+   and 2 decoder blocks on the card in bf16 against the CPU in fp32 (B=2)
+   at tube mask 0.9; then ``videomae-h16-b16``: the huge model at full
+   width and depth (32 x 1280 encoder, 8 x 640 decoder) on the base cell's
    clips and masks at B=16, 2 warm-up and 3 timed steps of 32 K1 + 32 K2
    at [16, 160] and 8 K3 + 8 K4a + 8 K4b at [16, 1568], exact by shape,
-   with clips/s, MFU, peak memory and a profiled step;
+   with clips/s, MFU, peak memory and a profiled step; the cut step again
+   at masks 0.75 (4 of each K5 kernel) and 0.6 (4 of each K6 kernel); then
+   ``videomae-h16-m075-b16``: the full model at tube mask 0.75, 392
+   visible tokens, 32 of each K5 kernel and 8 of each decoder kernel a
+   step, no K1/K2;
 6a. ``native-decode``: the port's native decoder
    (unite_torch/native/videodec.cpp, g++, into build/unite_torch_native/)
    on 16 mp4v clips of 64 frames at 340x256 and a 16-frame JPEG folder
@@ -625,29 +632,35 @@ def check_kernels(torch, A, heads: int = HEADS, batches=(512, 64),
     return results
 
 
-def check_grouped_kernels(torch, A):
+def check_grouped_kernels(torch, A, heads: int = HEADS, head_dim: int = 64,
+                          shapes=(("m075", 64, M075_TOKENS), ("edge", 64, 512),
+                                  ("ragged", 5, M075_TOKENS + 1)),
+                          tag: str = ""):
     """Phase 3, stage 1 at mask 0.75: K5 against its plain version at the
     student's [64, 12, 392, 64] (contiguous tensors and the strided views of
     a qkv projection that the models pass), the route's edge
     [64, 12, 512, 64] and a ragged [5, 12, 393, 64], forward and backward,
     the backward's repeats at 392 equal bit for bit; times on the views at
-    392."""
+    392. ``tag`` "/d80": the huge VideoMAE encoder at mask 0.75,
+    [16, 16, 392, 80] (``heads``, ``head_dim``, ``shapes``: the first
+    shape is timed). The softmax scale is head_dim^-0.5."""
     import torch.nn.functional as F
 
+    SCALE = head_dim ** -0.5
     gen = torch.Generator(device="cuda").manual_seed(21)
     results, errs = {}, {}
-    for label, b, s in (("m075", 64, M075_TOKENS), ("edge", 64, 512),
-                        ("ragged", 5, M075_TOKENS + 1)):
-        qkv = torch.randn((b, s, 3 * HEADS * 64), generator=gen,
+    for label, b, s in shapes:
+        qkv = torch.randn((b, s, 3 * heads * head_dim), generator=gen,
                           device="cuda").to(torch.bfloat16)
-        views = A._split_heads(qkv, HEADS)
+        views = A._split_heads(qkv, heads)
         dense = [t.contiguous() for t in views]
         ref, ref_m, ref_l = A.grouped_reference(*dense, scale=SCALE)
         do = torch.randn(ref.shape, generator=gen, device="cuda").to(
             torch.bfloat16)
         refs = A.grouped_reference_bwd(*dense, do, scale=SCALE)
+        first = label == shapes[0][0]
         layouts = ((("contiguous", dense), ("views", views))
-                   if label == "m075" else (("views", views),))
+                   if first else (("views", views),))
         for layout, qkv_t in layouts:
             out, (m, l) = A.grouped_fwd(*qkv_t, SCALE, with_stats=True)
             grads = A.grouped_bwd(*qkv_t, do, m, l, SCALE)
@@ -667,16 +680,16 @@ def check_grouped_kernels(torch, A):
                     raise AssertionError(f"K5 {label} {layout} {name}: max "
                                          f"abs err {e} > {tol}")
                 errs[f"{name}/{label}/{layout}"] = (e, tol)
-            for i in range(BWD_REPEATS if label == "m075" else 0):
+            for i in range(BWD_REPEATS if first else 0):
                 again = A.grouped_bwd(*qkv_t, do, m, l, SCALE)
                 if not all(torch.equal(a, a2) for a, a2 in zip(grads, again)):
                     raise AssertionError(
-                        f"K5 {label} {layout} backward: repeat {i + 1} of "
-                        f"{BWD_REPEATS} differs from the first")
-        print(f"K5 {label} [{b}, {HEADS}, {s}, 64] agrees with its plain "
-              "version", flush=True)
+                        f"K5 {label}{tag} {layout} backward: repeat {i + 1} "
+                        f"of {BWD_REPEATS} differs from the first")
+        print(f"K5 {label}{tag} [{b}, {heads}, {s}, {head_dim}] agrees with "
+              "its plain version", flush=True)
         del ref, refs, out, grads
-        if label == "m075":
+        if first:
             timed = (qkv, views, dense, do, m, l)
         torch.cuda.empty_cache()
 
@@ -713,18 +726,19 @@ def check_grouped_kernels(torch, A):
         F.scaled_dot_product_attention(*leaves, scale=SCALE).backward(do)
 
     fwd_bwd_ms = median_ms(sdpa_fwd_bwd)
-    tok = b * h * s * 64 * 2  # bytes of one [B, H, S, 64] bf16 tensor
+    tok = b * h * s * head_dim * 2  # bytes of one [B, H, S, D] bf16 tensor
     stat = b * h * s * 4      # one fp32 row statistic
     by_shape = {k: v for k, v in errs.items()}
-    bms, by = bound(4 * tok + 2 * stat, 4.0 * b * h * s * s * 64)
-    results["K5/m075"] = dict(
-        shape=[b, h, s, 64], max_abs_err=max(v for k, v in errs.items()
-                                             if k.startswith("fwd/")),
+    bms, by = bound(4 * tok + 2 * stat, 4.0 * b * h * s * s * head_dim)
+    label = shapes[0][0] + tag
+    results[f"K5/{label}"] = dict(
+        shape=[b, h, s, head_dim], max_abs_err=max(
+            v for k, v in errs.items() if k.startswith("fwd/")),
         errors_by_shape=by_shape, ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
         bound_ms=bms, bound_by=by, library_ms=lib_ms,
         library_device_ms=lib_dev_ms,
         library="scaled_dot_product_attention forward")
-    print(f"K5 grouped_fwd m075 {results['K5/m075']}", flush=True)
+    print(f"K5 grouped_fwd {label} {results[f'K5/{label}']}", flush=True)
     # dq reads q, k, v, do, m, l and writes dq and delta; dkv reads q, k, v,
     # do, m, l, delta and writes dk and dv: the function's 6 and 8 S^2*D
     # flops a head (the convention of K4 and K6)
@@ -735,15 +749,15 @@ def check_grouped_kernels(torch, A):
              ("dk", "dv"))):
         e, tol = max(v for k, v in errs.items()
                      if k.split("/")[0] in parts)
-        bms, by = bound(nbytes, flops * b * h * s * s * 64)
-        results[f"{key}/m075"] = dict(
-            shape=[b, h, s, 64], max_abs_err=e, tol=tol, ms=ms_k,
+        bms, by = bound(nbytes, flops * b * h * s * s * head_dim)
+        results[f"{key}/{label}"] = dict(
+            shape=[b, h, s, head_dim], max_abs_err=e, tol=tol, ms=ms_k,
             device_ms=dev, plain_ms=plain, bound_ms=bms, bound_by=by,
             library_ms=bwd_ms, library_device_ms=bwd_dev_ms,
             library="scaled_dot_product_attention backward (dq, dk, dv: the "
                     "dq and dk/dv kernels together)",
             library_fwd_bwd_ms=fwd_bwd_ms)
-        print(f"K5 {key} m075 {results[f'{key}/m075']}", flush=True)
+        print(f"K5 {key} {label} {results[f'{key}/{label}']}", flush=True)
     del (qkv, q, k, v, dense, do, m, l, dq, dk, dv, delta, leaves, o_lib,
          timed)
     torch.cuda.empty_cache()
@@ -1683,11 +1697,10 @@ def check_ptxas(paths) -> dict:
 def check_flash_lengths(torch, A, head_dim: int = 64, heads=(2, HEADS)):
     """Phase 3: the K3/K6 forward (csrc/flash_fwd_wgmma.cu) against its
     plain version at every length of ``SWEEP_LENGTHS`` (B=2, 2 and 12
-    heads), on contiguous [B, H, S, 64] tensors and strided qkv views (K6)
+    heads), on contiguous [B, H, S, D] tensors and strided qkv views (K6)
     and on the packed lanes of qkv (K3), with and without the lse; the two
-    outputs must be equal. At ``head_dim`` 80 (``heads`` 2 and 8), K3 on the
-    packed lanes only: K6 takes head dim 64. Returns the largest errors by
-    length."""
+    outputs must be equal. ``head_dim`` 80 at ``heads`` 2 and 8. Returns the
+    largest errors by length."""
     SCALE = head_dim ** -0.5
     gen = torch.Generator(device="cuda").manual_seed(12)
     worst = {}
@@ -1699,8 +1712,7 @@ def check_flash_lengths(torch, A, head_dim: int = 64, heads=(2, HEADS)):
             dense = [t.contiguous() for t in views]
             ref, ref_lse = A.flash_reference(*dense, scale=SCALE)
             runs = {layout: (lambda lse, x=x: A.flash_fwd(*x, SCALE, lse))
-                    for layout, x in (("contiguous", dense), ("views", views))
-                    if head_dim == A.VIEW_HEAD_DIM}
+                    for layout, x in (("contiguous", dense), ("views", views))}
             runs["packed"] = lambda lse: A.packed_flash_fwd(qkv, h, SCALE, lse)
             for layout, run in runs.items():
                 out, lse = run(True)
@@ -1722,8 +1734,7 @@ def check_flash_lengths(torch, A, head_dim: int = 64, heads=(2, HEADS)):
             del qkv, views, dense, ref, ref_lse, out, lse, out_nl
     print(f"K3/K6 forward at head dim {head_dim}: lengths "
           f"{list(SWEEP_LENGTHS)} x heads {tuple(heads)} x "
-          f"({'contiguous, views, ' if head_dim == 64 else ''}packed) x "
-          f"lse: {worst}", flush=True)
+          f"(contiguous, views, packed) x lse: {worst}", flush=True)
     return worst
 
 
@@ -1737,9 +1748,8 @@ def check_flash_bwd_lengths(torch, A, head_dim: int = 64,
     lse2, within ``BWD_TOL`` times the largest |dq|, |dk| or |dv| of the
     plain version (at S = 1, dq and dk are 0 up to rounding noise, so no
     tolerance relative to them alone holds); a repeat must be equal bit for
-    bit (no atomics). At ``head_dim`` 80 (``heads`` 2 and 8), K4 on the
-    packed lanes only: K6 takes head dim 64. Returns the largest errors
-    over that scale, by length."""
+    bit (no atomics). ``head_dim`` 80 at ``heads`` 2 and 8. Returns the
+    largest errors over that scale, by length."""
     SCALE = head_dim ** -0.5
     gen = torch.Generator(device="cuda").manual_seed(14)
     worst = {}
@@ -1759,8 +1769,6 @@ def check_flash_bwd_lengths(torch, A, head_dim: int = 64,
                                                       SCALE),
                     "views": lambda: A.flash_bwd(*views, o_rows, lse,
                                                  do_rows, SCALE)}
-            if head_dim != A.VIEW_HEAD_DIM:
-                runs = {}
             out_p, do_p = A._merge_heads(o), A._merge_heads(do)
             runs["packed"] = lambda: [
                 A._heads_of(x, h) for x in A.packed_flash_bwd(
@@ -1784,9 +1792,8 @@ def check_flash_bwd_lengths(torch, A, head_dim: int = 64,
                     w[name] = max(w.get(name, 0.0), e / top)
             del qkv, views, dense, o, lse, do, refs, o_rows, do_rows, got
     print(f"flash backward at head dim {head_dim}: lengths "
-          f"{list(SWEEP_LENGTHS)} x heads {tuple(heads)} x (packed"
-          f"{', views, contiguous' if head_dim == 64 else ''}): max abs err "
-          f"/ max |ref| {worst}", flush=True)
+          f"{list(SWEEP_LENGTHS)} x heads {tuple(heads)} x (packed, views, "
+          f"contiguous): max abs err / max |ref| {worst}", flush=True)
     return worst
 
 
@@ -1798,11 +1805,10 @@ def check_short_lengths(torch, A, head_dim: int = 64,
     strided qkv views and contiguous tensors with and without m and l; each
     repeated launch equal bit for bit. Then k = -q at 197, 320, 392 (K1 and
     K5) and 768 (K1), where every real score is negative, so a zero-filled
-    key past S entering the row max would show. At ``head_dim`` 80
-    (``heads`` 2 and 8) K1 only, k = -q up to its guard of 512: K5 takes
-    head dim 64. Returns the largest errors by length."""
+    key past S entering the row max would show. ``head_dim`` 80 at
+    ``heads`` 2 and 8, k = -q up to K1's guard of 512. Returns the largest
+    errors by length."""
     SCALE = head_dim ** -0.5
-    grouped = head_dim == A.VIEW_HEAD_DIM
     gen = torch.Generator(device="cuda").manual_seed(13)
     worst = {}
 
@@ -1852,12 +1858,10 @@ def check_short_lengths(torch, A, head_dim: int = 64,
             qkv = torch.randn((2, s, 3 * h * head_dim), generator=gen,
                               device="cuda").to(torch.bfloat16)
             k1(qkv, h, s)
-            if grouped:
-                views = A._split_heads(qkv, h)
-                k5(*views, s, "views")
-                k5(*(t.contiguous() for t in views), s, "contiguous")
-                del views
-            del qkv
+            views = A._split_heads(qkv, h)
+            k5(*views, s, "views")
+            k5(*(t.contiguous() for t in views), s, "contiguous")
+            del qkv, views
     for s in (197, 320, M075_TOKENS, A.RESIDENT_MAX_SEQ[head_dim]):
         q = torch.randn((2, s, 2, head_dim), generator=gen,
                         device="cuda").abs()
@@ -1865,13 +1869,13 @@ def check_short_lengths(torch, A, head_dim: int = 64,
         qkv = torch.cat([q, -q, v], dim=2).reshape(2, s, 6 * head_dim).to(
             torch.bfloat16)
         k1(qkv, 2, f"{s} k=-q")
-        if grouped and s <= A.GROUPED_MAX_SEQ:
+        if s <= A.GROUPED_MAX_SEQ:
             k5(*(t.contiguous() for t in A._split_heads(qkv, 2)),
                f"{s} k=-q", "contiguous")
     print(f"short forward at head dim {head_dim}: lengths "
-          f"{list(SHORT_LENGTHS)} x heads {tuple(heads)} x (K1 packed"
-          f"{', K5 views, K5 contiguous' if grouped else ''}) x statistics, "
-          f"and k = -q: {worst}", flush=True)
+          f"{list(SHORT_LENGTHS)} x heads {tuple(heads)} x (K1 packed, K5 "
+          f"views, K5 contiguous) x statistics, and k = -q: {worst}",
+          flush=True)
     return worst
 
 
@@ -1884,9 +1888,9 @@ def check_short_bwd_lengths(torch, A, head_dim: int = 64,
     qkv views (do laid out as the models lay it out) and contiguous tensors
     from the K5 forward's m and l (2 and 12 heads); within ``BWD_TOL``
     times the largest |dq|, |dk| or |dv| of the plain version, and each
-    repeat equal bit for bit. At ``head_dim`` 80 (``heads`` 2 and 8) K2
-    only, up to its guard of 512: K5 takes head dim 64. Returns the largest
-    errors over that scale, by length."""
+    repeat equal bit for bit. ``head_dim`` 80 at ``heads`` 2 and 8, K2 up
+    to its guard of 512. Returns the largest errors over that scale, by
+    length."""
     SCALE = head_dim ** -0.5
     guard = A.RESIDENT_MAX_SEQ[head_dim]
     gen = torch.Generator(device="cuda").manual_seed(15)
@@ -1924,8 +1928,7 @@ def check_short_bwd_lengths(torch, A, head_dim: int = 64,
             refs = [A._heads_of(x, h) for x in A.qkv_attention_reference_bwd(
                 qkv, do, h, SCALE).chunk(3, dim=-1)]
             check(f"K2 H={h} D={head_dim}", s, got, again, refs)
-            if (s > A.GROUPED_MAX_SEQ or h == 16
-                    or head_dim != A.VIEW_HEAD_DIM):
+            if s > A.GROUPED_MAX_SEQ or h == 16:
                 continue
             views = A._split_heads(qkv, h)
             dense = [x.contiguous() for x in views]
@@ -1940,27 +1943,33 @@ def check_short_bwd_lengths(torch, A, head_dim: int = 64,
                 check(f"K5 H={h} {layout}", s, got, again, refs)
     print(f"short backward at head dim {head_dim}: lengths "
           f"{list(SHORT_LENGTHS)} (K2 also {guard}) x heads {tuple(heads)} "
-          f"(16 for K2 only) x (K2 packed"
-          f"{', K5 views, K5 contiguous' if head_dim == 64 else ''}): max "
+          f"(16 for K2 only) x (K2 packed, K5 views, K5 contiguous): max "
           f"abs err / max |ref| {worst}", flush=True)
     return worst
 
 
-def check_flash_kernels(torch, A):
+def check_flash_kernels(torch, A, head_dim: int = 64,
+                        shapes=(("train", 5, HEADS, STAGE3_CLS_TOKENS, True),
+                                ("l14", 40, 16, 577, True),
+                                ("eval", 32, HEADS, STAGE3_CLS_TOKENS, False)),
+                        tag: str = "", repeats: int = 0):
     """Phase 3, stage 3: K6 against its plain version at the stage-3 CLS
     train shape [5, 12, 1569, 64], the CLS eval shape [32, 12, 1569, 64]
     (forward only) and the clip_l14_336 teacher's [40, 16, 577, 64], on
     contiguous tensors and on the strided views of a qkv projection output
-    that the models pass; times on the views."""
+    that the models pass; times on the views. ``tag`` "/d80": the huge
+    VideoMAE encoder at mask 0.6, [2, 16, 632, 80], and with a CLS token,
+    [2, 16, 1569, 80] (``head_dim``, ``shapes``), each of ``repeats``
+    backwards equal to the first bit for bit. The softmax scale is
+    head_dim^-0.5."""
     import torch.nn.functional as F
 
+    SCALE = head_dim ** -0.5
     gen = torch.Generator(device="cuda").manual_seed(11)
     results = {}
-    for label, b, h, s, train in (("train", 5, HEADS, STAGE3_CLS_TOKENS, True),
-                                  ("l14", 40, 16, 577, True),
-                                  ("eval", 32, HEADS, STAGE3_CLS_TOKENS,
-                                   False)):
-        qkv = torch.randn((b, s, 3 * h * 64), generator=gen,
+    for label, b, h, s, train in shapes:
+        label += tag
+        qkv = torch.randn((b, s, 3 * h * head_dim), generator=gen,
                           device="cuda").to(torch.bfloat16)
         views = A._split_heads(qkv, h)
         dense = [t.contiguous() for t in views]
@@ -1980,18 +1989,20 @@ def check_flash_kernels(torch, A):
         out_nl, none = A.flash_fwd(q, k, v, SCALE)
         if none is not None or not torch.equal(out_nl, out):
             raise AssertionError(f"K6 {label}: the forward without lse differs")
-        ms = median_ms(lambda: A.flash_fwd(q, k, v, SCALE, train))
+        run = partial(A.flash_fwd, q, k, v, SCALE, train)
+        ms, dev_ms = median_ms(run), device_ms(run)
         plain_ms = median_ms(lambda: A.flash_reference(q, k, v, scale=SCALE))
-        lib_ms = median_ms(lambda: F.scaled_dot_product_attention(
-            *dense, scale=SCALE))
-        tok = b * h * s * 64 * 2  # bytes of one [B, H, S, 64] bf16 tensor
+        sdpa = partial(F.scaled_dot_product_attention, *dense, scale=SCALE)
+        lib_ms, lib_dev_ms = median_ms(sdpa), device_ms(sdpa)
+        tok = b * h * s * head_dim * 2  # bytes of one [B, H, S, D] tensor
         stat = b * h * s * 4      # one fp32 row statistic
         bms, by = bound(4 * tok + (stat if train else 0),
-                        4.0 * b * h * s * s * 64)
+                        4.0 * b * h * s * s * head_dim)
         results[f"K6/{label}"] = dict(
-            shape=[b, h, s, 64], max_abs_err=max(errs.values()),
-            max_abs_err_by_layout=errs, ms=ms, plain_ms=plain_ms,
-            bound_ms=bms, bound_by=by, library_ms=lib_ms,
+            shape=[b, h, s, head_dim], max_abs_err=max(errs.values()),
+            max_abs_err_by_layout=errs, ms=ms, device_ms=dev_ms,
+            plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=lib_ms,
+            library_device_ms=lib_dev_ms,
             library="scaled_dot_product_attention forward")
         print(f"K6 flash_fwd {label} {results[f'K6/{label}']}", flush=True)
         del ref, ref_lse, out_nl
@@ -2015,6 +2026,12 @@ def check_flash_kernels(torch, A):
                     raise AssertionError(f"K6 {label} {layout} {name}: max "
                                          f"abs err {e} > {tol}")
                 berr[name] = max(berr.get(name, (0.0, tol)), (e, tol))
+            for i in range(repeats):
+                again = A.flash_bwd(*qkv_t, out, lse, do, SCALE)
+                if not all(torch.equal(a, a2) for a, a2 in zip(got, again)):
+                    raise AssertionError(
+                        f"K6 {label} {layout} backward: repeat {i + 1} of "
+                        f"{repeats} differs from the first")
         del refs, got
         dq, dk, dv = (A._empty_like_rows(t) for t in views)
         delta = torch.empty((b, h, s), dtype=torch.float32, device="cuda")
@@ -2047,9 +2064,10 @@ def check_flash_kernels(torch, A):
                  berr["dq"]),
                 ("dkv", ms_dkv, dev_dkv, plain_dkv, 6 * tok + 2 * stat, 8.0,
                  max(berr["dk"], berr["dv"]))):
-            bms, by = bound(nbytes, flops * b * h * s * s * 64)
+            bms, by = bound(nbytes, flops * b * h * s * s * head_dim)
             results[f"K6{key}/{label}"] = dict(
-                shape=[b, h, s, 64], max_abs_err=e[0], tol=e[1], ms=ms_k,
+                shape=[b, h, s, head_dim], max_abs_err=e[0], tol=e[1],
+                ms=ms_k,
                 device_ms=dev, plain_ms=plain, bound_ms=bms, bound_by=by,
                 library_ms=bwd_ms, library_device_ms=bwd_dev_ms,
                 library="scaled_dot_product_attention backward (dq, dk, dv: "
@@ -3564,7 +3582,14 @@ def stage2_recipe_entry(torch, A, finetune: Path, clips: list,
 # encoder (K1/K2) and 1568 the 384-wide, 6-head decoder (K3/K4)
 MAE_FRAMES, MAE_TUBELET, MAE_MASK = 16, 2, 0.9
 MAE_GRID = (MAE_FRAMES // MAE_TUBELET, 14, 14)
-MAE_VISIBLE = MAE_GRID[0] * (196 - int(MAE_MASK * 196))  # 160
+
+
+def mae_visible(ratio: float) -> int:
+    """The encoder's tokens of a clip at tube-mask ``ratio``."""
+    return MAE_GRID[0] * (196 - int(ratio * 196))
+
+
+MAE_VISIBLE = mae_visible(MAE_MASK)  # 160
 MAE_HEADS = 6
 # the models' geometry by name: encoder and decoder widths, depths and heads
 # (unite_torch/models/pretrain_videomae.py); base has 64-lane heads, huge
@@ -3575,6 +3600,11 @@ MAE_BASE = SimpleNamespace(
 MAE_HUGE = SimpleNamespace(
     name="pretrain_videomae_huge_patch16_224", tag="videomae-h16-b16",
     width=1280, depth=32, heads=16, dec_width=640, dec_depth=8, dec_heads=8)
+# the same model at ImageMAE's tube mask of 0.75, VideoMAE's ablation of
+# its 0.9: 392 visible tokens, whose training route is K5 (above K2's 384)
+MAE_HUGE_M075 = SimpleNamespace(**dict(vars(MAE_HUGE),
+                                       tag="videomae-h16-m075-b16"))
+M075_MASK, M06_MASK = 0.75, 0.6  # 392 encoder tokens (K5), 632 (K6)
 HUGE_B = 16             # the huge cell's batch
 HUGE_CHECK_DEPTH = (4, 2)  # its card-vs-CPU step: encoder and decoder blocks
 D80_HEADS = (2, 8)      # the head-dim-80 length sweeps
@@ -3601,21 +3631,39 @@ def tube_batch(torch, b: int, seed: int, frames: int, grid, ratio: float):
             "mask_idx": torch.from_numpy(msk)}
 
 
-def videomae_clip_flops(cfg=MAE_BASE) -> float:
+def videomae_clip_flops(cfg=MAE_BASE, ratio: float = MAE_MASK) -> float:
     """Model operations of one clip's VideoMAE train step (forward and
     backward as three forwards; matrix products and attention): the patch
-    embedding of all 1568 patches, the encoder's blocks at 160 tokens, the
-    map to the decoder's width, the decoder's blocks at 1568 tokens and the
-    head at the 1408 masked ones, at ``cfg``'s widths and depths."""
+    embedding of all 1568 patches, the encoder's blocks at the visible
+    tokens (160 at tube-mask ``ratio`` 0.9, 392 at 0.75), the map to the
+    decoder's width, the decoder's blocks at 1568 tokens and the head at
+    the masked ones, at ``cfg``'s widths and depths."""
     from unite_torch.utils.flops import vit_block_flops
 
-    n = MAE_GRID[0] * 196
+    n, vis = MAE_GRID[0] * 196, mae_visible(ratio)
     fwd = (2 * n * (MAE_TUBELET * 16 * 16 * 3) * cfg.width
-           + cfg.depth * vit_block_flops(MAE_VISIBLE, cfg.width)
-           + 2 * MAE_VISIBLE * cfg.width * cfg.dec_width
+           + cfg.depth * vit_block_flops(vis, cfg.width)
+           + 2 * vis * cfg.width * cfg.dec_width
            + cfg.dec_depth * vit_block_flops(n, cfg.dec_width)
-           + 2 * (n - MAE_VISIBLE) * cfg.dec_width * 1536)
+           + 2 * (n - vis) * cfg.dec_width * 1536)
     return 3.0 * fwd
+
+
+def mae_launches(A, cfg, ratio: float, enc: int, dec: int) -> dict:
+    """The kernel launches of one VideoMAE train step with ``enc`` encoder
+    and ``dec`` decoder blocks at tube-mask ``ratio``: the encoder's
+    visible tokens on the route ``self_attention`` takes there (K1/K2, K5
+    or K6), the decoder's 1568 on K3 with lse, K4a and K4b."""
+    s = mae_visible(ratio)
+    if s <= A.FUSED_QKV_FWD_MAX_SEQ and A.use_fused_qkv(s, False, cfg.width):
+        want = {"K1": enc, "K2": enc}
+    elif s <= A.GROUPED_MAX_SEQ:
+        want = {"K5": enc, "K5dq": enc, "K5dkv": enc}
+    elif not A.use_fused_qkv(s, False, cfg.width):
+        want = {"K6": enc, "K6+lse": enc, "K6dq": enc, "K6dkv": enc}
+    else:
+        raise ValueError(f"{s} encoder tokens take K3/K4: no case here")
+    return dict(want, **{"K3": dec, "K3+lse": dec, "K4a": dec, "K4b": dec})
 
 
 def videomae_model(torch, cfg, dtype, device: str, depths=None):
@@ -3665,12 +3713,14 @@ def build_videomae(torch, b: int, dtype, device: str, state_dict=None,
 
 
 def videomae_card_vs_cpu(torch, cfg=MAE_BASE, depths=None,
-                         count: bool = True):
+                         count: bool = True, ratio: float = MAE_MASK):
     """One VideoMAE step on the card (bf16) against the CPU (fp32) at B=2,
     full width (``depths`` blocks where given): the same weights, clips and
-    masks. With ``count``, the CPU step's operations are counted by
-    ``utils.flops.count_flops`` (FlopCounterMode; there the attention runs
-    its plain versions)."""
+    masks at tube-mask ``ratio``; the card step's launches must be those of
+    ``mae_launches``. With ``count``, the CPU step's operations are counted
+    by ``utils.flops.count_flops`` (FlopCounterMode; there the attention
+    runs its plain versions)."""
+    import unite_torch.ops.attention as A
     from unite_torch.utils.flops import count_flops
 
     torch.manual_seed(13)
@@ -3679,7 +3729,7 @@ def videomae_card_vs_cpu(torch, cfg=MAE_BASE, depths=None,
     sd = {k: v.clone() for k, v in cpu_state.model.state_dict().items()}
     gpu_state, gpu_step = build_videomae(torch, 2, torch.bfloat16, "cuda", sd,
                                          cfg=cfg, depths=depths)
-    batch = tube_batch(torch, 2, 14, MAE_FRAMES, MAE_GRID, MAE_MASK)
+    batch = tube_batch(torch, 2, 14, MAE_FRAMES, MAE_GRID, ratio)
     from unite_torch.ops.normalize import normalize_videos
 
     with torch.no_grad():
@@ -3690,7 +3740,10 @@ def videomae_card_vs_cpu(torch, cfg=MAE_BASE, depths=None,
             vids.cuda(), batch["vis_idx"].cuda(),
             batch["mask_idx"].cuda()).float().cpu()
     pred_rel = ((p_gpu - p_cpu).abs().max() / p_cpu.abs().max()).item()
+    torch.cuda.synchronize()
+    reset_counts(A)
     m_gpu = {k: v.item() for k, v in gpu_step(gpu_state, batch).items()}
+    launches = read_counts(A)
     m_cpu = {}
 
     def cpu_run():
@@ -3701,34 +3754,42 @@ def videomae_card_vs_cpu(torch, cfg=MAE_BASE, depths=None,
     rel = {k: abs(m_gpu[k] - m_cpu[k]) / abs(m_cpu[k])
            for k in ("loss", "grad_norm")}
     rel["predictions"] = pred_rel
-    what = f"{cfg.name}" + (f" at depths {depths}" if depths else "")
+    what = (f"{cfg.name}" + (f" at depths {depths}" if depths else "")
+            + f" at mask {ratio}")
     print(f"videomae step card bf16 vs cpu fp32 (B=2, {what}): card {m_gpu} "
-          f"cpu {m_cpu} rel {rel}; CPU step counted {counted} flop",
-          flush=True)
+          f"cpu {m_cpu} rel {rel}; card step launches {launches}; CPU step "
+          f"counted {counted} flop", flush=True)
     if not all(r <= STEP_RTOL for r in rel.values()):
         raise AssertionError(f"videomae card step ({what}) disagrees with "
                              f"the CPU: {rel}")
+    enc, dec = depths or (cfg.depth, cfg.dec_depth)
+    expect_counts(launches, mae_launches(A, cfg, ratio, enc, dec),
+                  f"videomae card step ({what})")
     return dict(rel, counted_flop_per_clip=None if counted is None
-                else counted / 2)
+                else counted / 2, launches=launches,
+                visible_tokens=mae_visible(ratio))
 
 
 def videomae_path(torch, A, counted_per_clip, b: int = 32,
                   warmup: int = 2, timed: int = 5, cfg=MAE_BASE,
-                  profile_name: str = "chip_smoke_profile_videomae.json"):
+                  profile_name: str = "chip_smoke_profile_videomae.json",
+                  ratio: float = MAE_MASK):
     """Phase ``videomae-b16-b32``: the VideoMAE pixel-reconstruction step
     at B=32 on pinned seeded uint8 clips (normalized on the card), each
     step 12 K1 + 12 K2 at the encoder's [32, 160] and 8 K3 (with lse) + 8
     K4a + 8 K4b at the decoder's [32, 1568] with 6 heads; a profiled
     step. With ``cfg`` MAE_HUGE, ``videomae-h16-b16``: the huge model at
     B=16, 32 K1 + 32 K2 at [16, 160] (16 heads of 80 lanes) and 8 of each
-    decoder kernel at [16, 1568] (8 heads of 80). Its model FLOP
-    utilization comes from the closed form (``videomae_clip_flops``) and
-    from ``counted_per_clip``, the CPU step's count (None where it could
-    not be taken)."""
+    decoder kernel at [16, 1568] (8 heads of 80). With MAE_HUGE_M075 and
+    ``ratio`` 0.75, ``videomae-h16-m075-b16``: the huge model's encoder at
+    392 tokens on K5, 32 of each of its kernels a step, and no K1/K2
+    (``mae_launches``). Its model FLOP utilization comes from the closed
+    form (``videomae_clip_flops``) and from ``counted_per_clip``, the CPU
+    step's count (None where it could not be taken)."""
     torch.manual_seed(15)
     state, step = build_videomae(torch, b, torch.bfloat16, "cuda", cfg=cfg)
     gen = torch.Generator(device="cuda").manual_seed(16)
-    batch = tube_batch(torch, b, 17, MAE_FRAMES, MAE_GRID, MAE_MASK)
+    batch = tube_batch(torch, b, 17, MAE_FRAMES, MAE_GRID, ratio)
     batch["videos"] = batch["videos"].pin_memory()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -3747,13 +3808,15 @@ def videomae_path(torch, A, counted_per_clip, b: int = 32,
     print(f"{tag} losses/grad norms: {vals}", flush=True)
     check_finite(vals)
     enc, dec = cfg.depth * n, cfg.dec_depth * n
-    expect_counts(counts, {"K1": enc, "K2": enc, "K3": dec, "K3+lse": dec,
-                           "K4a": dec, "K4b": dec}, f"{tag}, {n} steps")
-    want = {"K1": {(b, MAE_VISIBLE): enc}, "K3": {(b, 1568): dec}}
+    route = mae_launches(A, cfg, ratio, enc, dec)
+    expect_counts(counts, route, f"{tag}, {n} steps")
+    vis = mae_visible(ratio)
+    want = {"K1": {(b, vis): enc} if "K1" in route else {},
+            "K3": {(b, 1568): dec}}
     if shapes != want:
         raise AssertionError(f"{tag}: launches by (B, S) {shapes}, "
                              f"expected {want}")
-    flops = b * videomae_clip_flops(cfg)
+    flops = b * videomae_clip_flops(cfg, ratio)
     counted = None if counted_per_clip is None else b * counted_per_clip
     res = dict(clips_per_s=b * timed / dt, step_ms=dt / timed * 1e3,
                model_tflop_per_step=flops / 1e12,
@@ -3761,7 +3824,7 @@ def videomae_path(torch, A, counted_per_clip, b: int = 32,
                counted_tflop_per_step=counted and counted / 1e12,
                counted_flops_util=counted and counted * timed / dt / PEAK_BF16,
                peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
-               steps=n, visible_tokens=MAE_VISIBLE, launches=counts,
+               steps=n, visible_tokens=vis, mask_ratio=ratio, launches=counts,
                launches_by_shape={k: {f"{x}x{y}": c for (x, y), c in
                                       v.items()} for k, v in shapes.items()},
                head_dim=cfg.width // cfg.heads)
@@ -4624,7 +4687,7 @@ def main() -> int:
     umt = umt_pretrain(torch, A)
     clipm = clip_masked(torch, A)
     mark("videomae-b16-b32, umt-pretrain-b64, clip-masked")
-    # head dim 80: K1-K4 at the huge VideoMAE's shapes, the sweeps, its
+    # head dim 80: K1-K6 at the huge VideoMAE's shapes, the sweeps, its
     # cut step against the CPU, then the full model
     kr.update(check_kernels(torch, A, heads=MAE_HUGE.heads,
                             batches=(HUGE_B, HUGE_B),
@@ -4633,18 +4696,39 @@ def main() -> int:
     kr.update(check_packed_kernels(torch, A, shapes=(("train", HUGE_B, True),),
                                    tag="/d80", heads=MAE_HUGE.dec_heads,
                                    repeats=BWD_REPEATS, head_dim=80))
+    # K5 at the huge encoder's [16, 16, 392, 80] (mask 0.75), K6 at its
+    # [2, 16, 632, 80] (mask 0.6) and with a CLS token
+    kr.update(check_grouped_kernels(
+        torch, A, heads=MAE_HUGE.heads, head_dim=80,
+        shapes=(("m075", HUGE_B, mae_visible(M075_MASK)),), tag="/d80"))
+    kr.update(check_flash_kernels(
+        torch, A, head_dim=80,
+        shapes=(("m06", 2, MAE_HUGE.heads, mae_visible(M06_MASK), True),
+                ("cls", 2, MAE_HUGE.heads, STAGE3_CLS_TOKENS, True)),
+        tag="/d80", repeats=BWD_REPEATS))
     d80_lengths = {
         "short_fwd": check_short_lengths(torch, A, 80, D80_HEADS),
         "short_bwd": check_short_bwd_lengths(torch, A, 80, D80_HEADS),
         "flash_fwd": check_flash_lengths(torch, A, 80, D80_HEADS),
         "flash_bwd": check_flash_bwd_lengths(torch, A, 80, D80_HEADS)}
-    mark("head dim 80: K1-K4 checked")
+    mark("head dim 80: K1-K6 checked")
     mae_h_rel = videomae_card_vs_cpu(torch, MAE_HUGE, HUGE_CHECK_DEPTH,
                                      count=False)
     mae_h = videomae_path(torch, A, None, b=HUGE_B, timed=3, cfg=MAE_HUGE,
                           profile_name="chip_smoke_profile_videomae_h16.json")
     torch.cuda.empty_cache()
     mark("videomae-h16-b16")
+    # the huge model at mask 0.75 (K5) and, cut, at 0.6 (K6)
+    mae_h075_rel = videomae_card_vs_cpu(torch, MAE_HUGE, HUGE_CHECK_DEPTH,
+                                        count=False, ratio=M075_MASK)
+    mae_h06_rel = videomae_card_vs_cpu(torch, MAE_HUGE, HUGE_CHECK_DEPTH,
+                                       count=False, ratio=M06_MASK)
+    mae_h075 = videomae_path(
+        torch, A, None, b=HUGE_B, timed=3, cfg=MAE_HUGE_M075,
+        profile_name="chip_smoke_profile_videomae_h16_m075.json",
+        ratio=M075_MASK)
+    torch.cuda.empty_cache()
+    mark("videomae-h16-m075-b16")
     # each entry's output stays until the next stage's entry has read it
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as work:
         work = Path(work)
@@ -4861,6 +4945,33 @@ def main() -> int:
              f"B={HUGE_B} S=1568 H=8 D=80]",
              "unite_torch/csrc/flash_bwd_wgmma.cu",
              "unite_tpu/ops/attention.py:1014", mae_h["launches"]["K4b"]),
+            ("K5/m075/d80", "grouped_fwd[videomae-h16-m075-b16 encoder "
+             f"B={HUGE_B} S={mae_visible(M075_MASK)} H=16 D=80]",
+             "unite_torch/csrc/short_attn_wgmma.cu",
+             "unite_tpu/ops/attention.py:441", mae_h075["launches"]["K5"]),
+            ("K5dq/m075/d80", "grouped_dq[videomae-h16-m075-b16 encoder "
+             f"B={HUGE_B} S={mae_visible(M075_MASK)} H=16 D=80]",
+             "unite_torch/csrc/short_bwd_wgmma.cu",
+             "unite_tpu/ops/attention.py:467", mae_h075["launches"]["K5dq"]),
+            ("K5dkv/m075/d80", "grouped_dkv[videomae-h16-m075-b16 encoder "
+             f"B={HUGE_B} S={mae_visible(M075_MASK)} H=16 D=80]",
+             "unite_torch/csrc/short_bwd_wgmma.cu",
+             "unite_tpu/ops/attention.py:467",
+             mae_h075["launches"]["K5dkv"]),
+            ("K6/m06/d80", "flash_fwd[videomae-h16 card-vs-CPU step at mask "
+             f"0.6, 4 blocks, encoder B=2 S={mae_visible(M06_MASK)} H=16 "
+             "D=80]", "unite_torch/csrc/flash_fwd_wgmma.cu",
+             "unite_tpu/ops/attention.py:148", mae_h06_rel["launches"]["K6"]),
+            ("K6dq/m06/d80", "flash_dq[videomae-h16 card-vs-CPU step at mask "
+             f"0.6, 4 blocks, encoder B=2 S={mae_visible(M06_MASK)} H=16 "
+             "D=80]", "unite_torch/csrc/flash_bwd_wgmma.cu",
+             "unite_tpu/ops/attention.py:231",
+             mae_h06_rel["launches"]["K6dq"]),
+            ("K6dkv/m06/d80", "flash_dkv[videomae-h16 card-vs-CPU step at "
+             f"mask 0.6, 4 blocks, encoder B=2 S={mae_visible(M06_MASK)} H=16 "
+             "D=80]", "unite_torch/csrc/flash_bwd_wgmma.cu",
+             "unite_tpu/ops/attention.py:270",
+             mae_h06_rel["launches"]["K6dkv"]),
             ("K1/student", "fused_qkv_fwd[umt-pretrain-b64 student B=64 "
              "S=320]", "unite_torch/csrc/short_attn_wgmma.cu",
              "unite_tpu/ops/attention.py:678", umt["launches"]["K1"]),
@@ -4916,6 +5027,9 @@ def main() -> int:
                       "videomae_card_vs_cpu_rel": mae_rel,
                       "videomae_h16_step": mae_h,
                       "videomae_h16_card_vs_cpu_rel": mae_h_rel,
+                      "videomae_h16_m075_step": mae_h075,
+                      "videomae_h16_m075_card_vs_cpu_rel": mae_h075_rel,
+                      "videomae_h16_m06_card_vs_cpu_rel": mae_h06_rel,
                       "head_dim80_lengths": d80_lengths,
                       "umt_pretrain": umt, "clip_masked": clipm,
                       "stage3_entry": entry3,

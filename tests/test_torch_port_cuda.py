@@ -556,16 +556,135 @@ def test_head_dim80_packed_kernels_on_card(cuda):
 
 @pytest.mark.cuda
 def test_head_dim80_refusals_on_card(cuda):
-    # K1-K4 take head dims 64 and 80, K5 and K6 64: no plain fallback
+    # every kernel takes head dims 64 and 80 and nothing else: no plain
+    # fallback
     x = torch.zeros((1, 160, 3 * 2 * 96), device=cuda, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match=r"head dims \(64, 80\)"):
         TA.fused_qkv_fwd(x, 2, 96 ** -0.5)
-    q = torch.zeros((1, 2, 392, D80), device=cuda, dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="ROADMAP queue 2"):
-        TA.multi_head_attention(q, q, q, scale=SCALE80)
+    for s in (392, 632):  # K5, K6
+        q = torch.zeros((1, 2, s, 96), device=cuda, dtype=torch.bfloat16)
+        with pytest.raises(ValueError, match=r"head dims \(64, 80\)"):
+            TA.multi_head_attention(q, q, q, scale=96 ** -0.5)
     x = torch.zeros((1, 513, 3 * 2 * D80), device=cuda, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="K3"):
         TA.fused_qkv_fwd(x, 2, SCALE80)
+
+
+def _d80_inputs(cuda, b, s, heads, seed):
+    """qkv [B, S, 3*H*80], its strided views and their contiguous copies,
+    and a cotangent in each layout (laid out as the models lay it out for
+    the views)."""
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    qkv = torch.randn((b, s, 3 * heads * D80), generator=gen, device=cuda
+                      ).to(torch.bfloat16)
+    views = TA._split_heads(qkv, heads)
+    dense = [t.contiguous() for t in views]
+    do = torch.randn(dense[0].shape, generator=gen, device=cuda
+                     ).to(torch.bfloat16)
+    do_rows = TA._empty_like_rows(views[0]).copy_(do)
+    return (("views", views, do_rows), ("contiguous", dense, do))
+
+
+def _d80_grouped(layouts, repeats=1):
+    """K5 at head dim 80 on each layout against its plain version: o, m
+    and l, then dq, dk and dv from the kernel's m and l; each of
+    ``repeats`` backwards equal to the first bit for bit."""
+    for layout, x, do in layouts:
+        out, (m, l) = TA.grouped_fwd(*x, SCALE80, with_stats=True)
+        ref, ref_m, ref_l = TA.grouped_reference(*x, scale=SCALE80)
+        assert out.stride() == TA._empty_like_rows(x[0]).stride()
+        assert _max_err(out, ref) <= 1e-2, layout
+        assert _max_err(m, ref_m) <= 1e-3, layout
+        assert ((l - ref_l).abs() / ref_l).max().item() <= 1e-4, layout
+        out_ns, none = TA.grouped_fwd(*x, SCALE80)
+        assert none is None and torch.equal(out_ns, out), layout
+        got = TA.grouped_bwd(*x, do, m, l, SCALE80)
+        _bwd_within(got, TA.grouped_reference_bwd(*x, do, scale=SCALE80),
+                    layout)
+        for _ in range(repeats):
+            again = TA.grouped_bwd(*x, do, m, l, SCALE80)
+            assert all(torch.equal(a, b) for a, b in zip(got, again)), layout
+
+
+def _d80_flash(layouts, repeats=1):
+    """K6 at head dim 80 on each layout against its plain version: o and
+    lse2 (and o without the lse), then dq, dk and dv from the kernel's o
+    and lse2; each of ``repeats`` backwards equal to the first."""
+    for layout, x, do in layouts:
+        out, lse = TA.flash_fwd(*x, SCALE80, with_lse=True)
+        ref, ref_lse = TA.flash_reference(*x, scale=SCALE80)
+        assert out.stride() == TA._empty_like_rows(x[0]).stride()
+        assert _max_err(out, ref) <= 1e-2, layout
+        assert _max_err(lse, ref_lse) <= 1e-3, layout
+        out_nl, none = TA.flash_fwd(*x, SCALE80)
+        assert none is None and torch.equal(out_nl, out), layout
+        got = TA.flash_bwd(*x, out, lse, do, SCALE80)
+        _bwd_within(got, TA.flash_reference_bwd(*x, out, lse, do,
+                                                scale=SCALE80), layout)
+        for _ in range(repeats):
+            again = TA.flash_bwd(*x, out, lse, do, SCALE80)
+            assert all(torch.equal(a, b) for a, b in zip(got, again)), layout
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("heads", [2, 8])
+@pytest.mark.parametrize("s", SHORT_LENGTHS)
+def test_head_dim80_grouped_lengths_on_card(cuda, s, heads):
+    # K5 at head dim 80 (csrc/short_attn_wgmma.cu's forward, the dq and
+    # dk/dv kernels of csrc/short_bwd_wgmma.cu) on views and contiguous
+    # tensors, up to the route's 512
+    _d80_grouped(_d80_inputs(cuda, 2, s, heads, 700 + s * heads))
+
+
+@pytest.mark.cuda
+def test_head_dim80_grouped_at_the_encoder_shape_on_card(cuda):
+    # the huge VideoMAE's encoder at mask 0.75: [16, 16, 392, 80], where the
+    # persistent blocks walk many tiles across heads; five repeats
+    _d80_grouped(_d80_inputs(cuda, 16, 392, 16, 780), repeats=5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("heads", [2, 8])
+@pytest.mark.parametrize("s", [1, 7, 64, 127, 128, 129, 577, 632, 1568, 1569,
+                               2048])
+def test_head_dim80_flash_lengths_on_card(cuda, s, heads):
+    # K6 at head dim 80 (csrc/flash_fwd_wgmma.cu, csrc/flash_bwd_wgmma.cu)
+    # on views and contiguous tensors
+    _d80_flash(_d80_inputs(cuda, 2, s, heads, 800 + s * heads))
+
+
+@pytest.mark.cuda
+def test_head_dim80_flash_at_the_encoder_shape_on_card(cuda):
+    # the huge encoder at mask 0.6 (632 tokens) and with a CLS token (1569)
+    _d80_flash(_d80_inputs(cuda, 2, 632, 16, 881), repeats=5)
+    _d80_flash(_d80_inputs(cuda, 2, 1569, 16, 882), repeats=2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s,kernel", [(392, "grouped"), (472, "grouped"),
+                                      (632, "flash")])
+def test_head_dim80_model_route_takes_k5_k6_on_card(cuda, s, kernel):
+    # the huge encoder's route in training at masks 0.75, 0.7 and 0.6: a
+    # width of 1280 over 16 heads, views of qkv, one launch of each kernel
+    heads = 16
+    gen = torch.Generator(device=cuda).manual_seed(s)
+    x = torch.randn((2, s, 3 * heads * D80), generator=gen, device=cuda
+                    ).to(torch.bfloat16).requires_grad_(True)
+    names = [f"{kernel}_{n}" for n in ("fwd", "dq", "dkv")] + [
+        "fused_qkv_fwd", "fused_qkv_bwd", "packed_flash_fwd"]
+    before = [getattr(TA, n).launches for n in names]
+    out = TA.self_attention(x, heads, SCALE80, dim=heads * D80)
+    out.float().square().sum().backward()
+    assert [getattr(TA, n).launches - b for n, b in zip(names, before)] == [
+        1, 1, 1, 0, 0, 0]
+    dense = [t.contiguous() for t in TA._split_heads(x.detach(), heads)]
+    do = TA._heads_of((2 * out.float()).to(torch.bfloat16), heads)
+    ref = (TA.grouped_reference_bwd(*dense, do, scale=SCALE80)
+           if kernel == "grouped" else TA.flash_reference_bwd(
+               *dense, *TA.flash_reference(*dense, scale=SCALE80), do,
+               scale=SCALE80))
+    ref = torch.cat([TA._merge_heads(r) for r in ref], dim=-1).float()
+    assert _max_err(x.grad, ref) <= 2e-2 * ref.abs().max().item()
 
 
 # K7's card shapes: ragged M and N (N % 4 != 0 and N % 8 != 0 take the

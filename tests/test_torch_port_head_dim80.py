@@ -16,8 +16,9 @@ kernels. Here, with inputs made by numpy from a seed:
 * what the wrappers hand the C entry points at D = 80 (lane pointers,
   strides and the head dim), through a faked entry on meta tensors, which
   take the wrappers' CUDA path;
-* the CUDA path's refusals: head dims other than 64 and 80 in K1-K4, head
-  dim 80 in K5 and K6, K1/K2 past their shared-memory guard at 80;
+* the CUDA path's refusals: head dims other than 64 and 80 in K1-K6,
+  K1/K2 past their shared-memory guard at 80 (K5 and K6 at head dim 80:
+  tests/test_torch_port_view_head_dim80.py);
 * a small ``PretrainVideoMAE`` with 80-lane heads in both towers (width
   640, 8 heads, depth 1 each) against JAX through utils/flax_bridge.py in
   fp32: forward, loss and every gradient within 1e-5 (relative to the
@@ -271,23 +272,26 @@ def test_cuda_path_refuses_other_head_dims(entry, d):
     assert all(getattr(TA, n).launches == 0 for n in COUNTERS)
 
 
-def test_k5_k6_refuse_head_dim_80_on_cuda(entry):
-    # the [B, H, S, D] kernels take 64 only: ROADMAP queue 2 holds 80
+@pytest.mark.parametrize("d", [32, 72, 96, 128])
+def test_k5_k6_refuse_other_head_dims_on_cuda(entry, d):
+    # the [B, H, S, D] kernels take 64 and 80 as K1-K4 do; a CUDA tensor of
+    # another head dim raises and never takes the plain version
     b, h = 2, 8
     for s, fwd, bwd in ((392, TA.grouped_fwd, TA.grouped_bwd),
                         (1569, TA.flash_fwd, TA.flash_bwd)):
-        q = torch.empty((b, h, s, D), dtype=torch.bfloat16, device="meta")
+        q = torch.empty((b, h, s, d), dtype=torch.bfloat16, device="meta")
         stats = torch.empty((b, h, s), dtype=torch.float32, device="meta")
-        with pytest.raises(ValueError, match="ROADMAP queue 2"):
-            fwd(q, q, q, SCALE)
-        with pytest.raises(ValueError, match="ROADMAP queue 2"):
+        with pytest.raises(ValueError, match=r"head dims \(64, 80\)"):
+            fwd(q, q, q, d ** -0.5)
+        with pytest.raises(ValueError, match=r"head dims \(64, 80\)"):
             if fwd is TA.grouped_fwd:
-                bwd(q, q, q, q, stats, stats, SCALE)
+                bwd(q, q, q, q, stats, stats, d ** -0.5)
             else:
-                bwd(q, q, q, q, stats, q, SCALE)
-        with pytest.raises(ValueError, match="ROADMAP queue 2"):
-            TA.multi_head_attention(q, q, q, scale=SCALE)
+                bwd(q, q, q, q, stats, q, d ** -0.5)
+        with pytest.raises(ValueError, match=r"head dims \(64, 80\)"):
+            TA.multi_head_attention(q, q, q, scale=d ** -0.5)
     assert entry == []
+    assert all(getattr(TA, n).launches == 0 for n in COUNTERS)
 
 
 def test_k1_k2_guard_at_head_dim_80(entry):

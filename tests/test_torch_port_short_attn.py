@@ -1,5 +1,5 @@
 """The short-sequence attention forward (csrc/short_attn_wgmma.cu), which
-serves K1 (packed qkv, lse2) and K5's forward ([B, H, S, 64] views, m and l).
+serves K1 (packed qkv, lse2) and K5's forward ([B, H, S, D] views, m and l).
 
 CPU cases check the build list, the C declarations and what the K1 and K5
 wrappers hand the kernel's entry points (meta tensors stand in for CUDA
@@ -21,8 +21,8 @@ import unite_torch.ops.attention as TA
 from unite_torch.ops import _build
 
 SCALE = 64 ** -0.5
-# entry -> (arguments, integers after the strides: B, S, H and K1's D)
-ENTRIES = {"unite_short_qkv_fwd": (12, 4), "unite_short_grouped_fwd": (12, 3)}
+# entry -> (arguments, integers after the strides: B, S, H and D)
+ENTRIES = {"unite_short_qkv_fwd": (12, 4), "unite_short_grouped_fwd": (13, 4)}
 
 
 def test_short_source_is_built_and_declared():
@@ -107,8 +107,8 @@ def test_k5_wrapper_passes_the_views(entry, layout, with_stats):
     assert args[4:6] == ((0, 0) if with_stats else (None, None))
     want = sum((t.stride()[:3] for t in (q, k, v, o)), ())
     assert tuple(args[6]) == want
-    assert args[7:10] == (b, s, h)
-    assert args[10] == pytest.approx(SCALE * TA.INV_LN2)
+    assert args[7:11] == (b, s, h, 64)  # B, S, H, D
+    assert args[11] == pytest.approx(SCALE * TA.INV_LN2)
 
 
 def test_k5_wrapper_refuses_what_does_not_fit(entry):

@@ -1,5 +1,5 @@
 """The short-sequence attention backward (csrc/short_bwd_wgmma.cu), which
-serves K2 (packed qkv, from K1's lse2) and K5's backward ([B, H, S, 64]
+serves K2 (packed qkv, from K1's lse2) and K5's backward ([B, H, S, D]
 views, from the K5 forward's m and l).
 
 CPU cases check the build list, the C declarations, the kernels' names and
@@ -55,10 +55,9 @@ def test_short_bwd_source_is_built_and_declared():
         assert f'extern "C" int {name}(' in text
         fn = getattr(lib, name)
         assert fn.restype is ctypes.c_int
-        # B, S, H (and K2's D), c, scale, the stream
-        ints = [i] * (4 if name == "unite_short_qkv_bwd" else 3)
+        # B, S, H, D, c, scale, the stream
         assert fn.argtypes == [p] * n + [ctypes.POINTER(ctypes.c_longlong),
-                                         *ints, f, f, p]
+                                         i, i, i, i, f, f, p]
 
 
 def test_kernel_names_are_in_the_profiles_attention_class():
@@ -165,16 +164,17 @@ def test_k5_wrappers_pass_the_views(entry, layout):
                                ())
     assert tuple(akv[9]) == sum((t.stride()[:3]
                                  for t in (q, k, v, do, dk, dv)), ())
-    b, h, s, _ = q.shape
+    b, h, s, d = q.shape
     for args, at in ((aq, 9), (akv, 10)):
-        assert args[at:at + 3] == (b, s, h)
-        assert args[at + 3] == pytest.approx(SCALE * TA.INV_LN2)
-        assert args[at + 4] == pytest.approx(SCALE)
+        assert args[at:at + 4] == (b, s, h, d)  # B, S, H, D
+        assert args[at + 4] == pytest.approx(SCALE * TA.INV_LN2)
+        assert args[at + 5] == pytest.approx(SCALE)
 
 
 def test_k5_backward_refuses_what_does_not_fit(entry):
-    # a head's q, do and bf16(do/l) fill the dk/dv kernel's shared memory at
-    # 512 keys; the route sends longer sequences to K6
+    # a head's q, do and bf16(do/l) (q and do at head dim 80) fill the dk/dv
+    # kernel's shared memory at 512 keys; the route sends longer sequences
+    # to K6
     q, k, v, do, m, l, delta = _grouped_inputs("contiguous",
                                                s=TA.GROUPED_MAX_SEQ + 1)
     with pytest.raises(ValueError, match="K6"):

@@ -11,8 +11,9 @@
 //   concatenation does not survive), at D = 64 or 80;
 //   K6 dq replaces unite_tpu/ops/attention.py::_bwd_dq_kernel,
 //   K6 dkv replaces unite_tpu/ops/attention.py::_bwd_dkv_kernel
-//   (both called from _flash_bwd): every tensor is a [B, H, S, 64] view,
-//   contiguous or strided (1569 = 1568 patches + CLS, 577, 785).
+//   (both called from _flash_bwd): every tensor is a [B, H, S, D] view,
+//   contiguous or strided, D = 64 or 80 (1569 = 1568 patches + CLS, 577,
+//   785; 632 = the huge VideoMAE's encoder at mask 0.6).
 //
 // Given q, k, v, the forward's output o and base-2 row log-sum-exp lse2
 // [B, H, S], and the cotangent do, per head:

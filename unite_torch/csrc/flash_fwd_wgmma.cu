@@ -7,9 +7,9 @@
 //      [B, S, 3*H*D] and o is written into [B, S, H*D], with strides, at
 //      D = 64 or 80;
 //   K6 replaces unite_tpu/ops/attention.py::_fwd_kernel (called from
-//      _flash_fwd): q, k, v and o are [B, H, S, 64] tensors, contiguous or
-//      strided views of the qkv projection's output (1569 = 1568 patches +
-//      CLS, 577, 785).
+//      _flash_fwd): q, k, v and o are [B, H, S, D] tensors, contiguous or
+//      strided views of the qkv projection's output, D = 64 or 80 (1569 =
+//      1568 patches + CLS, 577, 785; 632 at 80).
 //
 // Per head: o = softmax(q.k^T * scale) . v, and the base-2 row log-sum-exp
 // lse2 = m*c + log2(l), [B, H, S] fp32, when the caller trains. The

@@ -8,8 +8,8 @@
 // the kernels index those slices with strides, so no head split/merge is
 // ever materialized in device memory. D is 64 (the ViT-B/L students, the
 // CLIP teachers, VideoMAE base) or 80 (VideoMAE huge: 1280 wide with 16
-// heads, its decoder 640 wide with 8); K1-K4 are built for both, K5 and K6
-// for 64.
+// heads, its decoder 640 wide with 8); every kernel, K1-K6, is built for
+// both.
 //
 // Accumulator and A-fragment layouts of the tensor-core products (PTX ISA,
 // lane = 4*g + t, per warp of 16 rows):

@@ -9,10 +9,11 @@
 //      of the ROUNDED p, and the base-2 row log-sum-exp lse2 = m*c + log2(l)
 //      is saved, [B, H, S] fp32, when the caller trains (K2 reads it);
 //   K5 replaces unite_tpu/ops/attention.py::_grouped_fwd_kernel (called
-//      from _grouped_attention_fwd): q, k, v and o are [B, H, S, 64] views;
-//      l is the row sum of the fp32 e = exp2((s - m)*c) BEFORE rounding, and
-//      the raw row max m and l are saved, [B, H, S] fp32 each, when the
-//      caller trains (csrc/grouped_attn_bwd.cu reads them).
+//      from _grouped_attention_fwd): q, k, v and o are [B, H, S, D] views,
+//      D = 64 or 80 (up to 512 keys at 80); l is the row sum of the fp32
+//      e = exp2((s - m)*c) BEFORE rounding, and the raw row max m and l are
+//      saved, [B, H, S] fp32 each, when the caller trains
+//      (csrc/short_bwd_wgmma.cu reads them).
 //
 // Both: bf16 operands, fp32 accumulation, c = scale*log2(e) folded into
 // exp2, p = exp2((s - m)*c) rounded to bf16 against the EXACT row max m over
@@ -23,7 +24,7 @@
 // (S > 320: two sweeps, tensor-core time only, no extra bytes).
 //
 // What bounds it on the H100: at the main-path shapes (197 and 320 keys, 12
-// or 16 heads; 392 keys for K5) a head does 4*S^2*64 flops on 4*S*64*2
+// or 16 heads; 392 keys for K5) a head does 4*S^2*D flops on 4*S*D*2
 // bytes, about S/2 flops a byte (100-200), under the card's ridge of about
 // 295: the bound is the bytes of q, k and v read and o written. So each
 // head's K and V are read once, and the loads run under the products of
@@ -355,14 +356,17 @@ __device__ __forceinline__ void chunk_exp(const float (&s)[32],
   }
 }
 
-template <bool GROUPED, int NC>
+// p for NC chunks of keys (chunk_exp), K5's sums in four partial sums a row,
+// or with TWO (D = 80) in two: beside the 80-lane accumulators four
+// spilled 12 bytes at 320 keys.
+template <bool GROUPED, int NC, bool TWO>
 __device__ __forceinline__ void row_exp(const float (&s)[NC][32],
                                         uint32_t (&p)[NC][4][4], int valid,
                                         int t, float mc0, float mc1, float c,
                                         float (&lp)[2][4]) {
 #pragma unroll
   for (int ch = 0; ch < NC; ++ch) {
-    const int v = valid - ch * CHUNK, part = 2 * (ch & 1);
+    const int v = valid - ch * CHUNK, part = TWO ? 0 : 2 * (ch & 1);
     if (v >= CHUNK) {
       chunk_exp<GROUPED, false>(s[ch], p[ch], CHUNK, t, part, mc0, mc1, c,
                                 lp);
@@ -428,7 +432,7 @@ __device__ __forceinline__ void tile(const Tile& a, int S, float c) {
     row_max(s, S, t, mx);
     m0 = quad_max(max4(mx[0]));
     m1 = quad_max(max4(mx[1]));
-    row_exp<GROUPED>(s, p, S, t, m0 * c, m1 * c, c, lp);
+    row_exp<GROUPED, NC, D == 80>(s, p, S, t, m0 * c, m1 * c, c, lp);
     pv<!GROUPED, NC, D>(acc, acc_t, lsum, p, a.vd, a.vtd, a.onesd);
   } else {
     // groups of NC chunks, swept twice over the resident K
@@ -443,7 +447,7 @@ __device__ __forceinline__ void tile(const Tile& a, int S, float c) {
     for (int gi = 0; gi < groups; ++gi) {
       qk<NC, D>(s, a.qd, a.kd + gi * GROUP_UNITS, a.qtd,
                 a.ktd + gi * GROUP_TAIL_UNITS);
-      row_exp<GROUPED>(s, p, S - gi * NC * CHUNK, t, m0 * c, m1 * c, c, lp);
+      row_exp<GROUPED, NC, D == 80>(s, p, S - gi * NC * CHUNK, t, m0 * c, m1 * c, c, lp);
       pv<!GROUPED, NC, D>(acc, acc_t, lsum, p, a.vd + gi * GROUP_UNITS,
                           a.vtd + gi * GROUP_TAIL_UNITS, a.onesd);
     }
@@ -738,14 +742,22 @@ extern "C" int unite_short_qkv_fwd(const void* q, const void* k, const void* v,
   return (int)cudaErrorInvalidValue;
 }
 
-// K5: the same views; m and l [B, H, S] fp32 contiguous (the raw row max of
-// q.k^T and the row sum of the fp32 exp2((s - m)*c) before rounding), both
-// null when the caller does not train.
+// K5: the same views and head dims, D = 64 with 1 <= S <= 768 or D = 80
+// with 1 <= S <= 512 (a head's K and V resident: 192 KB at 768 keys of 64
+// lanes, 160 KB at 512 of 80; cudaErrorInvalidValue otherwise); m and l
+// [B, H, S] fp32 contiguous (the raw row max of q.k^T and the row sum of
+// the fp32 exp2((s - m)*c) before rounding), both null when the caller does
+// not train.
 extern "C" int unite_short_grouped_fwd(const void* q, const void* k,
                                        const void* v, void* o, void* m,
                                        void* l, const long long* strides,
-                                       int B, int S, int H, float c,
+                                       int B, int S, int H, int D, float c,
                                        void* stream) {
-  return run<true, 64>(q, k, v, o, static_cast<float*>(m),
-                       static_cast<float*>(l), strides, B, S, H, c, stream);
+  float* mx = static_cast<float*>(m);
+  float* sum = static_cast<float*>(l);
+  if (D == 64)
+    return run<true, 64>(q, k, v, o, mx, sum, strides, B, S, H, c, stream);
+  if (D == 80)
+    return run<true, 80>(q, k, v, o, mx, sum, strides, B, S, H, c, stream);
+  return (int)cudaErrorInvalidValue;
 }

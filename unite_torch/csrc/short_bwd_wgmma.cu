@@ -10,8 +10,9 @@
 //      written straight into the lane slices of the packed dqkv, at D = 64
 //      or 80 (up to 512 keys at 80);
 //   K5's backward replaces unite_tpu/ops/attention.py::_grouped_bwd_kernel
-//      (called from _grouped_attention_bwd): every tensor is a [B, H, S, 64]
-//      view, contiguous or strided (392 = stage 1 at mask 0.75).
+//      (called from _grouped_attention_bwd): every tensor is a [B, H, S, D]
+//      view, contiguous or strided, D = 64 or 80 (392 = stage 1 at mask
+//      0.75, and the huge VideoMAE's encoder at mask 0.75).
 //
 // K2, from the forward's base-2 row log-sum-exp lse2 (K1's) [B, H, S]:
 //   dq   delta = rowsum(do * o)              fp32, written for dkv
@@ -68,12 +69,22 @@
 // Ragged edges: keys past S get p = e = 0 in dq, and a last chunk of at
 // most 16 keys (392 = 6*64 + 8) takes products 16 keys wide; rows past S
 // are computed on zero rows and never stored.
-// Head dim 80 (K2 only; the kernels are templated on D, and D = 64 is the
-// body above): lanes 64-79 of every tile and chunk come through a second
-// map into tiles of 32-byte rows (32-byte swizzle); a tile's are read into
-// one more A fragment a tensor (the fifth k-step of its score products),
-// a chunk's are the B operand of that k-step and of a second gradient
-// product, m64n16k16, into 8 more accumulators a thread.
+// Head dim 80 (the kernels are templated on D, and D = 64 is the body
+// above): lanes 64-79 of every tile and chunk come through a second map
+// into tiles of 32-byte rows (32-byte swizzle); a tile's are read into one
+// more A fragment a tensor (the fifth k-step of its score products), a
+// chunk's are the B operand of that k-step and of a second gradient
+// product, m64n16k16, into 8 more accumulators a thread. K5's dk/dv kernel
+// cannot keep a third resident tensor there: q, do and bf16(do * il) of
+// 512 keys take 3 * 8 * 10,240 = 245,760 bytes, above the 232,448 a block
+// may have. So at D = 80 only q and do are resident, and each consumer
+// reads bf16(do * il) of the chunk in hand from a tile of its own, which
+// a prep warp of its own writes (do's rows times il, rounded as at
+// D = 64) while the consumer's score products run, handed over by a full
+// and an empty barrier: the same rounding point, computed once a tile and
+// chunk instead of once a head and chunk. (The consumers cannot compute it
+// themselves: beside the 80-lane accumulators and fragments that spilled
+// at 232 registers, and the prep warps spill at 24.)
 #include "attn_bwd_wgmma.cuh"
 #include "fused_qkv_common.cuh"
 #include "hopper.cuh"
@@ -102,17 +113,20 @@ constexpr int max_seq() {
 }
 
 // The shared-memory plan of a launch: `res` resident tensors of `nch`
-// 64-row chunks (dq: k, v; dkv: q, do, and K5's bf16(do * il)), `nstat`
-// column statistics of 64 values a chunk (dkv), a ring of `qs` slots of
-// two 64-row tiles (dq: q, do; dkv: k, v), and the barriers; at D = 80 a
+// 64-row chunks (dq: k, v; dkv: q, do, and at D = 64 K5's bf16(do * il)),
+// `nstat` column statistics of 64 values a chunk (dkv), a ring of `qs`
+// slots of two 64-row tiles (dq: q, do; dkv: k, v), `own` tiles of each
+// consumer's own (K5's dkv at D = 80: bf16(do * il) of the chunk in hand)
+// with a full and an empty barrier each, and the barriers; at D = 80 a
 // tail of lanes 64-79 beside each chunk and tile.
 struct Plan {
-  int nch, res, nstat, qs;
+  int nch, res, nstat, qs, own;
   template <int D>
   __host__ __device__ int bytes() const {
     return 1024 +
-           (res * nch + 2 * qs) * (TILE_BYTES + (D == 80 ? TAIL_BYTES : 0)) +
-           nstat * nch * TILE * 4 + 8 * (3 * nch + 2 + qs);
+           (res * nch + 2 * qs + 2 * own) *
+               (TILE_BYTES + (D == 80 ? TAIL_BYTES : 0)) +
+           nstat * nch * TILE * 4 + 8 * (3 * nch + 2 + qs + 4 * own);
   }
 };
 
@@ -127,14 +141,18 @@ struct TailMaps<64> {};
 struct Smem {
   uint8_t* res;       // tensor r's chunk c at (r * nch + c) tiles
   uint8_t* ring;      // slot s's two tiles at 2s, 2s + 1
+  uint8_t* own;       // D = 80, K5's dkv: consumer w's tile at w
   uint8_t* res_t;     // D = 80: lanes 64-79 of each, laid out as they are
   uint8_t* ring_t;
+  uint8_t* own_t;
   float* stats;       // statistic k of chunk c at (k * nch + c) * 64
   uint64_t* full;     // a chunk's TMA loads, nch
   uint64_t* prep;     // dkv: a chunk's statistics (and K5's do * il), nch
   uint64_t* empty;    // a chunk's last reads of a head, nch
   uint64_t* t_full;   // a tile's loads, one barrier a consumer (2)
   uint64_t* t_empty;  // a ring slot read into registers, qs
+  uint64_t* own_full;   // consumer w's own tile written, at w (own)
+  uint64_t* own_empty;  // ... and read by its products, at w
   int nch;
   __device__ __forceinline__ bf16* chunk(int r, int c) const {
     return reinterpret_cast<bf16*>(res + (size_t)(r * nch + c) * TILE_BYTES);
@@ -151,6 +169,12 @@ struct Smem {
   __device__ __forceinline__ float* stat(int k, int c) const {
     return stats + (k * nch + c) * TILE;
   }
+  __device__ __forceinline__ bf16* own_tile(int w) const {
+    return reinterpret_cast<bf16*>(own + (size_t)w * TILE_BYTES);
+  }
+  __device__ __forceinline__ bf16* own_tile_t(int w) const {
+    return reinterpret_cast<bf16*>(own_t + (size_t)w * TAIL_BYTES);
+  }
 };
 
 template <int D>
@@ -163,12 +187,16 @@ __device__ __forceinline__ Smem carve(uint8_t* raw, const Plan& pl) {
   p += pl.res * pl.nch * TILE_BYTES;
   s.ring = p;
   p += 2 * pl.qs * TILE_BYTES;
-  s.res_t = s.ring_t = nullptr;
-  if (D == 80) {  // multiples of 2 KB from a 1024-aligned start
+  s.own = s.res_t = s.ring_t = s.own_t = nullptr;
+  if (D == 80) {  // multiples of 8 KB, then of 2 KB, from a 1024-aligned start
+    s.own = p;
+    p += 2 * pl.own * TILE_BYTES;
     s.res_t = p;
     p += pl.res * pl.nch * TAIL_BYTES;
     s.ring_t = p;
     p += 2 * pl.qs * TAIL_BYTES;
+    s.own_t = p;
+    p += 2 * pl.own * TAIL_BYTES;
   }
   s.stats = reinterpret_cast<float*>(p);
   p += pl.nstat * pl.nch * TILE * 4;
@@ -178,6 +206,8 @@ __device__ __forceinline__ Smem carve(uint8_t* raw, const Plan& pl) {
   s.empty = bars + 2 * pl.nch;
   s.t_full = bars + 3 * pl.nch;
   s.t_empty = s.t_full + 2;
+  s.own_full = s.t_empty + pl.qs;
+  s.own_empty = s.own_full + 2;
   return s;
 }
 
@@ -199,6 +229,10 @@ __device__ __forceinline__ void init_barriers(const Smem& sm, const Plan& pl,
     mbar_init(&sm.t_full[0], 1);
     mbar_init(&sm.t_full[1], 1);
     for (int s = 0; s < pl.qs; ++s) mbar_init(&sm.t_empty[s], 128);
+    for (int w = 0; w < (pl.own ? 2 : 0); ++w) {
+      mbar_init(&sm.own_full[w], PREP / 2);  // its prep warp
+      mbar_init(&sm.own_empty[w], 128);      // its consumer
+    }
     fence_mbar_init();
   }
   __syncthreads();
@@ -523,21 +557,29 @@ __device__ __forceinline__ void row_dot(const float (&s)[N],
 
 // K5's first dq sweep: rowsum(e * dp) over the resident chunks, this
 // lane's part of rows g (d0) and g + 8 (d1); with NARROW the last chunk is
-// narrow.
-template <bool NARROW>
+// narrow. At D = 80 the score products take the fifth k-step (the tile's
+// lanes 64-79 qt and dot against the chunks' ktd, vtd).
+template <bool NARROW, int D>
 __device__ __forceinline__ void delta_sweep(const uint32_t (&qa)[4][4],
+                                            const uint32_t (&qt)[4],
                                             const uint32_t (&doa)[4][4],
+                                            const uint32_t (&dot)[4],
                                             const Smem& sm, const Walk& w,
                                             int S, int t, float c, float x0,
                                             float x1, float& d0, float& d1) {
   const uint64_t kd = kmajor(sm.chunk(0, 0)), vd = kmajor(sm.chunk(1, 0));
+  uint64_t ktd = 0, vtd = 0;
+  if constexpr (D == 80) {
+    ktd = kmajor_t(sm.chunk_t(0, 0));
+    vtd = kmajor_t(sm.chunk_t(1, 0));
+  }
   const int nfull = NARROW ? sm.nch - 1 : sm.nch;
   float p0[2] = {0.f, 0.f}, p1[2] = {0.f, 0.f};
   for (int j = 0; j < nfull; ++j) {
     float s[32], dp[32];
     mbar_wait(&sm.full[j], w.u & 1);
-    scores_start<64>(s, dp, qa, kd + j * TILE_UNITS, 0, 0, doa,
-                     vd + j * TILE_UNITS, 0, 0);
+    scores_start<D>(s, dp, qa, kd + j * TILE_UNITS, qt, ktd + j * TAIL_UNITS,
+                    doa, vd + j * TILE_UNITS, dot, vtd + j * TAIL_UNITS);
     wgmma_wait<1>();
     reg_fence(s);
     chunk_exp(s, j, S, t, c, x0, x1);
@@ -549,9 +591,9 @@ __device__ __forceinline__ void delta_sweep(const uint32_t (&qa)[4][4],
     const int jn = sm.nch - 1;
     float s[8], dp[8];
     mbar_wait(&sm.full[jn], w.u & 1);
-    const uint32_t none[4] = {0u, 0u, 0u, 0u};  // no lanes 64-79 at D = 64
-    narrow_scores_start<64>(s, dp, qa, kd + jn * TILE_UNITS, none, 0, doa,
-                            vd + jn * TILE_UNITS, none, 0);
+    narrow_scores_start<D>(s, dp, qa, kd + jn * TILE_UNITS, qt,
+                           ktd + jn * TAIL_UNITS, doa, vd + jn * TILE_UNITS,
+                           dot, vtd + jn * TAIL_UNITS);
     wgmma_wait<1>();
     reg_fence(s);
     chunk_exp(s, jn, S, t, c, x0, x1);
@@ -577,7 +619,6 @@ __global__ void __launch_bounds__(THREADS, 1)
                                float* __restrict__ delta, View dq, int S,
                                int H, int ntiles, float c, float scale,
                                int perms, Plan pl) {
-  static_assert(D == 64 || !GROUPED, "K5 takes head dim 64");
   constexpr int NT = tail_regs<D>();
   extern __shared__ __align__(1024) uint8_t smem_raw[];
   const Smem sm = carve<D>(smem_raw, pl);
@@ -660,7 +701,8 @@ __global__ void __launch_bounds__(THREADS, 1)
       const float x0 = GROUPED ? a0 * c : a0, x1 = GROUPED ? a1 * c : a1;
       float d0 = 0.f, d1 = 0.f;
       if (GROUPED) {
-        delta_sweep<NARROW>(qa, doa, sm, walk, S, t, c, x0, x1, d0, d1);
+        delta_sweep<NARROW, D>(qa, qt, doa, dot, sm, walk, S, t, c, x0, x1,
+                               d0, d1);
         d0 *= il0;
         d1 *= il1;
       } else {
@@ -710,20 +752,55 @@ __device__ __forceinline__ void dkv_form(float (&s)[N], float (&dp)[N],
   col_ds<GROUPED>(s, dp, sm.stat(1, j), sm.stat(2, j), t);
 }
 
+// K5's dkv at D = 80: bf16(do * il) of resident chunk j into a consumer's
+// own tile, at the places do has it (the swizzles move whole 16 bytes
+// within a row), by one prep warp: each lane takes 16 bytes a pass, 16
+// passes of lanes 0-63 and 4 of lanes 64-79, with il of the chunk's rows
+// (0 past S).
+__device__ __forceinline__ void own_do_il(const Smem& sm, int j, int w,
+                                          int lane) {
+  const float* il = sm.stat(2, j);
+#pragma unroll 2
+  for (int pass = 0; pass < 20; ++pass) {
+    const int x = pass * 32 + lane;
+    const bool tail = pass >= 16;
+    const int r = tail ? (x - 512) >> 1 : x >> 3;
+    const int off = tail ? r * 32 + ((x & 1) << 4) : r * 128 + ((x & 7) << 4);
+    const uint8_t* src = reinterpret_cast<const uint8_t*>(
+        tail ? sm.chunk_t(1, j) : sm.chunk(1, j)) + off;
+    uint8_t* dst = reinterpret_cast<uint8_t*>(
+        tail ? sm.own_tile_t(w) : sm.own_tile(w)) + off;
+    const float f = il[r];
+    uint4 v = *reinterpret_cast<const uint4*>(src);
+    uint32_t* x4 = reinterpret_cast<uint32_t*>(&v);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const float2 e = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(&x4[k]));
+      x4[k] = bf2(e.x * f, e.y * f);
+    }
+    *reinterpret_cast<uint4*>(dst) = v;
+  }
+}
+
 // The prep warps of dkv: for each head of the block's range and each
 // resident chunk, once it has landed, the chunk's column statistics (K2:
 // lse2 and delta; K5: m*c, il = 1/l and delta; queries past S +inf, 0, 0)
-// and, for K5, bf16(do * il) beside do. One thread a query row r.
-template <bool GROUPED>
+// and, for K5 at D = 64, bf16(do * il) beside do. One thread a query row r.
+// For K5 at D = 80 each prep warp then serves one consumer: for each of
+// that consumer's tiles of the head (the consumers' own order) and each
+// chunk, once every row's il is in and the consumer's products have read
+// its own tile, bf16(do * il) of the chunk into that tile.
+template <bool GROUPED, int D>
 __device__ __forceinline__ void prep(const Smem& sm, int r,
                                      const float* st0, const float* st1,
                                      const float* delta, int S, int H,
                                      int ntiles, int ntq, float c) {
   int t0, t1;
   block_range(ntiles, t0, t1);
-  int u = 0;
+  int u = 0, uses = 0;
   for (int a = t0; a < t1; ++u) {
-    const int bh = a / ntq;
+    const int bh = a / ntq, e = min(t1, (bh + 1) * ntq);
     const size_t stat = (size_t)bh * S;
     for (int ch = 0; ch < sm.nch; ++ch) {
       const int row = ch * TILE + r;
@@ -734,8 +811,8 @@ __device__ __forceinline__ void prep(const Smem& sm, int r,
       mbar_wait(&sm.full[ch], u & 1);
       sm.stat(0, ch)[r] = ok ? (GROUPED ? x * c : x) : INFINITY;
       sm.stat(1, ch)[r] = dl;
-      if (GROUPED) {
-        sm.stat(2, ch)[r] = il;
+      if (GROUPED) sm.stat(2, ch)[r] = il;
+      if (GROUPED && D == 64) {
         // do's row r, 16 bytes at a time, times il into the third
         // resident tensor at the same places (the swizzle moves whole 16
         // bytes within a row); rotated so a warp's 8-thread phases hit 8
@@ -760,7 +837,18 @@ __device__ __forceinline__ void prep(const Smem& sm, int r,
       }
       mbar_arrive(&sm.prep[ch]);
     }
-    a = min(t1, (bh + 1) * ntq);
+    if constexpr (GROUPED && D == 80) {
+      const int w = r >> 5;
+      for (int n = a + ((w ^ (a - t0)) & 1); n < e; n += 2)
+        for (int j = 0; j < sm.nch; ++j, ++uses) {
+          mbar_wait(&sm.prep[j], u & 1);
+          mbar_wait(&sm.own_empty[w], (uses & 1) ^ 1);
+          own_do_il(sm, j, w, r & 31);
+          fence_async_smem();
+          mbar_arrive(&sm.own_full[w]);
+        }
+    }
+    a = e;
   }
 }
 
@@ -777,7 +865,6 @@ __global__ void __launch_bounds__(THREADS, 1)
                                 const float* __restrict__ delta, View dk,
                                 View dv, int S, int H, int ntiles, float c,
                                 float scale, int perms, Plan pl) {
-  static_assert(D == 64 || !GROUPED, "K5 takes head dim 64");
   constexpr int NT = tail_regs<D>();
   extern __shared__ __align__(1024) uint8_t smem_raw[];
   const Smem sm = carve<D>(smem_raw, pl);
@@ -806,8 +893,8 @@ __global__ void __launch_bounds__(THREADS, 1)
                  ntiles, ntq, H);
     } else if (threadIdx.x >= CONSUMERS + 32 &&
                threadIdx.x < CONSUMERS + 32 + PREP) {
-      prep<GROUPED>(sm, threadIdx.x - CONSUMERS - 32, st0, st1, delta, S, H,
-                    ntiles, ntq, c);
+      prep<GROUPED, D>(sm, threadIdx.x - CONSUMERS - 32, st0, st1, delta, S,
+                       H, ntiles, ntq, c);
     }
     return;
   }
@@ -817,7 +904,7 @@ __global__ void __launch_bounds__(THREADS, 1)
   const int w = (threadIdx.x >> 5) & 3;
   int t0, t1;
   block_range(ntiles, t0, t1);
-  int u = 0;
+  int u = 0, uses = 0;  // uses: of this consumer's own tile (K5, D = 80)
   for (int a = t0; a < t1; ++u) {
     const int bh = a / ntq, e = min(t1, (bh + 1) * ntq);
     const int b = bh / H, h = bh % H;
@@ -843,10 +930,11 @@ __global__ void __launch_bounds__(THREADS, 1)
       const bool last = n + 2 >= e;
       const int par = u & 1;
       // the resident q and do K-major, q MN-major, and dv's right operand:
-      // do (K2) or bf16(do * il) (K5), MN-major
+      // do (K2) or bf16(do * il) (K5: resident at D = 64, the consumer's
+      // own tile at 80), MN-major
       const uint64_t qd = kmajor(sm.chunk(0, 0)), dod = kmajor(sm.chunk(1, 0));
       const uint64_t qt = mnmajor(sm.chunk(0, 0));
-      const uint64_t vt = mnmajor(sm.chunk(GROUPED ? 2 : 1, 0));
+      const uint64_t vt = mnmajor(sm.chunk(GROUPED && D == 64 ? 2 : 1, 0));
       // D = 80: lanes 64-79 of the resident q and do, K-major and MN-major
       uint64_t qtd = 0, dotd = 0, qtt = 0, dott = 0;
       if constexpr (D == 80) {
@@ -866,7 +954,11 @@ __global__ void __launch_bounds__(THREADS, 1)
         // one chunk at a time: chunk j + 1's score products do not run
         // under chunk j's gradient products, so s, dp and their packed
         // copies are never live at once beside the 80-lane accumulators
-        // and fragments (232 registers do not hold them all)
+        // and fragments (232 registers do not hold them all). K5's dv
+        // reads bf16(do * il) from this consumer's own tile, which its prep
+        // warp writes while the chunk's score products run.
+        const uint64_t own = mnmajor(sm.own_tile(wg));
+        const uint64_t own_t = mnmajor_t(sm.own_tile_t(wg));
         for (int j = 0; j < nch; ++j) {
           ready(j);
           scores_start<D>(s, dp, ka, qd + j * TILE_UNITS, kt,
@@ -875,12 +967,17 @@ __global__ void __launch_bounds__(THREADS, 1)
           dkv_form<1, 0, GROUPED>(s, dp, sm, j, t, c);
           pack_pairs(s, pa);
           pack_pairs(dp, dsa);
-          grads_start<D>(dv_acc, dv_t, pa, vt + j * TILE_UNITS,
-                         dott + j * TAIL_UNITS, dk_acc, dk_t, dsa,
-                         qt + j * TILE_UNITS, qtt + j * TAIL_UNITS);
+          if (GROUPED) mbar_wait(&sm.own_full[wg], uses & 1);
+          grads_start<D>(dv_acc, dv_t, pa, GROUPED ? own : vt + j * TILE_UNITS,
+                         GROUPED ? own_t : dott + j * TAIL_UNITS, dk_acc, dk_t,
+                         dsa, qt + j * TILE_UNITS, qtt + j * TAIL_UNITS);
           wgmma_wait<0>();
           acc_fence<D>(dv_acc, dv_t);
           acc_fence<D>(dk_acc, dk_t);
+          if (GROUPED) {
+            mbar_arrive(&sm.own_empty[wg]);
+            ++uses;
+          }
           if (last) mbar_arrive(&sm.empty[j]);
         }
         store_rows<D>(dk.head(b, h), dk.sr, dk_acc, dk_t, row, S, t, scale,
@@ -928,11 +1025,13 @@ __global__ void __launch_bounds__(THREADS, 1)
 }
 
 // The plan of a kernel at S keys: two ring slots where they fit, else one;
-// nch = 0 where not even that fits.
+// nch = 0 where not even that fits. K5's dkv keeps bf16(do * il) resident
+// at D = 64 and forms it in a tile of each consumer's own at 80.
 template <int D>
 Plan plan_for(bool dkv, bool grouped, int S) {
-  Plan p{(S + TILE - 1) / TILE, dkv && grouped ? 3 : 2,
-         dkv ? (grouped ? 3 : 2) : 0, 2};
+  const bool own = dkv && grouped && D == 80;
+  Plan p{(S + TILE - 1) / TILE, dkv && grouped && !own ? 3 : 2,
+         dkv ? (grouped ? 3 : 2) : 0, 2, own ? 1 : 0};
   if (p.bytes<D>() > SMEM_MAX) p.qs = 1;
   if (p.bytes<D>() > SMEM_MAX) p.nch = 0;
   return p;
@@ -1112,40 +1211,59 @@ extern "C" int unite_short_qkv_bwd(const void* q, const void* k,
   return (int)cudaErrorInvalidValue;
 }
 
-// K5's dq and delta: q, k, v, do, dq [B, H, S, 64] bf16 views with
+// K5's dq and delta: q, k, v, do, dq [B, H, S, D] bf16 views with
 // strides[3i..3i+2] in that order; m and l (in, from
 // unite_short_grouped_fwd) and delta (out) [B, H, S] fp32 contiguous;
-// 1 <= S <= 768, the view rules of unite_short_qkv_bwd.
+// D = 64 with 1 <= S <= 768 (a head's k and v take 192 KB of shared memory
+// there), or D = 80 with 1 <= S <= 512 (160 KB); cudaErrorInvalidValue
+// otherwise. The view rules of unite_short_qkv_bwd.
 extern "C" int unite_short_grouped_dq(const void* q, const void* k,
                                       const void* v, const void* dout,
                                       const void* m, const void* l,
                                       void* delta, void* dq,
                                       const long long* strides, int B, int S,
-                                      int H, float c, float scale,
+                                      int H, int D, float c, float scale,
                                       void* stream) {
   long long st[18];
   for (int i = 0; i < 12; ++i) st[i] = strides[i];
   for (int j = 0; j < 3; ++j) st[12 + j] = st[15 + j] = strides[12 + j];
   const void* views[6] = {q, k, v, dout, dq, dq};  // no o: dq in its place
-  return run_dq<true, 64>(views, st, static_cast<const float*>(m),
-                      static_cast<const float*>(l),
-                      static_cast<float*>(delta), B, S, H, c, scale,
-                      (cudaStream_t)stream, "unite_short_grouped_dq");
+  const float* mx = static_cast<const float*>(m);
+  const float* sum = static_cast<const float*>(l);
+  float* dl = static_cast<float*>(delta);
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (D == 64)
+    return run_dq<true, 64>(views, st, mx, sum, dl, B, S, H, c, scale, s,
+                            "unite_short_grouped_dq");
+  if (D == 80)
+    return run_dq<true, 80>(views, st, mx, sum, dl, B, S, H, c, scale, s,
+                            "unite_short_grouped_dq");
+  return (int)cudaErrorInvalidValue;
 }
 
 // K5's dk and dv from q, k, v, do, m, l and the dq kernel's delta: views
 // q, k, v, do, dk, dv with strides[3i..3i+2] in that order; 1 <= S <= 512
-// (q, do and bf16(do * il) of a head take 192 KB of shared memory there).
+// at either head dim (cudaErrorInvalidValue otherwise): at D = 64 q, do
+// and bf16(do * il) of a head take 192 KB of shared memory there, at
+// D = 80 q and do take 160 KB and each consumer's own tile of bf16(do * il)
+// 20 KB.
 extern "C" int unite_short_grouped_dkv(const void* q, const void* k,
                                        const void* v, const void* dout,
                                        const void* m, const void* l,
                                        const void* delta, void* dk, void* dv,
                                        const long long* strides, int B,
-                                       int S, int H, float c, float scale,
-                                       void* stream) {
+                                       int S, int H, int D, float c,
+                                       float scale, void* stream) {
   const void* views[6] = {q, k, v, dout, dk, dv};
-  return run_dkv<true, 64>(views, strides, static_cast<const float*>(m),
-                       static_cast<const float*>(l),
-                       static_cast<const float*>(delta), B, S, H, c, scale,
-                       (cudaStream_t)stream, "unite_short_grouped_dkv");
+  const float* mx = static_cast<const float*>(m);
+  const float* sum = static_cast<const float*>(l);
+  const float* dl = static_cast<const float*>(delta);
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (D == 64)
+    return run_dkv<true, 64>(views, strides, mx, sum, dl, B, S, H, c, scale,
+                             s, "unite_short_grouped_dkv");
+  if (D == 80)
+    return run_dkv<true, 80>(views, strides, mx, sum, dl, B, S, H, c, scale,
+                             s, "unite_short_grouped_dkv");
+  return (int)cudaErrorInvalidValue;
 }

@@ -86,16 +86,16 @@ def build_all() -> Dict[str, Path]:
 def _declare(lib: ctypes.CDLL) -> None:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     ll = ctypes.POINTER(ctypes.c_longlong)  # the views' strides
-    # (B, S, H) and, for the packed kernels K1-K4, the head dim D after them
+    # (B, S, H) and the head dim D after them
     signatures = {
         "unite_short_qkv_bwd": [p] * 10 + [ll, i, i, i, i, f, f, p],
         "unite_flash_fwd": [p, p, p, p, p, ll, i, i, i, i, f, p],
         "unite_short_qkv_fwd": [p, p, p, p, p, ll, i, i, i, i, f, p],
-        "unite_short_grouped_fwd": [p] * 6 + [ll, i, i, i, f, p],
+        "unite_short_grouped_fwd": [p] * 6 + [ll, i, i, i, i, f, p],
         "unite_flash_dq": [p] * 8 + [ll, i, i, i, i, f, f, p],
         "unite_flash_dkv": [p] * 8 + [ll, i, i, i, i, f, f, p],
-        "unite_short_grouped_dq": [p] * 8 + [ll, i, i, i, f, f, p],
-        "unite_short_grouped_dkv": [p] * 9 + [ll, i, i, i, f, f, p],
+        "unite_short_grouped_dq": [p] * 8 + [ll, i, i, i, i, f, f, p],
+        "unite_short_grouped_dkv": [p] * 9 + [ll, i, i, i, i, f, f, p],
         "unite_int8_matmul": [p, p, p, i, i, i, p],
         "unite_bf16_matmul": [p, p, p, i, i, i, p],
         "unite_int8_matmul_tile": [p, p, p, i, i, i, i, i, p],

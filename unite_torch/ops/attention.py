@@ -29,11 +29,11 @@ Beside each kernel is its plain version, with the TPU kernel's math and
 rounding points; a wrapper uses it only for a tensor on the CPU. A CUDA
 tensor launches the kernel or raises.
 
-Head dims: the packed kernels K1-K4 were built for ``HEAD_DIMS`` (64, and
-80 for ``pretrain_videomae_huge_patch16_224``, whose encoder and decoder
-both have 80-lane heads); the C entry points take D and dispatch to a
-kernel body templated on it. K5 and K6 take ``VIEW_HEAD_DIM`` = 64. On
-CUDA any other head dim raises; the plain versions take any.
+Head dims: every kernel, K1-K6, was built for ``HEAD_DIMS`` (64, and 80
+for ``pretrain_videomae_huge_patch16_224``, whose encoder and decoder both
+have 80-lane heads); the C entry points take D and dispatch to a kernel
+body templated on it. On CUDA any other head dim raises; the plain
+versions take any.
 
 All kernels fold the softmax scale into a base-2 exponent,
 exp(s*scale - m*scale) == exp2((s - m)*c) with c = scale*log2(e). The flash
@@ -55,24 +55,22 @@ import torch
 from unite_torch.ops import _build
 
 INV_LN2 = 1.4426950408889634  # log2(e)
-# The head dims the packed kernels K1-K4 were built for, and the one of the
-# [B, H, S, D] kernels K5 and K6 (head dim 80 there: ROADMAP queue 2)
+# The head dims every kernel (K1-K6) was built for
 HEAD_DIMS = (64, 80)
-VIEW_HEAD_DIM = 64
 # The route: K1/K2 up to this length (unite_tpu's FUSED_QKV_FWD_MAX_SEQ);
 # JAX's training cap FUSED_QKV_MAX_SEQ = 384 enters only use_fused_qkv.
 FUSED_QKV_FWD_MAX_SEQ = 512
 FUSED_QKV_TRAIN_MAX_SEQ = 384
 # K1/K2 (and K5's forward) hold one head's whole K and V (forward, dq) or Q
 # and dO (dkv) in shared memory, under 227 KB. The route never sends them
-# more than 512; this is their guard at head dim 64, and K5's.
+# more than 512; this is their guard at head dim 64, and K5's forward's.
 FUSED_QKV_MAX_SEQ = 768
 # ... by head dim: 80 lanes take 160 bytes a row, so K1's K and V of 768
-# keys (240 KB) no longer fit; 512 covers K1's route (and K2's 384).
+# keys (240 KB) no longer fit; 512 covers K1's route (and K2's 384) and K5's.
 RESIDENT_MAX_SEQ = {64: FUSED_QKV_MAX_SEQ, 80: 512}
 # [B, H, S, D] attention: unite_tpu's grouped kernel K5 up to here, K6
 # beyond; also the guard of K5's backward, whose dK/dV kernel holds a head's
-# q, do and bf16(do/l) in shared memory
+# q and do (and at head dim 64 bf16(do/l)) in shared memory
 GROUPED_MAX_SEQ = 512
 # unite_tpu's _flash_qblock at its defaults: the packed route needs a
 # multiple-of-8 query block in [64, 224] that divides S.
@@ -419,16 +417,22 @@ def _strides_arg(strides: tuple):
     return (ctypes.c_longlong * len(strides))(*strides)
 
 
-def _view_args(*views):
-    """(data pointers, strides) of [B, H, S, 64] bf16 views for the C entry
-    points of K5 and K6, after checking that all share one shape and device
-    and that the kernels take each as it is."""
-    shape, dev = views[0].shape, views[0].device
-    if len(shape) != 4 or shape[3] != VIEW_HEAD_DIM:
+def _view_head_dim(q) -> int:
+    """The head dim of a [B, H, S, D] tensor bound for K5 or K6 on CUDA,
+    which must be one of ``HEAD_DIMS``."""
+    if q.dim() != 4 or q.shape[3] not in HEAD_DIMS:
         raise ValueError(
-            f"K5 and K6 take [B, H, S, {VIEW_HEAD_DIM}] on CUDA, got "
-            f"{tuple(shape)}: head dim 80 for them is ROADMAP queue 2, item 2 "
-            "(the packed kernels K1-K4 take it)")
+            f"attention kernels K5 and K6 take [B, H, S, D] at head dims "
+            f"{HEAD_DIMS} on CUDA, got {tuple(q.shape)}")
+    return q.shape[3]
+
+
+def _view_args(*views):
+    """(data pointers, strides) of [B, H, S, D] bf16 views for the C entry
+    points of K5 and K6, after checking that all share one shape (D in
+    ``HEAD_DIMS``) and device and that the kernels take each as it is."""
+    shape, dev = views[0].shape, views[0].device
+    _view_head_dim(views[0])
     ptrs, strides = [], []
     for t in views:
         if t.dtype != torch.bfloat16:
@@ -438,7 +442,7 @@ def _view_args(*views):
         if (t.shape != shape or t.device != dev or st[3] != 1 or ptr % 16
                 or any(x % 8 for n, x in zip(shape[:3], st) if n > 1)):
             raise ValueError(
-                f"flash kernels take [B, H, S, {VIEW_HEAD_DIM}] views of one "
+                "attention kernels K5 and K6 take [B, H, S, D] views of one "
                 "shape on one device, with contiguous head lanes and 16-byte "
                 f"aligned rows: shape {tuple(t.shape)} strides {st} on "
                 f"{t.device}, against {tuple(shape)} on {dev}")
@@ -694,7 +698,7 @@ def flash_fwd(q, k, v, scale: float, with_lse: bool = False):
     """K6 forward: q/k/v [B, H, S, D] -> (o [B, H, S, D] laid out as q,
     lse2 [B, H, S] or None), any S, contiguous tensors or strided views.
     CPU tensors take the plain version (any D); CUDA tensors launch the
-    kernel, at D = 64."""
+    kernel, at D in ``HEAD_DIMS``."""
     if q.device.type == "cpu":
         o, lse = flash_reference(q, k, v, scale=scale)
         return o, (lse if with_lse else None)
@@ -764,15 +768,17 @@ def flash_bwd(q, k, v, o, lse, do, scale: float):
 def grouped_fwd(q, k, v, scale: float, with_stats: bool = False):
     """K5 forward: q/k/v [B, H, S, D] -> (o laid out as q, (m, l) [B, H, S]
     fp32 or None), contiguous tensors or strided views. CPU tensors take
-    the plain version (any D); CUDA tensors launch the kernel, at D = 64."""
+    the plain version (any D); CUDA tensors launch the kernel, at D in
+    ``HEAD_DIMS`` and up to ``RESIDENT_MAX_SEQ[D]`` keys."""
     if q.device.type == "cpu":
         o, m, l = grouped_reference(q, k, v, scale=scale)
         return o, ((m, l) if with_stats else None)
-    if q.shape[2] > FUSED_QKV_MAX_SEQ:
+    d = _view_head_dim(q)
+    if q.shape[2] > RESIDENT_MAX_SEQ[d]:
         raise ValueError(
-            f"sequence {q.shape[2]} > {FUSED_QKV_MAX_SEQ}: one head's K/V no "
-            "longer fit in shared memory for K5; longer sequences take K6 "
-            "(multi_head_attention routes them there)")
+            f"sequence {q.shape[2]} > {RESIDENT_MAX_SEQ[d]}: one head's K/V "
+            f"of head dim {d} no longer fit in shared memory for K5; longer "
+            "sequences take K6 (multi_head_attention routes them there)")
     o = _empty_like_rows(q)
     ptrs, strides = _view_args(q, k, v, o)
     b, h, s, _ = q.shape
@@ -781,7 +787,7 @@ def grouped_fwd(q, k, v, scale: float, with_stats: bool = False):
              if with_stats else None)
     err = _build.load("short_attn_wgmma").unite_short_grouped_fwd(
         *ptrs, *((t.data_ptr() for t in stats) if stats else (None, None)),
-        strides, b, s, h, scale * INV_LN2, _stream(q))
+        strides, b, s, h, d, scale * INV_LN2, _stream(q))
     _build.check(err, "grouped_fwd")
     grouped_fwd.launches += 1
     return o, stats
@@ -793,10 +799,9 @@ grouped_fwd.launches = 0
 def _check_grouped_bwd(q):
     if q.shape[2] > GROUPED_MAX_SEQ:
         raise ValueError(
-            f"sequence {q.shape[2]} > {GROUPED_MAX_SEQ}: a head's q, do and "
-            "bf16(do/l) no longer fit in shared memory for K5's backward; "
-            "longer sequences take K6 (multi_head_attention routes them "
-            "there)")
+            f"sequence {q.shape[2]} > {GROUPED_MAX_SEQ}: a head's q and do "
+            "no longer fit in shared memory for K5's backward; longer "
+            "sequences take K6 (multi_head_attention routes them there)")
 
 
 def grouped_dq(q, k, v, do, m, l, dq, delta, scale: float):
@@ -811,10 +816,10 @@ def grouped_dq(q, k, v, do, m, l, dq, delta, scale: float):
     _check_grouped_bwd(q)
     ptrs, strides = _view_args(q, k, v, do, dq)
     _stats(q, m, l, delta)
-    b, h, s, _ = q.shape
+    b, h, s, d = q.shape
     err = _build.load("short_bwd_wgmma").unite_short_grouped_dq(
         *ptrs[:4], m.data_ptr(), l.data_ptr(), delta.data_ptr(), ptrs[4],
-        strides, b, s, h, scale * INV_LN2, scale, _stream(q))
+        strides, b, s, h, d, scale * INV_LN2, scale, _stream(q))
     _build.check(err, "grouped_dq")
     grouped_dq.launches += 1
 
@@ -834,10 +839,10 @@ def grouped_dkv(q, k, v, do, m, l, delta, dk, dv, scale: float):
     _check_grouped_bwd(q)
     ptrs, strides = _view_args(q, k, v, do, dk, dv)
     _stats(q, m, l, delta)
-    b, h, s, _ = q.shape
+    b, h, s, d = q.shape
     err = _build.load("short_bwd_wgmma").unite_short_grouped_dkv(
         *ptrs[:4], m.data_ptr(), l.data_ptr(), delta.data_ptr(), *ptrs[4:],
-        strides, b, s, h, scale * INV_LN2, scale, _stream(q))
+        strides, b, s, h, d, scale * INV_LN2, scale, _stream(q))
     _build.check(err, "grouped_dkv")
     grouped_dkv.launches += 1
 
@@ -857,12 +862,14 @@ def grouped_bwd(q, k, v, do, m, l, scale: float):
 
 def _kernel_layout(t):
     """A cotangent as the flash kernels take it: ``t`` itself where its
-    head lanes are contiguous and its rows 16-byte aligned, else a
-    contiguous copy (a broadcast gradient, a misaligned slice)."""
+    head lanes are contiguous and its rows 16-byte aligned at distinct
+    addresses, else a contiguous copy (a broadcast gradient, whose stride
+    0 passes the 16-byte test; a misaligned slice; rows of a length that
+    is not a multiple of 16 bytes)."""
     if t.device.type == "cpu" or (
             t.stride(-1) == 1 and t.data_ptr() % 16 == 0
-            and all(st % 8 == 0 for n, st in zip(t.shape[:3], t.stride()[:3])
-                    if n > 1)):
+            and all(st > 0 and st % 8 == 0
+                    for n, st in zip(t.shape[:3], t.stride()[:3]) if n > 1)):
         return t
     return t.contiguous()
 
