@@ -140,6 +140,15 @@ toolkit. In order:
    launch counts and a profiled step;
 10. the stage-2 eval step at the config's batch_size_val of 32, 2 warm-up
    and 10 timed calls, with the launch counts and a profiled call;
+10a. ``optim-card-vs-cpu``: one bf16 train step at B=2 of the stage-2 ViT
+   cut to 4 blocks (4 K3 with lse, 4 K4a, 4 K4b), then 8 steps of every
+   --opt name of ``create_optimizer``, ``OPT_ALIASES`` and the bf16 first
+   moment of ``OPT_BF16_MU`` from its gradients on the card and on the
+   CPU: each tensor's update within ``OPT_RTOL`` of its norm;
+10b. ``stage2-opt-b8``: phase 9's step under each of ``STAGE2_OPTS`` in
+   turn, 2 warm-up and 5 timed steps, 12 K3, K4a and K4b a step: step ms,
+   a profiled step, the optimizer's own device ms and kernels, peak
+   memory;
 11. ``stage2-entry-b7``: K3, K4a and K4b against their plain versions at
    the stage-2 entry's [7, 1568, 2304], then
    ``unite_torch.train.run_stage2.main`` with no --config
@@ -222,6 +231,9 @@ toolkit. In order:
    rank at most 0.6 of DDP's. With two cards or more, --fsdp and --tp 2
    over NCCL at world N against world 1 the same way (on one card it
    says that this check needs two and goes on);
+19a. ``scaleout-gloo-2on1-lamb``: phase 19 under --zero1 with
+   --opt lamb on both sides (the trust ratio's norms summed over the
+   slices);
 20. one JSON line of every kernel's numbers, the card line again, and the
    last line ``{"ok": true, "device": {...}}``.
 
@@ -250,6 +262,23 @@ HEADS, SCALE = 12, 64 ** -0.5
 FWD_TOL = 1e-2         # a few bf16 ulps of |o| <= 1
 BWD_TOL = 2e-2         # times max |dqkv| of the plain version
 STEP_RTOL = 2e-2       # bf16 card step against the fp32 CPU step
+# optim-card-vs-cpu: every --opt name of create_optimizer (its OPT_NAMES),
+# these aliases and lookahead, and the bf16 first moment where JAX applies
+# it, 8 steps each on the card and on the CPU from one bf16 step's gradients
+# of the stage-2 ViT cut to OPT_BLOCKS blocks; each tensor's update within
+# OPT_RTOL of its norm
+OPT_ALIASES = ("fusedadam", "fusedlamb", "fusednovograd", "fused_sgd",
+               "fusedmomentum", "lookahead_adamw", "lookahead_sgd")
+OPT_BF16_MU = ("adamw", "lamb", "nadam")
+OPT_BLOCKS, OPT_STEPS, OPT_RTOL = 4, 8, 1e-4
+# the learning rate: the stage-2 table, times this where a step at it moves
+# the weights by about one fp32 ulp (Adadelta, an lr-1 method; NovoGrad,
+# whose step is g/||g|| of a tensor), so that the check compares the card's
+# arithmetic and not the weights' rounding (``step_ulps`` reports it); lr
+# ~1 and ~1e-2 are their usual scales
+OPT_LR_SCALE = {"adadelta": 4e4, "novograd": 400.0, "nvnovograd": 400.0}
+# stage2-opt-b8: the stage-2 step under these optimizers, in turns
+STAGE2_OPTS = ("adamw", "lamb", "adafactor", "adamp", "lookahead_adamw")
 # launches of K2 and K5's backward at the main-path shapes that must each
 # equal the first bit for bit: persistent blocks there walk many tiles across
 # heads, where a race between a ring slot's reads and its next TMA write shows
@@ -1139,11 +1168,12 @@ def step_flops(b: int, frames: int = 8, width: int = 768, layers: int = 12,
 
 def build_step(torch, b: int, dtype, device: str, drop_path: float,
                state_dict=None, teacher_state=None, mask_ratio: float = 0.8,
-               remat: bool = False, layout=None):
+               remat: bool = False, layout=None, opt: str = "adamw"):
     """The stage-1 step as run_stage1.main builds it, with the
     configs/stage1_config.yaml values (``remat``: --use_checkpoint;
     ``layout``: (--tp, --zero1, --fsdp) of ``parallel.mesh.state_layout``
-    on the process group set up, applied before the optimizer)."""
+    on the process group set up, applied before the optimizer; ``opt``:
+    --opt)."""
     from unite_torch import create_model
     from unite_torch.engines.pretrain_umt import make_pretrain_train_step
     from unite_torch.optim.factory import create_optimizer
@@ -1172,7 +1202,7 @@ def build_step(torch, b: int, dtype, device: str, drop_path: float,
     if layout is not None:
         tp, zero1, fsdp = layout
         lay = pm.state_layout(student, tp=tp, zero1=zero1, fsdp=fsdp)
-    tx, _ = create_optimizer("adamw", lr_tab, student, weight_decay=wd_tab,
+    tx, _ = create_optimizer(opt, lr_tab, student, weight_decay=wd_tab,
                              betas=(0.9, 0.95), eps=1e-8, device=device)
     step = make_pretrain_train_step(
         student, teacher, num_patches=frames * 196, frames=frames,
@@ -1493,13 +1523,13 @@ def stage2_clip_flops(frames: int = 8, img: int = 224, depth: int = 12,
 
 def build_stage2(torch, dtype_name: str, device: str, drop_path: float,
                  state_dict=None, recipe: bool = False,
-                 attn_drop: float = 0.0):
+                 attn_drop: float = 0.0, opt: str = "adamw"):
     """The stage-2 model, optimizer and steps as run_stage2.main builds
     them from configs/stage2_config.yaml (no lr batch scaling in stage 2,
     warmup 0, layer decay 0.65, blocks 0-6 frozen, no EMA, no clip); with
     ``recipe``, ``RECIPE``'s switches (mixup 0.8 and cutmix 1.0 with
     smoothing 0.1, dropout 0.1, the head's 0.5, remat, a bf16 first
-    moment); ``attn_drop`` the attention dropout rate."""
+    moment); ``attn_drop`` the attention dropout rate; ``opt`` --opt."""
     from unite_torch.engines.finetune import (make_eval_step,
                                               make_finetune_train_step)
     from unite_torch.optim.factory import create_optimizer
@@ -1530,7 +1560,7 @@ def build_stage2(torch, dtype_name: str, device: str, drop_path: float,
                               start_warmup_value=1e-6)
     wd_tab = cosine_scheduler(0.05, 0.05, epochs, niter)
     mask = trainable_mask(args, model)
-    tx, _ = create_optimizer("adamw", lr_tab, model, weight_decay=wd_tab,
+    tx, _ = create_optimizer(opt, lr_tab, model, weight_decay=wd_tab,
                              betas=(0.9, 0.999), eps=1e-8,
                              trainable=mask.__getitem__,
                              num_layers=model.depth, layer_decay=0.65,
@@ -1654,6 +1684,186 @@ def stage2_eval(torch, A, state, eval_step, b: int = 32, warmup: int = 2,
                                   "chip_smoke_profile_eval.json")
     res["device_share_of_timed_call"] = (res["profile"]["device_ms"]
                                          / res["call_ms"])
+    return res
+
+
+def optim_vit(torch, device: str):
+    """The stage-2 ViT-B/16 (8 frames) at full width, cut to OPT_BLOCKS
+    blocks, computing in bf16 (its parameters fp32)."""
+    from unite_torch.models.vit import VisionTransformer
+
+    return VisionTransformer(
+        patch_size=16, embed_dim=768, depth=OPT_BLOCKS, num_heads=12,
+        mlp_ratio=4, qkv_bias=True, norm_eps=1e-6, num_classes=12,
+        all_frames=8, tubelet_size=1, use_mean_pooling=True,
+        init_scale=0.001, dtype=torch.bfloat16).to(device)
+
+
+def optim_card_vs_cpu(torch, A, card: str = "cuda") -> dict:
+    """Phase optim-card-vs-cpu: one bf16 train step at B=2 of the cut
+    stage-2 ViT on the card (4 K3 with lse, 4 K4a, 4 K4b, exact), its
+    gradients and parameters in fp32, then for each --opt name, alias,
+    lookahead and bf16 first moment (every parameter trainable, layer decay 0.65, the stage-2 tables) 8
+    optimizer steps from them on the card and on the CPU (at
+    ``OPT_LR_SCALE`` times the tables' lr where that gives): each tensor's
+    update on the card within ``OPT_RTOL`` of its norm of the CPU's. An
+    alias's CPU run is its name's without ``fused`` (the same optimizer).
+    Reports the worst tensor and the card's ms a step (8 steps, host clock
+    around work that ends in a synchronize)."""
+    import torch.nn.functional as F
+
+    from unite_torch.ops.normalize import normalize_videos
+    from unite_torch.optim.factory import OPT_NAMES, create_optimizer
+    from unite_torch.utils.schedules import cosine_scheduler
+
+    cases = ([(n, None) for n in OPT_NAMES + OPT_ALIASES]
+             + [(n, "bfloat16") for n in OPT_BF16_MU])
+    torch.manual_seed(41)
+    model = optim_vit(torch, card)
+    batch = stage2_batch(torch, 2, 42)
+    model.train()
+    reset_counts(A)
+    loss = F.cross_entropy(
+        model(normalize_videos(batch["videos"].to(card))).float(),
+        batch["labels"].to(card))
+    loss.backward()
+    torch.cuda.synchronize()
+    expect_counts(read_counts(A), {"K3": OPT_BLOCKS, "K3+lse": OPT_BLOCKS,
+                                   "K4a": OPT_BLOCKS, "K4b": OPT_BLOCKS},
+                  "optim-card-vs-cpu step")
+    params = {n: p.detach().float().cpu().clone() for n, p in
+              model.named_parameters()}
+    grads = {n: p.grad.float().cpu().clone()
+             for n, p in model.named_parameters()}
+    models = {"cpu": (optim_vit(torch, "cpu"), "cpu"), "card": (model, card)}
+    lr_tab = cosine_scheduler(2.5e-5, 1e-6, 20, 100, start_warmup_value=1e-6)
+    wd_tab = cosine_scheduler(0.05, 0.05, 20, 100)
+    cpu_runs, res, worst = {}, {}, 0.0
+    t0 = time.perf_counter()
+    for opt, mu in cases:
+        base = (opt.lower().replace("fused", "").strip("_"), mu)
+        lr = OPT_LR_SCALE.get(base[0].replace("lookahead_", ""), 1.0) * lr_tab
+        upd = {}
+        for side, (m, dev) in models.items():
+            if side == "cpu" and base in cpu_runs:
+                upd[side] = cpu_runs[base]
+                continue
+            named = dict(m.named_parameters())
+            with torch.no_grad():
+                for n, p in named.items():
+                    p.copy_(params[n])
+                    p.grad = grads[n].to(dev)
+            tx, _ = create_optimizer(
+                opt, lr, m, weight_decay=wd_tab, momentum=0.9,
+                num_layers=OPT_BLOCKS, layer_decay=0.65,
+                mu_dtype=getattr(torch, mu) if mu else None, device=dev)
+            if side == "card":
+                torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            for _ in range(OPT_STEPS):
+                tx.step()
+            if side == "card":
+                torch.cuda.synchronize()
+                step_ms = (time.perf_counter() - t1) / OPT_STEPS * 1e3
+            upd[side] = {n: p.detach().cpu() - params[n]
+                         for n, p in named.items()}
+            if side == "cpu":
+                cpu_runs[base] = upd[side]
+        rel = {}
+        for n, d_cpu in upd["cpu"].items():
+            diff = (upd["card"][n] - d_cpu).norm().item()
+            norm = d_cpu.norm().item()
+            rel[n] = diff / norm if norm > 0 else (0.0 if diff == 0
+                                                   else float("inf"))
+        name = opt + (f"+mu_{mu}" if mu else "")
+        k = max(rel, key=rel.get)
+        # the median step of a weight in its fp32 ulps, on the CPU
+        ulps = torch.cat([(d.abs() / (params[n].abs() * 2.0 ** -23)).flatten()
+                          for n, d in upd["cpu"].items()]) / OPT_STEPS
+        res[name] = dict(update_rel=rel[k], worst=k, card_step_ms=step_ms,
+                         step_ulps=ulps.nan_to_num(posinf=0.0).median().item())
+        worst = max(worst, rel[k])
+    for p in model.parameters():
+        p.grad = None
+    out = dict(cases=res, worst_update_rel=worst, loss=loss.item(),
+               seconds=time.perf_counter() - t0, card=card_line())
+    print(f"optim-card-vs-cpu: {json.dumps(out)}", flush=True)
+    bad = {n: r for n, r in res.items() if not r["update_rel"] <= OPT_RTOL}
+    if bad:
+        raise AssertionError(f"optim-card-vs-cpu: updates off the CPU's by "
+                             f"more than {OPT_RTOL} of their norm: {bad}")
+    return out
+
+
+def profile_optimizer(torch, tx) -> dict:
+    """One ``tx.step()`` under torch.profiler: the device time and the
+    number of kernels it launched, and its wall time to a synchronize."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        tx.step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = [e for e in prof.key_averages()
+            if str(e.device_type).endswith("CUDA")
+            and e.self_device_time_total > 0
+            and not getattr(e, "is_user_annotation", False)]
+    return dict(device_ms=sum(e.self_device_time_total for e in rows) / 1e3,
+                kernels=sum(e.count for e in rows), wall_ms=wall_ms)
+
+
+def stage2_opt_path(torch, A, b: int = 8, warmup: int = 2,
+                    timed: int = 5) -> dict:
+    """Phase stage2-opt-b8: the stage-2 finetune train step (B=8, blocks
+    0-6 frozen) under each of ``STAGE2_OPTS`` in turn, 2 warm-up and 5
+    timed steps, 12 K3 (with lse), 12 K4a and 12 K4b a step, exact; the
+    step's ms, one profiled step's device ms, the optimizer's own (one more
+    ``step()`` from the last gradients, profiled: device ms, kernels, wall
+    ms) and the peak memory of each."""
+    res, launches = {}, {"K3": 0, "K4a": 0, "K4b": 0}
+    batch = stage2_batch(torch, b, 9)
+    batch["videos"] = batch["videos"].pin_memory()
+    for opt in STAGE2_OPTS:
+        torch.manual_seed(7)
+        state, step, _ = build_stage2(torch, "bfloat16", "cuda", 0.1,
+                                      opt=opt)
+        gen = torch.Generator(device="cuda").manual_seed(8)
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts(A)
+        metrics = [step(state, batch, gen) for _ in range(warmup)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(timed):
+            metrics.append(step(state, batch, gen))
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts = read_counts(A)
+        n = warmup + timed
+        vals = [(m["loss"].item(), m["grad_norm"].item()) for m in metrics]
+        check_finite(vals)
+        expect_counts(counts, {"K3": 12 * n, "K3+lse": 12 * n,
+                               "K4a": 12 * n, "K4b": 12 * n},
+                      f"stage2-opt-b8 {opt}, {n} steps")
+        for k in launches:
+            launches[k] += counts[k]
+        r = dict(step_ms=dt / timed * 1e3, clips_per_s=b * timed / dt,
+                 peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+                 losses=[v[0] for v in vals])
+        r["profile"] = profile_step(
+            torch, lambda: step(state, batch, gen),
+            f"chip_smoke_profile_stage2_{opt}.json")
+        r["optimizer"] = profile_optimizer(torch, state.optimizer)
+        check_finite([[p.float().abs().max().item()
+                       for p in state.model.parameters()]])
+        print(f"stage2-opt-b8 {opt}: {json.dumps(r)} on {card_line()}",
+              flush=True)
+        res[opt] = r
+        del state, step, metrics
+        torch.cuda.empty_cache()
+    res["launches"] = launches
     return res
 
 
@@ -4483,7 +4693,8 @@ def rank_step(torch, A, spec_path: str) -> None:
         # built at the global batch: the lr scales by it, as the entry's
         state, _, step = build_step(torch, spec["b"], torch.bfloat16, "cuda",
                                     0.0, init["student"], init["teacher"],
-                                    layout=LAYOUT_FLAGS[name])
+                                    layout=LAYOUT_FLAGS[name],
+                                    opt=spec["opt"])
         metrics = []
         for seed in spec["seeds"]:
             batch = random_batch(torch, spec["b"], seed, with_vis_idx=True)
@@ -4523,7 +4734,7 @@ def rank_step(torch, A, spec_path: str) -> None:
 
 
 def scaleout_rank_steps(torch, A, workdir: Path, nproc: int, backend: str,
-                        layouts, what: str) -> dict:
+                        layouts, what: str, opt: str = "adamw") -> dict:
     """Phases ``scaleout-gloo-2on1`` (two ranks on the one card over gloo,
     CUDA tensors: DDP and --zero1) and, on two cards or more, the
     multi-card check (NCCL at world N: --fsdp and --tp 2): the stage-1 step
@@ -4537,12 +4748,13 @@ def scaleout_rank_steps(torch, A, workdir: Path, nproc: int, backend: str,
     near 0, a bias, is all update, where Adam turns a gradient's last bits
     into its update's sign); each rank's
     optimizer-state bytes (ZeRO-1's at most 0.6 of DDP's); 24 K1 + 12 K2 a
-    step on every rank."""
+    step on every rank. ``opt`` is --opt, on both sides (``lamb`` under
+    --zero1: its trust ratio sums its norms over the slices)."""
     tmp = workdir / what
     tmp.mkdir()
     torch.manual_seed(31)
     state, teacher, step = build_step(torch, SCALEOUT_B, torch.bfloat16,
-                                      "cuda", 0.0)
+                                      "cuda", 0.0, opt=opt)
     init = {"student": {k: v.detach().cpu().clone()
                         for k, v in state.model.state_dict().items()},
             "teacher": {k: v.detach().cpu()
@@ -4560,7 +4772,7 @@ def scaleout_rank_steps(torch, A, workdir: Path, nproc: int, backend: str,
     del state, teacher, step, init
     torch.cuda.empty_cache()
     spec = dict(backend=backend, layouts=list(layouts), b=SCALEOUT_B,
-                seeds=seeds, init=str(tmp / "init.pt"),
+                opt=opt, seeds=seeds, init=str(tmp / "init.pt"),
                 ref=str(tmp / "ref.pt"), out=str(tmp / "result"))
     (tmp / "spec.json").write_text(json.dumps(spec))
     t0 = time.perf_counter()
@@ -4743,6 +4955,11 @@ def main() -> int:
         del state, eval_step
         torch.cuda.empty_cache()
         mark("stage-2 paths")
+        optim = optim_card_vs_cpu(torch, A)
+        torch.cuda.empty_cache()
+        mark("optim-card-vs-cpu")
+        s2opt = stage2_opt_path(torch, A)
+        mark("stage2-opt-b8")
         entry2, kr_b7 = stage2_entry(
             torch, A, work / "stage1" / "run" / "checkpoint-latest.pth", s2,
             ev, work)
@@ -4779,6 +4996,10 @@ def main() -> int:
         gloo = scaleout_rank_steps(torch, A, work, 2, "gloo",
                                    ("ddp", "zero1"), "scaleout-gloo-2on1")
         mark("scaleout-gloo-2on1")
+        gloo_lamb = scaleout_rank_steps(torch, A, work, 2, "gloo",
+                                        ("zero1",),
+                                        "scaleout-gloo-2on1-lamb", opt="lamb")
+        mark("scaleout-gloo-2on1 under --zero1 --opt lamb")
         multi = None
         if cards >= 2:
             multi = scaleout_rank_steps(
@@ -4817,6 +5038,16 @@ def main() -> int:
             ("K3/eval", "packed_flash_fwd[eval B=32 S=1568]",
              "unite_torch/csrc/flash_fwd_wgmma.cu",
              "unite_tpu/ops/attention.py:913", ev["k3_launches"]),
+            ("K3/train", "packed_flash_fwd[stage2-opt-b8 train B=8 S=1568, "
+             f"{'/'.join(STAGE2_OPTS)}]",
+             "unite_torch/csrc/flash_fwd_wgmma.cu",
+             "unite_tpu/ops/attention.py:913", s2opt["launches"]["K3"]),
+            ("K4a", "packed_flash_dq[stage2-opt-b8 train B=8 S=1568]",
+             "unite_torch/csrc/flash_bwd_wgmma.cu",
+             "unite_tpu/ops/attention.py:983", s2opt["launches"]["K4a"]),
+            ("K4b", "packed_flash_dkv[stage2-opt-b8 train B=8 S=1568]",
+             "unite_torch/csrc/flash_bwd_wgmma.cu",
+             "unite_tpu/ops/attention.py:1014", s2opt["launches"]["K4b"]),
             ("K4a", "packed_flash_dq[train B=8 S=1568]",
              "unite_torch/csrc/flash_bwd_wgmma.cu",
              "unite_tpu/ops/attention.py:983", s2["k4_dq_launches"]),
@@ -5035,6 +5266,9 @@ def main() -> int:
                       "stage3_entry": entry3,
                       "scaleout_nccl": scale, "scaleout_step_b64": scale_b64,
                       "scaleout_gloo_2on1": gloo,
+                      "scaleout_gloo_2on1_lamb": gloo_lamb,
+                      "optim_card_vs_cpu": optim, "stage2_opt_b8": s2opt,
+                      "seconds": time.perf_counter() - t0,
                       "scaleout_multi_card": multi,
                       "stage2_step": s2,
                       "stage2_eval": ev, "stage2_card_vs_cpu_rel": s2_rel,

@@ -73,10 +73,12 @@ def free_port() -> int:
 
 
 def launch(world: int, job: str, tmp: Path, payload=None,
-           timeout: float = 180.0) -> list:
+           timeout: float = 180.0,
+           module: str = "tests.test_torch_port_scaleout_layout") -> list:
     """Run ``job`` on ``world`` ranks as torchrun would start them (one
     process each, gloo on the CPU) and return each rank's result. Any rank's
-    non-zero exit, or the timeout, fails the caller with the ranks' output."""
+    non-zero exit, or the timeout, fails the caller with the ranks' output.
+    ``module`` holds the ``worker`` the ranks call with the job's name."""
     tmp.mkdir(parents=True, exist_ok=True)
     torch.save(payload, tmp / "in.pt")
     port = free_port()
@@ -91,7 +93,7 @@ def launch(world: int, job: str, tmp: Path, payload=None,
         log = open(tmp / f"rank{rank}.log", "w")
         procs.append((subprocess.Popen(
             [sys.executable, "-c",
-             "from tests.test_torch_port_scaleout_layout import worker; "
+             f"from {module} import worker; "
              f"worker({job!r}, {str(tmp)!r})"],
             env=env, cwd=str(tmp), stdout=log, stderr=subprocess.STDOUT),
             log))

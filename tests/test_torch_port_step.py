@@ -190,12 +190,6 @@ def test_decay_split_by_name_matches_jax():
         assert g["weight_decay"] == jgroups[name]["weight_decay"]
 
 
-def test_only_adamw_is_ported():
-    sm = tad.AdaptationVisionTransformer(**STUDENT)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        tfactory.create_optimizer("lamb", 1e-3, sm, device="cpu")
-
-
 # ------------------------------------------------------------------ gate
 
 

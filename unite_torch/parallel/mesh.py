@@ -241,6 +241,27 @@ def _world_group(group):
     return group if group is not None else dist.group.WORLD
 
 
+def sum_over_groups(tensors: Sequence[torch.Tensor],
+                    groups: Sequence[object]) -> List[torch.Tensor]:
+    """Each tensor summed elementwise over the ranks of its group (None:
+    the world): one ``all_reduce`` a group, of its tensors flattened into
+    one fp32 buffer. Returns new tensors in the inputs' shapes and
+    dtypes."""
+    by_group: Dict[int, tuple] = {}
+    for i, g in enumerate(groups):
+        by_group.setdefault(id(g), (g, []))[1].append(i)
+    out = list(tensors)
+    for group, idx in by_group.values():
+        flat = torch.cat([tensors[i].reshape(-1).float() for i in idx])
+        dist.all_reduce(flat, group=group)
+        o = 0
+        for i in idx:
+            t = tensors[i]
+            out[i] = flat[o:o + t.numel()].view(t.shape).to(t.dtype)
+            o += t.numel()
+    return out
+
+
 def gather_pieces(local: torch.Tensor, shapes, group) -> List[torch.Tensor]:
     """Every member's piece of a tensor, in member order, each sent by one
     broadcast (gloo on CUDA tensors has broadcasts but no reduce-scatter,
@@ -280,6 +301,11 @@ class Split:
     def local(self, full):
         return full.narrow(self.dim, self.start, self.sizes[self.index])
 
+    def positions(self, n: int):
+        """(positions along ``dim`` of this piece's ``n`` entries in the
+        whole tensor, the whole tensor's length along ``dim``)."""
+        return (torch.arange(self.start, self.start + n), sum(self.sizes))
+
     def full(self, local):
         shapes = []
         for n in self.sizes:
@@ -295,12 +321,21 @@ class HeadSplit:
     packed layout the attention kernels take; the checkpoint keeps the
     unsharded [3C, C]."""
 
+    dim = 0
+
     def __init__(self, ways: int, group, index: int):
         self.ways, self.group, self.index = ways, group, index
 
     def local(self, full):
         return full.reshape(3, self.ways, -1)[:, self.index].reshape(
             -1, *full.shape[1:])
+
+    def positions(self, n: int):
+        """(positions of this piece's ``n`` rows in the whole tensor, its
+        number of rows): a block of rows in each of q, k and v."""
+        full = n * self.ways
+        return (torch.arange(full).reshape(3, self.ways, -1)[:, self.index]
+                .reshape(-1), full)
 
     def full(self, local):
         pieces = gather_pieces(local, [local.shape] * self.ways, self.group)
@@ -444,9 +479,10 @@ def tensor_parallel_(model: nn.Module, mesh: Mesh) -> Dict[str, object]:
 class Layout:
     """How a model's training state lies over the ranks: the module a step
     calls (``net``: the model, or its DDP wrapper), and the rule of each
-    parameter (``param_rules``) and of each AdamW moment
-    (``moment_rules``; ZeRO-1's moments keep ``zero1`` slices (dim, start,
-    size) of replicated parameters). The default is one process: the model
+    parameter (``param_rules``) and of the optimizer's piece of it, which
+    every state tensor shaped like the parameter follows (``moment_rules``;
+    ZeRO-1's moments keep ``zero1`` slices (dim, start, size) of replicated
+    parameters). The default is one process: the model
     itself, every rule ``Replicated``."""
 
     def __init__(self, model: nn.Module, net: Optional[nn.Module] = None,
@@ -466,6 +502,12 @@ class Layout:
             self.moment_rules[n] = Split(dim, even_sizes(full, full // size),
                                          self.mesh.data_group,
                                          self.mesh.dp_rank)
+        self._splits = {}
+        for n, rule in self.moment_rules.items():
+            if isinstance(rule, (Split, HeadSplit)):
+                p = by_name[n]
+                pos, full = rule.positions(self.part(p, p).shape[rule.dim])
+                self._splits[p] = (rule.dim, pos, full, rule.group)
 
     @property
     def distributed(self) -> bool:
@@ -478,11 +520,20 @@ class Layout:
         z = self._zero1_of.get(p)
         return t.narrow(*z) if z is not None else t
 
+    def split_of(self, p):
+        """How the piece of ``p`` that this rank's optimizer holds lies in
+        the whole tensor: (dim, positions along it, the whole length, the
+        group of ranks that hold the pieces), or None for the whole tensor.
+        A statistic over a whole tensor is summed over that group."""
+        return self._splits.get(p)
+
     def attach(self, optimizer):
         """Point ``optimizer`` at this rank's pieces (ZeRO-1 slices, FSDP
-        shards) and, under ZeRO-1, the broadcast of the updated slices."""
+        shards, tensor-parallel shards) and, under ZeRO-1, the broadcast of
+        the updated slices."""
         if self.distributed:
             optimizer.part = self.part
+            optimizer.split = self.split_of
             optimizer.sync = self.sync_zero1 if self.zero1 else None
         return optimizer
 

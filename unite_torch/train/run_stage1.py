@@ -197,8 +197,8 @@ def main(args, device=None):
     layout = common.state_layout(args, student)  # before the optimizer
     tx, opt_groups = create_optimizer(
         args.opt, lr_tab, student, weight_decay=wd_tab,
-        betas=common.betas_for(args), eps=args.opt_eps,
-        trainable=unused_block_mask(
+        momentum=args.momentum, betas=common.betas_for(args),
+        eps=args.opt_eps, trainable=unused_block_mask(
             max(int(i) for i in args.clip_return_layers),
             getattr(args, "freeze_clip_decoders", False)),
         mu_dtype=common.mu_dtype_for(args), device=dev)

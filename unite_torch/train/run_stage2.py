@@ -180,7 +180,8 @@ def main(args, device=None):
         mask = trainable_mask(args, model, lp_phase=lp_phase)
         tx, groups = create_optimizer(
             args.opt, lr_tab, model, weight_decay=wd_tab,
-            betas=common.betas_for(args), eps=args.opt_eps,
+            momentum=args.momentum, betas=common.betas_for(args),
+            eps=args.opt_eps,
             trainable=mask.__getitem__, num_layers=model.depth,
             layer_decay=args.layer_decay if args.layer_decay < 1.0 else None,
             mu_dtype=common.mu_dtype_for(args), device=dev)

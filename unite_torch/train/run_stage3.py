@@ -105,11 +105,13 @@ def trainable_mask(args, model: nn.Module) -> Dict[str, bool]:
 
 def build_optimizer(args, model: nn.Module, lr, weight_decay,
                     device=None):
-    """AdamW over the combined module with the stage-3 mask: ``lr`` and
-    ``weight_decay`` are per-step tables or constants. Returns (optimizer,
-    groups)."""
+    """The optimizer --opt over the combined module with the stage-3 mask:
+    ``lr`` and ``weight_decay`` are per-step tables or constants; an args
+    namespace without --momentum takes its default, 0.9. Returns
+    (optimizer, groups)."""
     mask = trainable_mask(args, model)
     return create_optimizer(args.opt, lr, model, weight_decay=weight_decay,
+                            momentum=getattr(args, "momentum", 0.9),
                             betas=common.betas_for(args), eps=args.opt_eps,
                             trainable=mask.__getitem__,
                             mu_dtype=common.mu_dtype_for(args), device=device)

@@ -11,9 +11,9 @@ from __future__ import annotations
 from typing import Dict, Iterable, Optional
 
 import torch
-import torch.distributed as dist
 
-from unite_torch.parallel.mesh import Layout, is_dtensor, local_tensor
+from unite_torch.parallel.mesh import (Layout, is_dtensor, local_tensor,
+                                      sum_over_groups)
 
 
 class TrainState:
@@ -86,9 +86,9 @@ def global_grad_norm(grads: Iterable[torch.Tensor],
             sharded.setdefault(id(group), (group, []))[1].append(sq)
     sq = (torch.stack(whole).sum() if whole
           else torch.zeros((), device=local_tensor(grads[0]).device))
-    for group, parts in sharded.values():
-        part = torch.stack(parts).sum()
-        dist.all_reduce(part, group=group)
+    for part in sum_over_groups(
+            [torch.stack(parts).sum() for _, parts in sharded.values()],
+            [group for group, _ in sharded.values()]):
         sq = sq + part
     return sq.sqrt()
 

@@ -10,7 +10,9 @@ checkpoint.
 
 Payload: ``{model, optimizer, epoch, args, [model_ema], [extra]}`` with CPU
 tensors. ``model`` is the model's ``state_dict``; ``optimizer`` holds the
-AdamW step count, its schedule count, the moments by parameter name and,
+step count, its schedule count, the optimizer's state by parameter name
+(every key of its direction: moments, momentum buffers, Adafactor's
+factored rows and columns, NovoGrad's norms, lookahead's slow weights) and,
 under gradient accumulation, the running mean and its position in the
 window (``accumulation``); ``extra`` carries the
 global ``step`` and, for a checkpoint written on preemption, the batches
@@ -24,7 +26,8 @@ FSDP and tensor parallelism the pieces are gathered first, a collective
 every rank enters in the same order; only rank 0 keeps the snapshot and
 writes it, in the background as on one card. A restore slices each whole
 tensor to the rank's piece, so a checkpoint of any layout at any world size
-loads into any other, one process included.
+loads into any other, one process included. State that the optimizer keeps
+whole on every rank (``is_whole``) is written and loaded as it is.
 """
 
 from __future__ import annotations
@@ -136,7 +139,8 @@ def _snapshot(state) -> Optional[Dict[str, Any]]:
     lay = _layout(state)
     opt = state.optimizer
     named = lay.named_parameters()
-    moments = {n: {k: lay.full_moment(n, v)
+    moments = {n: {k: (v.clone() if opt.is_whole(k)
+                       else lay.full_moment(n, v))
                    for k, v in opt.state[p].items()}
                for n, p in named if opt.state.get(p)}
     optimizer = {"count": int(opt.count),
@@ -258,7 +262,8 @@ def restore_train_state(state, payload: Dict[str, Any],
             p = params[name]
             # the moments as the optimizer keeps them (a bf16 first moment
             # under --mu_dtype stays bf16, bit for bit)
-            opt.state[p] = {k: lay.local_moment(name, v).to(
+            opt.state[p] = {k: (v if opt.is_whole(k)
+                                else lay.local_moment(name, v)).to(
                 dev(name), opt.moment_dtype(k, p)).clone()
                 for k, v in mom.items()}
         opt.count = int(saved.get("count", step))
