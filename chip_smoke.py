@@ -208,6 +208,20 @@ toolkit. In order:
    exact launch counts, in all and K1's and K3's by shape, the
    checkpoints' epochs and steps, the entry's clips/s beside the bare
    step's, val and test views/s and the host data path's items/s;
+16a. ``tool-classify``: K3 at one clip's [1, 1568, 2304] without lse
+   against its plain version, and on a B=1 view with another batch stride
+   bit-equal to its copy; ``unite_torch.tools.classify`` (vit_base, 8 x
+   224^2, --synthetic) on phase 11's checkpoint-best and phase 16's
+   combined one, exactly 12 K3 at (1, 1568) a call, its probabilities
+   within ``STEP_RTOL`` of the same call with --cpu; then
+   ``unite_torch.tools.export_torch`` on both, each export loaded
+   strictly into the entries' models;
+16b. ``tool-record-losses``: K1 at [32, 197, 2304] and K1/K2 at
+   [4, 314, 2304] against their plain versions; step 0 of
+   ``unite_torch.tools.record_losses`` at --batch 1 on the card against
+   the CPU (loss and grad norm within ``STEP_RTOL``); the tool at its
+   defaults for ``TOOL_STEPS`` steps, each exactly 12 K1 at (32, 197),
+   12 K1 at (4, 314) and 12 K2, one finite JSON line a step;
 17. ``scaleout-nccl-w{N}`` (N = the cards on the machine): the three
    entries launched by ``python -m torch.distributed.run --standalone
    --nproc_per_node N`` over NCCL, each rank running this script as
@@ -262,6 +276,13 @@ HEADS, SCALE = 12, 64 ** -0.5
 FWD_TOL = 1e-2         # a few bf16 ulps of |o| <= 1
 BWD_TOL = 2e-2         # times max |dqkv| of the plain version
 STEP_RTOL = 2e-2       # bf16 card step against the fp32 CPU step
+# tool-classify, card against --cpu (bf16 on both): each block's attention
+# output and the pooled features, norm of the difference over the CPU's.
+# On an H100 they differ by at most 2.4e-3 and 1.3e-3; the phase checks
+# that attention whose last TOOL_FAULT_KEYS keys and values are read from
+# the first ones lands above both
+TOOL_ATTN_RTOL, TOOL_FEAT_RTOL = 1e-2, 5e-3
+TOOL_FAULT_KEYS = 32
 # optim-card-vs-cpu: every --opt name of create_optimizer (its OPT_NAMES),
 # these aliases and lookahead, and the bf16 first moment where JAX applies
 # it, 8 steps each on the card and on the CPU from one bf16 step's gradients
@@ -424,6 +445,11 @@ STAGE3_ARGS = [
 # epoch's validation), the rate taken over steps 17-96
 S3_SRC, S3_TGT, S3_VAL, S3_TEST = 20, 10, 40, 8
 S3_STEADY, S3_STEADY_FROM = 96, 16
+# the tools' phases: classify's one clip (B=1, 1568 tokens, forward only)
+# and record_losses at its defaults: B=4, 8 frames, mask 0.8 drawn
+# uniformly, 1568 - int(1568 * 0.8) = 314 visible tokens, 3 steps
+TOOL_B, TOOL_STEPS = 4, 3
+TOOL_VISIBLE = STAGE2_TOKENS - int(STAGE2_TOKENS * 0.8)
 # the native-decode phase's real video: 16 mp4v clips of 64 frames at
 # 340x256 (the new_width x new_height of the reference's dataset), written
 # with OpenCV
@@ -1390,8 +1416,9 @@ def check_packed_kernels(torch, A, shapes=(("train", 8, True),
                          head_dim: int = 64):
     """Phase 3, stage 2: K3 and K4 against their plain versions at the
     stage-2 shapes, with timings: ``shapes`` holds (label, batch, with lse);
-    K4 runs at the "train" one. The stage-2 entry's phase passes its B=7
-    with ``tag`` "/b7"; the VideoMAE decoder's, 6 ``heads`` at B=32 with
+    K4 runs at the "train" one, where there is one (the tool-classify
+    phase passes only a forward, B=1). The stage-2 entry's phase passes its
+    B=7 with ``tag`` "/b7"; the VideoMAE decoder's, 6 ``heads`` at B=32 with
     ``tag`` "/h6", and the huge VideoMAE decoder's 8 heads of ``head_dim``
     80 at B=16 with ``tag`` "/d80", where each of ``repeats`` K4 backwards
     must equal the first bit for bit. The softmax scale is
@@ -1401,7 +1428,7 @@ def check_packed_kernels(torch, A, shapes=(("train", 8, True),
     SCALE = head_dim ** -0.5
     gen = torch.Generator(device="cuda").manual_seed(4)
     s, hd = STAGE2_TOKENS, heads * head_dim
-    results = {}
+    results, train = {}, None
     for label, b, with_lse in shapes:
         qkv = torch.randn((b, s, 3 * hd), generator=gen,
                           device="cuda").to(torch.bfloat16)
@@ -1438,6 +1465,8 @@ def check_packed_kernels(torch, A, shapes=(("train", 8, True),
         del qkv, out, lse, q, k, v, err
         torch.cuda.empty_cache()
 
+    if train is None:
+        return results
     # K4 at the train shape, from the train forward above
     qkv, out, lse = train
     b = qkv.shape[0]
@@ -3262,6 +3291,221 @@ def stage3_entry(torch, A, student_init: Path, s3: dict, workdir: Path):
     return res, kr
 
 
+def tool_classify(torch, A, workdir: Path):
+    """Phase: ``tool-classify``. K3 against its plain version at one
+    clip's [1, 1568, 2304] without lse, and on a [1, 1568, 2304] view whose
+    batch stride is 2304 (PyTorch lets a dimension of size 1 take any
+    stride and still calls the tensor contiguous), bit-equal to a fresh
+    copy; then ``unite_torch.tools.classify.main`` (vit_base_patch16_224,
+    8 frames of 224^2, --synthetic) on the stage-2 entry's checkpoint-best
+    and on the stage-3 entry's combined one: each call exactly 12 K3 at
+    (1, 1568), none with lse, no other kernel. Against the same call with
+    --cpu (bf16 on both): the probabilities within ``STEP_RTOL``, and, as
+    the entries' heads spread the classes little, what the attention
+    makes: each block's attention output within ``TOOL_ATTN_RTOL`` and the
+    pooled features (the head's input) within ``TOOL_FEAT_RTOL``, as norms
+    of the difference over the CPU's norm; and the stage-2 call once more
+    with each block's last ``TOOL_FAULT_KEYS`` keys and values read from
+    its first ones (as a K3 that misread its tail tile would) must land
+    outside both. Then
+    ``unite_torch.tools.export_torch`` writes each as a reference .pth,
+    which loads strictly into the entries' own models: the stage-2 ViT, the
+    stage-3 student and, from ``src_classifier``, its classifier."""
+    from unite_torch.config import parse_with_config
+    from unite_torch.models import layers
+    from unite_torch.tools import classify, export_torch
+    from unite_torch.train import run_stage1, run_stage2, run_stage3
+    from unite_torch.train.args import stage2_parser, stage3_parser
+
+    t_phase = time.perf_counter()
+    kr = check_packed_kernels(torch, A, shapes=(("classify", 1, False),))
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    view = torch.randn((STAGE2_TOKENS, 1, 3 * HEADS * 64), generator=gen,
+                       device="cuda").to(torch.bfloat16).transpose(0, 1)
+    fresh = torch.empty(view.shape, dtype=view.dtype, device="cuda")
+    fresh.copy_(view)
+    if not view.is_contiguous() or view.stride() == fresh.stride():
+        raise AssertionError(f"tool-classify: the B=1 view has strides "
+                             f"{view.stride()}, not another layout")
+    if not torch.equal(A.packed_flash_fwd(view, HEADS, SCALE)[0],
+                       A.packed_flash_fwd(fresh, HEADS, SCALE)[0]):
+        raise AssertionError("K3 at B=1: a view with batch stride "
+                             f"{view.stride(0)} differs from its copy")
+    del view, fresh
+    ckpts = {"stage2": workdir / "stage2" / "run" / "checkpoint-best.pth",
+             "stage3": workdir / "stage3" / "run" / "checkpoint-best.pth"}
+    res, taps = {}, {}
+
+    def keep(key):
+        def hook(module, args, out=None):
+            taps[key] = (args[0] if out is None else out).float().cpu()
+        return hook
+
+    def create_model(*args, **kwargs):
+        model = make_model(*args, **kwargs)
+        model.head.register_forward_pre_hook(keep("features"))
+        for j, blk in enumerate(model.blocks):
+            blk.attn.register_forward_hook(keep(j))
+        return model
+
+    def misread_tail(qkv, *args, **kwargs):
+        qkv, c = qkv.clone(), qkv.shape[-1] // 3
+        qkv[:, -TOOL_FAULT_KEYS:, c:] = qkv[:, :TOOL_FAULT_KEYS, c:]
+        return attention(qkv, *args, **kwargs)
+
+    make_model, classify.create_model = classify.create_model, create_model
+    attention = layers.self_attention
+    try:
+        cpu_taps = {}
+        for kind, path in ckpts.items():
+            res[kind], cpu_taps[kind] = tool_classify_call(
+                torch, A, classify, kind, path, taps)
+        layers.self_attention = misread_tail
+        classify.main([str(ckpts["stage2"]), "fake.mp4", "--synthetic"])
+        attn, feat = taps_rel(taps, cpu_taps["stage2"])
+        if max(attn) <= TOOL_ATTN_RTOL or feat <= TOOL_FEAT_RTOL:
+            raise AssertionError(
+                f"tool-classify: a misread tail of {TOOL_FAULT_KEYS} keys "
+                f"moves the attention outputs by {attn} and the features "
+                f"by {feat}, inside the gates")
+        res["misread_tail"] = dict(attn_rel_vs_cpu=attn,
+                                   features_rel_vs_cpu=feat)
+    finally:
+        classify.create_model = make_model
+        layers.self_attention = attention
+    # the exports, loaded strictly into models built on "meta" (no weights
+    # to initialize: the load assigns every one)
+    args2 = parse_with_config(stage2_parser(), STAGE2_ARGS)
+    args3 = parse_with_config(stage3_parser(), STAGE3_ARGS)
+    for kind, path in ckpts.items():
+        dst = workdir / f"export_{kind}.pth"
+        export_torch.main([str(path), str(dst)])
+        out = torch.load(dst, weights_only=True)
+        if kind == "stage2":
+            parts = {"model": run_stage2.build_model(args2, "meta")}
+        else:
+            parts = {"model": run_stage1.build_student(args3, "meta"),
+                     "src_classifier": run_stage3.build_classifier(
+                         args3, 768, device="meta")}
+        if set(out) != {"epoch", *parts}:
+            raise AssertionError(f"export of {kind}: keys {sorted(out)}")
+        for part, model in parts.items():
+            model.load_state_dict(out[part], strict=True, assign=True)
+        res[kind]["export_epoch"] = out["epoch"]
+    res.update(launches=sum(res[kind]["launches"] for kind in ckpts),
+               seconds=time.perf_counter() - t_phase)
+    print(f"tool-classify: {json.dumps(res)} on {card_line()}", flush=True)
+    return res, kr
+
+
+def taps_rel(card: dict, cpu: dict):
+    """Each block's attention output and the pooled features, card
+    against CPU: the norm of the difference over the CPU's."""
+    def rel(key) -> float:
+        return float((card[key] - cpu[key]).norm() / cpu[key].norm())
+
+    return [rel(j) for j in range(12)], rel("features")
+
+
+def tool_classify_call(torch, A, classify, kind: str, path: Path,
+                       taps: dict):
+    """One checkpoint of ``tool-classify``: the call on the card, its
+    launches, and the call with --cpu; ``taps`` is filled by the hooks that
+    ``tool_classify`` puts on the model. Returns the results and the CPU
+    call's taps."""
+    import numpy as np
+
+    argv = [str(path), "fake.mp4", "--synthetic"]
+    torch.cuda.synchronize()
+    reset_counts(A)
+    t0 = time.perf_counter()
+    probs = classify.main(argv)
+    wall = time.perf_counter() - t0
+    counts, shapes = read_counts(A), read_shapes(A)
+    card = dict(taps)
+    expect_counts(counts, {"K3": 12}, f"tool-classify {kind}")
+    if shapes["K3"] != {(1, STAGE2_TOKENS): 12}:
+        raise AssertionError(f"tool-classify {kind}: K3 by shape "
+                             f"{shapes['K3']}")
+    taps.clear()
+    t0 = time.perf_counter()
+    cpu = classify.main(argv + ["--cpu"])
+    cpu_wall = time.perf_counter() - t0
+    diff = float(np.abs(probs - cpu).max())
+    if (not np.isfinite(probs).all() or abs(probs.sum() - 1.0) > 1e-3
+            or diff > STEP_RTOL):
+        raise AssertionError(f"tool-classify {kind}: card {probs} "
+                             f"against the CPU's {cpu}")
+    attn, feat = taps_rel(card, taps)
+    if max(attn) > TOOL_ATTN_RTOL or feat > TOOL_FEAT_RTOL:
+        raise AssertionError(f"tool-classify {kind}: against the CPU, the "
+                             f"blocks' attention outputs differ by {attn}, "
+                             f"the features by {feat}")
+    cpu_taps = dict(taps)
+    taps.clear()
+    return dict(wall_s=wall, cpu_wall_s=cpu_wall, max_abs_diff_vs_cpu=diff,
+                attn_rel_vs_cpu=attn, features_rel_vs_cpu=feat,
+                prob_spread=float(cpu.max() - cpu.min()),
+                launches=shapes["K3"][(1, STAGE2_TOKENS)],
+                top5=classify.top_lines(probs)), cpu_taps
+
+
+def tool_record_losses(torch, A, workdir: Path):
+    """Phase: ``tool-record-losses``. K1 at the teacher's [32, 197, 2304]
+    and K1/K2 at the student's [4, 314, 2304] against their plain versions;
+    step 0 of ``unite_torch.tools.record_losses`` at --batch 1 on the card
+    against the same step on the CPU (both bf16, the same seeded weights,
+    videos and masks): loss and grad norm within ``STEP_RTOL``; then the
+    tool at its defaults (adaptation_umt_base_patch16_224 against clip_b16,
+    B=4, 8 frames of 224^2, 314 visible tokens) for ``TOOL_STEPS`` steps:
+    each step exactly 12 K1 at (32, 197), 12 K1 at (4, 314) and 12 K2,
+    finite losses, one JSON line a step."""
+    from unite_torch.tools import record_losses
+
+    t_phase = time.perf_counter()
+    kr = check_kernels(torch, A, batches=(8 * TOOL_B, TOOL_B),
+                       lengths=(197, TOOL_VISIBLE), tag="/tools")
+    one = ["--steps", "1", "--batch", "1"]
+    t0 = time.perf_counter()
+    card = record_losses.main([str(workdir / "losses_b1_card.jsonl"), *one])
+    t1 = time.perf_counter()
+    cpu = record_losses.main([str(workdir / "losses_b1_cpu.jsonl"), *one],
+                             device="cpu")
+    t2 = time.perf_counter()
+    check_finite([(r["loss"], r["grad_norm"]) for r in card + cpu])
+    rel = {k: abs(card[0][k] - cpu[0][k]) / abs(cpu[0][k])
+           for k in ("loss", "grad_norm")}
+    if max(rel.values()) > STEP_RTOL:
+        raise AssertionError(f"tool-record-losses: step 0 at B=1 on the card "
+                             f"{card} against the CPU's {cpu}")
+    out = workdir / "losses.jsonl"
+    torch.cuda.synchronize()
+    reset_counts(A)
+    t3 = time.perf_counter()
+    recs = record_losses.main([str(out), "--steps", str(TOOL_STEPS)])
+    wall = time.perf_counter() - t3
+    n = TOOL_STEPS
+    counts, shapes = read_counts(A), read_shapes(A)
+    expect_counts(counts, {"K1": 24 * n, "K2": 12 * n}, "tool-record-losses")
+    want = {(8 * TOOL_B, 197): 12 * n, (TOOL_B, TOOL_VISIBLE): 12 * n}
+    if shapes["K1"] != want:
+        raise AssertionError(f"tool-record-losses: K1 by shape "
+                             f"{shapes['K1']}, expected {want}")
+    check_finite([(r["loss"], r["grad_norm"]) for r in recs])
+    if [json.loads(line) for line in out.read_text().splitlines()] != recs:
+        raise AssertionError(f"tool-record-losses: {out} does not hold the "
+                             f"{n} records {recs}")
+    res = dict(b1_card=card[0], b1_cpu=cpu[0], b1_rel=rel,
+               b1_card_wall_s=t1 - t0, b1_cpu_wall_s=t2 - t1, steps=recs,
+               wall_s=wall, launches=counts,
+               k1_teacher=shapes["K1"][(8 * TOOL_B, 197)],
+               k1_student=shapes["K1"][(TOOL_B, TOOL_VISIBLE)],
+               seconds=time.perf_counter() - t_phase)
+    print(f"tool-record-losses: {json.dumps(res)} on {card_line()}",
+          flush=True)
+    return res, kr
+
+
 def ffmpeg_headers() -> list:
     """The FFmpeg development headers the native decoder's build needs
     (libavformat's directory), where the machine has them."""
@@ -4988,6 +5232,14 @@ def main() -> int:
         kr.update(kr_s3)
         torch.cuda.empty_cache()
         mark("stage-3 entry")
+        # the entries' checkpoints stay until the tools have read them
+        tools_c, kr_tc = tool_classify(torch, A, work)
+        kr.update(kr_tc)
+        mark("tool-classify")
+        tools_r, kr_tr = tool_record_losses(torch, A, work)
+        kr.update(kr_tr)
+        torch.cuda.empty_cache()
+        mark("tool-record-losses")
         cards = torch.cuda.device_count()
         scale = scaleout_entries(torch, A, work, cards)
         mark(f"scaleout-nccl-w{cards}")
@@ -5222,6 +5474,20 @@ def main() -> int:
             ("K2/student", "fused_qkv_bwd[scaleout-step-b64 student S=320]",
              "unite_torch/csrc/short_bwd_wgmma.cu",
              "unite_tpu/ops/attention.py:773", scale_b64["launches"]["K2"]),
+            ("K3/classify", "packed_flash_fwd[tool-classify B=1 S=1568, "
+             "forward only]", "unite_torch/csrc/flash_fwd_wgmma.cu",
+             "unite_tpu/ops/attention.py:913", tools_c["launches"]),
+            ("K1/teacher/tools", "fused_qkv_fwd[tool-record-losses teacher "
+             f"B={8 * TOOL_B} S=197]", "unite_torch/csrc/short_attn_wgmma.cu",
+             "unite_tpu/ops/attention.py:678", tools_r["k1_teacher"]),
+            ("K1/student/tools", "fused_qkv_fwd[tool-record-losses student "
+             f"B={TOOL_B} S={TOOL_VISIBLE}]",
+             "unite_torch/csrc/short_attn_wgmma.cu",
+             "unite_tpu/ops/attention.py:678", tools_r["k1_student"]),
+            ("K2/student/tools", "fused_qkv_bwd[tool-record-losses student "
+             f"B={TOOL_B} S={TOOL_VISIBLE}]",
+             "unite_torch/csrc/short_bwd_wgmma.cu",
+             "unite_tpu/ops/attention.py:773", tools_r["launches"]["K2"]),
             *((key, f"{name}[scaleout-nccl-w{cards} torchrun entries, "
                "rank 0]", src, rep, sum(
                    r["launches"][k] for r in scale.values()
@@ -5263,7 +5529,8 @@ def main() -> int:
                       "videomae_h16_m06_card_vs_cpu_rel": mae_h06_rel,
                       "head_dim80_lengths": d80_lengths,
                       "umt_pretrain": umt, "clip_masked": clipm,
-                      "stage3_entry": entry3,
+                      "stage3_entry": entry3, "tool_classify": tools_c,
+                      "tool_record_losses": tools_r,
                       "scaleout_nccl": scale, "scaleout_step_b64": scale_b64,
                       "scaleout_gloo_2on1": gloo,
                       "scaleout_gloo_2on1_lamb": gloo_lamb,

@@ -19,7 +19,7 @@ from unite_torch.engines.selftrain import (make_selftrain_eval_step,
 from unite_torch.optim.factory import create_optimizer
 from unite_torch.train import run_stage1
 from unite_torch.train.args import stage1_parser
-from unite_torch.tools import quant_kernel_probe
+from unite_torch.tools import classify, quant_kernel_probe, record_losses
 from unite_torch.train.run_stage3 import build_classifier
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -37,7 +37,9 @@ SLICE_MODULES = ("ops.attention", "models.adaptation", "engines.finetune",
                  "data.functional", "data.rand_augment",
                  "data.random_erasing", "data.datasets_extra",
                  "ops.eval_transforms", "native._build", "ops.mixup",
-                 "data.collate_mixup")
+                 "data.collate_mixup", "tools.export_torch",
+                 "tools.classify", "tools.record_losses",
+                 "tools.extract_clip", "tools.flops")
 # imported only where their paths are used (a YAML file, the PIL transform
 # path, the OpenCV reader, the logging flags)
 LAZY = ("yaml", "PIL", "cv2", "tensorboardX", "wandb")
@@ -117,6 +119,11 @@ def test_entry_points_refuse_the_cpu_unless_asked(monkeypatch, tmp_path):
     args.output_dir = str(tmp_path)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         run_stage1.main(args)
+    # the tools that compute on a device: the card unless asked
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        classify.main(["missing.pth", "fake.mp4", "--synthetic"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        record_losses.main([str(tmp_path / "losses.jsonl")])
     # the probe times the card's kernels: no CPU run even when asked
     with pytest.raises(RuntimeError, match="device='cpu'"):
         quant_kernel_probe.main()

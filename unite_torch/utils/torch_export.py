@@ -38,20 +38,26 @@ def _strip(state: dict, prefix: str) -> dict:
             if k.startswith(prefix)}
 
 
+def split_combined(state: dict):
+    """A stage-3 combined state (``model.*`` and ``classifier.*`` keys and
+    no others) as (student, head), each with its prefix taken off; any
+    other state as (state, None)."""
+    student, head = _strip(state, "model."), _strip(state, "classifier.")
+    if student and head and len(student) + len(head) == len(state):
+        return student, head
+    return state, None
+
+
 def export_checkpoint(src_path: str, dst_path: str) -> str:
     """Write the port's checkpoint ``src_path`` as a reference-format
     ``.pth`` at ``dst_path``: ``{'model': ..., 'epoch': ...}``. A stage-3
-    combined checkpoint (``model.*`` and ``classifier.*`` keys) exports
-    the student under ``model`` and the head as ``src_classifier``."""
+    combined checkpoint (``split_combined``) exports the student under
+    ``model`` and the head as ``src_classifier``."""
     from unite_torch.utils import checkpoint as ck
 
     payload = ck.load_checkpoint(src_path)
-    model = payload["model"]
-    extra = {}
-    student, head = _strip(model, "model."), _strip(model, "classifier.")
-    if student and head and len(student) + len(head) == len(model):
-        extra["src_classifier"] = export_state(head)
-        model = student
+    model, head = split_combined(payload["model"])
+    extra = {} if head is None else {"src_classifier": export_state(head)}
     out = {"model": export_state(model), "epoch": payload.get("epoch", 0),
            **extra}
     torch.save(out, dst_path)
