@@ -46,6 +46,13 @@ toolkit. In order:
    short backward (K2 and K5's backward) at the same lengths, K2 also at
    768 (2, 12 and 16 heads on the packed lanes; K5 at 2 and 12 heads on
    views and contiguous tensors), each repeat equal bit for bit;
+   the fp32 kernels (csrc/attn_fp32.cu: forward, dQ, dK/dV, which serve
+   every route at --compute_dtype float32) against their plain version,
+   TF32 off, at the lengths of ``FP32_LENGTHS`` up to 4608 at head dims 64
+   and 80 and at the main paths' shapes ``FP32_SHAPES`` (o and lse2
+   within 1e-5, gradients within 1e-4 of their max abs), where the plain
+   version at scale x 1.001 must fail those tolerances, with times beside
+   the plain version's, SDPA's at fp32 and the bound at the fp32 peak;
    then K7 (csrc/blocked_matmul_wgmma.cu) at every shape of
    ``MATMUL_SWEEP`` and every tile shape (K7a, the int8 blocked matmul, bit
    for bit, also with -128s at K = 131040; K7b, bf16, within
@@ -59,13 +66,19 @@ toolkit. In order:
    clip_l14 teacher's [192, 197, 3072] and K1/K2 at the ViT-L student's
    [24, 320, 3072]; the int8 clip_l14 against the bf16 one (B=2, 196^2):
    tap cosine > 0.98, CLS-row total variation < 0.05; one ViT-L/14 stage-1
-   step with the int8 teacher (full widths, depth 4) on the card in bf16
+   step with the int8 teacher (full widths, depth 2) on the card in bf16
    against the CPU in fp32; the cells ``stage1-l14-b24`` and
    ``stage1-l14-int8-b24`` (``bench.py::bench_large``'s geometry, B=24, 2
    warm-up and 5 timed steps, 48 K1 + 24 K2 a step, plus 96 K7a with the
    int8 teacher, and a profiled step);
 4. one stage-1 step on the card in bf16 against the same step on the CPU in
-   fp32 (B=2, same weights, same batch, injected visible tokens);
+   fp32 (B=2, same weights, same batch, injected visible tokens), and the
+   same step on the card in fp32 (every attention on the fp32 kernels, on
+   the route the bf16 step took) against the same CPU step within
+   ``FP32_STEP_RTOL`` (1e-4: loss, grad norm, the model output over its
+   max abs); every card-vs-CPU phase below has that fp32 card step too
+   (stage 1 at mask 0.75, stage 2, stage 3 with CLS, VideoMAE base and the
+   huge cut step at each mask);
 5. the stage-1 path ``stage1-b16-b64``: the train step at full ViT-B/16
    width and ``bench.py::main``'s geometry (B=64, 8 x 224^2, mask 0.8 ->
    320 visible tokens, clip_b16 teacher with taps 6-11, AdamW from
@@ -129,7 +142,11 @@ toolkit. In order:
    synthetic clips at mask 0.75, 2 x 32 clips a step, uint8 clips
    normalized on the card: one epoch of 4 steps with its checkpoint, then a
    second call that auto-resumes and is preempted after 2 steps; exact
-   launch counts, and the entry's clips/s beside the step's;
+   launch counts, and the entry's clips/s beside the step's; then
+   ``stage1-entry-fp32``: the same entry with --compute_dtype float32, 2
+   steps of 1 + 1 clips at mask 0.8 (K1 at [16, 197] and [2, 320], K2 at
+   [2, 320], all on the fp32 kernels), finite losses, no bf16 attention
+   launch, TF32 off;
 8. one stage-2 step on the card in bf16 against the same step on the CPU in
    fp32 (B=2, 1568 tokens, same weights and batch, drop path 0);
 9. the stage-2 path: the finetune train step of ``vit_base_patch16_224``
@@ -141,7 +158,7 @@ toolkit. In order:
 10. the stage-2 eval step at the config's batch_size_val of 32, 2 warm-up
    and 10 timed calls, with the launch counts and a profiled call;
 10a. ``optim-card-vs-cpu``: one bf16 train step at B=2 of the stage-2 ViT
-   cut to 4 blocks (4 K3 with lse, 4 K4a, 4 K4b), then 8 steps of every
+   cut to 2 blocks (2 K3 with lse, 2 K4a, 2 K4b), then 8 steps of every
    --opt name of ``create_optimizer``, ``OPT_ALIASES`` and the bf16 first
    moment of ``OPT_BF16_MU`` from its gradients on the card and on the
    CPU: each tensor's update within ``OPT_RTOL`` of its norm;
@@ -242,14 +259,15 @@ toolkit. In order:
    tensors), the full-width stage-1 step on 2 x 8 clips under DDP and
    --zero1 against the one-process step on the 16: losses, grad norms and
    the 3 steps' update within ``STEP_RTOL``, ZeRO-1's moment bytes a
-   rank at most 0.6 of DDP's. With two cards or more, --fsdp and --tp 2
-   over NCCL at world N against world 1 the same way (on one card it
-   says that this check needs two and goes on);
-19a. ``scaleout-gloo-2on1-lamb``: phase 19 under --zero1 with
-   --opt lamb on both sides (the trust ratio's norms summed over the
-   slices);
-20. one JSON line of every kernel's numbers, the card line again, and the
-   last line ``{"ok": true, "device": {...}}``.
+   rank at most 0.6 of DDP's; in the same launch of the ranks,
+   ``scaleout-gloo-2on1-lamb``: --zero1 with --opt lamb on both sides (the
+   trust ratio's norms summed over the slices). With two cards or more,
+   --fsdp and --tp 2 over NCCL at world N against world 1 the same way (on
+   one card it says that this check needs two and goes on);
+20. the time budget (the fp32 phases' seconds beside those of the phases
+   shortened to make room for them), one JSON line of every kernel's
+   numbers, the card line again, and the last line
+   ``{"ok": true, "device": {...}}``.
 
 Any failed check raises and the script exits non-zero. With no CUDA device,
 or run outside a checkout, it exits non-zero and prints no result.
@@ -276,6 +294,35 @@ HEADS, SCALE = 12, 64 ** -0.5
 FWD_TOL = 1e-2         # a few bf16 ulps of |o| <= 1
 BWD_TOL = 2e-2         # times max |dqkv| of the plain version
 STEP_RTOL = 2e-2       # bf16 card step against the fp32 CPU step
+# --compute_dtype float32 on the card (csrc/attn_fp32.cu on every route):
+# each card-vs-CPU phase's fp32 card step against its fp32 CPU step (loss
+# and grad norm relative, the model output within FP32_STEP_RTOL of its max
+# abs), and the fp32 kernels against their plain version (o and lse2 max
+# abs; dq, dk, dv times each gradient's max abs); the plain version at
+# scale * FP32_CONTROL must fail the kernels' tolerances
+FP32_STEP_RTOL = 1e-4
+FP32_FWD_TOL, FP32_BWD_RTOL = 1e-5, 1e-4
+FP32_CONTROL = 1.001
+PEAK_FP32 = 67e12      # H100 SXM fp32 flop/s outside the tensor cores
+# the fp32 kernels' lengths (B=1, 2 heads, head dims 64 and 80, contiguous
+# tensors): around their 64-row tiles, the paths' own and 4608 (16 frames
+# of vit_*_patch16_384), and the main paths' shapes [B, H, S, D] (views of
+# a packed qkv, as the models pass them), each with its route
+FP32_LENGTHS = (1, 64, 197, 320, 392, 1568, 1569, 2048, 4608)
+FP32_SHAPES = (("K1/teacher", 16, 12, 197, 64), ("K1K2/student", 2, 12, 320, 64),
+               ("K1K2/videomae", 2, 12, 160, 64), ("K5/m075", 2, 12, 392, 64),
+               ("K3K4/stage2", 2, 12, 1568, 64), ("K3K4/h6", 2, 6, 1568, 64),
+               ("K6/cls", 2, 12, 1569, 64), ("K1K2/d80", 2, 16, 160, 80),
+               ("K3K4/d80", 2, 8, 1568, 80), ("K5/d80", 2, 16, 392, 80),
+               ("K6/d80", 2, 16, 632, 80))
+# the fp32 kernels' launches by route, for each launch of a bf16 wrapper
+FP32_ROUTE_OF = {"K1": (("fp32_fwd", "K1"),),
+                 "K2": (("fp32_dq", "K2"), ("fp32_dkv", "K2")),
+                 "K3": (("fp32_fwd", "K3"),), "K4a": (("fp32_dq", "K4"),),
+                 "K4b": (("fp32_dkv", "K4"),), "K5": (("fp32_fwd", "K5"),),
+                 "K5dq": (("fp32_dq", "K5"),), "K5dkv": (("fp32_dkv", "K5"),),
+                 "K6": (("fp32_fwd", "K6"),), "K6dq": (("fp32_dq", "K6"),),
+                 "K6dkv": (("fp32_dkv", "K6"),)}
 # tool-classify, card against --cpu (bf16 on both): each block's attention
 # output and the pooled features, norm of the difference over the CPU's.
 # On an H100 they differ by at most 2.4e-3 and 1.3e-3; the phase checks
@@ -291,7 +338,7 @@ TOOL_FAULT_KEYS = 32
 OPT_ALIASES = ("fusedadam", "fusedlamb", "fusednovograd", "fused_sgd",
                "fusedmomentum", "lookahead_adamw", "lookahead_sgd")
 OPT_BF16_MU = ("adamw", "lamb", "nadam")
-OPT_BLOCKS, OPT_STEPS, OPT_RTOL = 4, 8, 1e-4
+OPT_BLOCKS, OPT_STEPS, OPT_RTOL = 2, 8, 1e-4
 # the learning rate: the stage-2 table, times this where a step at it moves
 # the weights by about one fp32 ulp (Adadelta, an lr-1 method; NovoGrad,
 # whose step is g/||g|| of a tensor), so that the check compares the card's
@@ -513,7 +560,8 @@ def bound(nbytes: float, flops: float, peak: float = PEAK_BF16):
 
 
 def counters(A) -> dict:
-    """Every kernel wrapper of the port, by kernel id."""
+    """Every kernel wrapper of the port, by kernel id (the fp32 kernels by
+    entry: each serves every route)."""
     from unite_torch.ops import matmul as MM
 
     return {"K1": A.fused_qkv_fwd, "K2": A.fused_qkv_bwd,
@@ -521,7 +569,15 @@ def counters(A) -> dict:
             "K4b": A.packed_flash_dkv, "K5": A.grouped_fwd,
             "K5dq": A.grouped_dq, "K5dkv": A.grouped_dkv, "K6": A.flash_fwd,
             "K6dq": A.flash_dq, "K6dkv": A.flash_dkv,
-            "K7a": MM.int8_matmul, "K7b": MM.bf16_matmul}
+            "K7a": MM.int8_matmul, "K7b": MM.bf16_matmul,
+            **route_counters(A)}
+
+
+def route_counters(A) -> dict:
+    """The fp32 kernels' wrappers, which also count by route
+    (``.by_route``)."""
+    return {"fp32_fwd": A.fp32_attn_fwd, "fp32_dq": A.fp32_attn_dq,
+            "fp32_dkv": A.fp32_attn_dkv}
 
 
 def lse_counters(A) -> dict:
@@ -543,6 +599,8 @@ def reset_counts(A) -> None:
         fn.lse_launches = 0
     for fn in shape_counters(A).values():
         fn.by_shape.clear()
+    for fn in route_counters(A).values():
+        fn.by_route.clear()
 
 
 def read_counts(A) -> dict:
@@ -554,6 +612,12 @@ def read_shapes(A) -> dict:
     """K1's and K3's launches since ``reset_counts`` by (B, S)."""
     return {k: dict(fn.by_shape) for k, fn in shape_counters(A).items()
             if k != "K7a"}
+
+
+def read_routes(A) -> dict:
+    """The fp32 kernels' launches since ``reset_counts`` by route."""
+    return {k: dict(fn.by_route) for k, fn in route_counters(A).items()
+            if fn.by_route}
 
 
 def expect_counts(counts: dict, want: dict, what: str) -> None:
@@ -819,6 +883,213 @@ def check_grouped_kernels(torch, A, heads: int = HEADS, head_dim: int = 64,
     return results
 
 
+# seconds of this run's fp32 phases ("added") and of the earlier phases cut
+# to make room for them ("shortened"), printed in the results line
+BUDGET = {"added": {}, "shortened": {}}
+
+
+@contextlib.contextmanager
+def budget(kind: str, what: str):
+    """Add the block's seconds to ``BUDGET[kind][what]``."""
+    t0 = time.perf_counter()
+    try:
+        yield
+    finally:
+        BUDGET[kind][what] = (BUDGET[kind].get(what, 0.0)
+                              + time.perf_counter() - t0)
+
+
+def tf32_off(torch, what: str) -> None:
+    """Raise unless fp32 products run in full fp32 (TF32 rounds operands
+    to 10 mantissa bits: another function than the CPU's)."""
+    flags = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32,
+             torch.get_float32_matmul_precision())
+    if flags != (False, False, "highest"):
+        raise AssertionError(f"{what}: TF32 is on (matmul, cudnn, "
+                             f"precision) = {flags}")
+
+
+def fp32_expected(bf16_counts: dict):
+    """The fp32 kernels' launches, by entry and by entry and route, of a
+    step whose bf16 run launched ``bf16_counts``: the same routes, each on
+    the fp32 kernels."""
+    want, routes = {}, {}
+    for key, n in bf16_counts.items():
+        for entry, route in FP32_ROUTE_OF.get(key, ()):
+            if n:
+                want[entry] = want.get(entry, 0) + n
+                by = routes.setdefault(entry, {})
+                by[route] = by.get(route, 0) + n
+    return want, routes
+
+
+def fp32_card_step(torch, A, run, bf16_counts: dict, what: str):
+    """``run()`` (an fp32 step on the card) with TF32 off, its launches
+    held to the fp32 kernels on the routes that the same step's bf16 run
+    took (``bf16_counts``), and no bf16 attention launch."""
+    tf32_off(torch, what)
+    want, routes = fp32_expected(bf16_counts)
+    if not want:
+        raise AssertionError(f"{what}: the bf16 step launched no attention "
+                             f"kernel: {bf16_counts}")
+    torch.cuda.synchronize()
+    reset_counts(A)
+    out = run()
+    torch.cuda.synchronize()
+    expect_counts(read_counts(A), want, what)
+    if read_routes(A) != routes:
+        raise AssertionError(f"{what}: fp32 launches by route "
+                             f"{read_routes(A)}, expected {routes}")
+    return out
+
+
+def fp32_gate(what: str, card: dict, cpu: dict, outputs: dict) -> dict:
+    """The fp32 card step against the fp32 CPU step: loss and grad norm
+    relative, and each model output's max abs difference over the CPU's
+    max abs (``outputs``: name -> (card, cpu)), all within
+    ``FP32_STEP_RTOL``."""
+    rel = {k: abs(card[k] - cpu[k]) / abs(cpu[k]) for k in ("loss",
+                                                            "grad_norm")}
+    for name, (g, c) in outputs.items():
+        rel[name] = ((g.float().cpu() - c).abs().max() / c.abs().max()).item()
+    print(f"{what} card fp32 vs cpu fp32: card {card} cpu {cpu} rel {rel}",
+          flush=True)
+    check_finite([(card["loss"], card["grad_norm"])])
+    if not all(r <= FP32_STEP_RTOL for r in rel.values()):
+        raise AssertionError(f"{what}: the fp32 card step is off the fp32 "
+                             f"CPU step: {rel} > {FP32_STEP_RTOL}")
+    return rel
+
+
+def fp32_errors(torch, A, q, k, v, g, scale: float, got) -> dict:
+    """Each of o, lse2, dq, dk, dv of ``got`` against the plain fp32
+    version at ``scale``: (max abs error, tolerance). A gradient's
+    tolerance is ``FP32_BWD_RTOL`` times its max abs; at S = 1, where dq
+    and dk vanish (one key: the softmax has no gradient) and hold rounding
+    noise, times dv's."""
+    o, lse = A.attention_fp32_reference(q, k, v, scale)
+    refs = (o, lse) + A.attention_fp32_reference_bwd(q, k, v, o, lse, g,
+                                                     scale)
+    out = {}
+    for name, a, r in zip(("o", "lse", "dq", "dk", "dv"), got, refs):
+        if name in ("o", "lse"):
+            tol = FP32_FWD_TOL
+        else:
+            r_max = (refs[-1] if q.shape[2] == 1 else r).abs().max().item()
+            tol = FP32_BWD_RTOL * r_max
+        out[name] = ((a - r).abs().max().item(), tol)
+    return out
+
+
+def over_tol(errs: dict) -> dict:
+    return {k: e / t for k, (e, t) in errs.items()}
+
+
+def fp32_run(torch, A, q, k, v, g, scale: float):
+    """The three fp32 entries on q, k, v (any layout) and the cotangent g:
+    (o, lse2, dq, dk, dv), o and the gradients laid out as q."""
+    o, lse = A.fp32_attn_fwd(q, k, v, scale, with_lse=True)
+    dq, dk, dv = (A._empty_like_rows(x) for x in (q, k, v))
+    delta = torch.empty(q.shape[:3], device="cuda")
+    A.fp32_attn_dq(q, k, v, o, g, lse, dq, delta, scale)
+    A.fp32_attn_dkv(q, k, v, g, lse, delta, dk, dv, scale)
+    return o, lse, dq, dk, dv
+
+
+def check_fp32_kernels(torch, A) -> dict:
+    """The fp32 kernels (csrc/attn_fp32.cu) against their plain version
+    (``attention_fp32_reference`` and its backward) on the card, TF32 off:
+    at every length of ``FP32_LENGTHS`` at head dims 64 and 80 on
+    contiguous tensors, and at the main paths' shapes ``FP32_SHAPES`` on
+    views of a packed qkv, o and lse2 within ``FP32_FWD_TOL``, dq, dk, dv
+    within ``FP32_BWD_RTOL`` of their max abs; at every main-path shape
+    the plain version at scale * ``FP32_CONTROL`` must fail each of those
+    tolerances (a kernel off by that much would be caught). At the main
+    paths' shapes: the kernels' single-launch ms beside the plain
+    version's, SDPA's at fp32 (forward; backward alone for dq and dk/dv)
+    and the bound at the fp32 peak."""
+    import torch.nn.functional as F
+
+    tf32_off(torch, "check_fp32_kernels")
+    gen = torch.Generator(device="cuda").manual_seed(91)
+    sweep = {}
+    for d in A.HEAD_DIMS:
+        for s in FP32_LENGTHS:
+            q, k, v, g = (torch.randn((1, 2, s, d), generator=gen,
+                                      device="cuda") for _ in range(4))
+            errs = over_tol(fp32_errors(
+                torch, A, q, k, v, g, d ** -0.5,
+                fp32_run(torch, A, q, k, v, g, d ** -0.5)))
+            sweep[f"{s}/d{d}"] = errs
+            if max(errs.values()) > 1:
+                raise AssertionError(f"fp32 kernels at S={s} D={d}: errors "
+                                     f"over tolerance {errs}")
+    print(f"fp32 kernels over FP32_LENGTHS: worst error over tolerance "
+          f"{max(max(e.values()) for e in sweep.values()):.3g}", flush=True)
+    results = {}
+    for label, b, h, s, d in FP32_SHAPES:
+        scale = d ** -0.5
+        qkv = torch.randn((b, s, 3 * h * d), generator=gen, device="cuda")
+        q, k, v = A._split_heads(qkv, h)
+        g = torch.randn((b, h, s, d), generator=gen, device="cuda")
+        got = fp32_run(torch, A, q, k, v, g, scale)
+        abs_errs = fp32_errors(torch, A, q, k, v, g, scale, got)
+        errs = over_tol(abs_errs)
+        control = over_tol(fp32_errors(torch, A, q, k, v, g,
+                                       scale * FP32_CONTROL, got))
+        control.pop("lse")  # lse2 = m*c + log2(l) moves by |m*c|*1e-3
+        if max(errs.values()) > 1 or min(control.values()) <= 1:
+            raise AssertionError(f"fp32 kernels {label} {[b, h, s, d]}: "
+                                 f"errors over tolerance {errs}; at scale "
+                                 f"x {FP32_CONTROL} {control} (each must "
+                                 "exceed 1)")
+        o, lse, *_ = got
+        delta = torch.empty((b, h, s), device="cuda")
+        dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
+        runs = {"fwd": lambda: A.fp32_attn_fwd(q, k, v, scale, True),
+                "dq": lambda: A.fp32_attn_dq(q, k, v, o, g, lse, dq, delta,
+                                             scale),
+                "dkv": lambda: A.fp32_attn_dkv(q, k, v, g, lse, delta, dk,
+                                               dv, scale)}
+        plain = {"fwd": lambda: A.attention_fp32_reference(q, k, v, scale),
+                 "dq": lambda: A._flash_dq_reference(q, k, v, o, g, lse,
+                                                     scale),
+                 "dkv": lambda: A._flash_dkv_reference(q, k, v, g, lse,
+                                                       delta, scale)}
+        qc, kc, vc = (x.detach().contiguous().requires_grad_(True)
+                      for x in (q, k, v))
+        sdpa = partial(F.scaled_dot_product_attention, qc, kc, vc,
+                       scale=scale)
+        o_lib = sdpa()
+        lib = {"fwd": median_ms(sdpa)}
+        lib["dq"] = lib["dkv"] = median_ms(lambda: torch.autograd.grad(
+            o_lib, (qc, kc, vc), g, retain_graph=True))
+        n = b * h * s * d * 4  # bytes of one [B, H, S, D] fp32 tensor
+        stat = b * h * s * 4
+        work = {"fwd": (4 * n + stat, 4.0), "dq": (6 * n + 2 * stat, 6.0),
+                "dkv": (6 * n + 2 * stat, 8.0)}
+        for kind in ("fwd", "dq", "dkv"):
+            nbytes, per = work[kind]
+            bms, by = bound(nbytes, per * b * h * s * s * d, PEAK_FP32)
+            err = max(abs_errs[n][0] for n in {
+                "fwd": ("o", "lse"), "dq": ("dq",), "dkv": ("dk", "dv")}[kind])
+            key = f"fp32_{kind}/{label}"
+            results[key] = dict(
+                shape=[b, h, s, d], max_abs_err=err, errors_over_tol=errs,
+                control_over_tol=control, ms=median_ms(runs[kind]),
+                plain_ms=median_ms(plain[kind]), bound_ms=bms, bound_by=by,
+                library_ms=lib[kind],
+                library=("scaled_dot_product_attention fp32 forward"
+                         if kind == "fwd" else "scaled_dot_product_attention"
+                         " fp32 backward alone (dq, dk, dv)"))
+            print(f"fp32 {kind} {label} {results[key]}", flush=True)
+        del qkv, q, k, v, g, got, o, lse, qc, kc, vc, o_lib
+        torch.cuda.empty_cache()
+    results["sweep"] = sweep
+    return results
+
+
 def tile_name(tile) -> str:
     return "default" if tile is None else f"{tile[0]}x{tile[1]}"
 
@@ -1076,7 +1347,7 @@ def int8_teacher_vs_bf16(torch):
     return res
 
 
-def l14_card_vs_cpu(torch, depth: int = 4):
+def l14_card_vs_cpu(torch, depth: int = 2):
     """One stage-1 step with the int8 teacher on the card in bf16 against
     the CPU in fp32: the large student and clip_l14 at full width (1024, 16
     heads, patch 14 at 196^2) cut to ``depth`` blocks each, B=2, the same
@@ -1253,10 +1524,11 @@ def random_batch(torch, b: int, seed: int, with_vis_idx: bool,
     return batch
 
 
-def card_vs_cpu(torch, mask_ratio: float = 0.8):
+def card_vs_cpu(torch, A, mask_ratio: float = 0.8):
     """Phase 4: one step on the card (bf16) against the CPU (fp32), with
     injected visible tokens (320 at mask 0.8, 392 at 0.75, where the card's
-    student runs K5)."""
+    student runs K5); and the same step on the card in fp32 from the same
+    weights against the same CPU step, within ``FP32_STEP_RTOL``."""
     torch.manual_seed(0)
     cpu_state, cpu_teacher, cpu_step = build_step(
         torch, 2, torch.float32, "cpu", 0.0, mask_ratio=mask_ratio)
@@ -1264,6 +1536,10 @@ def card_vs_cpu(torch, mask_ratio: float = 0.8):
     td = cpu_teacher.state_dict()
     gpu_state, gpu_teacher, gpu_step = build_step(
         torch, 2, torch.bfloat16, "cuda", 0.0, sd, td, mask_ratio=mask_ratio)
+    with budget("added", "fp32 card steps"):
+        f32_state, _, f32_step = build_step(
+            torch, 2, torch.float32, "cuda", 0.0, sd, td,
+            mask_ratio=mask_ratio)
     batch = random_batch(torch, 2, 1, with_vis_idx=True,
                          per_frame=196 - int(196 * mask_ratio))
     from unite_torch.ops.normalize import normalize_videos
@@ -1273,9 +1549,21 @@ def card_vs_cpu(torch, mask_ratio: float = 0.8):
         x_cpu = cpu_state.model.eval()(vids, batch["vis_idx"], clip_only=True)
         x_gpu = gpu_state.model.eval()(vids.cuda(), batch["vis_idx"].cuda(),
                                        clip_only=True)
+        with budget("added", "fp32 card steps"):
+            x_f32 = f32_state.model.eval()(vids.cuda(),
+                                           batch["vis_idx"].cuda(),
+                                           clip_only=True)
     out_err = (x_gpu.float().cpu() - x_cpu).abs().max().item()
+    reset_counts(A)
     m_gpu = {k: v.item() for k, v in gpu_step(gpu_state, batch).items()}
+    bf16_counts = read_counts(A)
+    with budget("added", "fp32 card steps"):
+        m_f32 = {k: v.item() for k, v in fp32_card_step(
+            torch, A, lambda: f32_step(f32_state, batch), bf16_counts,
+            f"stage-1 fp32 card step (mask {mask_ratio})").items()}
     m_cpu = {k: v.item() for k, v in cpu_step(cpu_state, batch).items()}
+    f32_rel = fp32_gate(f"stage-1 step (mask {mask_ratio})", m_f32, m_cpu,
+                        {"x_clip": (x_f32, x_cpu)})
     rel = {k: abs(m_gpu[k] - m_cpu[k]) / abs(m_cpu[k])
            for k in ("loss", "grad_norm")}
     print(f"step (mask {mask_ratio}) card bf16 vs cpu fp32: card {m_gpu} cpu "
@@ -1284,7 +1572,8 @@ def card_vs_cpu(torch, mask_ratio: float = 0.8):
     if not all(r <= STEP_RTOL for r in rel.values()) or out_err > 5e-2:
         raise AssertionError(f"card step (mask {mask_ratio}) disagrees with "
                              f"the CPU: {rel}, x_clip err {out_err}")
-    return dict(rel, x_clip_max_abs_err=out_err)
+    return dict(rel, x_clip_max_abs_err=out_err, fp32_rel=f32_rel,
+                bf16_launches=bf16_counts)
 
 
 def main_path(torch, A, b: int = 64, warmup: int = 2, timed: int = 5,
@@ -1610,22 +1899,36 @@ def stage2_batch(torch, b: int, seed: int):
             "labels": torch.from_numpy(rng.integers(0, 12, (b,)))}
 
 
-def stage2_card_vs_cpu(torch):
-    """Phase 6: one stage-2 step on the card (bf16) against the CPU (fp32)."""
+def stage2_card_vs_cpu(torch, A):
+    """Phase 6: one stage-2 step on the card (bf16) against the CPU (fp32),
+    and the same step on the card in fp32 against the same CPU step."""
     from unite_torch.ops.normalize import normalize_videos
 
     torch.manual_seed(5)
     cpu_state, cpu_step, _ = build_stage2(torch, "float32", "cpu", 0.0)
     sd = {k: v.clone() for k, v in cpu_state.model.state_dict().items()}
     gpu_state, gpu_step, _ = build_stage2(torch, "bfloat16", "cuda", 0.0, sd)
+    with budget("added", "fp32 card steps"):
+        f32_state, f32_step, _ = build_stage2(torch, "float32", "cuda", 0.0,
+                                              sd)
     batch = stage2_batch(torch, 2, 6)
     with torch.no_grad():
         vids = normalize_videos(batch["videos"])
         l_cpu = cpu_state.model.eval()(vids)
         l_gpu = gpu_state.model.eval()(vids.cuda()).float().cpu()
+        with budget("added", "fp32 card steps"):
+            l_f32 = f32_state.model.eval()(vids.cuda())
     logit_rel = ((l_gpu - l_cpu).abs().max() / l_cpu.abs().max()).item()
+    reset_counts(A)
     m_gpu = {k: v.item() for k, v in gpu_step(gpu_state, batch).items()}
+    bf16_counts = read_counts(A)
+    with budget("added", "fp32 card steps"):
+        m_f32 = {k: v.item() for k, v in fp32_card_step(
+            torch, A, lambda: f32_step(f32_state, batch), bf16_counts,
+            "stage-2 fp32 card step").items()}
     m_cpu = {k: v.item() for k, v in cpu_step(cpu_state, batch).items()}
+    f32_rel = fp32_gate("stage-2 step", m_f32, m_cpu,
+                        {"logits": (l_f32, l_cpu)})
     rel = {k: abs(m_gpu[k] - m_cpu[k]) / abs(m_cpu[k])
            for k in ("loss", "grad_norm")}
     rel["logits"] = logit_rel
@@ -1634,7 +1937,7 @@ def stage2_card_vs_cpu(torch):
     if not all(r <= STEP_RTOL for r in rel.values()):
         raise AssertionError(f"stage-2 card step disagrees with the CPU: "
                              f"{rel}")
-    return rel
+    return dict(rel, fp32_rel=f32_rel, bf16_launches=bf16_counts)
 
 
 def stage2_path(torch, A, b: int = 8, warmup: int = 2, timed: int = 10):
@@ -1730,7 +2033,7 @@ def optim_vit(torch, device: str):
 
 def optim_card_vs_cpu(torch, A, card: str = "cuda") -> dict:
     """Phase optim-card-vs-cpu: one bf16 train step at B=2 of the cut
-    stage-2 ViT on the card (4 K3 with lse, 4 K4a, 4 K4b, exact), its
+    stage-2 ViT on the card (2 K3 with lse, 2 K4a, 2 K4b, exact), its
     gradients and parameters in fp32, then for each --opt name, alias,
     lookahead and bf16 first moment (every parameter trainable, layer decay 0.65, the stage-2 tables) 8
     optimizer steps from them on the card and on the CPU (at
@@ -2413,12 +2716,15 @@ def stage3_batch(torch, b: int, seed: int):
             "labels_t": torch.from_numpy(rng.integers(0, 12, (b,)))}
 
 
-def stage3_card_vs_cpu(torch, cls: bool, card: str = "cuda"):
+def stage3_card_vs_cpu(torch, A, cls: bool, card: str = "cuda"):
     """Phase 9: one stage-3 step on the card (bf16) against the CPU (fp32),
     B=2, with the same weights, batch, injected teacher attention and an
     injected clip_sim that agrees with the CPU's full-target predictions,
     so that every row matches CLIP on the CPU; the selection agreement of
-    the card is reported apart (a discontinuous function of the logits)."""
+    the card is reported apart (a discontinuous function of the logits).
+    With the CLS token (K6 at 1569 tokens), the same step on the card in
+    fp32 from the same weights against the same CPU step, within
+    ``FP32_STEP_RTOL`` (its selection agreement reported apart)."""
     import numpy as np
 
     from unite_torch.engines.selftrain import pool_outputs
@@ -2431,6 +2737,10 @@ def stage3_card_vs_cpu(torch, cls: bool, card: str = "cuda"):
     sd = {k: v.clone() for k, v in cpu_state.model.state_dict().items()}
     gpu_state, gpu_step, _, _ = build_stage3(torch, torch.bfloat16, card,
                                              0.0, cls, 2, sd)
+    if cls:
+        with budget("added", "fp32 card steps"):
+            f32_state, f32_step, _, _ = build_stage3(torch, torch.float32,
+                                                     card, 0.0, cls, 2, sd)
     batch = stage3_batch(torch, 2, 14)
     rng = np.random.default_rng(15)
     batch["attn"] = torch.from_numpy(rng.dirichlet(
@@ -2455,8 +2765,26 @@ def stage3_card_vs_cpu(torch, cls: bool, card: str = "cuda"):
     batch["clip_sim"] = sim
     rel = {name: ((g - c).abs().max() / c.abs().max()).item()
            for name, g, c in zip(("full_logits", "grad_logits"), l_gpu, l_cpu)}
+    reset_counts(A)
     m_gpu = gpu_step(gpu_state, batch)
+    bf16_counts = read_counts(A)
+    if cls:
+        with budget("added", "fp32 card steps"):
+            l_f32 = logits(f32_state.model, card)
+            m_f32 = fp32_card_step(
+                torch, A, lambda: f32_step(f32_state, batch), bf16_counts,
+                "stage-3 CLS fp32 card step")
     m_cpu = cpu_step(cpu_state, batch)
+    f32_rel = None
+    if cls:
+        keys = ("loss", "grad_norm")
+        f32_rel = fp32_gate(
+            "stage-3 CLS step", {k: m_f32[k].item() for k in keys},
+            {k: m_cpu[k].item() for k in keys},
+            dict(zip(("full_logits", "grad_logits"), zip(l_f32, l_cpu))))
+        f32_rel["selection_agrees"] = all(
+            m_f32[k].cpu().tolist() == m_cpu[k].tolist()
+            for k in ("preds_t", "sel_ratio", "match_select_rate"))
     for k in ("loss", "grad_norm"):
         rel[k] = abs(m_gpu[k].item() - m_cpu[k].item()) / abs(m_cpu[k].item())
     agree = {k: (m_gpu[k].cpu().tolist(), m_cpu[k].tolist())
@@ -2468,7 +2796,8 @@ def stage3_card_vs_cpu(torch, cls: bool, card: str = "cuda"):
     if not all(r <= STEP_RTOL for r in rel.values()):
         raise AssertionError(f"stage-3 card step (cls={cls}) disagrees with "
                              f"the CPU: {rel}")
-    return dict(rel, selection_agrees=all(a == b for a, b in agree.values()))
+    return dict(rel, selection_agrees=all(a == b for a, b in agree.values()),
+                fp32_rel=f32_rel, bf16_launches=bf16_counts)
 
 
 def stage3_path(torch, A, cls: bool, b: int = 5, warmup: int = 2,
@@ -2659,6 +2988,67 @@ def stage1_entry(torch, A, m075: dict, workdir: Path) -> dict:
     print(f"stage1-entry-b32x2: entry {first['clips_per_s']:.2f} clips/s "
           f"(resumed call {second['clips_per_s']:.2f}) beside the step's "
           f"{m075['clips_per_s']:.2f}; {json.dumps(res)} on {card_line()}",
+          flush=True)
+    return res
+
+
+FP32_ENTRY_STEPS = 2   # the fp32 stage-1 entry: one epoch of 2 steps
+
+
+def stage1_fp32_entry(torch, A, workdir: Path) -> dict:
+    """Phase ``stage1-entry-fp32``: ``unite_torch.train.run_stage1.main``
+    on the card with ``--compute_dtype float32``: ``STAGE1_ARGS`` (student
+    adaptation_umt_base_patch16_224, teacher clip_b16) at mask 0.8 on
+    synthetic clips, one source and one target clip a step (B=2), one
+    epoch of ``FP32_ENTRY_STEPS`` steps, no checkpoint. Each step's loss
+    and grad norm finite; only the fp32 kernels launched, on the route the
+    bf16 step takes (K1 at the teacher's [16, 197, 2304] and the student's
+    [2, 320, 2304], K2 at the student's: 24 forwards and 12 of each
+    backward entry a step), and no bf16 attention kernel; TF32 off before
+    and after the call (the entry must not turn it on)."""
+    import unite_torch.train.run_stage1 as R
+    from unite_torch.config import parse_with_config
+    from unite_torch.train.args import stage1_parser
+
+    tmp = workdir / "stage1-fp32"
+    tmp.mkdir()
+    write_annotations(tmp, {"source": FP32_ENTRY_STEPS,
+                            "target": FP32_ENTRY_STEPS})
+    argv = STAGE1_ARGS + [
+        "--compute_dtype", "float32", "--synthetic_data", "true",
+        "--device_normalize", "true", "--mask_ratio", "0.8",
+        "--batch_size", "1", "--epochs", "1", "--warmup_epochs", "0",
+        "--num_workers", "2", "--checkpoints_enabled", "false",
+        "--ann_file_train", str(tmp / "source.csv"),
+        "--ann_file_train_target", str(tmp / "target.csv"),
+        "--output_dir", str(tmp / "run")]
+    rec = {"steps": []}
+    tf32_off(torch, "stage1-entry-fp32, before the call")
+
+    def want():
+        n = len(rec["steps"])
+        return {"fp32_fwd": 24 * n, "fp32_dq": 12 * n, "fp32_dkv": 12 * n}
+
+    with patched((R, "make_pretrain_train_step", timed_steps(
+            torch, R.make_pretrain_train_step, rec, ("loss", "grad_norm")))):
+        got = entry_call(torch, A, R.main,
+                         parse_with_config(stage1_parser(), argv), want,
+                         "stage1-entry-fp32")
+    tf32_off(torch, "stage1-entry-fp32, after the call")
+    routes = read_routes(A)
+    n = len(rec["steps"])
+    if n != FP32_ENTRY_STEPS or routes != {
+            "fp32_fwd": {"K1": 24 * n}, "fp32_dq": {"K2": 12 * n},
+            "fp32_dkv": {"K2": 12 * n}}:
+        raise AssertionError(f"stage1-entry-fp32: {n} steps, fp32 launches "
+                             f"by route {routes}")
+    vals = step_values(rec["steps"], ("loss", "grad_norm"))
+    check_finite(vals)
+    res = dict(steps=n, losses=[v[0] for v in vals],
+               grad_norms=[v[1] for v in vals], wall_s=got["wall_s"],
+               launches={k: v for k, v in got["launches"].items() if v},
+               by_route=routes, peak_mem_gb=got["peak_mem_gb"])
+    print(f"stage1-entry-fp32: {json.dumps(res)} on {card_line()}",
           flush=True)
     return res
 
@@ -4173,7 +4563,9 @@ def videomae_card_vs_cpu(torch, cfg=MAE_BASE, depths=None,
     masks at tube-mask ``ratio``; the card step's launches must be those of
     ``mae_launches``. With ``count``, the CPU step's operations are counted
     by ``utils.flops.count_flops`` (FlopCounterMode; there the attention
-    runs its plain versions)."""
+    runs its plain versions). Then the same step on the card in fp32 from
+    the same weights against the same CPU step, within
+    ``FP32_STEP_RTOL``."""
     import unite_torch.ops.attention as A
     from unite_torch.utils.flops import count_flops
 
@@ -4183,6 +4575,9 @@ def videomae_card_vs_cpu(torch, cfg=MAE_BASE, depths=None,
     sd = {k: v.clone() for k, v in cpu_state.model.state_dict().items()}
     gpu_state, gpu_step = build_videomae(torch, 2, torch.bfloat16, "cuda", sd,
                                          cfg=cfg, depths=depths)
+    with budget("added", "fp32 card steps"):
+        f32_state, f32_step = build_videomae(torch, 2, torch.float32, "cuda",
+                                             sd, cfg=cfg, depths=depths)
     batch = tube_batch(torch, 2, 14, MAE_FRAMES, MAE_GRID, ratio)
     from unite_torch.ops.normalize import normalize_videos
 
@@ -4190,14 +4585,21 @@ def videomae_card_vs_cpu(torch, cfg=MAE_BASE, depths=None,
         vids = normalize_videos(batch["videos"])
         p_cpu = cpu_state.model.eval()(vids, batch["vis_idx"],
                                        batch["mask_idx"])
-        p_gpu = gpu_state.model.eval()(
-            vids.cuda(), batch["vis_idx"].cuda(),
-            batch["mask_idx"].cuda()).float().cpu()
+        idx = (batch["vis_idx"].cuda(), batch["mask_idx"].cuda())
+        p_gpu = gpu_state.model.eval()(vids.cuda(), *idx).float().cpu()
+        with budget("added", "fp32 card steps"):
+            p_f32 = f32_state.model.eval()(vids.cuda(), *idx)
     pred_rel = ((p_gpu - p_cpu).abs().max() / p_cpu.abs().max()).item()
     torch.cuda.synchronize()
     reset_counts(A)
     m_gpu = {k: v.item() for k, v in gpu_step(gpu_state, batch).items()}
     launches = read_counts(A)
+    what = (f"{cfg.name}" + (f" at depths {depths}" if depths else "")
+            + f" at mask {ratio}")
+    with budget("added", "fp32 card steps"):
+        m_f32 = {k: v.item() for k, v in fp32_card_step(
+            torch, A, lambda: f32_step(f32_state, batch), launches,
+            f"videomae fp32 card step ({what})").items()}
     m_cpu = {}
 
     def cpu_run():
@@ -4208,8 +4610,6 @@ def videomae_card_vs_cpu(torch, cfg=MAE_BASE, depths=None,
     rel = {k: abs(m_gpu[k] - m_cpu[k]) / abs(m_cpu[k])
            for k in ("loss", "grad_norm")}
     rel["predictions"] = pred_rel
-    what = (f"{cfg.name}" + (f" at depths {depths}" if depths else "")
-            + f" at mask {ratio}")
     print(f"videomae step card bf16 vs cpu fp32 (B=2, {what}): card {m_gpu} "
           f"cpu {m_cpu} rel {rel}; card step launches {launches}; CPU step "
           f"counted {counted} flop", flush=True)
@@ -4219,9 +4619,11 @@ def videomae_card_vs_cpu(torch, cfg=MAE_BASE, depths=None,
     enc, dec = depths or (cfg.depth, cfg.dec_depth)
     expect_counts(launches, mae_launches(A, cfg, ratio, enc, dec),
                   f"videomae card step ({what})")
+    f32_rel = fp32_gate(f"videomae step ({what})", m_f32, m_cpu,
+                        {"predictions": (p_f32, p_cpu)})
     return dict(rel, counted_flop_per_clip=None if counted is None
                 else counted / 2, launches=launches,
-                visible_tokens=mae_visible(ratio))
+                visible_tokens=mae_visible(ratio), fp32_rel=f32_rel)
 
 
 def videomae_path(torch, A, counted_per_clip, b: int = 32,
@@ -4917,28 +5319,28 @@ def scaleout_step_b64(torch, A, b: int = 64, steps: int = 3,
 
 def rank_step(torch, A, spec_path: str) -> None:
     """One rank of ``scaleout_rank_steps`` (``chip_smoke.py --rank-step
-    SPEC``): for each layout of the spec, the stage-1 step at full width
-    from the spec's weights on this replica's rows of the global batches,
-    3 steps; the global loss, the grad norm, launches and time of each
-    step, this rank's optimizer-state bytes, and (rank 0) the whole
-    parameters against the one-process reference."""
+    SPEC``): for each run (name, layout, --opt) of the spec in turn, the
+    stage-1 step at full width from the spec's weights on this replica's
+    rows of the global batches, 3 steps; the global loss, the grad norm,
+    launches and time of each step, this rank's optimizer-state bytes, and
+    (rank 0) the whole parameters against the one-process reference of
+    that --opt."""
     from unite_torch.parallel import mesh as pm
 
     spec = json.loads(Path(spec_path).read_text())
     init = torch.load(spec["init"], map_location="cpu")
-    ref = torch.load(spec["ref"], map_location="cpu")
     import torch.distributed as dist
 
     out = {}
-    for name in spec["layouts"]:
-        mesh = pm.init_distributed(layout_args(name, spec["backend"]))
+    for name, layout, opt in spec["runs"]:
+        ref = torch.load(spec["refs"][opt], map_location="cpu")
+        mesh = pm.init_distributed(layout_args(layout, spec["backend"]))
         per = spec["b"] // mesh.dp
         rows = slice(mesh.dp_rank * per, (mesh.dp_rank + 1) * per)
         # built at the global batch: the lr scales by it, as the entry's
         state, _, step = build_step(torch, spec["b"], torch.bfloat16, "cuda",
                                     0.0, init["student"], init["teacher"],
-                                    layout=LAYOUT_FLAGS[name],
-                                    opt=spec["opt"])
+                                    layout=LAYOUT_FLAGS[layout], opt=opt)
         metrics = []
         for seed in spec["seeds"]:
             batch = random_batch(torch, spec["b"], seed, with_vis_idx=True)
@@ -4970,7 +5372,7 @@ def rank_step(torch, A, spec_path: str) -> None:
             den = sum(((p1[k] - p0[k]) ** 2).sum() for k in p1)
             res["update_rel"] = (num / den).sqrt().item()
         out[name] = res
-        del state, step, full
+        del state, step, full, ref
         torch.cuda.empty_cache()
     Path(f"{spec['out']}.rank{pm.current().rank}.json").write_text(
         json.dumps(out))
@@ -4978,46 +5380,57 @@ def rank_step(torch, A, spec_path: str) -> None:
 
 
 def scaleout_rank_steps(torch, A, workdir: Path, nproc: int, backend: str,
-                        layouts, what: str, opt: str = "adamw") -> dict:
+                        runs, what: str) -> dict:
     """Phases ``scaleout-gloo-2on1`` (two ranks on the one card over gloo,
-    CUDA tensors: DDP and --zero1) and, on two cards or more, the
-    multi-card check (NCCL at world N: --fsdp and --tp 2): the stage-1 step
-    at full width (ViT-B/16, mask 0.8) on a global batch of ``SCALEOUT_B``
-    clips split over the replicas, 3 steps from the same weights, against
-    the one-process step on the whole batch in this process. Each step's
-    global loss and grad norm, and the 3 steps' update of the whole model
-    (its distance from the one-process update over that update's norm),
-    within ``STEP_RTOL`` of the one-process step; the largest distance of
-    a parameter tensor relative to its norm reported (a tensor that starts
+    CUDA tensors: DDP and --zero1 under AdamW, and
+    ``scaleout-gloo-2on1-lamb``, --zero1 under LAMB, whose trust ratio sums
+    its norms over the slices) and, on two cards or more, the multi-card
+    check (NCCL at world N: --fsdp and --tp 2): the stage-1 step at full
+    width (ViT-B/16, mask 0.8) on a global batch of ``SCALEOUT_B`` clips
+    split over the replicas, 3 steps from the same weights, against the
+    one-process step on the whole batch in this process under the same
+    --opt. ``runs``: (name, layout, --opt), run in turn in one launch of
+    the ranks (a launch costs its ranks' start-up). Each step's global
+    loss and grad norm, and the 3 steps' update of the whole model (its
+    distance from the one-process update over that update's norm), within
+    ``STEP_RTOL`` of the one-process step; the largest distance of a
+    parameter tensor relative to its norm reported (a tensor that starts
     near 0, a bias, is all update, where Adam turns a gradient's last bits
-    into its update's sign); each rank's
-    optimizer-state bytes (ZeRO-1's at most 0.6 of DDP's); 24 K1 + 12 K2 a
-    step on every rank. ``opt`` is --opt, on both sides (``lamb`` under
-    --zero1: its trust ratio sums its norms over the slices)."""
+    into its update's sign); each rank's optimizer-state bytes (ZeRO-1's
+    at most 0.6 of DDP's); 24 K1 + 12 K2 a step on every rank."""
     tmp = workdir / what
     tmp.mkdir()
     torch.manual_seed(31)
-    state, teacher, step = build_step(torch, SCALEOUT_B, torch.bfloat16,
-                                      "cuda", 0.0, opt=opt)
+    state, teacher, _ = build_step(torch, SCALEOUT_B, torch.bfloat16,
+                                   "cuda", 0.0)
     init = {"student": {k: v.detach().cpu().clone()
                         for k, v in state.model.state_dict().items()},
             "teacher": {k: v.detach().cpu()
                         for k, v in teacher.state_dict().items()}}
+    del state, teacher
     torch.save(init, tmp / "init.pt")
     seeds = [60, 61, 62]
-    ref = []
-    for seed in seeds:
-        m = step(state, random_batch(torch, SCALEOUT_B, seed,
-                                     with_vis_idx=True))
-        ref.append({k: m[k].item() for k in ("loss", "grad_norm")})
-    torch.save({"params": {k: v.detach().cpu() for k, v in
-                           state.model.state_dict().items()},
-                "metrics": ref}, tmp / "ref.pt")
-    del state, teacher, step, init
-    torch.cuda.empty_cache()
-    spec = dict(backend=backend, layouts=list(layouts), b=SCALEOUT_B,
-                opt=opt, seeds=seeds, init=str(tmp / "init.pt"),
-                ref=str(tmp / "ref.pt"), out=str(tmp / "result"))
+    refs = {}
+    for opt in dict.fromkeys(opt for _, _, opt in runs):
+        state, _, step = build_step(torch, SCALEOUT_B, torch.bfloat16,
+                                    "cuda", 0.0, init["student"],
+                                    init["teacher"], opt=opt)
+        ref = []
+        for seed in seeds:
+            m = step(state, random_batch(torch, SCALEOUT_B, seed,
+                                         with_vis_idx=True))
+            ref.append({k: m[k].item() for k in ("loss", "grad_norm")})
+        torch.save({"params": {k: v.detach().cpu() for k, v in
+                               state.model.state_dict().items()},
+                    "metrics": ref}, tmp / f"ref_{opt}.pt")
+        refs[opt] = ref
+        del state, step
+        torch.cuda.empty_cache()
+    del init
+    spec = dict(backend=backend, runs=[list(r) for r in runs], b=SCALEOUT_B,
+                seeds=seeds, init=str(tmp / "init.pt"),
+                refs={opt: str(tmp / f"ref_{opt}.pt") for opt in refs},
+                out=str(tmp / "result"))
     (tmp / "spec.json").write_text(json.dumps(spec))
     t0 = time.perf_counter()
     torchrun(nproc, ["--rank-step", str(tmp / "spec.json")],
@@ -5025,8 +5438,9 @@ def scaleout_rank_steps(torch, A, workdir: Path, nproc: int, backend: str,
     wall = time.perf_counter() - t0
     ranks = [json.loads(Path(f"{spec['out']}.rank{r}.json").read_text())
              for r in range(nproc)]
-    res = dict(torchrun_wall_s=wall, reference=ref)
-    for name in layouts:
+    res = dict(torchrun_wall_s=wall, reference=refs)
+    for name, _, opt in runs:
+        ref = refs[opt]
         rs = [r[name] for r in ranks]
         for i, r in enumerate(rs):
             if (r["backend"], r["world"]) != (backend, nproc):
@@ -5045,7 +5459,7 @@ def scaleout_rank_steps(torch, A, workdir: Path, nproc: int, backend: str,
                                  f"{rs[0]['update_rel']}, parameters "
                                  f"{rs[0]['param_rel']} "
                                  f"({rs[0]['param_rel_worst']})")
-        res[name] = dict(layout=rs[0]["layout"], metrics_rel=rel,
+        res[name] = dict(layout=rs[0]["layout"], opt=opt, metrics_rel=rel,
                          param_rel=rs[0]["param_rel"],
                          param_rel_worst=rs[0]["param_rel_worst"],
                          update_rel=rs[0]["update_rel"],
@@ -5053,7 +5467,7 @@ def scaleout_rank_steps(torch, A, workdir: Path, nproc: int, backend: str,
                          step_ms=[[m["ms"] for m in r["metrics"]]
                                   for r in rs],
                          losses=[m["loss"] for m in rs[0]["metrics"]])
-    if "zero1" in layouts and "ddp" in layouts:
+    if "zero1" in res and "ddp" in res:
         frac = max(res["zero1"]["moment_bytes"]) / max(
             res["ddp"]["moment_bytes"])
         res["zero1_moment_share_of_ddp"] = frac
@@ -5112,6 +5526,10 @@ def main() -> int:
     short_bwd_lengths = check_short_bwd_lengths(torch, A)
     kr.update(check_grouped_kernels(torch, A))
     mark("K1-K6 checked")
+    with budget("added", "check_fp32_kernels"):
+        f32k = check_fp32_kernels(torch, A)
+    kr.update({k: v for k, v in f32k.items() if k != "sweep"})
+    mark("fp32 kernels checked")
     matmul_sweep = check_matmul_sweep(torch)
     kr.update(check_matmul_kernels(torch))
     probe = run_probe(torch, A)
@@ -5119,14 +5537,15 @@ def main() -> int:
                             batches=(L14_M // 197, L14_B), tag="/l14"))
     int8_teacher = int8_teacher_vs_bf16(torch)
     mark("K7, the probe, K1/K2 at 16 heads and the int8 teacher checked")
-    l14_rel = l14_card_vs_cpu(torch)
+    with budget("shortened", "l14 card vs cpu (depth 4 -> 2)"):
+        l14_rel = l14_card_vs_cpu(torch)
     mark("l14 card vs cpu")
     l14 = l14_path(torch, A, int8=False)
     l14q = l14_path(torch, A, int8=True)
     mark("l14 paths")
-    card_vs_cpu(torch)
+    m08_rel = card_vs_cpu(torch, A)
     mp = main_path(torch, A)
-    m075_rel = card_vs_cpu(torch, mask_ratio=0.75)
+    m075_rel = card_vs_cpu(torch, A, mask_ratio=0.75)
     m075 = main_path(torch, A, mask_ratio=0.75)
     torch.cuda.empty_cache()
     remat = stage1_remat(torch, A)
@@ -5193,13 +5612,18 @@ def main() -> int:
         entry = stage1_entry(torch, A, m075, work)
         torch.cuda.empty_cache()
         mark("stage-1 entry")
-        s2_rel = stage2_card_vs_cpu(torch)
+        with budget("added", "stage1-entry-fp32"):
+            entry32 = stage1_fp32_entry(torch, A, work)
+        torch.cuda.empty_cache()
+        mark("stage-1 entry at fp32")
+        s2_rel = stage2_card_vs_cpu(torch, A)
         s2, state, eval_step = stage2_path(torch, A)
         ev = stage2_eval(torch, A, state, eval_step)
         del state, eval_step
         torch.cuda.empty_cache()
         mark("stage-2 paths")
-        optim = optim_card_vs_cpu(torch, A)
+        with budget("shortened", "optim-card-vs-cpu (4 -> 2 blocks)"):
+            optim = optim_card_vs_cpu(torch, A)
         torch.cuda.empty_cache()
         mark("optim-card-vs-cpu")
         s2opt = stage2_opt_path(torch, A)
@@ -5215,7 +5639,7 @@ def main() -> int:
             clips, decode["built"], work, entry2)
         torch.cuda.empty_cache()
         mark("stage-2 recipe")
-        s3_rel = {f"cls={cls}": stage3_card_vs_cpu(torch, cls)
+        s3_rel = {f"cls={cls}": stage3_card_vs_cpu(torch, A, cls)
                   for cls in (False, True)}
         s3, state, _ = stage3_path(torch, A, cls=False)
         del state
@@ -5245,18 +5669,20 @@ def main() -> int:
         mark(f"scaleout-nccl-w{cards}")
         scale_b64 = scaleout_step_b64(torch, A)
         mark("scaleout-step-b64")
-        gloo = scaleout_rank_steps(torch, A, work, 2, "gloo",
-                                   ("ddp", "zero1"), "scaleout-gloo-2on1")
-        mark("scaleout-gloo-2on1")
-        gloo_lamb = scaleout_rank_steps(torch, A, work, 2, "gloo",
-                                        ("zero1",),
-                                        "scaleout-gloo-2on1-lamb", opt="lamb")
-        mark("scaleout-gloo-2on1 under --zero1 --opt lamb")
+        # scaleout-gloo-2on1 and scaleout-gloo-2on1-lamb: one launch
+        with budget("shortened", "scaleout-gloo-2on1 and -lamb (one "
+                    "launch, not two)"):
+            gloo = scaleout_rank_steps(
+                torch, A, work, 2, "gloo",
+                (("ddp", "ddp", "adamw"), ("zero1", "zero1", "adamw"),
+                 ("zero1-lamb", "zero1", "lamb")), "scaleout-gloo-2on1")
+        mark("scaleout-gloo-2on1, and under --zero1 --opt lamb")
         multi = None
         if cards >= 2:
             multi = scaleout_rank_steps(
                 torch, A, work, cards, "nccl",
-                ("fsdp",) + (("tp2",) if cards % 2 == 0 else ()),
+                (("fsdp", "fsdp", "adamw"),) + (
+                    (("tp2", "tp2", "adamw"),) if cards % 2 == 0 else ()),
                 f"scaleout-nccl-w{cards}-fsdp-tp")
             mark("multi-card --fsdp and --tp 2")
         else:
@@ -5264,9 +5690,30 @@ def main() -> int:
                   "against world 1 need two cards; this machine has one, "
                   "so that check does not run here", flush=True)
     torch.cuda.empty_cache()
+    print(f"time budget: this run's fp32 phases took "
+          f"{sum(BUDGET['added'].values()):.1f} s {BUDGET['added']}; the "
+          f"phases shortened for them took "
+          f"{sum(BUDGET['shortened'].values()):.1f} s "
+          f"{BUDGET['shortened']}", flush=True)
 
     kernels = []
     for key, name, src, rep, launches in (
+            ("fp32_fwd/K1K2/student", "fp32_attn_fwd[stage1-entry-fp32, "
+             "the K1 route at fp32: teacher B=16 S=197 and student B=2 "
+             "S=320, H=12 D=64; numbers at the student's]",
+             "unite_torch/csrc/attn_fp32.cu",
+             "unite_tpu/ops/attention.py:678",
+             entry32["launches"]["fp32_fwd"]),
+            ("fp32_dq/K1K2/student", "fp32_attn_dq[stage1-entry-fp32, the "
+             "K2 route at fp32: student B=2 S=320]",
+             "unite_torch/csrc/attn_fp32.cu",
+             "unite_tpu/ops/attention.py:773",
+             entry32["launches"]["fp32_dq"]),
+            ("fp32_dkv/K1K2/student", "fp32_attn_dkv[stage1-entry-fp32, the "
+             "K2 route at fp32: student B=2 S=320]",
+             "unite_torch/csrc/attn_fp32.cu",
+             "unite_tpu/ops/attention.py:773",
+             entry32["launches"]["fp32_dkv"]),
             ("K1/teacher", "fused_qkv_fwd[teacher S=197]",
              "unite_torch/csrc/short_attn_wgmma.cu",
              "unite_tpu/ops/attention.py:678", mp["k1_teacher"]),
@@ -5533,7 +5980,9 @@ def main() -> int:
                       "tool_record_losses": tools_r,
                       "scaleout_nccl": scale, "scaleout_step_b64": scale_b64,
                       "scaleout_gloo_2on1": gloo,
-                      "scaleout_gloo_2on1_lamb": gloo_lamb,
+                      "fp32_kernels": f32k, "stage1_entry_fp32": entry32,
+                      "stage1_card_vs_cpu_rel": m08_rel,
+                      "budget_s": BUDGET,
                       "optim_card_vs_cpu": optim, "stage2_opt_b8": s2opt,
                       "seconds": time.perf_counter() - t0,
                       "scaleout_multi_card": multi,

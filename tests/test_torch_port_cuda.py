@@ -46,9 +46,10 @@ def test_kernels_match_plain_on_card(cuda, s):
 @pytest.mark.cuda
 def test_cuda_refuses_what_the_kernel_does_not_take(cuda):
     for s in (8, 600):  # both routes
-        x = torch.zeros((1, s, 3 * HEADS * 64), device=cuda)
+        x = torch.zeros((1, s, 3 * HEADS * 64), device=cuda,
+                        dtype=torch.float16)
         with pytest.raises(TypeError):
-            TA.fused_qkv_attention(x, HEADS, SCALE)  # fp32: no silent fallback
+            TA.fused_qkv_attention(x, HEADS, SCALE)  # fp16: no kernel takes it
     # K1 keeps its shared-memory guard; the route sends such lengths to
     # K3/K4 or K6
     x = torch.zeros((1, TA.FUSED_QKV_MAX_SEQ + 1, 3 * HEADS * 64),
@@ -305,7 +306,7 @@ def test_autograd_through_multi_head_attention(cuda):
         tol = 2e-2 * r.float().abs().max().item()
         assert (leaf.grad.float() - r.float()).abs().max().item() <= tol
     with pytest.raises(TypeError):
-        TA.multi_head_attention(q.float(), k.float(), v.float())
+        TA.multi_head_attention(q.half(), k.half(), v.half())
 
 
 @pytest.mark.cuda
@@ -1062,3 +1063,71 @@ def test_stage2_recipe_entry_runs_on_card(cuda, tmp_path):
     saved = ck.load_checkpoint(str(tmp_path / "run" / "checkpoint-latest.pth"))
     assert {m["mu"].dtype for m in saved["optimizer"]["moments"].values()} \
         == {torch.bfloat16}
+
+
+# ------------------------------------------------ the fp32 kernels
+
+FP32_LENGTHS = [1, 7, 64, 65, 197, 320, 392, 577, 1568, 1569, 2048]
+
+
+def _fp32_within(got, refs, what, fwd_tol=1e-5, bwd_rtol=1e-4):
+    """o within ``fwd_tol`` max abs, each gradient within ``bwd_rtol`` of
+    its largest value (csrc/attn_fp32.cu against attention_fp32_reference:
+    fp32 throughout, the sums in another order); at one key, where dq and
+    dk vanish and hold rounding noise, of dv's."""
+    one_key = refs[0].shape[2] == 1
+    for name, a, r in zip(("o", "dq", "dk", "dv"), got, refs):
+        r_max = (refs[-1] if one_key else r).abs().max().item()
+        tol = fwd_tol if name == "o" else bwd_rtol * r_max
+        err = (a - r).abs().max().item()
+        assert err <= tol, f"{what} {name}: {err} > {tol}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 80])
+@pytest.mark.parametrize("s", FP32_LENGTHS)
+def test_fp32_kernels_match_plain_on_card(cuda, s, d):
+    gen = torch.Generator(device=cuda).manual_seed(s + d)
+    q, k, v, g = (torch.randn((2, 3, s, d), generator=gen, device=cuda)
+                  for _ in range(4))
+    scale = d ** -0.5
+    o, lse = TA.attention_fp32_reference(q, k, v, scale)
+    refs = (o,) + TA.attention_fp32_reference_bwd(q, k, v, o, lse, g, scale)
+    got, got_lse = TA.fp32_attn_fwd(q, k, v, scale, with_lse=True)
+    assert (got_lse - lse).abs().max().item() <= 1e-5
+    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+    delta = torch.empty((2, 3, s), device=cuda)
+    TA.fp32_attn_dq(q, k, v, o, g, lse, dq, delta, scale)
+    TA.fp32_attn_dkv(q, k, v, g, lse, delta, dk, dv, scale)
+    _fp32_within((got, dq, dk, dv), refs, f"S={s} D={d}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", [197, 392, 1568, 1569])
+def test_fp32_route_launches_the_fp32_kernels_on_card(cuda, s):
+    # the models' route at fp32: K1/K2, K5, K3/K4 or K6 by length, each on
+    # the fp32 kernels and none of the bf16 ones
+    gen = torch.Generator(device=cuda).manual_seed(s)
+    heads, d = 2, 64
+    qkv = torch.randn((2, s, 3 * heads * d), generator=gen, device=cuda)
+    route = {197: "K1", 392: "K5", 1568: "K3", 1569: "K6"}[s]
+    wrappers = ("fused_qkv_fwd", "fused_qkv_bwd", "packed_flash_fwd",
+                "packed_flash_dq", "packed_flash_dkv", "flash_fwd",
+                "flash_dq", "flash_dkv", "grouped_fwd", "grouped_dq",
+                "grouped_dkv")
+    before = [getattr(TA, n).launches for n in wrappers]
+    by_route = TA.fp32_attn_fwd.by_route[route]
+    x = qkv.clone().requires_grad_(True)
+    out = TA.self_attention(x, heads, SCALE, dim=heads * d)
+    out.square().sum().backward()
+    assert [getattr(TA, n).launches for n in wrappers] == before
+    assert TA.fp32_attn_fwd.by_route[route] == by_route + 1
+    ref = TA._merge_heads(TA.attention_fp32_reference(
+        *TA._split_heads(qkv, heads), SCALE)[0])
+    assert (out - ref).abs().max().item() <= 1e-5
+    y = qkv.clone().requires_grad_(True)
+    TA._merge_heads(TA.attention_reference(*TA._split_heads(y, heads),
+                                           scale=SCALE)).square().sum(
+                                               ).backward()
+    tol = 1e-4 * y.grad.abs().max().item()
+    assert (x.grad - y.grad).abs().max().item() <= tol

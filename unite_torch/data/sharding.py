@@ -1,5 +1,5 @@
-"""Index sharding with repetitions (length-matching dual streams), copied
-from unite_tpu/data/sharding.py.
+"""Index sharding with repetitions (length-matching dual streams): a copy
+of unite_tpu/data/sharding.py.
 
 The reference's repetition-aware DistributedSampler
 (distributed.py:33-163) length-matches the source and target streams in

@@ -24,7 +24,7 @@ from typing import Dict
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "unite_torch_kernels"
 SOURCES = ("short_attn_wgmma", "short_bwd_wgmma", "flash_fwd_wgmma",
-           "flash_bwd_wgmma", "blocked_matmul_wgmma")
+           "flash_bwd_wgmma", "blocked_matmul_wgmma", "attn_fp32")
 HEADERS = ("fused_qkv_common.cuh", "hopper.cuh", "attn_bwd_wgmma.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -94,6 +94,10 @@ def _declare(lib: ctypes.CDLL) -> None:
         "unite_short_grouped_fwd": [p] * 6 + [ll, i, i, i, i, f, p],
         "unite_flash_dq": [p] * 8 + [ll, i, i, i, i, f, f, p],
         "unite_flash_dkv": [p] * 8 + [ll, i, i, i, i, f, f, p],
+        # the fp32 entries take the flash entries' argument lists
+        "unite_fp32_attn_fwd": [p, p, p, p, p, ll, i, i, i, i, f, p],
+        "unite_fp32_attn_dq": [p] * 8 + [ll, i, i, i, i, f, f, p],
+        "unite_fp32_attn_dkv": [p] * 8 + [ll, i, i, i, i, f, f, p],
         "unite_short_grouped_dq": [p] * 8 + [ll, i, i, i, i, f, f, p],
         "unite_short_grouped_dkv": [p] * 9 + [ll, i, i, i, i, f, f, p],
         "unite_int8_matmul": [p, p, p, i, i, i, p],

@@ -26,8 +26,21 @@ package's dispatch (models/layers.py:174-190, models/clip.py:82-108):
   ``.by_shape``, since one path runs each at more than one shape.
 
 Beside each kernel is its plain version, with the TPU kernel's math and
-rounding points; a wrapper uses it only for a tensor on the CPU. A CUDA
-tensor launches the kernel or raises.
+rounding points; a wrapper uses it only for a tensor on the CPU. On CUDA
+each wrapper chooses its kernel by dtype, under the same route:
+
+* bf16 launches the route's ``wgmma`` kernel named above;
+* float32 (``--compute_dtype float32``) launches the SIMT kernels of
+  csrc/attn_fp32.cu, ``fp32_attn_fwd``, ``fp32_attn_dq`` and
+  ``fp32_attn_dkv``, on every route. The JAX kernels cast only to their
+  inputs' dtype, so on the TPU an fp32 model runs K1-K6 in fp32, where
+  their rounding points are identities and the six compute one function
+  (plain version: ``attention_fp32_reference`` and its backward). Hopper's
+  tensor cores take no fp32 operands (TF32 is another function), so these
+  kernels are fp32 FMAs on the SMs' cores. They count their launches
+  apart from the route's wrappers, by route in ``.by_route``;
+* any other dtype raises ``TypeError``. No CUDA tensor takes a plain
+  version, and no failure to build or launch is caught.
 
 Head dims: every kernel, K1-K6, was built for ``HEAD_DIMS`` (64, and 80
 for ``pretrain_videomae_huge_patch16_224``, whose encoder and decoder both
@@ -39,7 +52,8 @@ All kernels fold the softmax scale into a base-2 exponent,
 exp(s*scale - m*scale) == exp2((s - m)*c) with c = scale*log2(e). The flash
 kernels' saved row statistic is the base-2 log-sum-exp of the scaled
 scores, lse2 = m*c + log2(l), [B, H, S] fp32 (the TPU kernels broadcast it
-to [B, H, S, 8]); K5 saves the raw row max m and the row sum l instead.
+to [B, H, S, 8]); K5 saves the raw row max m and the row sum l instead
+(at fp32 on CUDA, the output o and lse2, which the fp32 backward takes).
 """
 
 from __future__ import annotations
@@ -55,6 +69,9 @@ import torch
 from unite_torch.ops import _build
 
 INV_LN2 = 1.4426950408889634  # log2(e)
+# What the CUDA path takes: bf16 (the wgmma kernels) and fp32 (the SIMT
+# kernels of csrc/attn_fp32.cu)
+KERNEL_DTYPES = (torch.bfloat16, torch.float32)
 # The head dims every kernel (K1-K6) was built for
 HEAD_DIMS = (64, 80)
 # The route: K1/K2 up to this length (unite_tpu's FUSED_QKV_FWD_MAX_SEQ);
@@ -363,16 +380,50 @@ def packed_flash_reference_bwd(qkv, out, lse, do, heads: int, scale: float):
     return torch.cat([dq, dk, dv], dim=-1)
 
 
+def _need_fp32(*tensors):
+    for t in tensors:
+        if t.dtype != torch.float32:
+            raise TypeError(f"the fp32 attention kernels take float32, got "
+                            f"{t.dtype}")
+
+
+def attention_fp32_reference(q, k, v, scale: float):
+    """Plain version of the fp32 kernels' forward (csrc/attn_fp32.cu):
+    q/k/v [B, H, S, D] fp32 -> (o, lse2 [B, H, S]). Raw scores s = q.k^T,
+    the exact row max m over all keys, p = exp2((s - m)*c) kept in fp32,
+    l = rowsum(p), o = (p.v) * (1/l), lse2 = m*c + log2(l). This is plain
+    K6 (``flash_reference``), whose rounding of p is an identity at fp32;
+    at fp32 plain K1, K3 and K5 compute the same function up to summation
+    order."""
+    _need_fp32(q, k, v)
+    return flash_reference(q, k, v, scale=scale)
+
+
+def attention_fp32_reference_bwd(q, k, v, o, lse, do, scale: float):
+    """Plain version of the fp32 kernels' backward: (dq, dk, dv) from q/k/v,
+    the forward's o and lse2 and the cotangent do, all fp32:
+    delta = rowsum(do*o), p = exp2(s*c - lse2), ds = p*(do.v^T - delta)*scale,
+    dq = ds.k, dk = ds^T.q, dv = p^T.do (plain K6's backward, whose
+    roundings are identities at fp32)."""
+    _need_fp32(q, k, v, o, do)
+    return flash_reference_bwd(q, k, v, o, lse, do, scale=scale)
+
+
 # ------------------------------------------------------------ launching
 
 
+def _dtype_ok(dtype):
+    if dtype not in KERNEL_DTYPES:
+        raise TypeError(f"attention kernels take bf16 (wgmma) or float32 "
+                        f"(SIMT) on CUDA, got {dtype}")
+
+
 def _check_cuda(qkv, heads, **aux) -> int:
-    """What K1/K2 need: bf16 qkv of a head dim in ``HEAD_DIMS``, and each
-    auxiliary tensor (out, do, lse, delta, dqkv) of its shape and type,
+    """What K1/K2 need: bf16 or fp32 qkv of a head dim in ``HEAD_DIMS``, and
+    each auxiliary tensor (out, do, lse, delta, dqkv) of its shape and type,
     contiguous, on qkv's device. K3/K4 check the same before they take
     strided views. Returns the head dim."""
-    if qkv.dtype != torch.bfloat16:
-        raise TypeError(f"attention kernels take bf16 on CUDA, got {qkv.dtype}")
+    _dtype_ok(qkv.dtype)
     b, s, thd = qkv.shape
     d = thd // (3 * heads)
     if thd != 3 * heads * d or d not in HEAD_DIMS:
@@ -428,16 +479,18 @@ def _view_head_dim(q) -> int:
 
 
 def _view_args(*views):
-    """(data pointers, strides) of [B, H, S, D] bf16 views for the C entry
-    points of K5 and K6, after checking that all share one shape (D in
-    ``HEAD_DIMS``) and device and that the kernels take each as it is."""
+    """(data pointers, strides) of [B, H, S, D] views of one dtype (bf16 or
+    fp32) for the C entry points of K5, K6 and the fp32 kernels, after
+    checking that all share one shape (D in ``HEAD_DIMS``) and device and
+    that the kernels take each as it is."""
     shape, dev = views[0].shape, views[0].device
     _view_head_dim(views[0])
+    _dtype_ok(views[0].dtype)
     ptrs, strides = [], []
     for t in views:
-        if t.dtype != torch.bfloat16:
-            raise TypeError(f"attention kernels take bf16 on CUDA, got "
-                            f"{t.dtype}")
+        if t.dtype != views[0].dtype:
+            raise TypeError(f"attention kernels take one dtype, got "
+                            f"{t.dtype} beside {views[0].dtype}")
         st, ptr = t.stride(), t.data_ptr()
         if (t.shape != shape or t.device != dev or st[3] != 1 or ptr % 16
                 or any(x % 8 for n, x in zip(shape[:3], st) if n > 1)):
@@ -524,6 +577,114 @@ def _launch_dkv(ptrs, strides, lse, delta, dims, scale: float, stream):
     _build.check(err, "flash_dkv")
 
 
+# ------------------------------------------------- the fp32 kernels
+
+
+def _count(wrapper, route: str) -> None:
+    wrapper.launches += 1
+    wrapper.by_route[route] += 1
+
+
+def fp32_attn_fwd(q, k, v, scale: float, with_lse: bool = False, o=None,
+                  route: str = "direct"):
+    """The fp32 forward (csrc/attn_fp32.cu ``unite_fp32_attn_fwd``):
+    q/k/v [B, H, S, D] fp32 views -> (o, lse2 [B, H, S] or None), any S.
+    ``o`` is a view to write (the packed routes' [B, S, H*D] lanes), else
+    one laid out as q is made; ``route`` is the TPU kernel the launch
+    stands in for (``.by_route``). CPU tensors take
+    ``attention_fp32_reference``."""
+    _need_fp32(q, k, v)
+    if q.device.type == "cpu":
+        out, lse = attention_fp32_reference(q, k, v, scale)
+        if o is not None:
+            out = o.copy_(out)
+        return out, (lse if with_lse else None)
+    o = _empty_like_rows(q) if o is None else o
+    ptrs, strides = _view_args(q, k, v, o)
+    b, h, s, d = q.shape
+    lse = (torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+           if with_lse else None)
+    err = _build.load("attn_fp32").unite_fp32_attn_fwd(
+        *ptrs, lse.data_ptr() if lse is not None else None, strides, b, s, h,
+        d, scale * INV_LN2, _stream(q))
+    _build.check(err, "fp32_attn_fwd")
+    _count(fp32_attn_fwd, route)
+    return o, lse
+
+
+def fp32_attn_dq(q, k, v, o, do, lse, dq, delta, scale: float,
+                 route: str = "direct"):
+    """The fp32 dQ (``unite_fp32_attn_dq``): writes dq into ``dq`` and
+    rowsum(do*o) into ``delta`` [B, H, S] fp32, from the forward's o and
+    lse2. CPU tensors take the plain version's dQ side."""
+    _need_fp32(q, k, v, o, do)
+    if q.device.type == "cpu":
+        g, dl = _flash_dq_reference(q, k, v, o, do, lse, scale)
+        dq.copy_(g)
+        delta.copy_(dl)
+        return
+    ptrs, strides = _view_args(q, k, v, o, do, dq)
+    _stats(q, lse, delta)
+    b, h, s, d = q.shape
+    err = _build.load("attn_fp32").unite_fp32_attn_dq(
+        *ptrs[:5], lse.data_ptr(), delta.data_ptr(), ptrs[5], strides, b, s,
+        h, d, scale * INV_LN2, scale, _stream(q))
+    _build.check(err, "fp32_attn_dq")
+    _count(fp32_attn_dq, route)
+
+
+def fp32_attn_dkv(q, k, v, do, lse, delta, dk, dv, scale: float,
+                  route: str = "direct"):
+    """The fp32 dK/dV (``unite_fp32_attn_dkv``): writes dk and dv from the
+    forward's lse2 and the dQ entry's delta. CPU tensors take the plain
+    version's dK/dV side."""
+    _need_fp32(q, k, v, do)
+    if q.device.type == "cpu":
+        gk, gv = _flash_dkv_reference(q, k, v, do, lse, delta, scale)
+        dk.copy_(gk)
+        dv.copy_(gv)
+        return
+    ptrs, strides = _view_args(q, k, v, do, dk, dv)
+    _stats(q, lse, delta)
+    b, h, s, d = q.shape
+    err = _build.load("attn_fp32").unite_fp32_attn_dkv(
+        *ptrs[:4], lse.data_ptr(), delta.data_ptr(), *ptrs[4:], strides, b, s,
+        h, d, scale * INV_LN2, scale, _stream(q))
+    _build.check(err, "fp32_attn_dkv")
+    _count(fp32_attn_dkv, route)
+
+
+for _w in (fp32_attn_fwd, fp32_attn_dq, fp32_attn_dkv):
+    _w.launches, _w.by_route = 0, Counter()
+
+
+def _packed_fp32_fwd(qkv, heads: int, scale: float, with_lse: bool,
+                     route: str):
+    """K1 or K3 at fp32: the fp32 forward on [B, H, S, D] views of qkv's
+    lane slices, writing out [B, S, H*D]."""
+    b, s, thd = qkv.shape
+    out = torch.empty((b, s, thd // 3), dtype=qkv.dtype, device=qkv.device)
+    _, lse = fp32_attn_fwd(*_split_heads(qkv, heads), scale, with_lse,
+                           o=_heads_of(out, heads), route=route)
+    return out, lse
+
+
+def _packed_fp32_dq(qkv, out, lse, do, dqkv, delta, heads: int,
+                    scale: float, route: str):
+    """K2's or K4a's dQ side at fp32: dq into the q lanes of ``dqkv``."""
+    fp32_attn_dq(*_split_heads(qkv, heads), _heads_of(out, heads),
+                 _heads_of(do, heads), lse, _split_heads(dqkv, heads)[0],
+                 delta, scale, route=route)
+
+
+def _packed_fp32_dkv(qkv, do, lse, delta, dqkv, heads: int, scale: float,
+                     route: str):
+    """K2's or K4b's dK/dV side at fp32: dk and dv into the k and v lanes
+    of ``dqkv``."""
+    fp32_attn_dkv(*_split_heads(qkv, heads), _heads_of(do, heads), lse,
+                  delta, *_split_heads(dqkv, heads)[1:], scale, route=route)
+
+
 # ------------------------------------------------------------ K1 and K2
 
 
@@ -543,6 +704,8 @@ def fused_qkv_fwd(qkv, heads: int, scale: float, with_lse: bool = False):
         out, lse = qkv_attention_reference(qkv, heads, scale)
         return out, (lse if with_lse else None)
     d = _check_cuda(qkv, heads)
+    if qkv.dtype == torch.float32:
+        return _packed_fp32_fwd(qkv, heads, scale, with_lse, "K1")
     _check_resident(qkv, d)
     out, lse = _fwd_outputs(qkv, heads, with_lse)
     ptrs, strides = _packed_args(heads, d, (qkv, (0, 1, 2)), (out, (0,)))
@@ -568,10 +731,14 @@ def fused_qkv_bwd(qkv, out, lse, do, heads: int, scale: float):
     if qkv.device.type == "cpu":
         return qkv_attention_reference_bwd(qkv, do, heads, scale)
     d = _check_cuda(qkv, heads, out=out, lse=lse, do=do)
-    _check_resident(qkv, d)
     b, s, _ = qkv.shape
     dqkv = torch.empty_like(qkv)
     delta = torch.empty((b, heads, s), dtype=torch.float32, device=qkv.device)
+    if qkv.dtype == torch.float32:
+        _packed_fp32_dq(qkv, out, lse, do, dqkv, delta, heads, scale, "K2")
+        _packed_fp32_dkv(qkv, do, lse, delta, dqkv, heads, scale, "K2")
+        return dqkv
+    _check_resident(qkv, d)
     ptrs, strides = _packed_args(heads, d, (qkv, (0, 1, 2)), (out, (0,)),
                                  (do, (0,)), (dqkv, (0, 1, 2)))
     err = _build.load("short_bwd_wgmma").unite_short_qkv_bwd(
@@ -596,6 +763,8 @@ def packed_flash_fwd(qkv, heads: int, scale: float, with_lse: bool = False):
         out, lse = packed_flash_reference(qkv, heads, scale)
         return out, (lse if with_lse else None)
     d = _check_cuda(qkv, heads)
+    if qkv.dtype == torch.float32:
+        return _packed_fp32_fwd(qkv, heads, scale, with_lse, "K3")
     out, lse = _fwd_outputs(qkv, heads, with_lse)
     ptrs, strides = _packed_args(heads, d, (qkv, (0, 1, 2)), (out, (0,)))
     _launch_fwd(ptrs, strides, lse, (qkv.shape[0], heads, qkv.shape[1], d),
@@ -623,6 +792,9 @@ def packed_flash_dq(qkv, out, lse, do, dqkv, delta, heads: int,
         return
     d = _check_cuda(qkv, heads, out=out, lse=lse, do=do, dqkv=dqkv,
                     delta=delta)
+    if qkv.dtype == torch.float32:
+        _packed_fp32_dq(qkv, out, lse, do, dqkv, delta, heads, scale, "K4")
+        return
     ptrs, strides = _packed_args(heads, d, (qkv, (0, 1, 2)), (out, (0,)),
                                  (do, (0,)), (dqkv, (0,)))
     _launch_dq(ptrs, strides, lse, delta,
@@ -643,6 +815,9 @@ def packed_flash_dkv(qkv, do, lse, delta, dqkv, heads: int, scale: float):
         dqkv[..., 2 * hd:] = dv
         return
     d = _check_cuda(qkv, heads, lse=lse, delta=delta, do=do, dqkv=dqkv)
+    if qkv.dtype == torch.float32:
+        _packed_fp32_dkv(qkv, do, lse, delta, dqkv, heads, scale, "K4")
+        return
     ptrs, strides = _packed_args(heads, d, (qkv, (0, 1, 2)), (do, (0,)),
                                  (dqkv, (1, 2)))
     _launch_dkv(ptrs, strides, lse, delta,
@@ -702,6 +877,8 @@ def flash_fwd(q, k, v, scale: float, with_lse: bool = False):
     if q.device.type == "cpu":
         o, lse = flash_reference(q, k, v, scale=scale)
         return o, (lse if with_lse else None)
+    if q.dtype == torch.float32:
+        return fp32_attn_fwd(q, k, v, scale, with_lse, route="K6")
     o = _empty_like_rows(q)
     ptrs, strides = _view_args(q, k, v, o)
     b, h, s, _ = q.shape
@@ -725,6 +902,9 @@ def flash_dq(q, k, v, o, do, lse, dq, delta, scale: float):
         dq.copy_(g)
         delta.copy_(dl)
         return
+    if q.dtype == torch.float32:
+        fp32_attn_dq(q, k, v, o, do, lse, dq, delta, scale, route="K6")
+        return
     ptrs, strides = _view_args(q, k, v, o, do, dq)
     _stats(q, lse, delta)
     _launch_dq(ptrs, strides, lse, delta, q.shape, scale, _stream(q))
@@ -741,6 +921,9 @@ def flash_dkv(q, k, v, do, lse, delta, dk, dv, scale: float):
         gk, gv = _flash_dkv_reference(q, k, v, do, lse, delta, scale)
         dk.copy_(gk)
         dv.copy_(gv)
+        return
+    if q.dtype == torch.float32:
+        fp32_attn_dkv(q, k, v, do, lse, delta, dk, dv, scale, route="K6")
         return
     ptrs, strides = _view_args(q, k, v, do, dk, dv)
     _stats(q, lse, delta)
@@ -766,13 +949,19 @@ def flash_bwd(q, k, v, o, lse, do, scale: float):
 
 
 def grouped_fwd(q, k, v, scale: float, with_stats: bool = False):
-    """K5 forward: q/k/v [B, H, S, D] -> (o laid out as q, (m, l) [B, H, S]
-    fp32 or None), contiguous tensors or strided views. CPU tensors take
-    the plain version (any D); CUDA tensors launch the kernel, at D in
-    ``HEAD_DIMS`` and up to ``RESIDENT_MAX_SEQ[D]`` keys."""
+    """K5 forward: q/k/v [B, H, S, D] -> (o laid out as q, the statistics
+    the backward takes or None), contiguous tensors or strided views. CPU
+    tensors take the plain version (any D), whose statistics are (m, l)
+    [B, H, S] fp32; bf16 CUDA tensors launch the kernel, at D in
+    ``HEAD_DIMS`` and up to ``RESIDENT_MAX_SEQ[D]`` keys, with (m, l) too;
+    fp32 CUDA tensors launch the fp32 forward, any S, whose backward takes
+    (o, lse2) instead."""
     if q.device.type == "cpu":
         o, m, l = grouped_reference(q, k, v, scale=scale)
         return o, ((m, l) if with_stats else None)
+    if q.dtype == torch.float32:
+        o, lse = fp32_attn_fwd(q, k, v, scale, with_stats, route="K5")
+        return o, ((o, lse) if with_stats else None)
     d = _view_head_dim(q)
     if q.shape[2] > RESIDENT_MAX_SEQ[d]:
         raise ValueError(
@@ -806,12 +995,16 @@ def _check_grouped_bwd(q):
 
 def grouped_dq(q, k, v, do, m, l, dq, delta, scale: float):
     """K5 dQ: writes dq into ``dq`` and rowsum(e*dp)/l into ``delta``
-    [B, H, S] fp32, from the forward's m and l (csrc/short_bwd_wgmma.cu's
-    dq kernel on CUDA tensors)."""
+    [B, H, S] fp32, from the forward's statistics ``m, l``
+    (``grouped_fwd``'s): csrc/short_bwd_wgmma.cu's dq kernel on bf16 CUDA
+    tensors, the fp32 dQ on fp32 ones, where ``m, l`` are o and lse2."""
     if q.device.type == "cpu":
         g, dl = _grouped_dq_reference(q, k, v, do, m, l, scale)
         dq.copy_(g)
         delta.copy_(dl)
+        return
+    if q.dtype == torch.float32:
+        fp32_attn_dq(q, k, v, m, do, l, dq, delta, scale, route="K5")
         return
     _check_grouped_bwd(q)
     ptrs, strides = _view_args(q, k, v, do, dq)
@@ -828,13 +1021,16 @@ grouped_dq.launches = 0
 
 
 def grouped_dkv(q, k, v, do, m, l, delta, dk, dv, scale: float):
-    """K5 dK/dV: writes dk and dv from the forward's m and l and the dQ
-    kernel's delta (csrc/short_bwd_wgmma.cu's dk/dv kernel on CUDA
-    tensors)."""
+    """K5 dK/dV: writes dk and dv from the forward's statistics ``m, l``
+    and the dQ kernel's delta (csrc/short_bwd_wgmma.cu's dk/dv kernel on
+    bf16 CUDA tensors, the fp32 dK/dV on fp32 ones, from lse2 ``l``)."""
     if q.device.type == "cpu":
         gk, gv = _grouped_dkv_reference(q, k, v, do, m, l, delta, scale)
         dk.copy_(gk)
         dv.copy_(gv)
+        return
+    if q.dtype == torch.float32:
+        fp32_attn_dkv(q, k, v, do, l, delta, dk, dv, scale, route="K5")
         return
     _check_grouped_bwd(q)
     ptrs, strides = _view_args(q, k, v, do, dk, dv)
@@ -852,9 +1048,9 @@ grouped_dkv.launches = 0
 
 def grouped_bwd(q, k, v, do, m, l, scale: float):
     """K5 backward: (dq, dk, dv), each laid out as its input, through the
-    dQ kernel then the dK/dV kernel."""
+    dQ kernel then the dK/dV kernel, from ``grouped_fwd``'s statistics."""
     dq, dk, dv = (_empty_like_rows(x) for x in (q, k, v))
-    delta = torch.empty(m.shape, dtype=torch.float32, device=q.device)
+    delta = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
     grouped_dq(q, k, v, do, m, l, dq, delta, scale)
     grouped_dkv(q, k, v, do, m, l, delta, dk, dv, scale)
     return dq, dk, dv
