@@ -13,8 +13,9 @@ toolkit. In order:
    wgmma kernels of the K3/K6 forward (csrc/flash_fwd_wgmma.cu), the
    K4/K6 backward (csrc/flash_bwd_wgmma.cu), the short forward K1/K5
    (csrc/short_attn_wgmma.cu), the short backward K2/K5
-   (csrc/short_bwd_wgmma.cu) and K7 (csrc/blocked_matmul_wgmma.cu) must
-   not spill, and a serialized product is reported;
+   (csrc/short_bwd_wgmma.cu) and K7 (csrc/blocked_matmul_wgmma.cu) and
+   the fp32 kernels (csrc/attn_fp32.cu) must not spill, and a serialized
+   product is reported;
 3. kernels against their plain versions at the main-path shapes: K1 (fused
    qkv attention forward, csrc/short_attn_wgmma.cu) at the teacher's
    [512, 197, 2304] and the student's [64, 320, 2304], with and without the
@@ -49,10 +50,12 @@ toolkit. In order:
    the fp32 kernels (csrc/attn_fp32.cu: forward, dQ, dK/dV, which serve
    every route at --compute_dtype float32) against their plain version,
    TF32 off, at the lengths of ``FP32_LENGTHS`` up to 4608 at head dims 64
-   and 80 and at the main paths' shapes ``FP32_SHAPES`` (o and lse2
-   within 1e-5, gradients within 1e-4 of their max abs), where the plain
-   version at scale x 1.001 must fail those tolerances, with times beside
-   the plain version's, SDPA's at fp32 and the bound at the fp32 peak;
+   and 80 (those up to ``FP32_WIDE_MAX`` also at ``FP32_WIDE_B`` clips,
+   where the wide tiles are chosen) and at the main paths' shapes
+   ``FP32_SHAPES`` (o and lse2 within 1e-5, gradients within 1e-4 of their
+   max abs), where the plain version at scale x 1.001 must fail those
+   tolerances, with single-launch and device times beside the plain
+   version's, SDPA's at fp32 and the bound at the fp32 peak;
    then K7 (csrc/blocked_matmul_wgmma.cu) at every shape of
    ``MATMUL_SWEEP`` and every tile shape (K7a, the int8 blocked matmul, bit
    for bit, also with -128s at K = 131040; K7b, bf16, within
@@ -305,10 +308,16 @@ FP32_FWD_TOL, FP32_BWD_RTOL = 1e-5, 1e-4
 FP32_CONTROL = 1.001
 PEAK_FP32 = 67e12      # H100 SXM fp32 flop/s outside the tensor cores
 # the fp32 kernels' lengths (B=1, 2 heads, head dims 64 and 80, contiguous
-# tensors): around their 64-row tiles, the paths' own and 4608 (16 frames
-# of vit_*_patch16_384), and the main paths' shapes [B, H, S, D] (views of
-# a packed qkv, as the models pass them), each with its route
-FP32_LENGTHS = (1, 64, 197, 320, 392, 1568, 1569, 2048, 4608)
+# tensors): around their tiles (the forward's 32 and 64 query rows, dK/dV's
+# 64, 80, 96, 112 and 128 keys, the streamed 64 rows), the paths' own and
+# 4608 (16 frames of vit_*_patch16_384); those up to FP32_WIDE_MAX also at
+# FP32_WIDE_B clips, where the entries take their wider tiles too (the
+# forward 64 rows at 33-64 and 97-128 keys, dK/dV 64 keys up to 64, then
+# 80, 96, 112 and 128 in turn); and the main paths' shapes [B, H, S, D]
+# (views of a packed qkv, as the models pass them), each with its route
+FP32_LENGTHS = (1, 31, 32, 33, 63, 64, 65, 79, 80, 81, 95, 96, 97, 111, 112,
+                113, 127, 128, 129, 197, 320, 392, 1568, 1569, 2048, 4608)
+FP32_WIDE_B, FP32_WIDE_MAX = 132, 129
 FP32_SHAPES = (("K1/teacher", 16, 12, 197, 64), ("K1K2/student", 2, 12, 320, 64),
                ("K1K2/videomae", 2, 12, 160, 64), ("K5/m075", 2, 12, 392, 64),
                ("K3K4/stage2", 2, 12, 1568, 64), ("K3K4/h6", 2, 6, 1568, 64),
@@ -1006,9 +1015,10 @@ def check_fp32_kernels(torch, A) -> dict:
     within ``FP32_BWD_RTOL`` of their max abs; at every main-path shape
     the plain version at scale * ``FP32_CONTROL`` must fail each of those
     tolerances (a kernel off by that much would be caught). At the main
-    paths' shapes: the kernels' single-launch ms beside the plain
-    version's, SDPA's at fp32 (forward; backward alone for dq and dk/dv)
-    and the bound at the fp32 peak."""
+    paths' shapes: the kernels' single-launch ms and device ms (launches
+    back to back, ``device_ms``) beside the plain version's, SDPA's at fp32
+    (forward; backward alone for dq and dk/dv) and the bound at the fp32
+    peak."""
     import torch.nn.functional as F
 
     tf32_off(torch, "check_fp32_kernels")
@@ -1016,15 +1026,17 @@ def check_fp32_kernels(torch, A) -> dict:
     sweep = {}
     for d in A.HEAD_DIMS:
         for s in FP32_LENGTHS:
-            q, k, v, g = (torch.randn((1, 2, s, d), generator=gen,
-                                      device="cuda") for _ in range(4))
-            errs = over_tol(fp32_errors(
-                torch, A, q, k, v, g, d ** -0.5,
-                fp32_run(torch, A, q, k, v, g, d ** -0.5)))
-            sweep[f"{s}/d{d}"] = errs
-            if max(errs.values()) > 1:
-                raise AssertionError(f"fp32 kernels at S={s} D={d}: errors "
-                                     f"over tolerance {errs}")
+            for b in (1, FP32_WIDE_B) if s <= FP32_WIDE_MAX else (1,):
+                q, k, v, g = (torch.randn((b, 2, s, d), generator=gen,
+                                          device="cuda") for _ in range(4))
+                errs = over_tol(fp32_errors(
+                    torch, A, q, k, v, g, d ** -0.5,
+                    fp32_run(torch, A, q, k, v, g, d ** -0.5)))
+                sweep[f"{s}/d{d}" + (f"/b{b}" if b > 1 else "")] = errs
+                if max(errs.values()) > 1:
+                    raise AssertionError(f"fp32 kernels at B={b} S={s} "
+                                         f"D={d}: errors over tolerance "
+                                         f"{errs}")
     print(f"fp32 kernels over FP32_LENGTHS: worst error over tolerance "
           f"{max(max(e.values()) for e in sweep.values()):.3g}", flush=True)
     results = {}
@@ -1062,9 +1074,12 @@ def check_fp32_kernels(torch, A) -> dict:
         sdpa = partial(F.scaled_dot_product_attention, qc, kc, vc,
                        scale=scale)
         o_lib = sdpa()
+        sdpa_bwd = partial(torch.autograd.grad, o_lib, (qc, kc, vc), g,
+                           retain_graph=True)
         lib = {"fwd": median_ms(sdpa)}
-        lib["dq"] = lib["dkv"] = median_ms(lambda: torch.autograd.grad(
-            o_lib, (qc, kc, vc), g, retain_graph=True))
+        lib["dq"] = lib["dkv"] = median_ms(sdpa_bwd)
+        lib_dev = {"fwd": device_ms(sdpa)}
+        lib_dev["dq"] = lib_dev["dkv"] = device_ms(sdpa_bwd)
         n = b * h * s * d * 4  # bytes of one [B, H, S, D] fp32 tensor
         stat = b * h * s * 4
         work = {"fwd": (4 * n + stat, 4.0), "dq": (6 * n + 2 * stat, 6.0),
@@ -1078,8 +1093,9 @@ def check_fp32_kernels(torch, A) -> dict:
             results[key] = dict(
                 shape=[b, h, s, d], max_abs_err=err, errors_over_tol=errs,
                 control_over_tol=control, ms=median_ms(runs[kind]),
+                device_ms=device_ms(runs[kind]),
                 plain_ms=median_ms(plain[kind]), bound_ms=bms, bound_by=by,
-                library_ms=lib[kind],
+                library_ms=lib[kind], library_device_ms=lib_dev[kind],
                 library=("scaled_dot_product_attention fp32 forward"
                          if kind == "fwd" else "scaled_dot_product_attention"
                          " fp32 backward alone (dq, dk, dv)"))
@@ -2199,28 +2215,53 @@ def stage2_opt_path(torch, A, b: int = 8, warmup: int = 2,
     return res
 
 
-# the wgmma sources: none may spill; a serialized product is reported
+# the sources none of whose kernels may spill: the wgmma sources (a
+# serialized product is reported) and the fp32 SIMT kernels, whose
+# register tiles sit close to the register limit
 WGMMA_SOURCES = ("flash_fwd_wgmma", "flash_bwd_wgmma", "short_attn_wgmma",
                  "short_bwd_wgmma", "blocked_matmul_wgmma")
+NO_SPILL_SOURCES = WGMMA_SOURCES + ("attn_fp32",)
+
+
+def kernel_label(mangled: str) -> str:
+    """A kernel's name and template arguments from its mangled name:
+    ``fwd_kernel<64,8>``."""
+    import re
+
+    found = re.search(r"\d([a-z][a-z_]*_kernel)I((?:Li\d+E)+)E", mangled)
+    if found is None:
+        return mangled
+    args = re.findall(r"Li(\d+)E", found.group(2))
+    return f"{found.group(1)}<{','.join(args)}>"
 
 
 def check_ptxas(paths) -> dict:
     """Print each kernel's ptxas lines (registers, spills, and any product
-    that ptxas serialized) and return, for each wgmma source, its kernels'
-    registers, spilled bytes and whether any product was serialized; raise
-    if a kernel of a wgmma source spills or has no report."""
+    that ptxas serialized) and return, for each source of
+    ``NO_SPILL_SOURCES``, its kernels' registers (the most, and each
+    kernel's by ``kernel_label``), spilled bytes and whether any product was
+    serialized; raise if a kernel of those sources spills or has no
+    report."""
     import re
 
-    lines = {name: [] for name in WGMMA_SOURCES}
+    lines = {name: [] for name in NO_SPILL_SOURCES}
+    by_kernel = {name: {} for name in NO_SPILL_SOURCES}
     for name, path in paths.items():
         log = path.with_suffix(".log")
         if not log.exists():
             continue
+        kernel = None
         for line in log.read_text().splitlines():
+            entry = re.search(r"Compiling entry function '(\w+)'", line)
+            if entry:
+                kernel = kernel_label(entry.group(1))
             if any(w in line for w in ("registers", "spill", "serialized")):
                 print(f"  ptxas {path.name}: {line.strip()}")
                 if name in lines:
                     lines[name].append(line.strip())
+                used = re.search(r"Used (\d+) registers", line)
+                if used and name in by_kernel and kernel:
+                    by_kernel[name][kernel] = int(used.group(1))
     report = {}
     for name, found in lines.items():
         text = " ".join(found)
@@ -2230,7 +2271,8 @@ def check_ptxas(paths) -> dict:
             raise AssertionError(f"{name} ptxas: {text or 'no report'}")
         report[name] = {"registers": max(regs), "kernels": len(regs),
                         "spill_bytes": sum(spills),
-                        "serialized": "serialized" in text}
+                        "serialized": "serialized" in text,
+                        "by_kernel": by_kernel[name]}
         if report[name]["serialized"]:
             print(f"  ptxas {name}: a wgmma product is serialized", flush=True)
     return report
@@ -5962,6 +6004,11 @@ def main() -> int:
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"],
                         "library_ms": r["library_ms"]})
+        if key.startswith("fp32_"):  # the SIMT kernels' ptxas registers
+            kind = key.split("/")[0][len("fp32_"):]
+            kernels[-1]["registers"] = {
+                k: n for k, n in ptxas["attn_fp32"]["by_kernel"].items()
+                if k.startswith(f"{kind}_kernel<")}
     print(json.dumps({"kernels": kernels, "step": mp,
                       "stage1_m075_step": m075,
                       "stage1_m075_card_vs_cpu_rel": m075_rel,
@@ -5997,7 +6044,7 @@ def main() -> int:
                       "flash_bwd_lengths": bwd_lengths,
                       "short_fwd_lengths": short_lengths,
                       "short_bwd_lengths": short_bwd_lengths,
-                      "wgmma_ptxas": ptxas, "matmul_sweep": matmul_sweep,
+                      "ptxas": ptxas, "matmul_sweep": matmul_sweep,
                       "matmul_checks": {
                           k: r for k, r in kr.items() if k.startswith("K7")},
                       "yardsticks": {k: {x: r[x] for x in r if x.startswith(

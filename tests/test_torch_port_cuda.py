@@ -1067,7 +1067,16 @@ def test_stage2_recipe_entry_runs_on_card(cuda, tmp_path):
 
 # ------------------------------------------------ the fp32 kernels
 
-FP32_LENGTHS = [1, 7, 64, 65, 197, 320, 392, 577, 1568, 1569, 2048]
+# around the forward's 32- and 64-query tiles, dK/dV's 64- to 128-key
+# tiles and the streamed 64-row tiles, and the paths' own lengths
+FP32_LENGTHS = [1, 7, 31, 32, 33, 63, 64, 65, 127, 128, 129, 197, 320, 392,
+                577, 1568, 1569, 2048]
+# enough clips for the entries' wider tiles at their edges (each takes the
+# tile whose grid costs least: here the forward's 64 query rows at 33-64
+# and 97-128 keys, dK/dV's 64 keys up to 64, then 80, 96, 112, 128)
+FP32_WIDE_B = 132
+FP32_EDGES = [31, 32, 33, 63, 64, 65, 79, 80, 81, 95, 96, 97, 111, 112, 113,
+              127, 128, 129]
 
 
 def _fp32_within(got, refs, what, fwd_tol=1e-5, bwd_rtol=1e-4):
@@ -1083,23 +1092,44 @@ def _fp32_within(got, refs, what, fwd_tol=1e-5, bwd_rtol=1e-4):
         assert err <= tol, f"{what} {name}: {err} > {tol}"
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("d", [64, 80])
-@pytest.mark.parametrize("s", FP32_LENGTHS)
-def test_fp32_kernels_match_plain_on_card(cuda, s, d):
-    gen = torch.Generator(device=cuda).manual_seed(s + d)
-    q, k, v, g = (torch.randn((2, 3, s, d), generator=gen, device=cuda)
-                  for _ in range(4))
+def _fp32_check(cuda, b, s, d, packed):
+    """The three fp32 entries against the plain version on [b, 3, s, d]:
+    contiguous tensors, or views of a packed qkv [b, s, 3*3*d] (the packed
+    routes' layout) with the gradients laid out as the views."""
+    gen = torch.Generator(device=cuda).manual_seed(s + d + b)
+    if packed:
+        qkv = torch.randn((b, s, 9 * d), generator=gen, device=cuda)
+        q, k, v = TA._split_heads(qkv, 3)
+    else:
+        q, k, v = (torch.randn((b, 3, s, d), generator=gen, device=cuda)
+                   for _ in range(3))
+    g = torch.randn((b, 3, s, d), generator=gen, device=cuda)
     scale = d ** -0.5
     o, lse = TA.attention_fp32_reference(q, k, v, scale)
     refs = (o,) + TA.attention_fp32_reference_bwd(q, k, v, o, lse, g, scale)
     got, got_lse = TA.fp32_attn_fwd(q, k, v, scale, with_lse=True)
     assert (got_lse - lse).abs().max().item() <= 1e-5
-    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
-    delta = torch.empty((2, 3, s), device=cuda)
+    dq, dk, dv = (TA._empty_like_rows(x) for x in (q, k, v))
+    delta = torch.empty((b, 3, s), device=cuda)
     TA.fp32_attn_dq(q, k, v, o, g, lse, dq, delta, scale)
     TA.fp32_attn_dkv(q, k, v, g, lse, delta, dk, dv, scale)
-    _fp32_within((got, dq, dk, dv), refs, f"S={s} D={d}")
+    _fp32_within((got, dq, dk, dv), refs,
+                 f"B={b} S={s} D={d} packed={packed}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("packed", [False, True])
+@pytest.mark.parametrize("d", [64, 80])
+@pytest.mark.parametrize("s", FP32_LENGTHS)
+def test_fp32_kernels_match_plain_on_card(cuda, s, d, packed):
+    _fp32_check(cuda, 2, s, d, packed)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 80])
+@pytest.mark.parametrize("s", FP32_EDGES)
+def test_fp32_wide_tiles_match_plain_on_card(cuda, s, d):
+    _fp32_check(cuda, FP32_WIDE_B, s, d, True)
 
 
 @pytest.mark.cuda

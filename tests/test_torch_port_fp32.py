@@ -21,13 +21,18 @@ tests/test_torch_port_flash.py runs them):
 * against each route's own plain version at fp32, and the wrappers'
   dispatch: a CUDA (here: meta) fp32 tensor reaches the fp32 entries on
   every route with the strides of its views, a bf16 one the ``wgmma``
-  entries, an fp16 one raises ``TypeError``.
+  entries, an fp16 one raises ``TypeError``, and a view whose rows are
+  not 16-byte aligned (the kernels' 16-byte copies and loads) raises
+  ``ValueError`` before any launch;
+* the source itself: fp32 FMAs only, no tensor-core product, no TF32
+  rounding and no library call in csrc/attn_fp32.cu.
 
 The CUDA kernels are held against the plain version on the card by
 chip_smoke.py (``check_fp32_kernels``) and tests/test_torch_port_cuda.py
 (``-k fp32``).
 """
 
+import re
 from types import SimpleNamespace
 
 import jax
@@ -339,3 +344,52 @@ def test_fp32_views_take_any_length_and_fp16_raises(entry):
         TA.fused_qkv_attention(x.half(), 2, 0.125)
     with pytest.raises(ValueError):  # head dims stay 64 and 80
         TA.fp32_attn_fwd(*(_meta(1, 2, 64, 96),) * 3, 0.125)
+
+
+@pytest.mark.parametrize("kind", ["fwd", "dq", "dkv"])
+def test_fp32_entries_refuse_misaligned_views(entry, kind):
+    # the kernels read and write rows by 16-byte copies and loads: every
+    # route's views pass (16-byte aligned pointers, strides a multiple of 8
+    # floats), a pointer or a row stride off that raises before any launch
+    b, h, s, d = 2, 3, 100, 80
+    stat = _meta(b, h, s)
+
+    def call(x):
+        if kind == "fwd":
+            TA.fp32_attn_fwd(x, x, x, 0.125, with_lse=True)
+        elif kind == "dq":
+            TA.fp32_attn_dq(x, x, x, x, x, stat, x, stat, 0.125)
+        else:
+            TA.fp32_attn_dkv(x, x, x, x, stat, stat, x, x, 0.125)
+
+    qkv = _meta(b, s, 3 * h * d)
+    for x in (_meta(b, h, s, d), TA._split_heads(qkv, h)[1]):
+        call(x)
+    assert [e for _, e, _ in entry] == [f"unite_fp32_attn_{kind}"] * 2
+    for _, _, args in entry:
+        assert all(a % 16 == 0 for a in args[:4])
+    shifted = _meta(1 + b * h * s * d)[1:].view(b, h, s, d)  # 4 bytes in
+    wide = _meta(b, h, s, d + 1)[..., :d]  # rows of 81 floats
+    for x in (shifted, wide):
+        with pytest.raises(ValueError):
+            call(x)
+    assert len(entry) == 2
+
+
+def _code(path):
+    """A CUDA source without its comments."""
+    text = re.sub(r"/\*.*?\*/", "", path.read_text(), flags=re.S)
+    return re.sub(r"//[^\n]*", "", text)
+
+
+def test_fp32_source_is_fp32_fmas_only():
+    # the fp32 kernels compute the CPU's function: every product an fp32
+    # FMA on the SMs' cores, no tensor-core instruction, no TF32 rounding of
+    # an operand, no library kernel, no header that brings either in
+    code = _code(_build.CSRC / "attn_fp32.cu")
+    assert "fmaf(" in code and "cp.async" in code
+    for word in ("mma", "tf32", "cvt.rna", "cublas", "cudnn", "cutlass",
+                 "__half", "bfloat16"):
+        assert word not in code.lower(), word
+    assert re.findall(r'#include\s*[<"]([^>"]+)', code) == [
+        "cuda_runtime.h", "math.h"]

@@ -32,25 +32,57 @@
 // 10 mantissa bits, which is another function. So every product here is an
 // fp32 FMA on the SMs' cores, and the bf16 route keeps its wgmma kernels.
 //
-// What bounds it: operations. At the stage-3 CLS shape [2, 12, 1569, 64]
-// the forward is 6*S^2*D flops a head with the exact-max sweep (2.3e10,
-// 0.34 ms at the H100's 67 TFLOP/s fp32) against 0.1 GB moved (0.03 ms at
-// 3.35 TB/s); the backward's dq and dk/dv are 8*S^2*D and 8*S^2*D.
+// What bounds it: operations. At [2, 12, 1568, 64] the forward is 6*S^2*D
+// flops a head with the exact-max sweep (2.3e10, 0.34 ms at the H100's 67
+// TFLOP/s fp32) against 0.1 GB moved (0.03 ms at 3.35 TB/s); dq and dk/dv
+// are 8*S^2*D each. An SM's 128 fp32 lanes do 128 FMAs a clock while its
+// shared memory serves 128 bytes a clock, so a product whose operands come
+// from shared memory one scalar per FMA or two (4 x 4 scores a thread, rows
+// of D + 1 floats) runs at the shared memory's pace, not the FMAs'.
 //
-// Design: simple and right first. A block of 256 threads takes one 64-row
-// tile of queries (fwd, dq) or keys (dk/dv) of one head, kept in shared
-// memory with its cotangent rows; it walks the other side in 64-row tiles
-// through shared memory, so nothing is resident per head and there is no
-// sequence cap. Threads form a 16 x 16 grid; a thread holds a 4 x 4 block of
-// a 64 x 64 score tile (rows ty + 16i, columns tx + 16j) and 4 rows of
-// D/16 output lanes (tx + 16j). Tiles are stored with rows of D + 1 floats
-// and score tiles with rows of 65, so the column reads of a half warp fall
-// in distinct banks. Row statistics reduce over the 16 threads of a row
-// group, which are one half warp (shuffles). The forward sweeps the keys
-// twice: the row max first, then p, l and p.v against it (an online
-// rescale would round p against a running max, another function). Rows
-// and keys past S load as zeros; keys past S get p = 0 and are left out of
-// the max; query rows past S are computed and never stored.
+// The forward and dK/dV (fwd_kernel, dkv_kernel) are register-tiled:
+// * A block holds rows of its own side (queries; keys for dK/dV) and
+//   streams the other side in 64-row tiles: the forward 4 warps over 8*TM
+//   query rows, dK/dV 8 warps over 16*TM keys (two rows of 4 warps). A
+//   warp's lanes form 8 row groups lr by 4 column groups lc; a thread of
+//   warp w holds a TM x 4 block of a 64-column score tile (rows lr + 8i,
+//   columns 16(w % 4) + lc + 4j) and a TM x 4 block of the D output lanes
+//   (lanes 16(w % 4) + 4lc .. +3; at D = 80 also lane 64 + 4(w % 4) + lc).
+// * Every operand is read with 16-byte loads from row-major tiles: the
+//   products over D (q.k^T, v.do^T) load 4 lanes of both rows a load, the
+//   products over the streamed rows (p.v, p^T.do, ds^T.q) 4 columns of the
+//   score tile and 4 output lanes of a streamed row. Tile rows are D + 4
+//   floats (score tiles 68), so the 8 row groups' 16-byte loads fall in 8
+//   distinct 16-byte bank groups and the 4 column groups' in 4: each load
+//   is one shared-memory wavefront, and a thread does 8 (TM = 4) to 10.7
+//   (TM = 8) FMAs a load against 2 in the earlier 4 x 4 scalar design.
+// * The streamed tiles come in by 16-byte cp.async copies through a ring,
+//   so a tile's copy runs under the products of the tile before. The
+//   forward's first sweep (the exact row max) streams K alone through 3
+//   slots with one barrier a tile; its second streams K_t and V_t through
+//   the same 3 slots (K_t in slot 2t mod 3, V_t in 2t + 1 mod 3: K_{t+1} is
+//   copied into V_{t-1}'s slot once p.V_{t-1} is done, V_{t+1} into K_t's
+//   once q.K_t is done) with two barriers a tile. dK/dV streams q, do,
+//   lse2 and delta through 2 stages, writes p^T and ds^T into two tiles of
+//   their own and keeps dk and dv in registers: two barriers a tile.
+// * Row statistics (the max, then l) reduce over a row's 4 column groups by
+//   shuffles and over the 4 warps through shared memory, once a sweep.
+// * The grid: each entry takes the tile whose grid costs least
+//   (grid_cost: the blocks an SM takes in turn, a smaller tile costing
+//   more a row), the forward 32 or 64 query rows, dK/dV 64 to 128 keys.
+// Rows and keys past S load as zeros (cp.async's zero fill); keys past S
+// get p = 0 and are left out of the max; query rows past S are computed
+// and never stored. The forward sweeps the keys twice, the row max first,
+// then p, l and p.v against it (an online rescale would round p against a
+// running max, another function).
+//
+// dQ (dq_kernel) keeps the first, simple design: a block of 256 threads
+// takes one 64-row tile of queries with its cotangent rows in shared memory
+// and walks the keys in 64-row tiles; threads form a 16 x 16 grid, a thread
+// holds a 4 x 4 block of a 64 x 64 score tile (rows ty + 16i, columns
+// tx + 16j) and 4 rows of D/16 output lanes (tx + 16j); tiles have rows of
+// D + 1 floats and score tiles rows of 65, and row statistics reduce over
+// the 16 threads of a row group, one half warp.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -133,17 +165,10 @@ __device__ void acc_tile(const float* w, const float* x,
   }
 }
 
-// The sum and the max over the 16 threads of a row group (a half warp).
+// The sum over the 16 threads of a row group (a half warp).
 __device__ float row_sum(float v) {
 #pragma unroll
   for (int o = 8; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-__device__ float row_max(float v) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
   return v;
 }
 
@@ -151,79 +176,293 @@ __device__ long long stat_index(int b, int h, int H, int S, int r) {
   return ((long long)b * H + h) * S + r;
 }
 
-// o (and lse2 where lse is not null) for one 64-query tile of one head.
+// ------------------------------------------ register tiles (fwd, dK/dV)
+
+constexpr int COLS = 64;         // rows of a streamed tile
+constexpr int LDP = COLS + 4;    // a score tile's row length
+constexpr int RING = 3;          // the forward's slots
+constexpr int SMEM_MAX = 232448; // a block's shared memory on sm_90
+
 template <int D>
-__global__ void __launch_bounds__(THREADS, 2)
-    fwd_kernel(View q, View k, View v, View o, float* lse, int S, int H,
-               float c) {
-  extern __shared__ float smem[];
-  float* qs = smem;
-  float* ks = qs + tile_floats<D>();
-  float* vs = ks + tile_floats<D>();
-  float* ps = vs + tile_floats<D>();
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const int q0 = blockIdx.x * TILE, h = blockIdx.y, b = blockIdx.z;
-  load_tile<D>(qs, q, b, h, q0, S);
+__host__ __device__ constexpr int ld_of() {  // an operand tile's row length
+  return D + 4;
+}
 
-  // sweep 1: the exact row max of q.k^T over every key
-  float m[4];
+template <int D>
+__host__ __device__ constexpr int lanes_of() {  // output lanes a thread holds
+  return D == 80 ? 5 : 4;
+}
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// 16 (or 4) bytes from global to shared memory, asynchronously; zeros where
+// !valid (src is then a readable address that is not read).
+__device__ __forceinline__ void cp16(float* dst, const float* src,
+                                     bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp4(float* dst, const float* src,
+                                    bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most N of this thread's latest copy groups are in flight.
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+__device__ __forceinline__ float at(const float4& v, int u) {
+  return u == 0 ? v.x : u == 1 ? v.y : u == 2 ? v.z : v.w;
+}
+
+// Rows [r0, r0 + R) of head (b, h) of x into an [R][D + 4] tile by 16-byte
+// async copies from NT threads, rows at or past S as zeros.
+template <int D, int R, int NT>
+__device__ __forceinline__ void copy_tile(float* t, const View& x, int b,
+                                          int h, int r0, int S) {
+  constexpr int C = D / 4;  // 16-byte chunks a row
 #pragma unroll
-  for (int i = 0; i < 4; ++i) m[i] = -INFINITY;
-  for (int k0 = 0; k0 < S; k0 += TILE) {
-    __syncthreads();  // the previous tile is read (and the q tile written)
-    load_tile<D>(ks, k, b, h, k0, S);
-    __syncthreads();
-    float s[4][4];
-    dot_tile<D>(qs, ks, s, tx, ty);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      if (k0 + tx + 16 * j >= S) continue;
-#pragma unroll
-      for (int i = 0; i < 4; ++i) m[i] = fmaxf(m[i], s[i][j]);
-    }
+  for (int n = 0; n < (R * C + NT - 1) / NT; ++n) {
+    const int e = threadIdx.x + n * NT, r = e / C, c = e - r * C;
+    if (R * C % NT != 0 && e >= R * C) break;
+    const bool ok = r0 + r < S;
+    cp16(t + r * ld_of<D>() + 4 * c, x.row(b, h, ok ? r0 + r : 0) + 4 * c,
+         ok);
   }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) m[i] = row_max(m[i]);
+}
 
-  // sweep 2: p = exp2((s - m)*c) in fp32, l = rowsum(p), acc = p.v
-  float l[4] = {0.f, 0.f, 0.f, 0.f};
-  float acc[4][D / 16];
+// Statistics [r0, r0 + COLS) of one head (from x + base) into t, past S as
+// zeros.
+template <int NT>
+__device__ __forceinline__ void copy_stats(float* t, const float* x,
+                                           long long base, int r0, int S) {
+  for (int r = threadIdx.x; r < COLS; r += NT) {
+    const bool ok = r0 + r < S;
+    cp4(t + r, x + base + (ok ? r0 + r : 0), ok);
+  }
+}
+
+// s[i][j] = a[ra + 8i] . b[cb + 4j] over the D lanes of two [.][D + 4]
+// tiles, 4 lanes of each row a load.
+template <int D, int TM>
+__device__ __forceinline__ void dot_rows(const float* a, const float* b,
+                                         float (&s)[TM][4], int ra, int cb) {
+  constexpr int LD = ld_of<D>();
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < TM; ++i)
 #pragma unroll
-    for (int j = 0; j < D / 16; ++j) acc[i][j] = 0.f;
-  for (int k0 = 0; k0 < S; k0 += TILE) {
-    __syncthreads();
-    load_tile<D>(ks, k, b, h, k0, S);
-    load_tile<D>(vs, v, b, h, k0, S);
-    __syncthreads();
-    float s[4][4];
-    dot_tile<D>(qs, ks, s, tx, ty);
+    for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
+#pragma unroll 4
+  for (int d = 0; d < D; d += 4) {
+    float4 x[TM], y[4];
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const bool key = k0 + tx + 16 * j < S;
+    for (int i = 0; i < TM; ++i) x[i] = ld4(a + (ra + 8 * i) * LD + d);
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float p = key ? exp2f((s[i][j] - m[i]) * c) : 0.f;
-        l[i] += p;
-        ps[(ty + 16 * i) * PAD + tx + 16 * j] = p;
+    for (int j = 0; j < 4; ++j) y[j] = ld4(b + (cb + 4 * j) * LD + d);
+#pragma unroll
+    for (int i = 0; i < TM; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        s[i][j] = fmaf(x[i].x, y[j].x, s[i][j]);
+        s[i][j] = fmaf(x[i].y, y[j].y, s[i][j]);
+        s[i][j] = fmaf(x[i].z, y[j].z, s[i][j]);
+        s[i][j] = fmaf(x[i].w, y[j].w, s[i][j]);
+      }
+  }
+}
+
+// acc[i][.] += sum over the COLS columns r of w[ra + 8i][r] * x[r][lanes]:
+// a [.][COLS + 4] score tile times a [COLS][D + 4] tile, the lanes lb .. lb
+// + 3 and, at D = 80, le; 4 columns of w and 4 lanes of x a load.
+template <int D, int TM>
+__device__ __forceinline__ void acc_rows(const float* w, const float* x,
+                                         float (&acc)[TM][lanes_of<D>()],
+                                         int ra, int lb, int le) {
+  constexpr int LD = ld_of<D>();
+#pragma unroll 4
+  for (int r = 0; r < COLS; r += 4) {
+    float4 p[TM];
+#pragma unroll
+    for (int i = 0; i < TM; ++i) p[i] = ld4(w + (ra + 8 * i) * LDP + r);
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const float* xr = x + (r + u) * LD;
+      const float4 y = ld4(xr + lb);
+      const float ye = D == 80 ? xr[le] : 0.f;
+#pragma unroll
+      for (int i = 0; i < TM; ++i) {
+        const float pu = at(p[i], u);
+        acc[i][0] = fmaf(pu, y.x, acc[i][0]);
+        acc[i][1] = fmaf(pu, y.y, acc[i][1]);
+        acc[i][2] = fmaf(pu, y.z, acc[i][2]);
+        acc[i][3] = fmaf(pu, y.w, acc[i][3]);
+        if constexpr (D == 80) acc[i][4] = fmaf(pu, ye, acc[i][4]);
       }
     }
-    __syncthreads();
-    acc_tile<D>(ps, vs, acc, tx, ty);
+  }
+}
+
+// Row r's outputs acc * f into out (a row of a view): lanes lb .. lb + 3 by
+// one 16-byte store and, at D = 80, lane le.
+template <int D>
+__device__ __forceinline__ void store_lanes(float* out,
+                                            const float (&acc)[lanes_of<D>()],
+                                            float f, int lb, int le) {
+  *reinterpret_cast<float4*>(out + lb) =
+      make_float4(acc[0] * f, acc[1] * f, acc[2] * f, acc[3] * f);
+  if constexpr (D == 80) out[le] = acc[4] * f;
+}
+
+// A thread's place in the register tiles: warp w takes rows 8*TM*(w / 4)
+// onward and column quarter w % 4 of the score and output tiles.
+template <int TM>
+struct Place {
+  int ra, cb, lb, le;
+  __device__ Place() {
+    const int lane = threadIdx.x & 31, w = threadIdx.x >> 5, wq = w & 3;
+    const int lr = lane >> 2, lc = lane & 3;
+    ra = 8 * TM * (w >> 2) + lr;  // rows ra + 8i
+    cb = 16 * wq + lc;            // score columns cb + 4j
+    lb = 16 * wq + 4 * lc;        // output lanes lb .. lb + 3
+    le = 64 + 4 * wq + lc;        // and, at D = 80, le
+  }
+};
+
+// o (and lse2 where lse is not null) for one tile of 8*TM queries of one
+// head, 128 threads.
+template <int D, int TM>
+__global__ void __launch_bounds__(128, 2)
+    fwd_kernel(View q, View k, View v, View o, float* lse, int S, int H,
+               float c) {
+  constexpr int LD = ld_of<D>(), ROWS = 8 * TM, NT = 128;
+  extern __shared__ __align__(16) float tiles[];
+  float* qs = tiles;                   // [ROWS][LD]
+  float* ring = qs + ROWS * LD;        // RING x [COLS][LD]
+  float* ps = ring + RING * COLS * LD; // [ROWS][LDP]
+  float* red = ps + ROWS * LDP;        // [4 warps][ROWS]
+  const Place<TM> at_;
+  const int w = threadIdx.x >> 5, lc = threadIdx.x & 3;
+  const int q0 = blockIdx.x * ROWS, h = blockIdx.y, b = blockIdx.z;
+  const int nt = (S + COLS - 1) / COLS;
+  auto slot = [&](int i) { return ring + i * COLS * LD; };
+
+  copy_tile<D, ROWS, NT>(qs, q, b, h, q0, S);
+  cp_commit();
+  copy_tile<D, COLS, NT>(slot(0), k, b, h, 0, S);
+  cp_commit();
+  if (nt > 1) copy_tile<D, COLS, NT>(slot(1), k, b, h, COLS, S);
+  cp_commit();
+
+  // sweep 1: the exact row max of q.k^T over every key; K_t in slot t % 3
+  float m[TM];
+#pragma unroll
+  for (int i = 0; i < TM; ++i) m[i] = -INFINITY;
+  for (int t = 0; t < nt; ++t) {
+    cp_wait<1>();     // K_t has landed (K_{t+1} may be in flight)
+    __syncthreads();  // ... for every thread, and q.K_{t-1} is done
+    if (t + 2 < nt)
+      copy_tile<D, COLS, NT>(slot((t + 2) % RING), k, b, h, (t + 2) * COLS,
+                             S);
+    cp_commit();
+    float s[TM][4];
+    dot_rows<D, TM>(qs, slot(t % RING), s, at_.ra, at_.cb);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      if (t * COLS + at_.cb + 4 * j >= S) continue;
+#pragma unroll
+      for (int i = 0; i < TM; ++i) m[i] = fmaxf(m[i], s[i][j]);
+    }
   }
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float li = row_sum(l[i]);
-    const int r = q0 + ty + 16 * i;
-    if (r < S) {
-      float* out = o.row(b, h, r);
-      const float il = 1.f / li;
+  for (int i = 0; i < TM; ++i) {
+    m[i] = fmaxf(m[i], __shfl_xor_sync(0xffffffffu, m[i], 1));
+    m[i] = fmaxf(m[i], __shfl_xor_sync(0xffffffffu, m[i], 2));
+    if (lc == 0) red[w * ROWS + at_.ra + 8 * i] = m[i];
+  }
+  __syncthreads();  // the maxima are in, and the ring is free
 #pragma unroll
-      for (int j = 0; j < D / 16; ++j) out[tx + 16 * j] = acc[i][j] * il;
-      if (lse != nullptr && tx == 0)
-        lse[stat_index(b, h, H, S, r)] = m[i] * c + log2f(li);
+  for (int i = 0; i < TM; ++i) {
+    const int r = at_.ra + 8 * i;
+    m[i] = fmaxf(fmaxf(red[r], red[ROWS + r]),
+                 fmaxf(red[2 * ROWS + r], red[3 * ROWS + r]));
+  }
+
+  // sweep 2: p = exp2((s - m)*c) in fp32, l = rowsum(p), acc = p.v; K_t in
+  // slot 2t % 3, V_t in slot (2t + 1) % 3
+  copy_tile<D, COLS, NT>(slot(0), k, b, h, 0, S);
+  cp_commit();
+  copy_tile<D, COLS, NT>(slot(1), v, b, h, 0, S);
+  cp_commit();
+  float l[TM], acc[TM][lanes_of<D>()];
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    l[i] = 0.f;
+#pragma unroll
+    for (int j = 0; j < lanes_of<D>(); ++j) acc[i][j] = 0.f;
+  }
+  for (int t = 0; t < nt; ++t) {
+    const float* ks = slot((2 * t) % RING);
+    const float* vs = slot((2 * t + 1) % RING);
+    cp_wait<1>();     // K_t has landed (V_t may be in flight)
+    __syncthreads();  // ... for every thread, and p.V_{t-1} is done
+    if (t + 1 < nt)
+      copy_tile<D, COLS, NT>(slot((2 * t + 2) % RING), k, b, h,
+                             (t + 1) * COLS, S);
+    cp_commit();
+    float s[TM][4];
+    dot_rows<D, TM>(qs, ks, s, at_.ra, at_.cb);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const bool key = t * COLS + at_.cb + 4 * j < S;
+#pragma unroll
+      for (int i = 0; i < TM; ++i) {
+        const float p = key ? exp2f((s[i][j] - m[i]) * c) : 0.f;
+        l[i] += p;
+        ps[(at_.ra + 8 * i) * LDP + at_.cb + 4 * j] = p;
+      }
     }
+    cp_wait<1>();     // V_t has landed (K_{t+1} may be in flight)
+    __syncthreads();  // p and V_t for every thread, and q.K_t is done
+    if (t + 1 < nt)
+      copy_tile<D, COLS, NT>(slot((2 * t + 3) % RING), v, b, h,
+                             (t + 1) * COLS, S);
+    cp_commit();
+    acc_rows<D, TM>(ps, vs, acc, at_.ra, at_.lb, at_.le);
+  }
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+    if (lc == 0) red[w * ROWS + at_.ra + 8 * i] = l[i];
+  }
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    const int r = at_.ra + 8 * i;
+    if (q0 + r >= S) continue;
+    const float li = red[r] + red[ROWS + r] + red[2 * ROWS + r] +
+                     red[3 * ROWS + r];
+    store_lanes<D>(o.row(b, h, q0 + r), acc[i], 1.f / li, at_.lb, at_.le);
+    if (lse != nullptr && w == 0 && lc == 0)
+      lse[stat_index(b, h, H, S, q0 + r)] = m[i] * c + log2f(li);
   }
 }
 
@@ -296,85 +535,78 @@ __global__ void __launch_bounds__(THREADS, 2)
   }
 }
 
-// dk and dv for one 64-key tile of one head, from the forward's lse2 and
-// the dq kernel's delta.
-template <int D>
-__global__ void __launch_bounds__(THREADS, 2)
+// dk and dv for one tile of 16*TM keys of one head (8 warps), from the
+// forward's lse2 and the dq kernel's delta.
+template <int D, int TM>
+__global__ void __launch_bounds__(256, 1)
     dkv_kernel(View q, View k, View v, View dout, const float* lse,
                const float* delta, View dk, View dv, int S, int H, float c,
                float scale) {
-  extern __shared__ float smem[];
-  float* ks = smem;
-  float* vs = ks + tile_floats<D>();
-  float* qs = vs + tile_floats<D>();
-  float* gs = qs + tile_floats<D>();
-  float* ws = gs + tile_floats<D>();  // p^T, then ds^T
-  float* lq = ws + TILE * PAD;        // the query tile's lse2 and delta
-  float* dlq = lq + TILE;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const int k0 = blockIdx.x * TILE, h = blockIdx.y, b = blockIdx.z;
-  load_tile<D>(ks, k, b, h, k0, S);
-  load_tile<D>(vs, v, b, h, k0, S);
+  constexpr int LD = ld_of<D>(), ROWS = 16 * TM, NT = 256;
+  constexpr int STAGE = 2 * COLS * LD + 2 * COLS;  // q, do, lse2, delta
+  extern __shared__ __align__(16) float tiles[];
+  float* ks = tiles;                 // [ROWS][LD]
+  float* vs = ks + ROWS * LD;        // [ROWS][LD]
+  float* pt = vs + ROWS * LD;        // p^T [ROWS][LDP]
+  float* dst = pt + ROWS * LDP;      // ds^T [ROWS][LDP]
+  float* ring = dst + ROWS * LDP;    // 2 x STAGE
+  const Place<TM> at_;
+  const int k0 = blockIdx.x * ROWS, h = blockIdx.y, b = blockIdx.z;
+  const int nt = (S + COLS - 1) / COLS;
+  const long long base = stat_index(b, h, H, S, 0);
+  auto stage = [&](int t) {  // copy query tile t into stage t % 2
+    float* st = ring + (t & 1) * STAGE;
+    copy_tile<D, COLS, NT>(st, q, b, h, t * COLS, S);
+    copy_tile<D, COLS, NT>(st + COLS * LD, dout, b, h, t * COLS, S);
+    copy_stats<NT>(st + 2 * COLS * LD, lse, base, t * COLS, S);
+    copy_stats<NT>(st + 2 * COLS * LD + COLS, delta, base, t * COLS, S);
+  };
 
-  float adk[4][D / 16], adv[4][D / 16];
+  copy_tile<D, ROWS, NT>(ks, k, b, h, k0, S);
+  copy_tile<D, ROWS, NT>(vs, v, b, h, k0, S);
+  stage(0);
+  cp_commit();
+  float adk[TM][lanes_of<D>()], adv[TM][lanes_of<D>()];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < TM; ++i)
 #pragma unroll
-    for (int j = 0; j < D / 16; ++j) adk[i][j] = adv[i][j] = 0.f;
-  for (int q0 = 0; q0 < S; q0 += TILE) {
-    __syncthreads();
-    load_tile<D>(qs, q, b, h, q0, S);
-    load_tile<D>(gs, dout, b, h, q0, S);
-    for (int t = threadIdx.x; t < TILE; t += THREADS) {
-      const bool row = q0 + t < S;
-      lq[t] = row ? lse[stat_index(b, h, H, S, q0 + t)] : 0.f;
-      dlq[t] = row ? delta[stat_index(b, h, H, S, q0 + t)] : 0.f;
-    }
-    __syncthreads();
-    // rows: this block's keys (ty); columns: the tile's queries (tx)
-    float s[4][4], dp[4][4];
-    dot_tile<D>(ks, qs, s, tx, ty);
-    dot_tile<D>(vs, gs, dp, tx, ty);
+    for (int j = 0; j < lanes_of<D>(); ++j) adk[i][j] = adv[i][j] = 0.f;
+  for (int t = 0; t < nt; ++t) {
+    const float* qs = ring + (t & 1) * STAGE;
+    const float* gs = qs + COLS * LD;
+    const float* lq = gs + COLS * LD;
+    const float* dl = lq + COLS;
+    cp_wait<0>();     // query tile t has landed
+    __syncthreads();  // ... for every thread, and tile t - 1 is done
+    if (t + 1 < nt) stage(t + 1);
+    cp_commit();
+    // rows: this block's keys; columns: the tile's queries
+    float dp[TM][4], s[TM][4];
+    dot_rows<D, TM>(vs, gs, dp, at_.ra, at_.cb);
+    dot_rows<D, TM>(ks, qs, s, at_.ra, at_.cb);
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
-      const int col = tx + 16 * j;
-      const bool query = q0 + col < S;
+      const int col = at_.cb + 4 * j;
+      const bool query = t * COLS + col < S;
+      const float lse2 = lq[col], dlt = dl[col];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float p = query ? exp2f(s[i][j] * c - lq[col]) : 0.f;
-        ws[(ty + 16 * i) * PAD + col] = p;
-        dp[i][j] = p * (dp[i][j] - dlq[col]) * scale;
+      for (int i = 0; i < TM; ++i) {
+        const float p = query ? exp2f(s[i][j] * c - lse2) : 0.f;
+        pt[(at_.ra + 8 * i) * LDP + col] = p;
+        dst[(at_.ra + 8 * i) * LDP + col] = p * (dp[i][j] - dlt) * scale;
       }
     }
-    __syncthreads();
-    acc_tile<D>(ws, gs, adv, tx, ty);  // dv += p^T . do
-    __syncthreads();
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        ws[(ty + 16 * i) * PAD + tx + 16 * j] = dp[i][j];
-    __syncthreads();
-    acc_tile<D>(ws, qs, adk, tx, ty);  // dk += ds^T . q
+    __syncthreads();  // p^T and ds^T for every thread
+    acc_rows<D, TM>(pt, gs, adv, at_.ra, at_.lb, at_.le);   // dv += p^T.do
+    acc_rows<D, TM>(dst, qs, adk, at_.ra, at_.lb, at_.le);  // dk += ds^T.q
   }
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = k0 + ty + 16 * i;
-    if (r < S) {
-      float* gk = dk.row(b, h, r);
-      float* gv = dv.row(b, h, r);
-#pragma unroll
-      for (int j = 0; j < D / 16; ++j) {
-        gk[tx + 16 * j] = adk[i][j];
-        gv[tx + 16 * j] = adv[i][j];
-      }
-    }
+  for (int i = 0; i < TM; ++i) {
+    const int r = k0 + at_.ra + 8 * i;
+    if (r >= S) continue;
+    store_lanes<D>(dk.row(b, h, r), adk[i], 1.f, at_.lb, at_.le);
+    store_lanes<D>(dv.row(b, h, r), adv[i], 1.f, at_.lb, at_.le);
   }
-}
-
-template <int D>
-constexpr int fwd_bytes() {
-  return (3 * tile_floats<D>() + TILE * PAD) * (int)sizeof(float);
 }
 
 template <int D>
@@ -392,17 +624,67 @@ dim3 grid_of(int B, int S, int H) {
   return dim3((S + TILE - 1) / TILE, H, B);
 }
 
+template <int D, int TM>
+constexpr int fwd_bytes() {
+  return (8 * TM * ld_of<D>() + RING * COLS * ld_of<D>() + 8 * TM * LDP +
+          4 * 8 * TM) *
+         (int)sizeof(float);
+}
+
+template <int D, int TM>
+constexpr int dkv_bytes() {
+  return (2 * 16 * TM * (ld_of<D>() + LDP) +
+          2 * (2 * COLS * ld_of<D>() + 2 * COLS)) *
+         (int)sizeof(float);
+}
+
+int sm_count() {
+  int dev = 0, n = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+  return n > 0 ? n : 132;
+}
+
+// The blocks of a grid of tiles of the given rows.
+long long blocks(int B, int S, int H, int rows) {
+  return (long long)B * H * ((S + rows - 1) / rows);
+}
+
+// The relative time of a grid of tiles of the given rows, TM rows a
+// thread, on sms SMs: the blocks an SM takes in turn, each costing
+// TM * (1 + (8 - TM)/k). A smaller tile does fewer FMAs a shared load and
+// pays its copies and barriers over fewer rows; k (40 for the forward, 20
+// for dK/dV) fits the CUDA-graph times of every tile size at the main
+// paths' shapes (unite_torch/tools/attention_ab.py --fp32).
+double grid_cost(int B, int S, int H, int rows, int tm, int k, int sms) {
+  return (double)((blocks(B, S, H, rows) + sms - 1) / sms) * tm *
+         (1. + (8. - tm) / k);
+}
+
+template <int D, int TM>
+int launch_fwd(const void* q, const void* k, const void* v, void* o,
+               void* lse, const long long* strides, int B, int S, int H,
+               float c, void* stream) {
+  constexpr int bytes = fwd_bytes<D, TM>();
+  int err = launchable(fwd_kernel<D, TM>, bytes);
+  if (err != 0) return err;
+  fwd_kernel<D, TM><<<dim3((S + 8 * TM - 1) / (8 * TM), H, B), 128, bytes,
+                      (cudaStream_t)stream>>>(
+      view_of(q, strides, 0), view_of(k, strides, 1), view_of(v, strides, 2),
+      view_of(o, strides, 3), static_cast<float*>(lse), S, H, c);
+  return (int)cudaGetLastError();
+}
+
+// 32- or 64-query tiles, whichever grid costs less.
 template <int D>
 int run_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
             const long long* strides, int B, int S, int H, float c,
             void* stream) {
-  int err = launchable(fwd_kernel<D>, fwd_bytes<D>());
-  if (err != 0) return err;
-  fwd_kernel<D><<<grid_of(B, S, H), THREADS, fwd_bytes<D>(),
-                  (cudaStream_t)stream>>>(
-      view_of(q, strides, 0), view_of(k, strides, 1), view_of(v, strides, 2),
-      view_of(o, strides, 3), static_cast<float*>(lse), S, H, c);
-  return (int)cudaGetLastError();
+  const int sms = sm_count();
+  if (grid_cost(B, S, H, 32, 4, 40, sms) <
+      grid_cost(B, S, H, 64, 8, 40, sms))
+    return launch_fwd<D, 4>(q, k, v, o, lse, strides, B, S, H, c, stream);
+  return launch_fwd<D, 8>(q, k, v, o, lse, strides, B, S, H, c, stream);
 }
 
 template <int D>
@@ -421,20 +703,57 @@ int run_dq(const void* q, const void* k, const void* v, const void* o,
   return (int)cudaGetLastError();
 }
 
-template <int D>
-int run_dkv(const void* q, const void* k, const void* v, const void* dout,
-            const void* lse, const void* delta, void* dk, void* dv,
-            const long long* strides, int B, int S, int H, float c,
-            float scale, void* stream) {
-  int err = launchable(dkv_kernel<D>, bwd_bytes<D>());
+template <int D, int TM>
+int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
+               const void* lse, const void* delta, void* dk, void* dv,
+               const long long* strides, int B, int S, int H, float c,
+               float scale, void* stream) {
+  constexpr int rows = 16 * TM, bytes = dkv_bytes<D, TM>();
+  static_assert(bytes <= SMEM_MAX, "a block's shared memory");
+  int err = launchable(dkv_kernel<D, TM>, bytes);
   if (err != 0) return err;
-  dkv_kernel<D><<<grid_of(B, S, H), THREADS, bwd_bytes<D>(),
-                  (cudaStream_t)stream>>>(
+  dkv_kernel<D, TM><<<dim3((S + rows - 1) / rows, H, B), 256, bytes,
+                       (cudaStream_t)stream>>>(
       view_of(q, strides, 0), view_of(k, strides, 1), view_of(v, strides, 2),
       view_of(dout, strides, 3), static_cast<const float*>(lse),
       static_cast<const float*>(delta), view_of(dk, strides, 4),
       view_of(dv, strides, 5), S, H, c, scale);
   return (int)cudaGetLastError();
+}
+
+// The largest TM of dK/dV's tiles whose shared memory fits: 8 at D = 64,
+// 7 at D = 80.
+template <int D>
+constexpr int dkv_max_tm() {
+  return dkv_bytes<D, 8>() <= SMEM_MAX ? 8 : 7;
+}
+
+// launch_dkv<D, tm> for a tm in [TM, dkv_max_tm<D>()].
+template <int D, int TM = 4, typename... Args>
+int launch_dkv_at(int tm, Args... args) {
+  if constexpr (TM < dkv_max_tm<D>())
+    if (tm > TM) return launch_dkv_at<D, TM + 1>(tm, args...);
+  return launch_dkv<D, TM>(args...);
+}
+
+// dK/dV takes 16*TM keys a block (TM = 4 .. dkv_max_tm, one block an SM),
+// the TM whose grid costs least: 112-key tiles at [2,12,1568] (3 waves of
+// 336 blocks over 132 SMs) rather than 128 (3 waves of 312) or 64 (5 of
+// 600).
+template <int D>
+int run_dkv(const void* q, const void* k, const void* v, const void* dout,
+            const void* lse, const void* delta, void* dk, void* dv,
+            const long long* strides, int B, int S, int H, float c,
+            float scale, void* stream) {
+  const int sms = sm_count();
+  int tm = 4;
+  double least = grid_cost(B, S, H, 64, 4, 20, sms);
+  for (int t = 5; t <= dkv_max_tm<D>(); ++t) {
+    const double cost = grid_cost(B, S, H, 16 * t, t, 20, sms);
+    if (cost < least) least = cost, tm = t;
+  }
+  return launch_dkv_at<D>(tm, q, k, v, dout, lse, delta, dk, dv, strides, B,
+                          S, H, c, scale, stream);
 }
 
 bool shape_ok(int B, int S, int H) {

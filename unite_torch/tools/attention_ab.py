@@ -1,7 +1,8 @@
-"""Time the head-dim-64 attention kernels of one checkout on the card, so
-that two commits can be compared in turns within one call.
+"""Time the attention kernels of one checkout on the card, so that two
+commits can be compared in turns within one call.
 
     python3 unite_torch/tools/attention_ab.py TREE
+    python3 unite_torch/tools/attention_ab.py TREE --fp32
 
 TREE is the root of a checkout: this one, or another unpacked with
 ``git archive`` into a directory that .gitignore lists (``build/``). The
@@ -13,8 +14,17 @@ loaded), builds TREE's kernels, runs its ``check_kernels`` and
 masked teacher's and VideoMAE's), ``check_grouped_kernels`` and
 ``check_flash_kernels``, and prints one line ``AB {json}``: the card's
 name and power limit and every device ms those checks measured
-(launches queued back to back, ``device_ms``). Compare two trees in
-turns, A / B / B / A, on one card. It raises without a card.
+(launches queued back to back, ``device_ms``).
+
+With ``--fp32`` it times TREE's fp32 kernels instead (csrc/attn_fp32.cu,
+through the wrappers ``fp32_attn_fwd``, ``fp32_attn_dq`` and
+``fp32_attn_dkv``) at every shape of TREE's ``FP32_SHAPES``, on views of a
+packed qkv as the smoke's ``check_fp32_kernels`` takes them, with TREE's
+``device_ms``, beside SDPA's fp32 forward and backward on the same inputs,
+and each fp32 entry also from a CUDA graph of 30 launches (``graph_ms``):
+at the short shapes the wrappers' host time paces back-to-back launches,
+and the graph shows the kernels' own time. Compare two trees in turns,
+A / B / B / A, on one card. It raises without a card.
 """
 
 from __future__ import annotations
@@ -24,6 +34,68 @@ import json
 import sys
 from functools import partial
 from pathlib import Path
+
+
+def graph_ms(torch, fn, iters: int = 30, replays: int = 5) -> float:
+    """Mean device time of one ``fn()`` from a CUDA graph of ``iters``
+    calls, replayed ``replays`` times: no host time between launches."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(replays):
+        graph.replay()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / (iters * replays)
+
+
+def fp32_times(torch, smoke, A) -> dict:
+    """Device ms of the fp32 forward (with lse2), dQ and dK/dV (also from a
+    CUDA graph) and of SDPA's fp32 forward and backward at each shape of
+    ``FP32_SHAPES``."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device="cuda").manual_seed(91)
+    times = {}
+    for label, b, h, s, d in smoke.FP32_SHAPES:
+        scale = d ** -0.5
+        qkv = torch.randn((b, s, 3 * h * d), generator=gen, device="cuda")
+        q, k, v = A._split_heads(qkv, h)
+        g = torch.randn((b, h, s, d), generator=gen, device="cuda")
+        o, lse = A.fp32_attn_fwd(q, k, v, scale, with_lse=True)
+        delta = torch.empty((b, h, s), device="cuda")
+        dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
+        qc, kc, vc = (x.detach().contiguous().requires_grad_(True)
+                      for x in (q, k, v))
+        sdpa = partial(F.scaled_dot_product_attention, qc, kc, vc,
+                       scale=scale)
+        runs = {
+            "fp32_fwd": lambda: A.fp32_attn_fwd(q, k, v, scale, True),
+            "fp32_dq": lambda: A.fp32_attn_dq(q, k, v, o, g, lse, dq, delta,
+                                              scale),
+            "fp32_dkv": lambda: A.fp32_attn_dkv(q, k, v, g, lse, delta, dk,
+                                                dv, scale),
+            "sdpa_fp32_fwd": sdpa,
+            "sdpa_fp32_bwd": partial(torch.autograd.grad, sdpa(),
+                                     (qc, kc, vc), g, retain_graph=True)}
+        for name, run in runs.items():
+            times[f"{name}/{label}:device_ms"] = smoke.device_ms(run)
+            if name.startswith("fp32"):
+                times[f"{name}/{label}:graph_ms"] = graph_ms(torch, run)
+        del qkv, q, k, v, g, o, lse, qc, kc, vc, runs
+        torch.cuda.empty_cache()
+    return times
 
 
 def main(argv) -> None:
@@ -42,6 +114,12 @@ def main(argv) -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     build.build_all()
+    if argv[1:] == ["--fp32"]:
+        smoke.tf32_off(torch, "attention_ab --fp32")
+        print("AB " + json.dumps({"tree": str(tree), "card": smoke.card_line(),
+                                  "device_ms": fp32_times(torch, smoke, A)}),
+              flush=True)
+        return
     s = smoke
     checks = [
         s.check_kernels, s.check_packed_kernels,
