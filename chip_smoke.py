@@ -52,8 +52,9 @@ toolkit. In order:
    TF32 off, at the lengths of ``FP32_LENGTHS`` up to 4608 at head dims 64
    and 80 (those up to ``FP32_WIDE_MAX`` also at ``FP32_WIDE_B`` clips,
    where the wide tiles are chosen) and at the main paths' shapes
-   ``FP32_SHAPES`` (o and lse2 within 1e-5, gradients within 1e-4 of their
-   max abs), where the plain version at scale x 1.001 must fail those
+   ``FP32_SHAPES`` (o and lse2 within 1e-5, the dQ entry's delta within
+   1e-5 of its max abs, gradients within 1e-4 of theirs), where the plain
+   version at scale x 1.001 must fail those
    tolerances, with single-launch and device times beside the plain
    version's, SDPA's at fp32 and the bound at the fp32 peak;
    then K7 (csrc/blocked_matmul_wgmma.cu) at every shape of
@@ -308,13 +309,14 @@ FP32_FWD_TOL, FP32_BWD_RTOL = 1e-5, 1e-4
 FP32_CONTROL = 1.001
 PEAK_FP32 = 67e12      # H100 SXM fp32 flop/s outside the tensor cores
 # the fp32 kernels' lengths (B=1, 2 heads, head dims 64 and 80, contiguous
-# tensors): around their tiles (the forward's 32 and 64 query rows, dK/dV's
-# 64, 80, 96, 112 and 128 keys, the streamed 64 rows), the paths' own and
-# 4608 (16 frames of vit_*_patch16_384); those up to FP32_WIDE_MAX also at
-# FP32_WIDE_B clips, where the entries take their wider tiles too (the
-# forward 64 rows at 33-64 and 97-128 keys, dK/dV 64 keys up to 64, then
-# 80, 96, 112 and 128 in turn); and the main paths' shapes [B, H, S, D]
-# (views of a packed qkv, as the models pass them), each with its route
+# tensors): around their tiles (the forward's 32 and 64 query rows, dQ's 64,
+# 80 and 112, dK/dV's 64, 80, 96, 112 and 128 keys, the streamed 64 rows),
+# the paths' own and 4608 (16 frames of vit_*_patch16_384); those up to
+# FP32_WIDE_MAX also at FP32_WIDE_B clips, where the entries take their
+# wider tiles too (the forward 64 rows at 33-64 and 97-128 keys, dQ 80 rows
+# at 65-80 and 129 and 112 at 81-112, dK/dV 64 keys up to 64, then 80, 96,
+# 112 and 128 in turn); and the main paths' shapes [B, H, S, D] (views of a
+# packed qkv, as the models pass them), each with its route
 FP32_LENGTHS = (1, 31, 32, 33, 63, 64, 65, 79, 80, 81, 95, 96, 97, 111, 112,
                 113, 127, 128, 129, 197, 320, 392, 1568, 1569, 2048, 4608)
 FP32_WIDE_B, FP32_WIDE_MAX = 132, 129
@@ -972,18 +974,23 @@ def fp32_gate(what: str, card: dict, cpu: dict, outputs: dict) -> dict:
 
 
 def fp32_errors(torch, A, q, k, v, g, scale: float, got) -> dict:
-    """Each of o, lse2, dq, dk, dv of ``got`` against the plain fp32
-    version at ``scale``: (max abs error, tolerance). A gradient's
+    """Each of o, lse2, delta, dq, dk, dv of ``got`` against the plain fp32
+    version at ``scale``: (max abs error, tolerance). o's and lse2's
+    tolerance is ``FP32_FWD_TOL``, delta's (rowsum(do*o), the dQ entry's
+    handoff to dK/dV) ``FP32_FWD_TOL`` times its max abs. A gradient's
     tolerance is ``FP32_BWD_RTOL`` times its max abs; at S = 1, where dq
     and dk vanish (one key: the softmax has no gradient) and hold rounding
     noise, times dv's."""
     o, lse = A.attention_fp32_reference(q, k, v, scale)
-    refs = (o, lse) + A.attention_fp32_reference_bwd(q, k, v, o, lse, g,
-                                                     scale)
+    refs = (o, lse, (g * o).sum(-1)) + A.attention_fp32_reference_bwd(
+        q, k, v, o, lse, g, scale)
     out = {}
-    for name, a, r in zip(("o", "lse", "dq", "dk", "dv"), got, refs):
+    for name, a, r in zip(("o", "lse", "delta", "dq", "dk", "dv"), got,
+                          refs):
         if name in ("o", "lse"):
             tol = FP32_FWD_TOL
+        elif name == "delta":
+            tol = FP32_FWD_TOL * r.abs().max().item()
         else:
             r_max = (refs[-1] if q.shape[2] == 1 else r).abs().max().item()
             tol = FP32_BWD_RTOL * r_max
@@ -997,13 +1004,13 @@ def over_tol(errs: dict) -> dict:
 
 def fp32_run(torch, A, q, k, v, g, scale: float):
     """The three fp32 entries on q, k, v (any layout) and the cotangent g:
-    (o, lse2, dq, dk, dv), o and the gradients laid out as q."""
+    (o, lse2, delta, dq, dk, dv), o and the gradients laid out as q."""
     o, lse = A.fp32_attn_fwd(q, k, v, scale, with_lse=True)
     dq, dk, dv = (A._empty_like_rows(x) for x in (q, k, v))
     delta = torch.empty(q.shape[:3], device="cuda")
     A.fp32_attn_dq(q, k, v, o, g, lse, dq, delta, scale)
     A.fp32_attn_dkv(q, k, v, g, lse, delta, dk, dv, scale)
-    return o, lse, dq, dk, dv
+    return o, lse, delta, dq, dk, dv
 
 
 def check_fp32_kernels(torch, A) -> dict:
@@ -1011,7 +1018,8 @@ def check_fp32_kernels(torch, A) -> dict:
     (``attention_fp32_reference`` and its backward) on the card, TF32 off:
     at every length of ``FP32_LENGTHS`` at head dims 64 and 80 on
     contiguous tensors, and at the main paths' shapes ``FP32_SHAPES`` on
-    views of a packed qkv, o and lse2 within ``FP32_FWD_TOL``, dq, dk, dv
+    views of a packed qkv, o and lse2 within ``FP32_FWD_TOL``, the dQ
+    entry's delta within ``FP32_FWD_TOL`` of its max abs, dq, dk, dv
     within ``FP32_BWD_RTOL`` of their max abs; at every main-path shape
     the plain version at scale * ``FP32_CONTROL`` must fail each of those
     tolerances (a kernel off by that much would be caught). At the main

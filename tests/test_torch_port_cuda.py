@@ -1067,16 +1067,18 @@ def test_stage2_recipe_entry_runs_on_card(cuda, tmp_path):
 
 # ------------------------------------------------ the fp32 kernels
 
-# around the forward's 32- and 64-query tiles, dK/dV's 64- to 128-key
-# tiles and the streamed 64-row tiles, and the paths' own lengths
-FP32_LENGTHS = [1, 7, 31, 32, 33, 63, 64, 65, 127, 128, 129, 197, 320, 392,
-                577, 1568, 1569, 2048]
+# around the forward's 32- and 64-query tiles, dQ's 64-, 80- and 112-query
+# tiles, dK/dV's 64- to 128-key tiles and the streamed 64-row tiles, and
+# the paths' own lengths
+FP32_LENGTHS = [1, 7, 31, 32, 33, 63, 64, 65, 79, 80, 81, 111, 112, 113, 127,
+                128, 129, 197, 320, 392, 577, 1568, 1569, 2048]
 # enough clips for the entries' wider tiles at their edges (each takes the
 # tile whose grid costs least: here the forward's 64 query rows at 33-64
-# and 97-128 keys, dK/dV's 64 keys up to 64, then 80, 96, 112, 128)
+# and 97-128 keys, dQ's 80 queries at 65-80, 129-160 and 225-240 and 112
+# at 81-112 and 193-224, dK/dV's 64 keys up to 64, then 80, 96, 112, 128)
 FP32_WIDE_B = 132
 FP32_EDGES = [31, 32, 33, 63, 64, 65, 79, 80, 81, 95, 96, 97, 111, 112, 113,
-              127, 128, 129]
+              127, 128, 129, 159, 160, 161, 223, 224, 225]
 
 
 def _fp32_within(got, refs, what, fwd_tol=1e-5, bwd_rtol=1e-4):

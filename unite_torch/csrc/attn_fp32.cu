@@ -34,64 +34,59 @@
 //
 // What bounds it: operations. At [2, 12, 1568, 64] the forward is 6*S^2*D
 // flops a head with the exact-max sweep (2.3e10, 0.34 ms at the H100's 67
-// TFLOP/s fp32) against 0.1 GB moved (0.03 ms at 3.35 TB/s); dq and dk/dv
-// are 8*S^2*D each. An SM's 128 fp32 lanes do 128 FMAs a clock while its
+// TFLOP/s fp32) against 0.1 GB moved (0.03 ms at 3.35 TB/s); dq is 6*S^2*D
+// and dk/dv 8*S^2*D. An SM's 128 fp32 lanes do 128 FMAs a clock while its
 // shared memory serves 128 bytes a clock, so a product whose operands come
-// from shared memory one scalar per FMA or two (4 x 4 scores a thread, rows
-// of D + 1 floats) runs at the shared memory's pace, not the FMAs'.
+// from shared memory one scalar per FMA or two runs at the shared memory's
+// pace, not the FMAs'.
 //
-// The forward and dK/dV (fwd_kernel, dkv_kernel) are register-tiled:
+// All three entries (fwd_kernel, dq_kernel, dkv_kernel) are register-tiled:
 // * A block holds rows of its own side (queries; keys for dK/dV) and
 //   streams the other side in 64-row tiles: the forward 4 warps over 8*TM
-//   query rows, dK/dV 8 warps over 16*TM keys (two rows of 4 warps). A
-//   warp's lanes form 8 row groups lr by 4 column groups lc; a thread of
-//   warp w holds a TM x 4 block of a 64-column score tile (rows lr + 8i,
-//   columns 16(w % 4) + lc + 4j) and a TM x 4 block of the D output lanes
-//   (lanes 16(w % 4) + 4lc .. +3; at D = 80 also lane 64 + 4(w % 4) + lc).
+//   query rows, dQ 8 warps over 16*TM queries and dK/dV over 16*TM keys
+//   (two rows of 4 warps). A warp's lanes form 8 row groups lr by 4 column
+//   groups lc; a thread of warp w holds a TM x 4 block of a 64-column score
+//   tile (rows lr + 8i, columns 16(w % 4) + lc + 4j) and a TM x 4 block of
+//   the D output lanes (lanes 16(w % 4) + 4lc .. +3; at D = 80 also lane
+//   64 + 4(w % 4) + lc).
 // * Every operand is read with 16-byte loads from row-major tiles: the
-//   products over D (q.k^T, v.do^T) load 4 lanes of both rows a load, the
-//   products over the streamed rows (p.v, p^T.do, ds^T.q) 4 columns of the
-//   score tile and 4 output lanes of a streamed row. Tile rows are D + 4
-//   floats (score tiles 68), so the 8 row groups' 16-byte loads fall in 8
-//   distinct 16-byte bank groups and the 4 column groups' in 4: each load
-//   is one shared-memory wavefront, and a thread does 8 (TM = 4) to 10.7
-//   (TM = 8) FMAs a load against 2 in the earlier 4 x 4 scalar design.
+//   products over D (q.k^T, do.v^T, v.do^T) load 4 lanes of both rows a
+//   load, the products over the streamed rows (p.v, ds.k, p^T.do, ds^T.q)
+//   4 columns of the score tile and 4 output lanes of a streamed row. Tile
+//   rows are D + 4 floats (score tiles 68), so the 8 row groups' 16-byte
+//   loads fall in 8 distinct 16-byte bank groups and the 4 column groups'
+//   in 4: each load is one shared-memory wavefront, and a thread does 8
+//   (TM = 4) to 10.7 (TM = 8) FMAs a load.
 // * The streamed tiles come in by 16-byte cp.async copies through a ring,
 //   so a tile's copy runs under the products of the tile before. The
 //   forward's first sweep (the exact row max) streams K alone through 3
 //   slots with one barrier a tile; its second streams K_t and V_t through
 //   the same 3 slots (K_t in slot 2t mod 3, V_t in 2t + 1 mod 3: K_{t+1} is
 //   copied into V_{t-1}'s slot once p.V_{t-1} is done, V_{t+1} into K_t's
-//   once q.K_t is done) with two barriers a tile. dK/dV streams q, do,
-//   lse2 and delta through 2 stages, writes p^T and ds^T into two tiles of
-//   their own and keeps dk and dv in registers: two barriers a tile.
-// * Row statistics (the max, then l) reduce over a row's 4 column groups by
-//   shuffles and over the 4 warps through shared memory, once a sweep.
+//   once q.K_t is done) with two barriers a tile. dQ streams K_t and V_t
+//   through 2 stages (stage t + 1 is copied once tile t - 1's ds.K is
+//   done), writes ds into a tile of its own and keeps dq in registers: two
+//   barriers a tile. dK/dV streams q, do, lse2 and delta through 2 stages,
+//   writes p^T and ds^T into two tiles of their own and keeps dk and dv in
+//   registers: two barriers a tile.
+// * Row statistics (the forward's max, then l; dQ's delta = rowsum(do*o),
+//   once before its loop) reduce over a row's 4 column groups by shuffles
+//   and over the 4 warps through shared memory.
 // * The grid: each entry takes the tile whose grid costs least
 //   (grid_cost: the blocks an SM takes in turn, a smaller tile costing
-//   more a row), the forward 32 or 64 query rows, dK/dV 64 to 128 keys.
-// Rows and keys past S load as zeros (cp.async's zero fill); keys past S
-// get p = 0 and are left out of the max; query rows past S are computed
-// and never stored. The forward sweeps the keys twice, the row max first,
-// then p, l and p.v against it (an online rescale would round p against a
-// running max, another function).
-//
-// dQ (dq_kernel) keeps the first, simple design: a block of 256 threads
-// takes one 64-row tile of queries with its cotangent rows in shared memory
-// and walks the keys in 64-row tiles; threads form a 16 x 16 grid, a thread
-// holds a 4 x 4 block of a 64 x 64 score tile (rows ty + 16i, columns
-// tx + 16j) and 4 rows of D/16 output lanes (tx + 16j); tiles have rows of
-// D + 1 floats and score tiles rows of 65, and row statistics reduce over
-// the 16 threads of a row group, one half warp.
+//   more a row), the forward 32 or 64 query rows, dQ 64, 80 or 112, dK/dV
+//   64 to 128 keys.
+// Rows and keys past S load as zeros (cp.async's zero fill), and so do
+// lse2 and delta past S; keys past S get p = 0 and are left out of the
+// max; query rows past S are computed and never stored, nor their delta.
+// The forward sweeps the keys twice, the row max first, then p, l and p.v
+// against it (an online rescale would round p against a running max,
+// another function).
 
 #include <cuda_runtime.h>
 #include <math.h>
 
 namespace {
-
-constexpr int TILE = 64;       // query or key rows of a tile
-constexpr int THREADS = 256;   // a 16 x 16 grid of threads
-constexpr int PAD = TILE + 1;  // a score tile's row length in shared memory
 
 // A [B, H, S, D] fp32 tensor: its pointer and the element strides of B, H
 // and S; the D lanes of a row are contiguous.
@@ -108,75 +103,9 @@ View view_of(const void* p, const long long* strides, int i) {
               strides[3 * i], strides[3 * i + 1], strides[3 * i + 2]};
 }
 
-template <int D>
-__host__ __device__ constexpr int tile_floats() {
-  return TILE * (D + 1);
-}
-
-// Rows [r0, r0 + TILE) of head (b, h) of x into a [TILE][D + 1] tile; rows
-// at or past S as zeros.
-template <int D>
-__device__ void load_tile(float* t, const View& x, int b, int h, int r0,
-                          int S) {
-  for (int e = threadIdx.x; e < TILE * D; e += THREADS) {
-    const int r = e / D, c = e - r * D;
-    t[r * (D + 1) + c] = r0 + r < S ? x.row(b, h, r0 + r)[c] : 0.f;
-  }
-}
-
-// s[i][j] = a[row ty + 16i] . b[row tx + 16j] over the D lanes of two tiles.
-template <int D>
-__device__ void dot_tile(const float* a, const float* b, float (&s)[4][4],
-                         int tx, int ty) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 8
-  for (int d = 0; d < D; ++d) {
-    float x[4], y[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) x[i] = a[(ty + 16 * i) * (D + 1) + d];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) y[j] = b[(tx + 16 * j) * (D + 1) + d];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = fmaf(x[i], y[j], s[i][j]);
-  }
-}
-
-// acc[i][j] += sum over the TILE rows r of w[ty + 16i][r] * x[r][tx + 16j]:
-// a [TILE][PAD] score tile times a [TILE][D + 1] tile.
-template <int D>
-__device__ void acc_tile(const float* w, const float* x,
-                         float (&acc)[4][D / 16], int tx, int ty) {
-#pragma unroll 4
-  for (int r = 0; r < TILE; ++r) {
-    float y[D / 16];
-#pragma unroll
-    for (int j = 0; j < D / 16; ++j) y[j] = x[r * (D + 1) + tx + 16 * j];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float wv = w[(ty + 16 * i) * PAD + r];
-#pragma unroll
-      for (int j = 0; j < D / 16; ++j) acc[i][j] = fmaf(wv, y[j], acc[i][j]);
-    }
-  }
-}
-
-// The sum over the 16 threads of a row group (a half warp).
-__device__ float row_sum(float v) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
 __device__ long long stat_index(int b, int h, int H, int S, int r) {
   return ((long long)b * H + h) * S + r;
 }
-
-// ------------------------------------------ register tiles (fwd, dK/dV)
 
 constexpr int COLS = 64;         // rows of a streamed tile
 constexpr int LDP = COLS + 4;    // a score tile's row length
@@ -466,72 +395,102 @@ __global__ void __launch_bounds__(128, 2)
   }
 }
 
-// dq and delta = rowsum(do * o) for one 64-query tile of one head.
-template <int D>
-__global__ void __launch_bounds__(THREADS, 2)
+// dq and delta = rowsum(do * o) for one tile of 16*TM queries of one head
+// (8 warps), from the forward's lse2.
+template <int D, int TM>
+__global__ void __launch_bounds__(256, 1)
     dq_kernel(View q, View k, View v, View o, View dout, const float* lse,
               float* delta, View dq, int S, int H, float c, float scale) {
-  extern __shared__ float smem[];
-  float* qs = smem;
-  float* gs = qs + tile_floats<D>();
-  float* ks = gs + tile_floats<D>();
-  float* vs = ks + tile_floats<D>();
-  float* ds = vs + tile_floats<D>();
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const int q0 = blockIdx.x * TILE, h = blockIdx.y, b = blockIdx.z;
-  load_tile<D>(qs, q, b, h, q0, S);
-  load_tile<D>(gs, dout, b, h, q0, S);
-  __syncthreads();
-  float dl[4], ls[4];
+  constexpr int LD = ld_of<D>(), ROWS = 16 * TM, NT = 256;
+  constexpr int STAGE = 2 * COLS * LD;  // K_t, V_t
+  extern __shared__ __align__(16) float tiles[];
+  float* qs = tiles;               // [ROWS][LD]
+  float* gs = qs + ROWS * LD;      // do [ROWS][LD]
+  float* dst = gs + ROWS * LD;     // ds [ROWS][LDP]; first delta's [4][ROWS]
+  float* ring = dst + ROWS * LDP;  // 2 x STAGE
+  const Place<TM> at_;
+  const int wq = (threadIdx.x >> 5) & 3, lc = threadIdx.x & 3;
+  const int q0 = blockIdx.x * ROWS, h = blockIdx.y, b = blockIdx.z;
+  const int nt = (S + COLS - 1) / COLS;
+  const long long base = stat_index(b, h, H, S, 0);
+  auto stage = [&](int t) {  // copy key tile t into stage t % 2
+    float* st = ring + (t & 1) * STAGE;
+    copy_tile<D, COLS, NT>(st, k, b, h, t * COLS, S);
+    copy_tile<D, COLS, NT>(st + COLS * LD, v, b, h, t * COLS, S);
+  };
+
+  copy_tile<D, ROWS, NT>(qs, q, b, h, q0, S);
+  copy_tile<D, ROWS, NT>(gs, dout, b, h, q0, S);
+  cp_commit();
+  stage(0);
+  cp_commit();
+  // delta: a thread's lanes of do*o, summed over a row's 4 column groups by
+  // shuffles and over its 4 warps through shared memory
+  float dl[TM], ls[TM];
+  cp_wait<1>();     // q and do have landed (K_0, V_0 may be in flight)
+  __syncthreads();  // ... for every thread
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = q0 + ty + 16 * i;
+  for (int i = 0; i < TM; ++i) {
+    const int r = at_.ra + 8 * i;
     float part = 0.f;
-    if (r < S) {
-      const float* orow = o.row(b, h, r);
-#pragma unroll
-      for (int j = 0; j < D / 16; ++j)
-        part = fmaf(gs[(ty + 16 * i) * (D + 1) + tx + 16 * j],
-                    orow[tx + 16 * j], part);
+    if (q0 + r < S) {
+      const float* orow = o.row(b, h, q0 + r);
+      const float* grow = gs + r * LD;
+      const float4 x = ld4(grow + at_.lb), y = ld4(orow + at_.lb);
+      part = fmaf(x.x, y.x, part);
+      part = fmaf(x.y, y.y, part);
+      part = fmaf(x.z, y.z, part);
+      part = fmaf(x.w, y.w, part);
+      if constexpr (D == 80) part = fmaf(grow[at_.le], orow[at_.le], part);
+      ls[i] = lse[base + q0 + r];
+    } else {
+      ls[i] = 0.f;
     }
-    dl[i] = row_sum(part);
-    ls[i] = r < S ? lse[stat_index(b, h, H, S, r)] : 0.f;
-    if (r < S && tx == 0) delta[stat_index(b, h, H, S, r)] = dl[i];
+    part += __shfl_xor_sync(0xffffffffu, part, 1);
+    part += __shfl_xor_sync(0xffffffffu, part, 2);
+    if (lc == 0) dst[wq * ROWS + r] = part;
+  }
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    const int r = at_.ra + 8 * i;
+    dl[i] = dst[r] + dst[ROWS + r] + dst[2 * ROWS + r] + dst[3 * ROWS + r];
+    if (q0 + r < S && wq == 0 && lc == 0) delta[base + q0 + r] = dl[i];
   }
 
-  float acc[4][D / 16];
+  float acc[TM][lanes_of<D>()];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < TM; ++i)
 #pragma unroll
-    for (int j = 0; j < D / 16; ++j) acc[i][j] = 0.f;
-  for (int k0 = 0; k0 < S; k0 += TILE) {
-    __syncthreads();
-    load_tile<D>(ks, k, b, h, k0, S);
-    load_tile<D>(vs, v, b, h, k0, S);
-    __syncthreads();
-    float s[4][4], dp[4][4];
-    dot_tile<D>(qs, ks, s, tx, ty);
-    dot_tile<D>(gs, vs, dp, tx, ty);
+    for (int j = 0; j < lanes_of<D>(); ++j) acc[i][j] = 0.f;
+  for (int t = 0; t < nt; ++t) {
+    const float* ks = ring + (t & 1) * STAGE;
+    const float* vs = ks + COLS * LD;
+    cp_wait<0>();     // key tile t has landed
+    __syncthreads();  // ... for every thread, and tile t - 1 is done
+    if (t + 1 < nt) stage(t + 1);
+    cp_commit();
+    // rows: this block's queries; columns: the tile's keys
+    float s[TM][4], dp[TM][4];
+    dot_rows<D, TM>(qs, ks, s, at_.ra, at_.cb);
+    dot_rows<D, TM>(gs, vs, dp, at_.ra, at_.cb);
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
-      const bool key = k0 + tx + 16 * j < S;
+      const int col = at_.cb + 4 * j;
+      const bool key = t * COLS + col < S;
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
+      for (int i = 0; i < TM; ++i) {
         const float p = key ? exp2f(s[i][j] * c - ls[i]) : 0.f;
-        ds[(ty + 16 * i) * PAD + tx + 16 * j] = p * (dp[i][j] - dl[i]) * scale;
+        dst[(at_.ra + 8 * i) * LDP + col] = p * (dp[i][j] - dl[i]) * scale;
       }
     }
-    __syncthreads();
-    acc_tile<D>(ds, ks, acc, tx, ty);
+    __syncthreads();  // ds for every thread
+    acc_rows<D, TM>(dst, ks, acc, at_.ra, at_.lb, at_.le);  // dq += ds.k
   }
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = q0 + ty + 16 * i;
-    if (r < S) {
-      float* out = dq.row(b, h, r);
-#pragma unroll
-      for (int j = 0; j < D / 16; ++j) out[tx + 16 * j] = acc[i][j];
-    }
+  for (int i = 0; i < TM; ++i) {
+    const int r = q0 + at_.ra + 8 * i;
+    if (r < S) store_lanes<D>(dq.row(b, h, r), acc[i], 1.f, at_.lb, at_.le);
   }
 }
 
@@ -609,19 +568,10 @@ __global__ void __launch_bounds__(256, 1)
   }
 }
 
-template <int D>
-constexpr int bwd_bytes() {
-  return (4 * tile_floats<D>() + TILE * PAD + 2 * TILE) * (int)sizeof(float);
-}
-
 template <typename Kernel>
 int launchable(Kernel kernel, int bytes) {
   return (int)cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-}
-
-dim3 grid_of(int B, int S, int H) {
-  return dim3((S + TILE - 1) / TILE, H, B);
 }
 
 template <int D, int TM>
@@ -635,6 +585,12 @@ template <int D, int TM>
 constexpr int dkv_bytes() {
   return (2 * 16 * TM * (ld_of<D>() + LDP) +
           2 * (2 * COLS * ld_of<D>() + 2 * COLS)) *
+         (int)sizeof(float);
+}
+
+template <int D, int TM>
+constexpr int dq_bytes() {
+  return (16 * TM * (2 * ld_of<D>() + LDP) + 2 * 2 * COLS * ld_of<D>()) *
          (int)sizeof(float);
 }
 
@@ -654,7 +610,7 @@ long long blocks(int B, int S, int H, int rows) {
 // thread, on sms SMs: the blocks an SM takes in turn, each costing
 // TM * (1 + (8 - TM)/k). A smaller tile does fewer FMAs a shared load and
 // pays its copies and barriers over fewer rows; k (40 for the forward, 20
-// for dK/dV) fits the CUDA-graph times of every tile size at the main
+// for dQ and dK/dV) fits the CUDA-graph times of every tile size at the main
 // paths' shapes (unite_torch/tools/attention_ab.py --fp32).
 double grid_cost(int B, int S, int H, int rows, int tm, int k, int sms) {
   return (double)((blocks(B, S, H, rows) + sms - 1) / sms) * tm *
@@ -687,20 +643,45 @@ int run_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
   return launch_fwd<D, 8>(q, k, v, o, lse, strides, B, S, H, c, stream);
 }
 
-template <int D>
-int run_dq(const void* q, const void* k, const void* v, const void* o,
-           const void* dout, const void* lse, void* delta, void* dq,
-           const long long* strides, int B, int S, int H, float c,
-           float scale, void* stream) {
-  int err = launchable(dq_kernel<D>, bwd_bytes<D>());
+template <int D, int TM>
+int launch_dq(const void* q, const void* k, const void* v, const void* o,
+              const void* dout, const void* lse, void* delta, void* dq,
+              const long long* strides, int B, int S, int H, float c,
+              float scale, void* stream) {
+  constexpr int rows = 16 * TM, bytes = dq_bytes<D, TM>();
+  static_assert(bytes <= SMEM_MAX, "a block's shared memory");
+  int err = launchable(dq_kernel<D, TM>, bytes);
   if (err != 0) return err;
-  dq_kernel<D><<<grid_of(B, S, H), THREADS, bwd_bytes<D>(),
-                 (cudaStream_t)stream>>>(
+  dq_kernel<D, TM><<<dim3((S + rows - 1) / rows, H, B), 256, bytes,
+                      (cudaStream_t)stream>>>(
       view_of(q, strides, 0), view_of(k, strides, 1), view_of(v, strides, 2),
       view_of(o, strides, 3), view_of(dout, strides, 4),
       static_cast<const float*>(lse), static_cast<float*>(delta),
       view_of(dq, strides, 5), S, H, c, scale);
   return (int)cudaGetLastError();
+}
+
+// dQ takes 16*TM queries a block (one block an SM), TM = 4, 5 or 7, the TM
+// whose grid costs least: 112-query tiles at [2,12,1568] (3 waves of 336
+// blocks over 132 SMs), 80 at [2,6,1568] and [2,12,392], 64 at the
+// shortest. Of the TMs 4 to 8 timed at the main paths' shapes, these three
+// hold the fastest at each.
+template <int D>
+int run_dq(const void* q, const void* k, const void* v, const void* o,
+           const void* dout, const void* lse, void* delta, void* dq,
+           const long long* strides, int B, int S, int H, float c,
+           float scale, void* stream) {
+  const int sms = sm_count();
+  const double c4 = grid_cost(B, S, H, 64, 4, 20, sms);
+  const double c5 = grid_cost(B, S, H, 80, 5, 20, sms);
+  const double c7 = grid_cost(B, S, H, 112, 7, 20, sms);
+  auto run = [&](auto launch) {
+    return launch(q, k, v, o, dout, lse, delta, dq, strides, B, S, H, c,
+                  scale, stream);
+  };
+  if (c4 <= c5 && c4 <= c7) return run(launch_dq<D, 4>);
+  if (c5 <= c7) return run(launch_dq<D, 5>);
+  return run(launch_dq<D, 7>);
 }
 
 template <int D, int TM>
