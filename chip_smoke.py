@@ -243,6 +243,24 @@ toolkit. In order:
    the CPU (loss and grad norm within ``STEP_RTOL``); the tool at its
    defaults for ``TOOL_STEPS`` steps, each exactly 12 K1 at (32, 197),
    12 K1 at (4, 314) and 12 K2, one finite JSON line a step;
+16c. ViT-L/16 past stage 1 (``VITL``: bench.py --large2's
+   vit_large_patch16_224, 24 blocks of 1024, 16 heads of 64, and the
+   stage 3 it feeds): K3 (with lse), K4a and K4b at [8, 1568, 3072], K3
+   at [32, 1568, 3072] and K3/K4 at [5, 1568, 3072], K1 at the clip_l14
+   teachers' [40, 197, 3072] and K1/K2 at the committee's [5, 320, 3072]
+   against their plain versions with timings beside SDPA's; phases 8-10
+   at ViT-L (the card-vs-CPU step at full width cut to 2 blocks, bf16
+   within ``STEP_RTOL`` and fp32 within ``FP32_STEP_RTOL``; then
+   ``vitl-stage2-b8``, 24 K3, K4a and K4b a step, and
+   ``vitl-stage2-eval-b32``); phases 12-13 at ViT-L
+   (adaptation_umt_large_patch16_224 against clip_l14 at 196^2, decoders
+   1024 -> 768, [12, 768] text features, the classifier at 1024: the
+   card-vs-CPU step at 2 blocks, both gates, then ``vitl-stage3-b5``, 72
+   K1, 24 K2, 48 K3, 24 K4a and 24 K4b a step, exact by shape); then
+   ``vitl-chain``: ``run_stage1.main`` -> ``run_stage2.main --finetune``
+   -> ``run_stage3.main --student_init`` at ViT-L, every parameter handed
+   on held bit for bit, exact launches, each entry's first-step latency
+   and clips/s;
 17. ``scaleout-nccl-w{N}`` (N = the cards on the machine): the three
    entries launched by ``python -m torch.distributed.run --standalone
    --nproc_per_node N`` over NCCL, each rank running this script as
@@ -380,6 +398,24 @@ L14_M = L14_B * 8 * 197  # the teacher's rows: 37824
 # K7a's (M, K, N) in the int8 teacher's four dense layers, and the probe's
 L14_DENSE = {"in_proj": (L14_M, 1024, 3072), "out_proj": (L14_M, 1024, 1024),
              "mlp_c_fc": (L14_M, 1024, 4096), "mlp_c_proj": (L14_M, 4096, 1024)}
+# the model families of the stage-2 and stage-3 phases: the stage-2 ViT,
+# the stage-3 student (taps [6], configs/stage3_config.yaml) and its
+# teacher at its input resolution and patch, the width and heads (the
+# student's and the teacher's), the decoders' width and the teacher's
+# output width (the text features'), the depth of the card-vs-CPU step
+# (None: the full model) and the cells' names. BASE is configs/stage{2,3}_config.yaml's; VITL
+# bench.py --large2's vit_large_patch16_224 (24 blocks of 1024, 16 heads of
+# 64) and the stage 3 it feeds, with bench_large's clip_l14 at 196^2
+BASE = SimpleNamespace(
+    vit="vit_base_patch16_224", student="adaptation_umt_base_patch16_224",
+    teacher="clip_b16", t_res=224, t_patch=16, width=768, depth=12, heads=12,
+    dec=768, out=512, cut=None, s2="stage2-b16-b8",
+    s2_eval="stage2-eval-b16-b32", s3="stage3-b16-b5")
+VITL = SimpleNamespace(
+    vit="vit_large_patch16_224", student="adaptation_umt_large_patch16_224",
+    teacher="clip_l14", t_res=196, t_patch=14, width=1024, depth=24, heads=16,
+    dec=1024, out=768, cut=2, s2="vitl-stage2-b8",
+    s2_eval="vitl-stage2-eval-b32", s3="vitl-stage3-b5")
 PROBE_SHAPE = (38400, 768, 3072)
 RAGGED_MM = ((394, 768, 2304), (1, 1024, 1024))
 # K7's sweep (tests/test_torch_port_cuda.py's shapes): ragged M and N (N % 4
@@ -1865,15 +1901,21 @@ def stage2_clip_flops(frames: int = 8, img: int = 224, depth: int = 12,
 
 def build_stage2(torch, dtype_name: str, device: str, drop_path: float,
                  state_dict=None, recipe: bool = False,
-                 attn_drop: float = 0.0, opt: str = "adamw"):
+                 attn_drop: float = 0.0, opt: str = "adamw", fam=BASE,
+                 depth=None):
     """The stage-2 model, optimizer and steps as run_stage2.main builds
     them from configs/stage2_config.yaml (no lr batch scaling in stage 2,
     warmup 0, layer decay 0.65, blocks 0-6 frozen, no EMA, no clip); with
     ``recipe``, ``RECIPE``'s switches (mixup 0.8 and cutmix 1.0 with
     smoothing 0.1, dropout 0.1, the head's 0.5, remat, a bf16 first
-    moment); ``attn_drop`` the attention dropout rate; ``opt`` --opt."""
+    moment); ``attn_drop`` the attention dropout rate; ``opt`` --opt.
+    ``fam`` names the ViT (``fam.vit``); ``depth`` cuts it to that many
+    blocks at full width (``build_model`` with the registry's factory at
+    that depth)."""
+    import unite_torch.train.run_stage2 as R
     from unite_torch.engines.finetune import (make_eval_step,
                                               make_finetune_train_step)
+    from unite_torch.models.vit import VisionTransformer
     from unite_torch.optim.factory import create_optimizer
     from unite_torch.train.common import mu_dtype_for
     from unite_torch.train.run_stage2 import (build_mixup, build_model,
@@ -1882,7 +1924,7 @@ def build_stage2(torch, dtype_name: str, device: str, drop_path: float,
     from unite_torch.utils.schedules import cosine_scheduler
 
     args = SimpleNamespace(
-        model="vit_base_patch16_224", nb_classes=12, num_frames=8,
+        model=fam.vit, nb_classes=12, num_frames=8,
         tubelet_size=1, fc_drop_rate=0.5 if recipe else 0.0,
         drop=0.1 if recipe else 0.0, attn_drop_rate=attn_drop,
         drop_path=drop_path, use_learnable_pos_emb=False,
@@ -1894,7 +1936,17 @@ def build_stage2(torch, dtype_name: str, device: str, drop_path: float,
         mixup=0.8 if recipe else 0.0, cutmix=1.0 if recipe else 0.0,
         mixup_prob=1.0, mixup_switch_prob=0.5, mixup_mode="batch",
         smoothing=0.1 if recipe else 0.0)
-    model = build_model(args, device=device)
+    if depth is None:
+        model = build_model(args, device=device)
+    else:
+        def cut(name, device=None, **kw):
+            return VisionTransformer(
+                patch_size=16, embed_dim=fam.width, depth=depth,
+                num_heads=fam.heads, mlp_ratio=4, qkv_bias=True,
+                norm_eps=1e-6, **kw).to(device)
+
+        with patched((R, "create_model", cut)):
+            model = build_model(args, device=device)
     if state_dict is not None:
         model.load_state_dict(state_dict)
     niter, epochs = 100, 20
@@ -1923,18 +1975,22 @@ def stage2_batch(torch, b: int, seed: int):
             "labels": torch.from_numpy(rng.integers(0, 12, (b,)))}
 
 
-def stage2_card_vs_cpu(torch, A):
+def stage2_card_vs_cpu(torch, A, fam=BASE):
     """Phase 6: one stage-2 step on the card (bf16) against the CPU (fp32),
-    and the same step on the card in fp32 against the same CPU step."""
+    and the same step on the card in fp32 against the same CPU step, B=2:
+    ``fam``'s ViT, cut to ``fam.cut`` blocks at full width where it names
+    a depth."""
     from unite_torch.ops.normalize import normalize_videos
 
     torch.manual_seed(5)
-    cpu_state, cpu_step, _ = build_stage2(torch, "float32", "cpu", 0.0)
+    kw = dict(fam=fam, depth=fam.cut)
+    cpu_state, cpu_step, _ = build_stage2(torch, "float32", "cpu", 0.0, **kw)
     sd = {k: v.clone() for k, v in cpu_state.model.state_dict().items()}
-    gpu_state, gpu_step, _ = build_stage2(torch, "bfloat16", "cuda", 0.0, sd)
+    gpu_state, gpu_step, _ = build_stage2(torch, "bfloat16", "cuda", 0.0, sd,
+                                          **kw)
     with budget("added", "fp32 card steps"):
         f32_state, f32_step, _ = build_stage2(torch, "float32", "cuda", 0.0,
-                                              sd)
+                                              sd, **kw)
     batch = stage2_batch(torch, 2, 6)
     with torch.no_grad():
         vids = normalize_videos(batch["videos"])
@@ -1951,24 +2007,27 @@ def stage2_card_vs_cpu(torch, A):
             torch, A, lambda: f32_step(f32_state, batch), bf16_counts,
             "stage-2 fp32 card step").items()}
     m_cpu = {k: v.item() for k, v in cpu_step(cpu_state, batch).items()}
-    f32_rel = fp32_gate("stage-2 step", m_f32, m_cpu,
-                        {"logits": (l_f32, l_cpu)})
+    what = f"{fam.s2} step" + (f", {fam.cut} blocks" if fam.cut else "")
+    f32_rel = fp32_gate(what, m_f32, m_cpu, {"logits": (l_f32, l_cpu)})
     rel = {k: abs(m_gpu[k] - m_cpu[k]) / abs(m_cpu[k])
            for k in ("loss", "grad_norm")}
     rel["logits"] = logit_rel
-    print(f"stage-2 step card bf16 vs cpu fp32: card {m_gpu} cpu {m_cpu} "
+    print(f"{what} card bf16 vs cpu fp32: card {m_gpu} cpu {m_cpu} "
           f"rel {rel}", flush=True)
+    check_finite([(m_gpu["loss"], m_gpu["grad_norm"])])
     if not all(r <= STEP_RTOL for r in rel.values()):
-        raise AssertionError(f"stage-2 card step disagrees with the CPU: "
-                             f"{rel}")
+        raise AssertionError(f"{what}: the card step disagrees with the "
+                             f"CPU: {rel}")
     return dict(rel, fp32_rel=f32_rel, bf16_launches=bf16_counts)
 
 
-def stage2_path(torch, A, b: int = 8, warmup: int = 2, timed: int = 10):
-    """Phase 7: the stage-2 finetune train step; returns its numbers and
-    the trained state with its eval step."""
+def stage2_path(torch, A, b: int = 8, warmup: int = 2, timed: int = 10,
+                fam=BASE):
+    """Phase 7: the stage-2 finetune train step of ``fam``'s ViT; returns
+    its numbers and the trained state with its eval step."""
     torch.manual_seed(7)
-    state, step, eval_step = build_stage2(torch, "bfloat16", "cuda", 0.1)
+    state, step, eval_step = build_stage2(torch, "bfloat16", "cuda", 0.1,
+                                          fam=fam)
     gen = torch.Generator(device="cuda").manual_seed(8)
     batch = stage2_batch(torch, b, 9)
     batch["videos"] = batch["videos"].pin_memory()
@@ -1984,21 +2043,24 @@ def stage2_path(torch, A, b: int = 8, warmup: int = 2, timed: int = 10):
     counts = read_counts(A)
     n = warmup + timed
     vals = [(m["loss"].item(), m["grad_norm"].item()) for m in metrics]
-    print(f"stage-2 path losses/grad norms: {vals}", flush=True)
+    print(f"{fam.s2} losses/grad norms: {vals}", flush=True)
     check_finite(vals)
-    # all 12 blocks run K3 forward and K4 backward, the frozen ones too
-    expect_counts(counts, {"K3": 12 * n, "K3+lse": 12 * n, "K4a": 12 * n,
-                           "K4b": 12 * n}, f"stage-2 path, {n} steps")
-    flops = b * stage2_clip_flops()
+    # every block runs K3 forward and K4 backward, the frozen ones too
+    d = fam.depth
+    expect_counts(counts, {"K3": d * n, "K3+lse": d * n, "K4a": d * n,
+                           "K4b": d * n}, f"{fam.s2}, {n} steps")
+    flops = b * stage2_clip_flops(depth=d, dim=fam.width)
     res = dict(clips_per_s=b * timed / dt, step_ms=dt / timed * 1e3,
                model_tflop_per_step=flops / 1e12,
                model_flops_util=flops * timed / dt / PEAK_BF16,
                peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
                steps=n, k3_launches=counts["K3"],
                k4_dq_launches=counts["K4a"], k4_dkv_launches=counts["K4b"])
-    print(f"stage-2 path B={b}: {res} on {card_line()}", flush=True)
-    res["profile"] = profile_step(torch, lambda: step(state, batch, gen),
-                                  "chip_smoke_profile_stage2.json")
+    print(f"{fam.s2} B={b}: {res} on {card_line()}", flush=True)
+    res["profile"] = profile_step(
+        torch, lambda: step(state, batch, gen),
+        "chip_smoke_profile_stage2.json" if fam is BASE
+        else f"chip_smoke_profile_{fam.s2}.json")
     # the profiler slows the host, so the timed steps' busy share is the
     # profiled device time over the timed step
     res["device_share_of_timed_step"] = (res["profile"]["device_ms"]
@@ -2007,8 +2069,9 @@ def stage2_path(torch, A, b: int = 8, warmup: int = 2, timed: int = 10):
 
 
 def stage2_eval(torch, A, state, eval_step, b: int = 32, warmup: int = 2,
-                timed: int = 10):
-    """Phase 8: the stage-2 eval step (softmax, top-1/5, loss) over views."""
+                timed: int = 10, fam=BASE):
+    """Phase 8: the stage-2 eval step (softmax, top-1/5, loss) over views,
+    of ``fam``'s ViT."""
     batch = stage2_batch(torch, b, 10)
     batch["videos"] = batch["videos"].pin_memory()
     torch.cuda.reset_peak_memory_stats()
@@ -2022,22 +2085,25 @@ def stage2_eval(torch, A, state, eval_step, b: int = 32, warmup: int = 2,
     dt = time.perf_counter() - t0
     counts = read_counts(A)
     n = warmup + timed
-    expect_counts(counts, {"K3": 12 * n}, f"stage-2 eval, {n} calls")
+    expect_counts(counts, {"K3": fam.depth * n}, f"{fam.s2_eval}, {n} calls")
     probs = outs[-1]["probs"]
     sums = probs.sum(-1)
     if (probs.shape != (b, 12) or not bool(torch.isfinite(probs).all())
             or (sums - 1).abs().max().item() > 1e-4):
         raise AssertionError(f"eval probs: shape {tuple(probs.shape)}, row "
                              f"sums {sums.tolist()}")
-    flops = b * stage2_clip_flops() / 3
+    flops = b * stage2_clip_flops(depth=fam.depth, dim=fam.width) / 3
     res = dict(views_per_s=b * timed / dt, call_ms=dt / timed * 1e3,
+               model_tflop_per_call=flops / 1e12,
                model_flops_util=flops * timed / dt / PEAK_BF16,
                peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
                calls=n, k3_launches=counts["K3"],
                acc1=outs[-1]["acc1"].item(), loss=outs[-1]["loss"].item())
-    print(f"stage-2 eval B={b}: {res} on {card_line()}", flush=True)
-    res["profile"] = profile_step(torch, lambda: eval_step(state, batch),
-                                  "chip_smoke_profile_eval.json")
+    print(f"{fam.s2_eval} B={b}: {res} on {card_line()}", flush=True)
+    res["profile"] = profile_step(
+        torch, lambda: eval_step(state, batch),
+        "chip_smoke_profile_eval.json" if fam is BASE
+        else f"chip_smoke_profile_{fam.s2_eval}.json")
     res["device_share_of_timed_call"] = (res["profile"]["device_ms"]
                                          / res["call_ms"])
     return res
@@ -2675,21 +2741,23 @@ def check_flash_kernels(torch, A, head_dim: int = 64,
 
 def stage3_step_flops(b: int, cls: bool, frames: int = 8, width: int = 768,
                       layers: int = 12, grid: int = 196,
-                      visible: int = 320) -> float:
+                      visible: int = 320, t_patch: int = 16) -> float:
     """Model operations of one stage-3 step at B_s = B_t = b, from the
     shapes (matrix products and attention; a backward counts as two
     forwards): the zero-shot and the attention teacher passes over b*8
-    frames of 197 tokens, the source full pass forward and backward, the
-    target full pass forward, and the committee's grad member forward and
-    backward at the visible tokens (the CLS student embeds every patch
-    before its gather). The kernels' recomputed scores are not counted."""
+    frames of 197 tokens (the teacher's ``t_patch`` over the same grid),
+    the source full pass forward and backward, the target full pass
+    forward, and the committee's grad member forward and backward at the
+    visible tokens (the CLS student embeds every patch before its gather).
+    The teacher's width and depth are the student's. The kernels'
+    recomputed scores are not counted."""
     def layer(tokens, seq):  # qkv, proj, fc1, fc2 (12 w^2) + q.k^T and p.v
         return tokens * (2 * 12 * width * width + 4 * seq * width)
 
     patch = 2 * 3 * 16 * 16 * width  # per patch
     n, nv = frames * grid + cls, visible + cls
     teacher = layers * layer(b * frames * (grid + 1), grid + 1) \
-        + b * frames * grid * patch
+        + b * frames * grid * 2 * 3 * t_patch * t_patch * width
     full = layers * layer(b * n, n) + b * frames * grid * patch
     grad = layers * layer(b * nv, nv) + b * (frames * grid if cls
                                              else visible) * patch
@@ -2697,18 +2765,23 @@ def stage3_step_flops(b: int, cls: bool, frames: int = 8, width: int = 768,
 
 
 def build_stage3(torch, dtype, device: str, drop_path: float, cls: bool,
-                 b: int, model_state=None):
+                 b: int, model_state=None, fam=BASE, depth=None):
     """The stage-3 student, teacher, classifier, optimizer, steps and
     zero-shot function of configs/stage3_config.yaml with stage3.sh's run
     values (epochs 20, warmup 4, lr 1e-5 scaled by the batch, AdamW (0.9,
     0.95) eps 1e-8, wd 0.05, mask 0.8, committee 2, clip_matchORconf at
     0.1, conf-weighted, train_masked, taps [6], 12 classes), and text
-    features for the zero-shot teacher made from a seed."""
+    features for the zero-shot teacher made from a seed: ``fam``'s
+    student, teacher at its input resolution, decoders and text width,
+    the classifier at the student's width; ``depth`` cuts student and
+    teacher to that many blocks at full width, tapping the last."""
     import numpy as np
 
     from unite_torch import create_model
     from unite_torch.engines.selftrain import (make_selftrain_eval_step,
                                                make_selftrain_step)
+    from unite_torch.models.adaptation import AdaptationVisionTransformer
+    from unite_torch.models.clip import CLIPVisionTransformer
     from unite_torch.models.clip_text import build_zero_shot_fn
     from unite_torch.train import run_stage3
     from unite_torch.train.train_state import TrainState
@@ -2717,16 +2790,28 @@ def build_stage3(torch, dtype, device: str, drop_path: float, cls: bool,
     args = SimpleNamespace(opt="adamw", opt_betas=[0.9, 0.95], opt_eps=1e-8,
                            nb_classes=12, freeze_clip_decoders=False,
                            src_classifier_type="linear",
-                           clip_input_resolution=224)
-    student = create_model(
-        "adaptation_umt_base_patch16_224", device=device, dtype=dtype,
-        num_frames=8, tubelet_size=1, drop_path_rate=drop_path,
-        use_cls_token=cls, clip_decoder_embed_dim=768, clip_output_dim=512,
-        clip_norm_type="l2", clip_return_layers=(6,))
-    teacher = create_model("clip_b16", device=device, dtype=dtype,
-                           input_resolution=224, clip_norm_type="l2",
-                           return_attn=True, return_index=(6,))
-    classifier = run_stage3.build_classifier(args, 768, device)
+                           clip_input_resolution=fam.t_res)
+    skw = dict(num_frames=8, tubelet_size=1, drop_path_rate=drop_path,
+               use_cls_token=cls, clip_decoder_embed_dim=fam.dec,
+               clip_output_dim=fam.out, clip_norm_type="l2", dtype=dtype)
+    tkw = dict(input_resolution=fam.t_res, clip_norm_type="l2",
+               return_attn=True, dtype=dtype)
+    if depth is None:
+        student = create_model(fam.student, device=device,
+                               clip_return_layers=(6,), **skw)
+        teacher = create_model(fam.teacher, device=device, return_index=(6,),
+                               **tkw)
+    else:
+        student = AdaptationVisionTransformer(
+            img_size=224, patch_size=16, encoder_embed_dim=fam.width,
+            encoder_depth=depth, encoder_num_heads=fam.heads,
+            clip_return_layers=(depth - 1,), **skw).to(device)
+        # the teacher's width and heads are the student's in both families
+        teacher = CLIPVisionTransformer(
+            patch_size=fam.t_patch, width=fam.width, layers=depth,
+            heads=fam.heads, output_dim=fam.out,
+            return_index=(depth - 1,), **tkw).to(device)
+    classifier = run_stage3.build_classifier(args, fam.width, device)
     model = run_stage3.combine(student, classifier)
     if model_state is not None:
         model.load_state_dict(model_state)
@@ -2738,14 +2823,14 @@ def build_stage3(torch, dtype, device: str, drop_path: float, cls: bool,
     kw = dict(num_patches=1568, frames=8, mask_ratio=0.8, committee_size=2,
               selection_strategy="clip_matchORconf", clip_threshold=0.1,
               conf_weighted_loss=True, train_masked=True, use_cls_token=cls,
-              clip_input_resolution=224, nb_classes=12, device=device)
+              clip_input_resolution=fam.t_res, nb_classes=12, device=device)
     step = make_selftrain_step(student, classifier, teacher, **kw)
     eval_step = make_selftrain_eval_step(student, classifier, cls,
                                          device=device)
-    feats = ROOT / "build" / "chip_smoke_text_features.npy"
+    feats = ROOT / "build" / f"chip_smoke_text_features_{fam.out}.npy"
     feats.parent.mkdir(exist_ok=True)
     np.save(feats, np.random.default_rng(12).standard_normal(
-        (12, 512)).astype(np.float32))
+        (12, fam.out)).astype(np.float32))
     args.clip_text_features = str(feats)
     zero_shot = build_zero_shot_fn(args, teacher)
     return TrainState(model, tx), step, eval_step, zero_shot
@@ -2766,15 +2851,17 @@ def stage3_batch(torch, b: int, seed: int):
             "labels_t": torch.from_numpy(rng.integers(0, 12, (b,)))}
 
 
-def stage3_card_vs_cpu(torch, A, cls: bool, card: str = "cuda"):
+def stage3_card_vs_cpu(torch, A, cls: bool, card: str = "cuda", fam=BASE):
     """Phase 9: one stage-3 step on the card (bf16) against the CPU (fp32),
     B=2, with the same weights, batch, injected teacher attention and an
     injected clip_sim that agrees with the CPU's full-target predictions,
     so that every row matches CLIP on the CPU; the selection agreement of
     the card is reported apart (a discontinuous function of the logits).
-    With the CLS token (K6 at 1569 tokens), the same step on the card in
-    fp32 from the same weights against the same CPU step, within
-    ``FP32_STEP_RTOL`` (its selection agreement reported apart)."""
+    With the CLS token (K6 at 1569 tokens), and for a family cut to
+    ``fam.cut`` blocks at full width (VITL: K3/K4 at 16 heads), the same
+    step on the card in fp32 from the same weights against the same CPU
+    step, within ``FP32_STEP_RTOL`` (its selection agreement reported
+    apart)."""
     import numpy as np
 
     from unite_torch.engines.selftrain import pool_outputs
@@ -2782,15 +2869,17 @@ def stage3_card_vs_cpu(torch, A, cls: bool, card: str = "cuda"):
     from unite_torch.ops.normalize import normalize_videos
 
     torch.manual_seed(13)
+    fp32 = cls or fam.cut is not None
+    kw = dict(fam=fam, depth=fam.cut)
     cpu_state, cpu_step, _, _ = build_stage3(torch, torch.float32, "cpu", 0.0,
-                                             cls, 2)
+                                             cls, 2, **kw)
     sd = {k: v.clone() for k, v in cpu_state.model.state_dict().items()}
     gpu_state, gpu_step, _, _ = build_stage3(torch, torch.bfloat16, card,
-                                             0.0, cls, 2, sd)
-    if cls:
+                                             0.0, cls, 2, sd, **kw)
+    if fp32:
         with budget("added", "fp32 card steps"):
-            f32_state, f32_step, _, _ = build_stage3(torch, torch.float32,
-                                                     card, 0.0, cls, 2, sd)
+            f32_state, f32_step, _, _ = build_stage3(
+                torch, torch.float32, card, 0.0, cls, 2, sd, **kw)
     batch = stage3_batch(torch, 2, 14)
     rng = np.random.default_rng(15)
     batch["attn"] = torch.from_numpy(rng.dirichlet(
@@ -2818,18 +2907,20 @@ def stage3_card_vs_cpu(torch, A, cls: bool, card: str = "cuda"):
     reset_counts(A)
     m_gpu = gpu_step(gpu_state, batch)
     bf16_counts = read_counts(A)
-    if cls:
+    what = (f"{fam.s3} step" + (" with CLS" if cls else "")
+            + (f", {fam.cut} blocks" if fam.cut else ""))
+    if fp32:
         with budget("added", "fp32 card steps"):
             l_f32 = logits(f32_state.model, card)
             m_f32 = fp32_card_step(
                 torch, A, lambda: f32_step(f32_state, batch), bf16_counts,
-                "stage-3 CLS fp32 card step")
+                f"{what}: the fp32 card step")
     m_cpu = cpu_step(cpu_state, batch)
     f32_rel = None
-    if cls:
+    if fp32:
         keys = ("loss", "grad_norm")
         f32_rel = fp32_gate(
-            "stage-3 CLS step", {k: m_f32[k].item() for k in keys},
+            what, {k: m_f32[k].item() for k in keys},
             {k: m_cpu[k].item() for k in keys},
             dict(zip(("full_logits", "grad_logits"), zip(l_f32, l_cpu))))
         f32_rel["selection_agrees"] = all(
@@ -2839,25 +2930,25 @@ def stage3_card_vs_cpu(torch, A, cls: bool, card: str = "cuda"):
         rel[k] = abs(m_gpu[k].item() - m_cpu[k].item()) / abs(m_cpu[k].item())
     agree = {k: (m_gpu[k].cpu().tolist(), m_cpu[k].tolist())
              for k in ("preds_t", "sel_ratio", "match_select_rate")}
-    print(f"stage-3 step card bf16 vs cpu fp32 (cls={cls}): rel {rel}; "
+    print(f"{what} card bf16 vs cpu fp32: rel {rel}; "
           f"selection card/cpu {agree}; loss card {m_gpu['loss'].item()} "
           f"cpu {m_cpu['loss'].item()}", flush=True)
     check_finite([(m_gpu["loss"].item(), m_gpu["grad_norm"].item())])
     if not all(r <= STEP_RTOL for r in rel.values()):
-        raise AssertionError(f"stage-3 card step (cls={cls}) disagrees with "
-                             f"the CPU: {rel}")
+        raise AssertionError(f"{what}: the card step disagrees with the "
+                             f"CPU: {rel}")
     return dict(rel, selection_agrees=all(a == b for a, b in agree.values()),
                 fp32_rel=f32_rel, bf16_launches=bf16_counts)
 
 
 def stage3_path(torch, A, cls: bool, b: int = 5, warmup: int = 2,
-                timed: int = 10, device: str = "cuda"):
-    """Phases 10 and 11: the stage-3 train step with the zero-shot
-    similarities of each batch, as the stage-3 loop runs them; returns its
-    numbers and the trained state with its eval step."""
+                timed: int = 10, device: str = "cuda", fam=BASE):
+    """Phases 10 and 11: the stage-3 train step of ``fam``'s models with
+    the zero-shot similarities of each batch, as the stage-3 loop runs
+    them; returns its numbers and the trained state with its eval step."""
     torch.manual_seed(16)
     state, step, eval_step, zero_shot = build_stage3(
-        torch, torch.bfloat16, device, 0.1, cls, b)
+        torch, torch.bfloat16, device, 0.1, cls, b, fam=fam)
     gen = torch.Generator(device=device).manual_seed(17)
     batch = {k: v.pin_memory() if device == "cuda" else v
              for k, v in stage3_batch(torch, b, 18).items()}
@@ -2878,28 +2969,41 @@ def stage3_path(torch, A, cls: bool, b: int = 5, warmup: int = 2,
     counts = read_counts(A)
     n = warmup + timed
     vals = [(m["loss"].item(), m["grad_norm"].item()) for m in metrics]
-    name = "stage3-cls-b16-b5" if cls else "stage3-b16-b5"
+    name = fam.s3.replace("stage3-", "stage3-cls-") if cls else fam.s3
     print(f"{name} losses/grad norms: {vals}", flush=True)
     check_finite(vals)
     # K1: the zero-shot teacher, the attention teacher and the committee's
-    # grad member forward (12 layers each); K2: its backward. The full
-    # passes: the source forward with lse and backward, the target forward
-    # without lse, on K3/K4 at 1568 tokens or K6 at 1569.
-    want = {"K1": 36 * n, "K2": 12 * n}
+    # grad member forward (a launch a block each); K2: its backward. The
+    # full passes: the source forward with lse and backward, the target
+    # forward without lse, on K3/K4 at 1568 tokens or K6 at 1569.
+    d = fam.depth
+    want = {"K1": 3 * d * n, "K2": d * n}
     if cls:
-        want.update({"K6": 24 * n, "K6+lse": 12 * n, "K6dq": 12 * n,
-                     "K6dkv": 12 * n})
+        want.update({"K6": 2 * d * n, "K6+lse": d * n, "K6dq": d * n,
+                     "K6dkv": d * n})
     else:
-        want.update({"K3": 24 * n, "K3+lse": 12 * n, "K4a": 12 * n,
-                     "K4b": 12 * n})
+        want.update({"K3": 2 * d * n, "K3+lse": d * n, "K4a": d * n,
+                     "K4b": d * n})
     expect_counts(counts, want, f"{name}, {n} steps")
-    flops = stage3_step_flops(b, cls)
+    # by (B, S): the teachers' b clips of 8 frames of 197 tokens, the grad
+    # member's 320 visible tokens, the full passes' 1568
+    by_shape = read_shapes(A)
+    if not cls:
+        shapes = {"K1": {(8 * b, 197): 2 * d * n, (b, 320): d * n},
+                  "K3": {(b, STAGE2_TOKENS): 2 * d * n}}
+        if by_shape != shapes:
+            raise AssertionError(f"{name}: launches by (B, S) {by_shape}, "
+                                 f"expected {shapes}")
+    flops = stage3_step_flops(b, cls, width=fam.width, layers=d,
+                              t_patch=fam.t_patch)
     sel = [m["sel_ratio"].item() for m in metrics]
     res = dict(clips_per_s=b * timed / dt, step_ms=dt / timed * 1e3,
                model_tflop_per_step=flops / 1e12,
                model_flops_util=flops * timed / dt / PEAK_BF16,
                peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
-               steps=n, launches=counts, sel_ratio=sel[-1])
+               steps=n, launches=counts, sel_ratio=sel[-1],
+               by_shape={k: {f"{x}x{y}": c for (x, y), c in v.items()}
+                         for k, v in by_shape.items()})
     print(f"{name} B={b}: {res} on {card_line()}", flush=True)
     res["profile"] = profile_step(torch, run,
                                   f"chip_smoke_profile_{name}.json")
@@ -3260,6 +3364,22 @@ def check_eval_rows(torch, out, what: str, width=None) -> None:
             f"{sums.tolist()}, feats {None if feats is None else feats.shape}")
 
 
+def counted_zero_shot(build, rec: dict):
+    """``build`` (``build_zero_shot_fn``) with each call of the function it
+    makes counted in ``rec["zs_calls"]`` (the batch generator's thread
+    only); no function stays None."""
+    def make(*a, **k):
+        fn = build(*a, **k)
+
+        def call(*x, **y):
+            rec["zs_calls"] += 1
+            return fn(*x, **y)
+
+        return None if fn is None else call
+
+    return make
+
+
 def checked_eval_step(torch, build_eval, what: str, rec=None):
     """``build_eval`` (an entry's eval-step builder) with each call's rows
     held by ``check_eval_rows`` and counted in ``rec["calls"]``."""
@@ -3474,7 +3594,7 @@ def stage3_entry(torch, A, student_init: Path, s3: dict, workdir: Path):
     rec = {"steps": [], "eval_calls": 0, "zs_calls": 0, "val_s": [],
            "test_s": [], "knn": [], "knn_stats": [], "heads": [],
            "expect": None, "loaded": [], "sync": None}
-    build_eval, build_zs = R.make_selftrain_eval_step, R.build_zero_shot_fn
+    build_eval = R.make_selftrain_eval_step
     load_head = R.load_classifier_head
 
     def loaded_state(student, classifier, *_):
@@ -3505,15 +3625,6 @@ def stage3_entry(torch, A, student_init: Path, s3: dict, workdir: Path):
             return out
 
         return checked
-
-    def counted_zero_shot(*a, **k):
-        fn = build_zs(*a, **k)
-
-        def call(videos, *x, **y):
-            rec["zs_calls"] += 1  # the batch generator's thread only
-            return fn(videos, *x, **y)
-
-        return None if fn is None else call
 
     def recorded_head(args, classifier):
         path = load_head(args, classifier)
@@ -3586,7 +3697,8 @@ def stage3_entry(torch, A, student_init: Path, s3: dict, workdir: Path):
                       torch, R.make_selftrain_step, rec, keys,
                       before=loaded_state)),
                  (R, "make_selftrain_eval_step", checked_eval),
-                 (R, "build_zero_shot_fn", counted_zero_shot),
+                 (R, "build_zero_shot_fn", counted_zero_shot(
+                     R.build_zero_shot_fn, rec)),
                  (R, "load_classifier_head", recorded_head),
                  (C, "run_validation", timed_calls(C.run_validation,
                                                    rec["val_s"])),
@@ -3729,6 +3841,212 @@ def stage3_entry(torch, A, student_init: Path, s3: dict, workdir: Path):
           f"path alone, items/s: {host}; launches {launches}, by shape "
           f"{by_shape}; {json.dumps(res)} on {card_line()}", flush=True)
     return res, kr
+
+
+CHAIN_STEPS = 3   # vitl-chain: each entry trains one epoch of 3 steps
+
+
+def vitl_chain(torch, A, workdir: Path) -> dict:
+    """Phase ``vitl-chain``: the three entries at ViT-L on synthetic clips
+    (uint8, normalized on the card), as a user chains them, each its own
+    config's command line with the ViT-L models. ``run_stage1.main``
+    (``STAGE1_ARGS``, adaptation_umt_large_patch16_224 against clip_l14 at
+    196^2, decoders 1024 -> 768, taps 18-23) trains one epoch of
+    ``CHAIN_STEPS`` steps of 4 source and 4 target clips and writes
+    checkpoint-latest; ``run_stage2.main`` (``STAGE2_ARGS``,
+    vit_large_patch16_224, --finetune that checkpoint) trains an epoch of
+    ``CHAIN_STEPS`` steps of 8, validates (8 clips, one call of 32),
+    writes checkpoint-best and -latest and stops there
+    (--stop_after_steps); ``run_stage3.main`` (``STAGE3_ARGS``,
+    adaptation_umt_large_patch16_224 against clip_l14 at 196^2, decoders
+    1024 -> 768, --student_init the stage-2 checkpoint-best, the zero-shot
+    teacher from a seeded [12, 768] --clip_text_features, no checkpoint)
+    trains an epoch of ``CHAIN_STEPS`` steps of 5 + 5 clips, validates and
+    runs the 15-view test (2 videos, one call). Every parameter a stage
+    hands on is held bit for bit when the next stage's step is built:
+    the stage-1 encoder's in the stage-2 ViT, the stage-2 ViT's in the
+    stage-3 encoder and its head in the classifier. Launches exact, in all
+    and by (B, S). Each entry's first-step latency and the clips/s
+    between its first and last step (each step waited for)."""
+    import numpy as np
+
+    import unite_torch.train.run_stage1 as R1
+    import unite_torch.train.run_stage2 as R2
+    import unite_torch.train.run_stage3 as R3
+    from unite_torch.config import parse_with_config
+    from unite_torch.train.args import (stage1_parser, stage2_parser,
+                                        stage3_parser)
+
+    n, d = CHAIN_STEPS, VITL.depth
+    tmp = workdir / "vitl"
+    tmp.mkdir()
+    write_annotations(tmp, {"s1_source": 4 * n, "s1_target": 4 * n,
+                            "s2_train": 8 * n, "s3_source": 5 * n,
+                            "s3_target": 5 * n, "val": 8, "test": 2})
+    feats = tmp / "text_features.npy"
+    np.save(feats, np.random.default_rng(12).standard_normal(
+        (12, VITL.out)).astype(np.float32))
+    ann = {k: str(tmp / f"{k}.csv") for k in (
+        "s1_source", "s1_target", "s2_train", "s3_source", "s3_target",
+        "val", "test")}
+    synthetic = ["--synthetic_data", "true", "--device_normalize", "true"]
+    teacher = ["--clip_teacher", VITL.teacher, "--clip_input_resolution",
+               str(VITL.t_res), "--clip_decoder_embed_dim", str(VITL.dec),
+               "--clip_output_dim", str(VITL.out)]
+    rec = {"steps": [], "calls": 0, "zs_calls": 0, "carried": {}}
+
+    def carried(what, got: dict, want: dict):
+        """``got`` (the next stage's weights when its step is built)
+        against ``want`` (name -> the checkpoint's tensor), bit for bit;
+        every block and the patch embedding of ``got`` must be among
+        them."""
+        bad = [k for k, v in want.items()
+               if not torch.equal(got[k].float().cpu(), v.float())]
+        missing = [k for k in got if k.startswith(("blocks.", "patch_embed."))
+                   and k not in want]
+        rec["carried"][what] = dict(compared=len(want), differ=bad[:5],
+                                    not_carried=sorted(set(got) - set(want)))
+        if bad or missing:
+            raise AssertionError(f"vitl-chain {what}: {len(bad)} of "
+                                 f"{len(want)} carried tensors differ "
+                                 f"({bad[:5]}), not carried: {missing[:5]}")
+
+    def call(main, args, want, shapes, what):
+        rec.update(steps=[], calls=0, zs_calls=0)
+        got = entry_call(torch, A, main, args, want, what)
+        if got["by_shape"] != {k: {s: c for s, c in v.items() if c}
+                               for k, v in shapes().items()}:
+            raise AssertionError(f"{what}: launches by (B, S) "
+                                 f"{got['by_shape']}, expected {shapes()}")
+        ts = [r["t"] for r in rec["steps"]]
+        vals = step_values(rec["steps"], ("loss", "grad_norm"))
+        check_finite(vals)
+        if len(ts) != n:
+            raise AssertionError(f"{what}: {len(ts)} steps, expected {n}")
+        return dict(wall_s=got["wall_s"], first_step_s=ts[0] - got["t0"],
+                    step_s=[b - a for a, b in zip(ts, ts[1:])],
+                    losses=[v[0] for v in vals], launches=got["launches"],
+                    peak_mem_gb=got["peak_mem_gb"], eval_calls=rec["calls"],
+                    zero_shot_calls=rec["zs_calls"])
+
+    # stage 1
+    out1 = tmp / "stage1"
+    args1 = parse_with_config(stage1_parser(), STAGE1_ARGS + synthetic + [
+        "--model", VITL.student, *teacher, "--clip_return_layers",
+        *map(str, L14_RET), "--mask_ratio", "0.8", "--batch_size", "4",
+        "--stop_after_steps", str(n), "--ann_file_train", ann["s1_source"],
+        "--ann_file_train_target", ann["s1_target"],
+        "--output_dir", str(out1)])
+    with patched((R1, "make_pretrain_train_step", timed_steps(
+            torch, R1.make_pretrain_train_step, rec, ("loss", "grad_norm")))):
+        s1 = call(R1.main, args1,
+                  lambda: {"K1": 2 * d * n, "K2": d * n},
+                  lambda: {"K1": {(64, 197): d * n, (8, 320): d * n},
+                           "K3": {}}, "vitl-chain stage 1")
+    s1["clips_per_s"] = 8 * (n - 1) / sum(s1["step_s"])
+    # mapped, not read: the moments (2/3 of its 3.7 GB) are never touched
+    ck1 = torch.load(out1 / "checkpoint-latest.pth", map_location="cpu",
+                     mmap=True, weights_only=False)
+    if ck1["epoch"] != 0 or ck1["extra"]["step"] != n:
+        raise AssertionError(f"vitl-chain stage 1: checkpoint epoch "
+                             f"{ck1['epoch']} extra {ck1.get('extra')}")
+    enc1 = {k[len("encoder."):]: v for k, v in ck1["model"].items()
+            if k.startswith("encoder.")}
+    del ck1
+
+    # stage 2, from the stage-1 checkpoint
+    out2 = tmp / "stage2"
+    args2 = parse_with_config(stage2_parser(), STAGE2_ARGS + synthetic + [
+        "--model", VITL.vit, "--batch_size", "8", "--epochs", "2",
+        "--warmup_epochs", "0", "--eval_freq", "1", "--save_ckpt_freq",
+        "100", "--stop_after_steps", str(n),
+        "--finetune", str(out1 / "checkpoint-latest.pth"),
+        "--ann_file_train", ann["s2_train"], "--ann_file_val", ann["val"],
+        "--ann_file_test", ann["test"], "--output_dir", str(out2)])
+
+    def from_stage1(model, *_):
+        own = model.state_dict()
+        carried("stage 1 -> stage 2", own,
+                {k: v for k, v in enc1.items() if k in own})
+
+    with patched((R2, "make_finetune_train_step", timed_steps(
+                      torch, R2.make_finetune_train_step, rec,
+                      ("loss", "grad_norm"), before=from_stage1)),
+                 (R2, "make_eval_step", checked_eval_step(
+                     torch, R2.make_eval_step, "vitl-chain stage 2", rec))):
+        s2 = call(R2.main, args2,
+                  lambda: {"K3": d * (n + rec["calls"]), "K3+lse": d * n,
+                           "K4a": d * n, "K4b": d * n},
+                  lambda: {"K1": {}, "K3": {(8, STAGE2_TOKENS): d * n,
+                                            (32, STAGE2_TOKENS):
+                                            d * rec["calls"]}},
+                  "vitl-chain stage 2")
+    s2["clips_per_s"] = 8 * (n - 1) / sum(s2["step_s"])
+    del enc1
+    (out1 / "checkpoint-latest.pth").unlink()
+    best2 = out2 / "checkpoint-best.pth"
+    ck2 = torch.load(best2, map_location="cpu", mmap=True,
+                     weights_only=False)
+    if s2["eval_calls"] != 1 or ck2["epoch"] != 0 or ck2["extra"]["step"] != n:
+        raise AssertionError(f"vitl-chain stage 2: {s2['eval_calls']} eval "
+                             f"calls, checkpoint-best epoch {ck2['epoch']} "
+                             f"extra {ck2.get('extra')}")
+    vit2 = ck2["model"]
+    del ck2
+
+    # stage 3, from the stage-2 checkpoint
+    parser = stage3_parser()
+    parser.add_argument("--clip_init", default="")
+    args3 = parse_with_config(parser, STAGE3_ARGS + synthetic + [
+        "--model", VITL.student, *teacher, "--clip_text_features",
+        str(feats), "--student_init", str(best2), "--epochs", "1",
+        "--initial_validation", "false", "--checkpoints_enabled", "false",
+        "--ann_file_train", ann["s3_source"],
+        "--ann_file_train_target", ann["s3_target"],
+        "--ann_file_val", ann["val"], "--ann_file_test", ann["test"],
+        "--output_dir", str(tmp / "stage3")])
+
+    def from_stage2(student, classifier, *_):
+        own = dict(student.encoder.state_dict(),
+                   **{f"head.{k}": v
+                      for k, v in classifier.state_dict().items()})
+        carried("stage 2 -> stage 3", own,
+                {k: v for k, v in vit2.items() if k in own})
+
+    def want3():
+        steps, zs, ev = len(rec["steps"]), rec["zs_calls"], rec["calls"]
+        if not steps <= zs <= steps + 3:
+            raise AssertionError(f"vitl-chain stage 3: {zs} zero-shot "
+                                 f"calls for {steps} steps")
+        return {"K1": d * (2 * steps + zs), "K2": d * steps,
+                "K3": d * (2 * steps + ev), "K3+lse": d * steps,
+                "K4a": d * steps, "K4b": d * steps}
+
+    with patched((R3, "make_selftrain_step", timed_steps(
+                      torch, R3.make_selftrain_step, rec,
+                      ("loss", "grad_norm"), before=from_stage2)),
+                 (R3, "make_selftrain_eval_step", checked_eval_step(
+                     torch, R3.make_selftrain_eval_step,
+                     "vitl-chain stage 3", rec)),
+                 (R3, "build_zero_shot_fn", counted_zero_shot(
+                     R3.build_zero_shot_fn, rec))):
+        s3 = call(R3.main, args3, want3,
+                  lambda: {"K1": {(40, 197): d * (n + rec["zs_calls"]),
+                                  (5, 320): d * n},
+                           "K3": {(5, STAGE2_TOKENS): 2 * d * n,
+                                  (32, STAGE2_TOKENS): d * rec["calls"]}},
+                  "vitl-chain stage 3")
+    s3["clips_per_s"] = 5 * (n - 1) / sum(s3["step_s"])
+    if s3["eval_calls"] != 2:  # validation and the test, one call each
+        raise AssertionError(f"vitl-chain stage 3: {s3['eval_calls']} eval "
+                             f"calls, expected 2")
+    del vit2
+    for p in out2.glob("checkpoint-*.pth"):
+        p.unlink()
+    res = dict(stage1=s1, stage2=s2, stage3=s3, carried=rec["carried"],
+               steps=n)
+    print(f"vitl-chain: {json.dumps(res)} on {card_line()}", flush=True)
+    return res
 
 
 def tool_classify(torch, A, workdir: Path):
@@ -4979,18 +5297,6 @@ def rank_entry(torch, A, stage: str, argv) -> dict:
 
         return make
 
-    def counted_zero_shot(build):
-        def make(*a, **k):
-            fn = build(*a, **k)
-
-            def call(*x, **y):
-                rec["zs_calls"] += 1
-                return fn(*x, **y)
-
-            return None if fn is None else call
-
-        return make
-
     subs = [(R, ENTRY_STEP[stage],
              counted_step(getattr(R, ENTRY_STEP[stage])))]
     if stage in ENTRY_EVAL:
@@ -4998,7 +5304,7 @@ def rank_entry(torch, A, stage: str, argv) -> dict:
                      counted_eval(getattr(R, ENTRY_EVAL[stage]))))
     if stage == "stage3":
         subs.append((R, "build_zero_shot_fn",
-                     counted_zero_shot(R.build_zero_shot_fn)))
+                     counted_zero_shot(R.build_zero_shot_fn, rec)))
     args = parse_with_config(parser, argv)
     torch.cuda.reset_peak_memory_stats()
     reset_counts(A)
@@ -5714,6 +6020,30 @@ def main() -> int:
         kr.update(kr_tr)
         torch.cuda.empty_cache()
         mark("tool-record-losses")
+        # bench.py --large2's ViT-L/16 past stage 1: K1-K4 at 16 heads at
+        # its shapes, the stage-2 and stage-3 steps against the CPU at 2
+        # blocks and at full depth, then the three entries chained
+        kr.update(check_packed_kernels(torch, A, heads=VITL.heads,
+                                       tag="/l16"))
+        kr.update(check_packed_kernels(torch, A, heads=VITL.heads,
+                                       shapes=(("train", 5, True),),
+                                       tag="/b5l16"))
+        kr.update(check_kernels(torch, A, heads=VITL.heads,
+                                batches=(5 * 8, 5), tag="/s3l16"))
+        s2l_rel = stage2_card_vs_cpu(torch, A, VITL)
+        s2l, state, eval_step = stage2_path(torch, A, fam=VITL)
+        evl = stage2_eval(torch, A, state, eval_step, fam=VITL)
+        del state, eval_step
+        torch.cuda.empty_cache()
+        mark("vitl-stage2-b8, vitl-stage2-eval-b32")
+        s3l_rel = stage3_card_vs_cpu(torch, A, False, fam=VITL)
+        s3l, state, _ = stage3_path(torch, A, cls=False, fam=VITL)
+        del state
+        torch.cuda.empty_cache()
+        mark("vitl-stage3-b5")
+        chain = vitl_chain(torch, A, work)
+        torch.cuda.empty_cache()
+        mark("vitl-chain")
         cards = torch.cuda.device_count()
         scale = scaleout_entries(torch, A, work, cards)
         mark(f"scaleout-nccl-w{cards}")
@@ -5873,6 +6203,58 @@ def main() -> int:
             ("K5dkv/m075", "grouped_dkv[stage-1 mask 0.75 B=64 S=392]",
              "unite_torch/csrc/short_bwd_wgmma.cu",
              "unite_tpu/ops/attention.py:467", m075["launches"]["K5dkv"]),
+            ("K3/train/l16", "packed_flash_fwd[vitl-stage2-b8 train B=8 "
+             "S=1568 H=16]", "unite_torch/csrc/flash_fwd_wgmma.cu",
+             "unite_tpu/ops/attention.py:913", s2l["k3_launches"]),
+            ("K3/eval/l16", "packed_flash_fwd[vitl-stage2-eval-b32 B=32 "
+             "S=1568 H=16]", "unite_torch/csrc/flash_fwd_wgmma.cu",
+             "unite_tpu/ops/attention.py:913", evl["k3_launches"]),
+            ("K4a/l16", "packed_flash_dq[vitl-stage2-b8 train B=8 S=1568 "
+             "H=16]", "unite_torch/csrc/flash_bwd_wgmma.cu",
+             "unite_tpu/ops/attention.py:983", s2l["k4_dq_launches"]),
+            ("K4b/l16", "packed_flash_dkv[vitl-stage2-b8 train B=8 S=1568 "
+             "H=16]", "unite_torch/csrc/flash_bwd_wgmma.cu",
+             "unite_tpu/ops/attention.py:1014", s2l["k4_dkv_launches"]),
+            ("K1/teacher/s3l16", "fused_qkv_fwd[vitl-stage3-b5 clip_l14 "
+             "teachers B=40 S=197 H=16]",
+             "unite_torch/csrc/short_attn_wgmma.cu",
+             "unite_tpu/ops/attention.py:678",
+             s3l["by_shape"]["K1"]["40x197"]),
+            ("K1/student/s3l16", "fused_qkv_fwd[vitl-stage3-b5 grad member "
+             "B=5 S=320 H=16]", "unite_torch/csrc/short_attn_wgmma.cu",
+             "unite_tpu/ops/attention.py:678",
+             s3l["by_shape"]["K1"]["5x320"]),
+            ("K2/student/s3l16", "fused_qkv_bwd[vitl-stage3-b5 grad member "
+             "B=5 S=320 H=16]", "unite_torch/csrc/short_bwd_wgmma.cu",
+             "unite_tpu/ops/attention.py:773", s3l["launches"]["K2"]),
+            ("K3/train/b5l16", "packed_flash_fwd[vitl-stage3-b5 B=5 S=1568 "
+             "H=16]", "unite_torch/csrc/flash_fwd_wgmma.cu",
+             "unite_tpu/ops/attention.py:913", s3l["launches"]["K3"]),
+            ("K4a/b5l16", "packed_flash_dq[vitl-stage3-b5 B=5 S=1568 H=16]",
+             "unite_torch/csrc/flash_bwd_wgmma.cu",
+             "unite_tpu/ops/attention.py:983", s3l["launches"]["K4a"]),
+            ("K4b/b5l16", "packed_flash_dkv[vitl-stage3-b5 B=5 S=1568 "
+             "H=16]", "unite_torch/csrc/flash_bwd_wgmma.cu",
+             "unite_tpu/ops/attention.py:1014", s3l["launches"]["K4b"]),
+            *((key, f"{name}[vitl-chain entries, stages 1-3]", src, rep,
+               sum(chain[st]["launches"][k] for st in ("stage1", "stage2",
+                                                       "stage3")))
+              for k, key, name, src, rep in (
+                  ("K1", "K1/teacher/s3l16", "fused_qkv_fwd",
+                   "unite_torch/csrc/short_attn_wgmma.cu",
+                   "unite_tpu/ops/attention.py:678"),
+                  ("K2", "K2/student/s3l16", "fused_qkv_bwd",
+                   "unite_torch/csrc/short_bwd_wgmma.cu",
+                   "unite_tpu/ops/attention.py:773"),
+                  ("K3", "K3/train/l16", "packed_flash_fwd",
+                   "unite_torch/csrc/flash_fwd_wgmma.cu",
+                   "unite_tpu/ops/attention.py:913"),
+                  ("K4a", "K4a/l16", "packed_flash_dq",
+                   "unite_torch/csrc/flash_bwd_wgmma.cu",
+                   "unite_tpu/ops/attention.py:983"),
+                  ("K4b", "K4b/l16", "packed_flash_dkv",
+                   "unite_torch/csrc/flash_bwd_wgmma.cu",
+                   "unite_tpu/ops/attention.py:1014"))),
             ("K1/teacher/l14", "fused_qkv_fwd[clip_l14 teacher B=192 S=197 "
              "H=16]", "unite_torch/csrc/short_attn_wgmma.cu",
              "unite_tpu/ops/attention.py:678", l14["k1_teacher"]),
@@ -6017,47 +6399,60 @@ def main() -> int:
             kernels[-1]["registers"] = {
                 k: n for k, n in ptxas["attn_fp32"]["by_kernel"].items()
                 if k.startswith(f"{kind}_kernel<")}
-    print(json.dumps({"kernels": kernels, "step": mp,
-                      "stage1_m075_step": m075,
-                      "stage1_m075_card_vs_cpu_rel": m075_rel,
-                      "stage1_entry": entry, "stage2_entry": entry2,
-                      "native_decode": decode, "stage1_remat": remat,
-                      "stage2_recipe": recipe, "videomae_step": mae,
-                      "videomae_card_vs_cpu_rel": mae_rel,
-                      "videomae_h16_step": mae_h,
-                      "videomae_h16_card_vs_cpu_rel": mae_h_rel,
-                      "videomae_h16_m075_step": mae_h075,
-                      "videomae_h16_m075_card_vs_cpu_rel": mae_h075_rel,
-                      "videomae_h16_m06_card_vs_cpu_rel": mae_h06_rel,
-                      "head_dim80_lengths": d80_lengths,
-                      "umt_pretrain": umt, "clip_masked": clipm,
-                      "stage3_entry": entry3, "tool_classify": tools_c,
-                      "tool_record_losses": tools_r,
-                      "scaleout_nccl": scale, "scaleout_step_b64": scale_b64,
-                      "scaleout_gloo_2on1": gloo,
-                      "fp32_kernels": f32k, "stage1_entry_fp32": entry32,
-                      "stage1_card_vs_cpu_rel": m08_rel,
-                      "budget_s": BUDGET,
-                      "optim_card_vs_cpu": optim, "stage2_opt_b8": s2opt,
-                      "seconds": time.perf_counter() - t0,
-                      "scaleout_multi_card": multi,
-                      "stage2_step": s2,
-                      "stage2_eval": ev, "stage2_card_vs_cpu_rel": s2_rel,
-                      "stage3_step": s3, "stage3_cls_step": s3c,
-                      "stage3_cls_eval": ev3, "stage3_card_vs_cpu": s3_rel,
-                      "stage1_l14_step": l14, "stage1_l14_int8_step": l14q,
-                      "l14_int8_card_vs_cpu_rel": l14_rel,
-                      "int8_teacher_vs_bf16": int8_teacher,
-                      "probe": probe, "flash_fwd_lengths": lengths,
-                      "flash_bwd_lengths": bwd_lengths,
-                      "short_fwd_lengths": short_lengths,
-                      "short_bwd_lengths": short_bwd_lengths,
-                      "ptxas": ptxas, "matmul_sweep": matmul_sweep,
-                      "matmul_checks": {
-                          k: r for k, r in kr.items() if k.startswith("K7")},
-                      "yardsticks": {k: {x: r[x] for x in r if x.startswith(
-                          ("library", "flash_fwd", "flash_bwd", "device"))}
-                          for k, r in kr.items()}}))
+    results = json.dumps({"kernels": kernels, "step": mp,
+                          "stage1_m075_step": m075,
+                          "stage1_m075_card_vs_cpu_rel": m075_rel,
+                          "stage1_entry": entry, "stage2_entry": entry2,
+                          "native_decode": decode, "stage1_remat": remat,
+                          "stage2_recipe": recipe, "videomae_step": mae,
+                          "videomae_card_vs_cpu_rel": mae_rel,
+                          "videomae_h16_step": mae_h,
+                          "videomae_h16_card_vs_cpu_rel": mae_h_rel,
+                          "videomae_h16_m075_step": mae_h075,
+                          "videomae_h16_m075_card_vs_cpu_rel": mae_h075_rel,
+                          "videomae_h16_m06_card_vs_cpu_rel": mae_h06_rel,
+                          "head_dim80_lengths": d80_lengths,
+                          "umt_pretrain": umt, "clip_masked": clipm,
+                          "stage3_entry": entry3, "tool_classify": tools_c,
+                          "tool_record_losses": tools_r,
+                          "scaleout_nccl": scale,
+                          "scaleout_step_b64": scale_b64,
+                          "scaleout_gloo_2on1": gloo,
+                          "fp32_kernels": f32k, "stage1_entry_fp32": entry32,
+                          "stage1_card_vs_cpu_rel": m08_rel,
+                          "budget_s": BUDGET,
+                          "optim_card_vs_cpu": optim, "stage2_opt_b8": s2opt,
+                          "seconds": time.perf_counter() - t0,
+                          "scaleout_multi_card": multi,
+                          "stage2_step": s2,
+                          "stage2_eval": ev, "stage2_card_vs_cpu_rel": s2_rel,
+                          "stage3_step": s3, "stage3_cls_step": s3c,
+                          "stage3_cls_eval": ev3, "stage3_card_vs_cpu": s3_rel,
+                          "vitl_stage2_card_vs_cpu_rel": s2l_rel,
+                          "vitl_stage2_step": s2l, "vitl_stage2_eval": evl,
+                          "vitl_stage3_card_vs_cpu": s3l_rel,
+                          "vitl_stage3_step": s3l, "vitl_chain": chain,
+                          "stage1_l14_step": l14, "stage1_l14_int8_step": l14q,
+                          "l14_int8_card_vs_cpu_rel": l14_rel,
+                          "int8_teacher_vs_bf16": int8_teacher,
+                          "probe": probe, "flash_fwd_lengths": lengths,
+                          "flash_bwd_lengths": bwd_lengths,
+                          "short_fwd_lengths": short_lengths,
+                          "short_bwd_lengths": short_bwd_lengths,
+                          "ptxas": ptxas, "matmul_sweep": matmul_sweep,
+                          "matmul_checks": {
+                              k: r for k, r in kr.items()
+                              if k.startswith("K7")},
+                          "yardsticks": {
+                              k: {x: r[x] for x in r if x.startswith(
+                                  ("library", "flash_fwd", "flash_bwd",
+                                   "device"))}
+                              for k, r in kr.items()}})
+    # the whole line also as a file: a chip call returns only the end of
+    # its output
+    (ROOT / "chiprun_out").mkdir(exist_ok=True)
+    (ROOT / "chiprun_out" / "chip_smoke_results.json").write_text(results)
+    print(results)
     print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -132,6 +132,33 @@ def test_packed_kernels_at_6_heads_on_card(cuda):
                            dqkv)
 
 
+@pytest.mark.cuda
+def test_packed_kernels_at_16_heads_on_card(cuda):
+    """K3 with lse, K4a and K4b on the ViT-L/16 finetune's lanes: 16
+    heads, [B, 1568, 3072] (a 6144-byte row), within the 6-head test's
+    tolerances, each repeat of the backward equal to the first."""
+    heads, s = 16, 1568
+    gen = torch.Generator(device=cuda).manual_seed(16)
+    x = torch.randn((2, s, 3 * heads * 64), generator=gen, device=cuda
+                    ).to(torch.bfloat16)
+    out, lse = TA.packed_flash_fwd(x, heads, SCALE, with_lse=True)
+    ref, ref_lse = TA.packed_flash_reference(x, heads, SCALE)
+    assert (out.float() - ref.float()).abs().max().item() <= 1e-2
+    assert (lse - ref_lse).abs().max().item() <= 1e-3
+    do = torch.randn(out.shape, generator=gen, device=cuda).to(torch.bfloat16)
+    dqkv = TA.packed_flash_bwd(x, out, lse, do, heads, SCALE)
+    dref = TA.packed_flash_reference_bwd(x, out, lse, do, heads,
+                                         SCALE).float()
+    for part in range(3):  # dq, dk, dv
+        sl = slice(part * heads * 64, (part + 1) * heads * 64)
+        tol = 2e-2 * dref[..., sl].abs().max().item()
+        assert (dqkv[..., sl].float() - dref[..., sl]).abs().max().item() \
+            <= tol, part
+    for _ in range(3):
+        assert torch.equal(TA.packed_flash_bwd(x, out, lse, do, heads, SCALE),
+                           dqkv)
+
+
 def _flash_inputs(cuda, b, s, seed, strided):
     """q, k, v [B, H, S, 64] bf16: contiguous, or the strided views of a
     qkv projection output that the models pass."""
