@@ -178,8 +178,8 @@ toolkit. In order:
    (40 clips), a preemption after 2 steps of epoch 1; an auto-resumed call
    that finishes the epoch, validates, reloads checkpoint-best and runs
    the 12-view test (96 views) and its merge; an --eval call whose merged
-   accuracies must equal it; 96 steps of one epoch for the steady rate,
-   waited for only at steps 1, 16 and 96; exact launch counts, the
+   accuracies must equal it; 48 steps of one epoch for the steady rate,
+   waited for only at steps 1, 16 and 48; exact launch counts, the
    checkpoints' epochs and steps, the entry's clips/s and views/s beside
    the bare step's and the host data path's items/s;
 11a. ``stage2-recipe-b7``: the bare B=7 step plain and with the finetune
@@ -224,8 +224,8 @@ toolkit. In order:
    auto-resumed call that finishes the epoch, validates, reloads
    checkpoint-best and runs the 15-view test (120 views) and its merge; an
    --eval call that loads every weight of the combined checkpoint bit for
-   bit and whose merged accuracies must equal it; 96 steps of a 97-step
-   epoch for the steady rate, waited for only at steps 1, 16 and 96;
+   bit and whose merged accuracies must equal it; 48 steps of a 49-step
+   epoch for the steady rate, waited for only at steps 1, 16 and 48;
    exact launch counts, in all and K1's and K3's by shape, the
    checkpoints' epochs and steps, the entry's clips/s beside the bare
    step's, val and test views/s and the host data path's items/s;
@@ -258,9 +258,27 @@ toolkit. In order:
    card-vs-CPU step at 2 blocks, both gates, then ``vitl-stage3-b5``, 72
    K1, 24 K2, 48 K3, 24 K4a and 24 K4b a step, exact by shape); then
    ``vitl-chain``: ``run_stage1.main`` -> ``run_stage2.main --finetune``
-   -> ``run_stage3.main --student_init`` at ViT-L, every parameter handed
+   -> ``run_stage3.main --student_init`` at ViT-L with its three models
+   cut to ``CHAIN_DEPTH`` blocks at full width, every parameter handed
    on held bit for bit, exact launches, each entry's first-step latency
    and clips/s;
+16d. the 384 ViTs (``V384B``: vit_base_patch16_384, 12 blocks of 768, 12
+   heads; ``V384L``: vit_large_patch16_384, 24 blocks of 1024, 16 heads;
+   8 frames of 24^2 patches, tubelet 1: 4608 tokens): for each, K3 (with
+   lse), K4a and K4b at [8, 4608, 3*H*64] and K3 at [32, 4608, 3*H*64]
+   against their plain versions run on slices of clips
+   (``plain_clips``), and for V384B K6 at its CLS readout's
+   [2, 12, 4609, 64], with timings beside SDPA's; phases 8-10 at 384
+   (the card-vs-CPU step cut to 2 blocks at full width, both gates, and
+   for V384B a CLS-readout forward of the cut model, 4609 tokens on K6,
+   both gates; then ``vit384-stage2-b8`` / ``vitl384-stage2-b8``, 12 / 24
+   K3, K4a and K4b a step, and ``vit384-stage2-eval-b32`` /
+   ``vitl384-stage2-eval-b32``, 2 warm-up and ``V384_TIMED`` timed steps
+   or calls each); then ``vit384-stage2-entry``: ``run_stage2.main
+   --model vit_base_patch16_384 --input_size 384 --short_side_size 384
+   --finetune`` the stage-1 entry's checkpoint, 3 steps of 8, validation
+   and the 12-view test, every stage-1 encoder tensor held bit for bit,
+   exact launches;
 17. ``scaleout-nccl-w{N}`` (N = the cards on the machine): the three
    entries launched by ``python -m torch.distributed.run --standalone
    --nproc_per_node N`` over NCCL, each rank running this script as
@@ -383,7 +401,13 @@ BWD_REPEATS = 5
 STAGE2_TOKENS = 1568   # 8 frames x 196 patches, tubelet 1
 STAGE3_CLS_TOKENS = STAGE2_TOKENS + 1  # the same with the CLS token
 # the K3/K6 forward's lengths: around its 128-row tiles, and the paths' own
-SWEEP_LENGTHS = (1, 7, 64, 127, 128, 129, 577, 1568, 1569, 2048)
+# (4608 and 4609: vit_*_patch16_384 at 8 frames, mean pooling and CLS)
+SWEEP_LENGTHS = (1, 7, 64, 127, 128, 129, 577, 1568, 1569, 2048, 4608, 4609)
+# the plain versions of K3/K4 hold fp32 scores [B, H, S, S]: a check takes
+# as many clips a plain call as keep one such tensor within this many
+# bytes (the whole batch at 1568 tokens, 5 clips of 12 heads or 4 of 16 at
+# 4608), and times the plain version on that slice
+PLAIN_SCORES_MAX = 6e9
 # the short forward's lengths (K1 and K5, csrc/short_attn_wgmma.cu): around
 # its 64-row q tiles and 64-key chunks, one sweep up to 320 keys and two
 # above, and the paths' own (197, 320, 392)
@@ -403,19 +427,40 @@ L14_DENSE = {"in_proj": (L14_M, 1024, 3072), "out_proj": (L14_M, 1024, 1024),
 # teacher at its input resolution and patch, the width and heads (the
 # student's and the teacher's), the decoders' width and the teacher's
 # output width (the text features'), the depth of the card-vs-CPU step
-# (None: the full model) and the cells' names. BASE is configs/stage{2,3}_config.yaml's; VITL
+# (None: the full model), the ViT's input size (``fam_tokens``: 8 frames
+# of it) and the cells' names. BASE is configs/stage{2,3}_config.yaml's; VITL
 # bench.py --large2's vit_large_patch16_224 (24 blocks of 1024, 16 heads of
-# 64) and the stage 3 it feeds, with bench_large's clip_l14 at 196^2
+# 64) and the stage 3 it feeds, with bench_large's clip_l14 at 196^2; V384B
+# and V384L the stage-2 ViTs at 384^2 (vit_{base,large}_patch16_384, 24^2
+# patches a frame); V384B's card-vs-CPU phase also runs the CLS readout
+# (``cls``: 4609 tokens, K6)
 BASE = SimpleNamespace(
     vit="vit_base_patch16_224", student="adaptation_umt_base_patch16_224",
     teacher="clip_b16", t_res=224, t_patch=16, width=768, depth=12, heads=12,
-    dec=768, out=512, cut=None, s2="stage2-b16-b8",
-    s2_eval="stage2-eval-b16-b32", s3="stage3-b16-b5")
+    dec=768, out=512, cut=None, img=224, cls=False,
+    s2="stage2-b16-b8", s2_eval="stage2-eval-b16-b32", s3="stage3-b16-b5")
 VITL = SimpleNamespace(
     vit="vit_large_patch16_224", student="adaptation_umt_large_patch16_224",
     teacher="clip_l14", t_res=196, t_patch=14, width=1024, depth=24, heads=16,
-    dec=1024, out=768, cut=2, s2="vitl-stage2-b8",
-    s2_eval="vitl-stage2-eval-b32", s3="vitl-stage3-b5")
+    dec=1024, out=768, cut=2, img=224, cls=False,
+    s2="vitl-stage2-b8", s2_eval="vitl-stage2-eval-b32", s3="vitl-stage3-b5")
+V384B = SimpleNamespace(
+    vit="vit_base_patch16_384", width=768, depth=12, heads=12, cut=2,
+    img=384, cls=True, tag="/384b",
+    s2="vit384-stage2-b8", s2_eval="vit384-stage2-eval-b32")
+V384L = SimpleNamespace(
+    vit="vit_large_patch16_384", width=1024, depth=24, heads=16, cut=2,
+    img=384, cls=False, tag="/384l",
+    s2="vitl384-stage2-b8", s2_eval="vitl384-stage2-eval-b32")
+V384_TIMED = 5  # the 384 cells' timed steps and calls, after 2 warm-ups
+
+
+def fam_tokens(fam) -> int:
+    """The stage-2 ViT's tokens a clip: 8 frames of 16^2 patches at
+    ``fam.img`` (1568 at 224, 4608 at 384), tubelet 1, mean pooling."""
+    return 8 * (fam.img // 16) ** 2
+
+
 PROBE_SHAPE = (38400, 768, 3072)
 RAGGED_MM = ((394, 768, 2304), (1, 1024, 1024))
 # K7's sweep (tests/test_torch_port_cuda.py's shapes): ragged M and N (N % 4
@@ -493,12 +538,13 @@ STAGE2_ARGS = [
 # full batch of 32 and one of 8 padded to 32), 8 test videos (x 4 segments
 # x 3 crops = 96 views, 3 calls of 32)
 S2_TRAIN, S2_VAL, S2_TEST = 28, 40, 8
-# its steady-state call: 96 steps of 7, the rate timed over steps 17-96,
-# after the batches the loader's window (max(4, --num_workers 12)) and the
+# its steady-state call: 48 steps of 7 (96 until PR 25, which halved it
+# to make room for the 384 phases), the rate timed over steps 17-48, after
+# the batches the loader's window (max(4, --num_workers 12)) and the
 # device prefetch (2) filled while the model was built have been consumed;
 # each loader thread builds a whole batch, so batches come in waves of up
-# to 12, and the 80 timed steps span several
-S2_STEADY, S2_STEADY_FROM = 7 * 96, 16
+# to 12, and the 32 timed steps span several
+S2_STEADY, S2_STEADY_FROM = 7 * 48, 16
 # configs/stage3_config.yaml key for key (clip_grad: null left at its
 # default), with stage3.sh's overrides (the dataset mapping, output dir and
 # --student_init left out) and --epochs 2 --warmup_epochs 0 (stage3.sh's
@@ -535,10 +581,11 @@ STAGE3_ARGS = [
 # the stage-3 entry phase: 20 source clips (4 steps of 5) and 10 target
 # clips (repeated x2 to match), 40 val clips (a batch of 32 and one of 8
 # padded), 8 test videos (x 5 segments x 3 crops = 120 views, 4 calls of
-# 32); its steady call stops after 96 steps of a 97-step epoch (before the
-# epoch's validation), the rate taken over steps 17-96
+# 32); its steady call stops after 48 steps of a 49-step epoch (before the
+# epoch's validation; 96 of 97 until PR 25, which halved it to make room
+# for the 384 phases), the rate taken over steps 17-48
 S3_SRC, S3_TGT, S3_VAL, S3_TEST = 20, 10, 40, 8
-S3_STEADY, S3_STEADY_FROM = 96, 16
+S3_STEADY, S3_STEADY_FROM = 48, 16
 # the tools' phases: classify's one clip (B=1, 1568 tokens, forward only)
 # and record_losses at its defaults: B=4, 8 frames, mask 0.8 drawn
 # uniformly, 1568 - int(1568 * 0.8) = 314 visible tokens, 3 steps
@@ -1759,10 +1806,17 @@ def profile_step(torch, run_step, dest_name: str) -> dict:
                                 "classes_ms")}
 
 
+def plain_clips(b: int, heads: int, s: int) -> int:
+    """Clips a plain K3/K4 call takes at once in a kernel check: the whole
+    batch, or as many as keep one fp32 score tensor [B, H, S, S] within
+    ``PLAIN_SCORES_MAX`` bytes."""
+    return max(1, min(b, int(PLAIN_SCORES_MAX // (heads * s * s * 4))))
+
+
 def check_packed_kernels(torch, A, shapes=(("train", 8, True),
                                            ("eval", 32, False)), tag="",
                          heads: int = HEADS, repeats: int = 0,
-                         head_dim: int = 64):
+                         head_dim: int = 64, seq: int = STAGE2_TOKENS):
     """Phase 3, stage 2: K3 and K4 against their plain versions at the
     stage-2 shapes, with timings: ``shapes`` holds (label, batch, with lse);
     K4 runs at the "train" one, where there is one (the tool-classify
@@ -1770,48 +1824,58 @@ def check_packed_kernels(torch, A, shapes=(("train", 8, True),
     B=7 with ``tag`` "/b7"; the VideoMAE decoder's, 6 ``heads`` at B=32 with
     ``tag`` "/h6", and the huge VideoMAE decoder's 8 heads of ``head_dim``
     80 at B=16 with ``tag`` "/d80", where each of ``repeats`` K4 backwards
-    must equal the first bit for bit. The softmax scale is
-    head_dim^-0.5."""
+    must equal the first bit for bit; the 384 ViTs theirs at ``seq`` 4608
+    tokens (``tag`` "/384b", "/384l"). The plain versions run on slices of
+    ``plain_clips`` clips, and are timed on one such slice
+    (``plain_shape``). The softmax scale is head_dim^-0.5."""
     import torch.nn.functional as F
 
     SCALE = head_dim ** -0.5
     gen = torch.Generator(device="cuda").manual_seed(4)
-    s, hd = STAGE2_TOKENS, heads * head_dim
+    s, hd = seq, heads * head_dim
     results, train = {}, None
     for label, b, with_lse in shapes:
         qkv = torch.randn((b, s, 3 * hd), generator=gen,
                           device="cuda").to(torch.bfloat16)
         out, lse = A.packed_flash_fwd(qkv, heads, SCALE, with_lse=with_lse)
         torch.cuda.synchronize()
-        ref, ref_lse = A.packed_flash_reference(qkv, heads, SCALE)
-        err = (out.float() - ref.float()).abs()
-        if not bool(torch.isfinite(out).all()) or err.max().item() > FWD_TOL:
-            raise AssertionError(f"K3 {label}: max abs err {err.max().item()}"
-                                 f" > {FWD_TOL}")
+        per = plain_clips(b, heads, s)
+        err_max = err_sum = lse_err = 0.0
+        for i in range(0, b, per):
+            ref, ref_lse = A.packed_flash_reference(qkv[i:i + per], heads,
+                                                    SCALE)
+            err = (out[i:i + per].float() - ref.float()).abs()
+            err_max = max(err_max, err.max().item())
+            err_sum += err.sum().item()
+            if with_lse:
+                lse_err = max(lse_err, (lse[i:i + per] - ref_lse).abs().max()
+                              .item())
+            del ref, ref_lse, err
+        if not bool(torch.isfinite(out).all()) or err_max > FWD_TOL:
+            raise AssertionError(f"K3 {label}{tag}: max abs err {err_max} > "
+                                 f"{FWD_TOL}")
+        if lse_err > 1e-3:
+            raise AssertionError(f"K3 {label}{tag} lse err {lse_err}")
         if with_lse:
-            lse_err = (lse - ref_lse).abs().max().item()
-            if lse_err > 1e-3:
-                raise AssertionError(f"K3 lse err {lse_err}")
             train = (qkv, out, lse)
-        del ref, ref_lse
         run = partial(A.packed_flash_fwd, qkv, heads, SCALE, with_lse)
         ms, dev_ms = median_ms(run), device_ms(run)
-        plain_ms = median_ms(lambda: A.packed_flash_reference(qkv, heads,
-                                                              SCALE))
+        plain_ms = median_ms(lambda: A.packed_flash_reference(
+            qkv[:per], heads, SCALE))
         q, k, v = (t.contiguous() for t in A._split_heads(qkv, heads))
         sdpa = partial(F.scaled_dot_product_attention, q, k, v, scale=SCALE)
         lib_ms, lib_dev_ms = median_ms(sdpa), device_ms(sdpa)
         nbytes = b * s * 4 * hd * 2 + (b * heads * s * 4 if with_lse else 0)
         bms, by = bound(nbytes, 4.0 * b * heads * s * s * head_dim)
         results[f"K3/{label}{tag}"] = dict(
-            shape=[b, s, 3 * hd], max_abs_err=err.max().item(),
-            mean_abs_err=err.mean().item(), ms=ms, device_ms=dev_ms,
-            plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=lib_ms,
-            library_device_ms=lib_dev_ms,
+            shape=[b, s, 3 * hd], max_abs_err=err_max,
+            mean_abs_err=err_sum / out.numel(), ms=ms, device_ms=dev_ms,
+            plain_ms=plain_ms, plain_shape=[per, s, 3 * hd], bound_ms=bms,
+            bound_by=by, library_ms=lib_ms, library_device_ms=lib_dev_ms,
             library="scaled_dot_product_attention forward")
         print(f"K3 packed_flash_fwd {label}{tag} "
               f"{results[f'K3/{label}{tag}']}", flush=True)
-        del qkv, out, lse, q, k, v, err
+        del qkv, out, lse, q, k, v
         torch.cuda.empty_cache()
 
     if train is None:
@@ -1819,19 +1883,30 @@ def check_packed_kernels(torch, A, shapes=(("train", 8, True),
     # K4 at the train shape, from the train forward above
     qkv, out, lse = train
     b = qkv.shape[0]
+    per = plain_clips(b, heads, s)
     do = torch.randn(out.shape, generator=gen, device="cuda").to(torch.bfloat16)
     dqkv = A.packed_flash_bwd(qkv, out, lse, do, heads, SCALE)
     torch.cuda.synchronize()
-    ref = A.packed_flash_reference_bwd(qkv, out, lse, do, heads, SCALE).float()
+    # each part's largest error and largest |plain| over the batch
+    worst = {part: [0.0, 0.0] for part in ("dq", "dk", "dv")}
+    for j in range(0, b, per):
+        sl = slice(j, j + per)
+        ref = A.packed_flash_reference_bwd(qkv[sl], out[sl], lse[sl], do[sl],
+                                           heads, SCALE).float()
+        for i, part in enumerate(("dq", "dk", "dv")):
+            lanes = slice(i * hd, (i + 1) * hd)
+            w = worst[part]
+            w[0] = max(w[0], (dqkv[sl, :, lanes].float() - ref[..., lanes])
+                       .abs().max().item())
+            w[1] = max(w[1], ref[..., lanes].abs().max().item())
+        del ref
     errs = {}
     for i, part in enumerate(("dq", "dk", "dv")):
-        sl = slice(i * hd, (i + 1) * hd)
-        e = (dqkv[..., sl].float() - ref[..., sl]).abs().max().item()
-        tol = BWD_TOL * ref[..., sl].abs().max().item()
-        if not bool(torch.isfinite(dqkv[..., sl]).all()) or e > tol:
-            raise AssertionError(f"K4 {part}: max abs err {e} > {tol}")
+        e, tol = worst[part][0], BWD_TOL * worst[part][1]
+        if not bool(torch.isfinite(dqkv[..., i * hd:(i + 1) * hd]).all()) \
+                or e > tol:
+            raise AssertionError(f"K4 {part}{tag}: max abs err {e} > {tol}")
         errs[part] = (e, tol)
-    del ref
     for i in range(repeats):
         if not torch.equal(A.packed_flash_bwd(qkv, out, lse, do, heads,
                                               SCALE), dqkv):
@@ -1843,10 +1918,10 @@ def check_packed_kernels(torch, A, shapes=(("train", 8, True),
                                                 heads, SCALE))
     ms_dkv = median_ms(lambda: A.packed_flash_dkv(qkv, do, lse, delta, buf,
                                                   heads, SCALE))
-    plain_dq = median_ms(lambda: A._packed_dq_reference(qkv, out, lse, do,
-                                                        heads, SCALE))
-    plain_dkv = median_ms(lambda: A._packed_dkv_reference(qkv, lse, delta, do,
-                                                          heads, SCALE))
+    plain_dq = median_ms(lambda: A._packed_dq_reference(
+        qkv[:per], out[:per], lse[:per], do[:per], heads, SCALE))
+    plain_dkv = median_ms(lambda: A._packed_dkv_reference(
+        qkv[:per], lse[:per], delta[:per], do[:per], heads, SCALE))
     q, k, v = (t.detach().contiguous().requires_grad_(True)
                for t in A._split_heads(qkv, heads))
     do_h = do.reshape(b, s, heads, head_dim).transpose(1, 2).contiguous()
@@ -1877,7 +1952,8 @@ def check_packed_kernels(torch, A, shapes=(("train", 8, True),
         bms, by = bound(nbytes, flops * b * heads * s * s * head_dim)
         results[key + tag] = dict(
             shape=[b, s, 3 * hd], max_abs_err=e[0], tol=e[1], ms=ms,
-            device_ms=dev, plain_ms=plain, bound_ms=bms, bound_by=by,
+            device_ms=dev, plain_ms=plain, plain_shape=[per, s, 3 * hd],
+            bound_ms=bms, bound_by=by,
             library_ms=bwd_ms, library_device_ms=bwd_dev_ms,
             library="scaled_dot_product_attention backward (dq, dk, dv: "
                     "K4a and K4b together)",
@@ -1902,16 +1978,17 @@ def stage2_clip_flops(frames: int = 8, img: int = 224, depth: int = 12,
 def build_stage2(torch, dtype_name: str, device: str, drop_path: float,
                  state_dict=None, recipe: bool = False,
                  attn_drop: float = 0.0, opt: str = "adamw", fam=BASE,
-                 depth=None):
+                 depth=None, mean_pooling: bool = True):
     """The stage-2 model, optimizer and steps as run_stage2.main builds
     them from configs/stage2_config.yaml (no lr batch scaling in stage 2,
     warmup 0, layer decay 0.65, blocks 0-6 frozen, no EMA, no clip); with
     ``recipe``, ``RECIPE``'s switches (mixup 0.8 and cutmix 1.0 with
     smoothing 0.1, dropout 0.1, the head's 0.5, remat, a bf16 first
     moment); ``attn_drop`` the attention dropout rate; ``opt`` --opt.
-    ``fam`` names the ViT (``fam.vit``); ``depth`` cuts it to that many
-    blocks at full width (``build_model`` with the registry's factory at
-    that depth)."""
+    ``fam`` names the ViT (``fam.vit``) and its input size (``fam.img``);
+    ``depth`` cuts it to that many blocks at full width (``build_model``
+    with the registry's factory at that depth); ``mean_pooling`` False
+    reads the CLS token out (--use_mean_pooling false)."""
     import unite_torch.train.run_stage2 as R
     from unite_torch.engines.finetune import (make_eval_step,
                                               make_finetune_train_step)
@@ -1928,7 +2005,7 @@ def build_stage2(torch, dtype_name: str, device: str, drop_path: float,
         tubelet_size=1, fc_drop_rate=0.5 if recipe else 0.0,
         drop=0.1 if recipe else 0.0, attn_drop_rate=attn_drop,
         drop_path=drop_path, use_learnable_pos_emb=False,
-        use_mean_pooling=True, init_scale=0.001, head_type="linear",
+        use_mean_pooling=mean_pooling, init_scale=0.001, head_type="linear",
         head_hidden_dim=256, compute_dtype=dtype_name,
         frozen_layers="0,1,2,3,4,5,6", train_head_only=False,
         freeze_patch_embedding=False, use_checkpoint=recipe,
@@ -1941,8 +2018,8 @@ def build_stage2(torch, dtype_name: str, device: str, drop_path: float,
     else:
         def cut(name, device=None, **kw):
             return VisionTransformer(
-                patch_size=16, embed_dim=fam.width, depth=depth,
-                num_heads=fam.heads, mlp_ratio=4, qkv_bias=True,
+                img_size=fam.img, patch_size=16, embed_dim=fam.width,
+                depth=depth, num_heads=fam.heads, mlp_ratio=4, qkv_bias=True,
                 norm_eps=1e-6, **kw).to(device)
 
         with patched((R, "create_model", cut)):
@@ -1966,12 +2043,12 @@ def build_stage2(torch, dtype_name: str, device: str, drop_path: float,
             make_eval_step(model, device=device))
 
 
-def stage2_batch(torch, b: int, seed: int):
+def stage2_batch(torch, b: int, seed: int, img: int = 224):
     import numpy as np
 
     rng = np.random.default_rng(seed)
     return {"videos": torch.from_numpy(
-                rng.integers(0, 256, (b, 8, 224, 224, 3), dtype=np.uint8)),
+                rng.integers(0, 256, (b, 8, img, img, 3), dtype=np.uint8)),
             "labels": torch.from_numpy(rng.integers(0, 12, (b,)))}
 
 
@@ -1979,7 +2056,7 @@ def stage2_card_vs_cpu(torch, A, fam=BASE):
     """Phase 6: one stage-2 step on the card (bf16) against the CPU (fp32),
     and the same step on the card in fp32 against the same CPU step, B=2:
     ``fam``'s ViT, cut to ``fam.cut`` blocks at full width where it names
-    a depth."""
+    a depth; with ``fam.cls`` also ``stage2_cls_forward``."""
     from unite_torch.ops.normalize import normalize_videos
 
     torch.manual_seed(5)
@@ -1991,7 +2068,7 @@ def stage2_card_vs_cpu(torch, A, fam=BASE):
     with budget("added", "fp32 card steps"):
         f32_state, f32_step, _ = build_stage2(torch, "float32", "cuda", 0.0,
                                               sd, **kw)
-    batch = stage2_batch(torch, 2, 6)
+    batch = stage2_batch(torch, 2, 6, fam.img)
     with torch.no_grad():
         vids = normalize_videos(batch["videos"])
         l_cpu = cpu_state.model.eval()(vids)
@@ -2018,7 +2095,53 @@ def stage2_card_vs_cpu(torch, A, fam=BASE):
     if not all(r <= STEP_RTOL for r in rel.values()):
         raise AssertionError(f"{what}: the card step disagrees with the "
                              f"CPU: {rel}")
-    return dict(rel, fp32_rel=f32_rel, bf16_launches=bf16_counts)
+    out = dict(rel, fp32_rel=f32_rel, bf16_launches=bf16_counts)
+    if fam.cls:
+        del cpu_state, gpu_state, f32_state
+        out["cls"] = stage2_cls_forward(torch, A, fam)
+    return out
+
+
+def stage2_cls_forward(torch, A, fam):
+    """Phase 6, the CLS readout: one eval forward (B=2) of ``fam``'s ViT
+    cut to ``fam.cut`` blocks with --use_mean_pooling false, whose
+    ``fam_tokens(fam)`` + 1 tokens have no divisor query block, so each block
+    takes K6: on the card in bf16 (``fam.cut`` K6 launches) and in fp32
+    (the fp32 kernels on K6's route), each against the CPU's fp32 forward
+    (max abs difference of the logits over the CPU's max abs, within
+    ``STEP_RTOL`` and ``FP32_STEP_RTOL``)."""
+    from unite_torch.ops.normalize import normalize_videos
+
+    torch.manual_seed(15)
+    kw = dict(fam=fam, depth=fam.cut, mean_pooling=False)
+    cpu_state, _, _ = build_stage2(torch, "float32", "cpu", 0.0, **kw)
+    sd = {k: v.clone() for k, v in cpu_state.model.state_dict().items()}
+    gpu_state, _, _ = build_stage2(torch, "bfloat16", "cuda", 0.0, sd, **kw)
+    with budget("added", "fp32 card steps"):
+        f32_state, _, _ = build_stage2(torch, "float32", "cuda", 0.0, sd,
+                                       **kw)
+    what = (f"{fam.s2} CLS forward, {fam.cut} blocks, {fam_tokens(fam) + 1} "
+            "tokens")
+    vids = normalize_videos(stage2_batch(torch, 2, 16, fam.img)["videos"])
+    with torch.no_grad():
+        l_cpu = cpu_state.model.eval()(vids)
+        torch.cuda.synchronize()
+        reset_counts(A)
+        l_gpu = gpu_state.model.eval()(vids.cuda()).float().cpu()
+        counts = read_counts(A)
+        expect_counts(counts, {"K6": fam.cut}, what)
+        with budget("added", "fp32 card steps"):
+            l_f32 = fp32_card_step(
+                torch, A, lambda: f32_state.model.eval()(vids.cuda()), counts,
+                what + " at fp32").float().cpu()
+    rel = {name: ((x - l_cpu).abs().max() / l_cpu.abs().max()).item()
+           for name, x in (("bf16", l_gpu), ("fp32", l_f32))}
+    print(f"{what}: logits card vs cpu fp32, rel {rel}", flush=True)
+    if not (rel["bf16"] <= STEP_RTOL and rel["fp32"] <= FP32_STEP_RTOL
+            and bool(torch.isfinite(l_gpu).all())):
+        raise AssertionError(f"{what}: the card's logits disagree with the "
+                             f"CPU's: {rel}")
+    return dict(logits_rel=rel, launches=counts)
 
 
 def stage2_path(torch, A, b: int = 8, warmup: int = 2, timed: int = 10,
@@ -2029,7 +2152,7 @@ def stage2_path(torch, A, b: int = 8, warmup: int = 2, timed: int = 10,
     state, step, eval_step = build_stage2(torch, "bfloat16", "cuda", 0.1,
                                           fam=fam)
     gen = torch.Generator(device="cuda").manual_seed(8)
-    batch = stage2_batch(torch, b, 9)
+    batch = stage2_batch(torch, b, 9, fam.img)
     batch["videos"] = batch["videos"].pin_memory()
     torch.cuda.reset_peak_memory_stats()
     reset_counts(A)
@@ -2049,7 +2172,9 @@ def stage2_path(torch, A, b: int = 8, warmup: int = 2, timed: int = 10,
     d = fam.depth
     expect_counts(counts, {"K3": d * n, "K3+lse": d * n, "K4a": d * n,
                            "K4b": d * n}, f"{fam.s2}, {n} steps")
-    flops = b * stage2_clip_flops(depth=d, dim=fam.width)
+    if read_shapes(A)["K3"] != {(b, fam_tokens(fam)): d * n}:
+        raise AssertionError(f"{fam.s2}: K3 by (B, S) {read_shapes(A)}")
+    flops = b * stage2_clip_flops(img=fam.img, depth=d, dim=fam.width)
     res = dict(clips_per_s=b * timed / dt, step_ms=dt / timed * 1e3,
                model_tflop_per_step=flops / 1e12,
                model_flops_util=flops * timed / dt / PEAK_BF16,
@@ -2072,7 +2197,7 @@ def stage2_eval(torch, A, state, eval_step, b: int = 32, warmup: int = 2,
                 timed: int = 10, fam=BASE):
     """Phase 8: the stage-2 eval step (softmax, top-1/5, loss) over views,
     of ``fam``'s ViT."""
-    batch = stage2_batch(torch, b, 10)
+    batch = stage2_batch(torch, b, 10, fam.img)
     batch["videos"] = batch["videos"].pin_memory()
     torch.cuda.reset_peak_memory_stats()
     reset_counts(A)
@@ -2086,13 +2211,16 @@ def stage2_eval(torch, A, state, eval_step, b: int = 32, warmup: int = 2,
     counts = read_counts(A)
     n = warmup + timed
     expect_counts(counts, {"K3": fam.depth * n}, f"{fam.s2_eval}, {n} calls")
+    if read_shapes(A)["K3"] != {(b, fam_tokens(fam)): fam.depth * n}:
+        raise AssertionError(f"{fam.s2_eval}: K3 by (B, S) {read_shapes(A)}")
     probs = outs[-1]["probs"]
     sums = probs.sum(-1)
     if (probs.shape != (b, 12) or not bool(torch.isfinite(probs).all())
             or (sums - 1).abs().max().item() > 1e-4):
         raise AssertionError(f"eval probs: shape {tuple(probs.shape)}, row "
                              f"sums {sums.tolist()}")
-    flops = b * stage2_clip_flops(depth=fam.depth, dim=fam.width) / 3
+    flops = b * stage2_clip_flops(img=fam.img, depth=fam.depth,
+                                  dim=fam.width) / 3
     res = dict(views_per_s=b * timed / dt, call_ms=dt / timed * 1e3,
                model_tflop_per_call=flops / 1e12,
                model_flops_util=flops * timed / dt / PEAK_BF16,
@@ -3412,12 +3540,13 @@ def stage2_entry(torch, A, finetune: Path, s2: dict, ev: dict,
     reloads checkpoint-best and runs the 12-view test (96 views, 3 calls)
     and its merge; call 3 (--eval, --finetune checkpoint-best) runs only
     the test, whose merged accuracies must equal call 2's; call 4 trains
-    one epoch of 96 steps with no validation, whose steps 17-96 give the
-    entry's steady clips/s (steps 2-4 of call 1 run on batches the loader
-    prefetched while the model was built), and runs the test. Launch counts
-    are exact: 12 K4a and K4b a step, 12 K3 a step and an eval call. Calls
-    1-3 wait for the card after every step; call 4 only after steps 1, 16
-    and 96, so that its steady rate keeps the entry's overlap of host and
+    one epoch of ``S2_STEADY`` / 7 steps with no validation, whose steps
+    from ``S2_STEADY_FROM`` + 1 give the entry's steady clips/s (steps 2-4
+    of call 1 run on batches the loader prefetched while the model was
+    built), and runs the test. Launch counts are exact: 12 K4a and K4b a
+    step, 12 K3 a step and an eval call. Calls 1-3 wait for the card after
+    every step; call 4 only after steps 1, ``S2_STEADY_FROM`` and its
+    last, so that its steady rate keeps the entry's overlap of host and
     card. Each eval call is timed after a synchronize."""
     import unite_torch.train.run_stage2 as R
     from unite_torch.config import parse_with_config
@@ -3549,6 +3678,92 @@ def stage2_entry(torch, A, finetune: Path, s2: dict, ev: dict,
     return res, kr
 
 
+S384_B, S384_STEPS = 8, 3  # vit384-stage2-entry: one epoch of 3 steps of 8
+
+
+def stage2_entry_384(torch, A, finetune: Path, workdir: Path) -> dict:
+    """Phase ``vit384-stage2-entry``: ``run_stage2.main`` at 384^2 as a user
+    runs it, with no --config: ``STAGE2_ARGS`` (stage2_config.yaml and
+    stage2.sh) with --model vit_base_patch16_384 --input_size 384
+    --short_side_size 384 --batch_size 8, --finetune the stage-1 entry's
+    checkpoint-latest (the 224 base student: its positional table is a
+    sinusoid, so nothing is resampled), on synthetic 256x320 clips (each
+    up-scaled to a short side of 384 on the host) normalized on the card:
+    one epoch of ``S384_STEPS`` steps, validation (8 clips, one call of 32)
+    and the 12-view test with its merge (2 videos, 24 views, one call), no
+    checkpoint. Every parameter of the stage-1 encoder that the ViT has is
+    held bit for bit when its step is built, and every block and the patch
+    embedding must be among them. Launches exact, in all and by (B, S): 12
+    K3 with lse, K4a and K4b a step at (8, 4608), 12 K3 a call at
+    (32, 4608). Each step waits for the card; the first-step latency and
+    the clips/s between the first and the last step."""
+    import unite_torch.train.run_stage2 as R
+    from unite_torch.config import parse_with_config
+    from unite_torch.train.args import stage2_parser
+
+    n, d, b, s = S384_STEPS, V384B.depth, S384_B, fam_tokens(V384B)
+    tmp = workdir / "stage2_384"
+    tmp.mkdir()
+    write_annotations(tmp, {"train": b * n, "val": 8, "test": 2})
+    out = tmp / "run"
+    args = parse_with_config(stage2_parser(), STAGE2_ARGS + [
+        "--model", V384B.vit, "--input_size", str(V384B.img),
+        "--short_side_size", str(V384B.img), "--batch_size", str(b),
+        "--synthetic_data", "true", "--device_normalize", "true",
+        "--epochs", "1", "--warmup_epochs", "0", "--eval_freq", "1",
+        "--save_ckpt", "false", "--finetune", str(finetune),
+        "--ann_file_train", str(tmp / "train.csv"),
+        "--ann_file_val", str(tmp / "val.csv"),
+        "--ann_file_test", str(tmp / "test.csv"), "--output_dir", str(out)])
+    # mapped, not read: the moments are never touched
+    ck1 = torch.load(finetune, map_location="cpu", mmap=True,
+                     weights_only=False)
+    enc = {k[len("encoder."):]: v for k, v in ck1["model"].items()
+           if k.startswith("encoder.")}
+    del ck1
+    what = "vit384-stage2-entry"
+    rec = {"steps": [], "calls": 0, "carried": None}
+
+    def from_stage1(model, *_):
+        own = model.state_dict()
+        rec["carried"] = check_carried(
+            torch, f"{what}: stage 1 -> stage 2", own,
+            {k: v for k, v in enc.items() if k in own})
+
+    with patched((R, "make_finetune_train_step", timed_steps(
+                      torch, R.make_finetune_train_step, rec,
+                      ("loss", "grad_norm"), before=from_stage1)),
+                 (R, "make_eval_step", checked_eval_step(
+                     torch, R.make_eval_step, what, rec))):
+        got = entry_call(torch, A, R.main, args,
+                         lambda: {"K3": d * (n + rec["calls"]),
+                                  "K3+lse": d * n, "K4a": d * n,
+                                  "K4b": d * n}, what)
+    shapes = {"K1": {}, "K3": {(b, s): d * n, (32, s): d * rec["calls"]}}
+    log = entry_log(out)
+    if (got["by_shape"] != shapes or rec["calls"] != 2
+            or rec["carried"] is None or len(rec["steps"]) != n
+            or "val_acc1" not in log[0] or "test_acc1" not in log[-1]):
+        raise AssertionError(
+            f"{what}: launches by (B, S) {got['by_shape']} (expected "
+            f"{shapes}), {rec['calls']} eval calls (validation and the "
+            f"test: 2), {len(rec['steps'])} steps, carried "
+            f"{rec['carried']}, log {log}")
+    vals = step_values(rec["steps"], ("loss", "grad_norm"))
+    check_finite(vals)
+    ts = [r["t"] for r in rec["steps"]]
+    res = dict(first_step_s=ts[0] - got["t0"],
+               clips_per_s=b * (n - 1) / (ts[-1] - ts[0]),
+               step_s=[y - x for x, y in zip(ts, ts[1:])],
+               wall_s=got["wall_s"], peak_mem_gb=got["peak_mem_gb"],
+               losses=[v[0] for v in vals], launches=got["launches"],
+               eval_calls=rec["calls"], carried=rec["carried"],
+               val_acc1=log[0]["val_acc1"],
+               test={k: log[-1][k] for k in ("test_acc1", "test_acc5")})
+    print(f"{what}: {json.dumps(res)} on {card_line()}", flush=True)
+    return res
+
+
 def stage3_entry(torch, A, student_init: Path, s3: dict, workdir: Path):
     """Phase: ``stage3-entry-b5``. ``unite_torch.train.run_stage3.main`` on
     the card with no --config (``python -m unite_torch.train.run_stage3``'s
@@ -3568,10 +3783,11 @@ def stage3_entry(torch, A, student_init: Path, s3: dict, workdir: Path):
     15-view test (120 views, 4 calls) and its merge; call 3 (--eval,
     --student_init checkpoint-best) loads every weight of that combined
     checkpoint bit for bit, runs only the test and must repeat call 2's
-    merged accuracies; call 4 trains 96 steps of a 97-step epoch (stopped
-    before the epoch's validation) whose steps 17-96 give the entry's
-    steady clips/s. Calls 1-3 wait for the card after every step; call 4
-    only after steps 1, 16 and 96, so that its steady rate keeps the
+    merged accuracies; call 4 trains ``S3_STEADY`` steps of an epoch one
+    step longer (stopped before the epoch's validation) whose steps from
+    ``S3_STEADY_FROM`` + 1 give the entry's steady clips/s. Calls 1-3 wait
+    for the card after every step; call 4 only after steps 1,
+    ``S3_STEADY_FROM`` and ``S3_STEADY``, so that its steady rate keeps the
     entry's overlap of host and card. The device's share of those steps
     is derived, not traced: the bare step's profiled device time over
     their mean time (a profiler inside the entry's steps slows them by a
@@ -3844,30 +4060,88 @@ def stage3_entry(torch, A, student_init: Path, s3: dict, workdir: Path):
 
 
 CHAIN_STEPS = 3   # vitl-chain: each entry trains one epoch of 3 steps
+# ... of its three ViT-L models (the student, the stage-2 ViT and clip_l14)
+# cut to this many blocks at full width: the hand-on of every parameter
+# shows at any depth, and 4 of 24 blocks take 5/6 of the checkpoints'
+# bytes (3.7 GB at full depth) off the phase
+CHAIN_DEPTH = 4
+
+
+def check_carried(torch, what: str, got: dict, want: dict) -> dict:
+    """``got`` (the next stage's weights when its step is built) against
+    ``want`` (name -> the checkpoint's tensor), bit for bit; every block
+    and the patch embedding of ``got`` must be among them."""
+    bad = [k for k, v in want.items()
+           if not torch.equal(got[k].float().cpu(), v.float())]
+    missing = [k for k in got if k.startswith(("blocks.", "patch_embed."))
+               and k not in want]
+    if bad or missing:
+        raise AssertionError(f"{what}: {len(bad)} of {len(want)} carried "
+                             f"tensors differ ({bad[:5]}), not carried: "
+                             f"{missing[:5]}")
+    return dict(compared=len(want), differ=bad[:5],
+                not_carried=sorted(set(got) - set(want)))
+
+
+def cut_create_model(fam, depth: int):
+    """``registry.create_model`` with ``fam``'s student, stage-2 ViT and
+    teacher cut to ``depth`` blocks at full width (their registered
+    factories' arguments otherwise); every other name as registered."""
+    import torch
+
+    from unite_torch.models.adaptation import AdaptationVisionTransformer
+    from unite_torch.models.clip import CLIPVisionTransformer
+    from unite_torch.models.vit import VisionTransformer
+    from unite_torch.utils import registry
+    from unite_torch.utils.device import resolve_device
+
+    cut = {fam.vit: partial(VisionTransformer, patch_size=16,
+                            embed_dim=fam.width, depth=depth,
+                            num_heads=fam.heads, mlp_ratio=4, qkv_bias=True,
+                            norm_eps=1e-6),
+           fam.student: partial(AdaptationVisionTransformer, img_size=224,
+                                patch_size=16, encoder_embed_dim=fam.width,
+                                encoder_depth=depth,
+                                encoder_num_heads=fam.heads, mlp_ratio=4,
+                                qkv_bias=True, norm_eps=1e-6),
+           fam.teacher: partial(CLIPVisionTransformer,
+                                patch_size=fam.t_patch, width=fam.width,
+                                layers=depth, heads=fam.heads,
+                                output_dim=fam.out)}
+
+    def create(name, *, device=None, dtype=torch.float32, **kw):
+        if name not in cut:
+            return registry.create_model(name, device=device, dtype=dtype,
+                                         **kw)
+        return cut[name](dtype=dtype, **kw).to(resolve_device(device))
+
+    return create
 
 
 def vitl_chain(torch, A, workdir: Path) -> dict:
     """Phase ``vitl-chain``: the three entries at ViT-L on synthetic clips
     (uint8, normalized on the card), as a user chains them, each its own
-    config's command line with the ViT-L models. ``run_stage1.main``
-    (``STAGE1_ARGS``, adaptation_umt_large_patch16_224 against clip_l14 at
-    196^2, decoders 1024 -> 768, taps 18-23) trains one epoch of
-    ``CHAIN_STEPS`` steps of 4 source and 4 target clips and writes
-    checkpoint-latest; ``run_stage2.main`` (``STAGE2_ARGS``,
-    vit_large_patch16_224, --finetune that checkpoint) trains an epoch of
-    ``CHAIN_STEPS`` steps of 8, validates (8 clips, one call of 32),
-    writes checkpoint-best and -latest and stops there
+    config's command line with the ViT-L models, each cut to
+    ``CHAIN_DEPTH`` blocks at full width (``cut_create_model``).
+    ``run_stage1.main`` (``STAGE1_ARGS``, adaptation_umt_large_patch16_224
+    against clip_l14 at 196^2, decoders 1024 -> 768, a tap at every block)
+    trains one epoch of ``CHAIN_STEPS`` steps of 4 source and 4 target
+    clips and writes checkpoint-latest; ``run_stage2.main``
+    (``STAGE2_ARGS``, vit_large_patch16_224, --finetune that checkpoint)
+    trains an epoch of ``CHAIN_STEPS`` steps of 8, validates (8 clips, one
+    call of 32), writes checkpoint-best and -latest and stops there
     (--stop_after_steps); ``run_stage3.main`` (``STAGE3_ARGS``,
     adaptation_umt_large_patch16_224 against clip_l14 at 196^2, decoders
-    1024 -> 768, --student_init the stage-2 checkpoint-best, the zero-shot
-    teacher from a seeded [12, 768] --clip_text_features, no checkpoint)
-    trains an epoch of ``CHAIN_STEPS`` steps of 5 + 5 clips, validates and
-    runs the 15-view test (2 videos, one call). Every parameter a stage
-    hands on is held bit for bit when the next stage's step is built:
-    the stage-1 encoder's in the stage-2 ViT, the stage-2 ViT's in the
-    stage-3 encoder and its head in the classifier. Launches exact, in all
-    and by (B, S). Each entry's first-step latency and the clips/s
-    between its first and last step (each step waited for)."""
+    1024 -> 768, the tap at block ``CHAIN_DEPTH // 2``, --student_init the
+    stage-2 checkpoint-best, the zero-shot teacher from a seeded [12, 768]
+    --clip_text_features, no checkpoint) trains an epoch of
+    ``CHAIN_STEPS`` steps of 5 + 5 clips, validates and runs the 15-view
+    test (2 videos, one call). Every parameter a stage hands on is held
+    bit for bit when the next stage's step is built: the stage-1 encoder's
+    in the stage-2 ViT, the stage-2 ViT's in the stage-3 encoder and its
+    head in the classifier. Launches exact, in all and by (B, S). Each
+    entry's first-step latency and the clips/s between its first and last
+    step (each step waited for)."""
     import numpy as np
 
     import unite_torch.train.run_stage1 as R1
@@ -3877,7 +4151,8 @@ def vitl_chain(torch, A, workdir: Path) -> dict:
     from unite_torch.train.args import (stage1_parser, stage2_parser,
                                         stage3_parser)
 
-    n, d = CHAIN_STEPS, VITL.depth
+    n, d = CHAIN_STEPS, CHAIN_DEPTH
+    cut = cut_create_model(VITL, d)
     tmp = workdir / "vitl"
     tmp.mkdir()
     write_annotations(tmp, {"s1_source": 4 * n, "s1_target": 4 * n,
@@ -3896,20 +4171,8 @@ def vitl_chain(torch, A, workdir: Path) -> dict:
     rec = {"steps": [], "calls": 0, "zs_calls": 0, "carried": {}}
 
     def carried(what, got: dict, want: dict):
-        """``got`` (the next stage's weights when its step is built)
-        against ``want`` (name -> the checkpoint's tensor), bit for bit;
-        every block and the patch embedding of ``got`` must be among
-        them."""
-        bad = [k for k, v in want.items()
-               if not torch.equal(got[k].float().cpu(), v.float())]
-        missing = [k for k in got if k.startswith(("blocks.", "patch_embed."))
-                   and k not in want]
-        rec["carried"][what] = dict(compared=len(want), differ=bad[:5],
-                                    not_carried=sorted(set(got) - set(want)))
-        if bad or missing:
-            raise AssertionError(f"vitl-chain {what}: {len(bad)} of "
-                                 f"{len(want)} carried tensors differ "
-                                 f"({bad[:5]}), not carried: {missing[:5]}")
+        rec["carried"][what] = check_carried(torch, f"vitl-chain {what}",
+                                             got, want)
 
     def call(main, args, want, shapes, what):
         rec.update(steps=[], calls=0, zs_calls=0)
@@ -3933,12 +4196,14 @@ def vitl_chain(torch, A, workdir: Path) -> dict:
     out1 = tmp / "stage1"
     args1 = parse_with_config(stage1_parser(), STAGE1_ARGS + synthetic + [
         "--model", VITL.student, *teacher, "--clip_return_layers",
-        *map(str, L14_RET), "--mask_ratio", "0.8", "--batch_size", "4",
+        *map(str, range(d)), "--mask_ratio", "0.8", "--batch_size", "4",
         "--stop_after_steps", str(n), "--ann_file_train", ann["s1_source"],
         "--ann_file_train_target", ann["s1_target"],
         "--output_dir", str(out1)])
-    with patched((R1, "make_pretrain_train_step", timed_steps(
-            torch, R1.make_pretrain_train_step, rec, ("loss", "grad_norm")))):
+    with patched((R1, "create_model", cut),
+                 (R1, "make_pretrain_train_step", timed_steps(
+                     torch, R1.make_pretrain_train_step, rec,
+                     ("loss", "grad_norm")))):
         s1 = call(R1.main, args1,
                   lambda: {"K1": 2 * d * n, "K2": d * n},
                   lambda: {"K1": {(64, 197): d * n, (8, 320): d * n},
@@ -3969,7 +4234,8 @@ def vitl_chain(torch, A, workdir: Path) -> dict:
         carried("stage 1 -> stage 2", own,
                 {k: v for k, v in enc1.items() if k in own})
 
-    with patched((R2, "make_finetune_train_step", timed_steps(
+    with patched((R2, "create_model", cut),
+                 (R2, "make_finetune_train_step", timed_steps(
                       torch, R2.make_finetune_train_step, rec,
                       ("loss", "grad_norm"), before=from_stage1)),
                  (R2, "make_eval_step", checked_eval_step(
@@ -3998,7 +4264,8 @@ def vitl_chain(torch, A, workdir: Path) -> dict:
     parser = stage3_parser()
     parser.add_argument("--clip_init", default="")
     args3 = parse_with_config(parser, STAGE3_ARGS + synthetic + [
-        "--model", VITL.student, *teacher, "--clip_text_features",
+        "--model", VITL.student, *teacher, "--clip_return_layers",
+        str(d // 2), "--clip_text_features",
         str(feats), "--student_init", str(best2), "--epochs", "1",
         "--initial_validation", "false", "--checkpoints_enabled", "false",
         "--ann_file_train", ann["s3_source"],
@@ -4022,7 +4289,8 @@ def vitl_chain(torch, A, workdir: Path) -> dict:
                 "K3": d * (2 * steps + ev), "K3+lse": d * steps,
                 "K4a": d * steps, "K4b": d * steps}
 
-    with patched((R3, "make_selftrain_step", timed_steps(
+    with patched((R1, "create_model", cut),
+                 (R3, "make_selftrain_step", timed_steps(
                       torch, R3.make_selftrain_step, rec,
                       ("loss", "grad_norm"), before=from_stage2)),
                  (R3, "make_selftrain_eval_step", checked_eval_step(
@@ -4044,7 +4312,7 @@ def vitl_chain(torch, A, workdir: Path) -> dict:
     for p in out2.glob("checkpoint-*.pth"):
         p.unlink()
     res = dict(stage1=s1, stage2=s2, stage3=s3, carried=rec["carried"],
-               steps=n)
+               steps=n, depth=d)
     print(f"vitl-chain: {json.dumps(res)} on {card_line()}", flush=True)
     return res
 
@@ -5212,6 +5480,11 @@ LAYOUT_FLAGS = {"ddp": (1, False, False), "zero1": (1, True, False),
 ENTRY_LAYOUT_ARGS = {"ddp": [], "zero1": ["--zero1", "true"],
                      "fsdp": ["--fsdp", "true"]}
 SCALEOUT_STEPS = 2     # each torchrun entry call: an epoch of 2 steps
+# ... of BASE's models cut to this many blocks at full width (12 until PR
+# 25, which cut them to make room for the 384 phases): the layouts' hand-on
+# and launches show at any depth, and the models' build and checkpoints
+# were most of the launch
+SCALEOUT_DEPTH = 4
 SCALEOUT_B = 16        # the rank steps' global batch (8 a rank at 2 ranks)
 SCALEOUT_TIMEOUT = 300  # seconds a torchrun call may take
 # the step builders, eval-step builders and (stage 3) the zero-shot
@@ -5328,18 +5601,23 @@ def rank_entry(torch, A, stage: str, argv) -> dict:
 def rank_entries(torch, A, spec_path: str) -> None:
     """One rank of a torchrun launch (``chip_smoke.py --rank-entries
     SPEC``): the spec's entry calls in turn in this process, one process
-    group for all (as a user's script of several runs would keep it), each
-    call's counts written to OUT.rankR.json."""
+    group for all (as a user's script of several runs would keep it),
+    BASE's models cut to the spec's depth, each call's counts written to
+    OUT.rankR.json."""
     import gc
 
     from unite_torch.parallel import mesh as pm
+    from unite_torch.train import run_stage1, run_stage2
 
     spec = json.loads(Path(spec_path).read_text())
+    cut = cut_create_model(BASE, spec["depth"])
     out = {}
-    for name, stage, argv in spec["calls"]:
-        out[name] = rank_entry(torch, A, stage, argv)
-        gc.collect()
-        torch.cuda.empty_cache()
+    with patched((run_stage1, "create_model", cut),
+                 (run_stage2, "create_model", cut)):
+        for name, stage, argv in spec["calls"]:
+            out[name] = rank_entry(torch, A, stage, argv)
+            gc.collect()
+            torch.cuda.empty_cache()
     Path(f"{spec['out']}.rank{pm.current().rank}.json").write_text(
         json.dumps(out))
     pm.shutdown()
@@ -5387,11 +5665,14 @@ def scaleout_entries(torch, A, workdir: Path, nproc: int) -> dict:
     and the 12-view test of 2 videos; ``run_stage3.main`` (``STAGE3_ARGS``,
     --epochs 1) chained from the stage-2 DDP run's checkpoint-best under DDP
     and --fsdp: the initial validation, 2 steps of 5 + 5 clips a rank, the
-    zero-shot teacher on each batch, validation and the 15-view test. Each
-    rank's launches are held to the single-process entries' counts (a
-    stage-1 step 24 K1 + 12 K2; stage 2 12 K3 with lse + 12 K4a + 12 K4b a
-    step and 12 K3 an eval call; stage 3 as ``stage3_entry``), and each
-    checkpoint is restored into one process bit for bit."""
+    zero-shot teacher on each batch, validation and the 15-view test. The
+    models (student, teacher, stage-2 ViT) are cut to ``SCALEOUT_DEPTH``
+    blocks at full width (``cut_create_model``), with a tap at every block
+    in stage 1 and at the middle one in stage 3. Each rank's launches are
+    held to the single-process entries' counts at that depth d (a stage-1
+    step 2d K1 + d K2; stage 2 d K3 with lse + d K4a + d K4b a step and d
+    K3 an eval call; stage 3 as ``stage3_entry``), and each checkpoint is
+    restored into one process bit for bit."""
     import numpy as np
 
     from unite_torch.train import run_stage1, run_stage2, run_stage3
@@ -5416,25 +5697,29 @@ def scaleout_entries(torch, A, workdir: Path, nproc: int) -> dict:
         wants[name] = (want, clips_a_step)
         return tmp / name
 
+    d = SCALEOUT_DEPTH
+    taps1 = ["--clip_return_layers", *map(str, range(d))]
+    taps3 = ["--clip_return_layers", str(d // 2)]
+
     def s1_want(r):
         n = r["steps"]
-        return {"K1": 24 * n, "K2": 12 * n}
+        return {"K1": 2 * d * n, "K2": d * n}
 
     def s2_want(r):
         n = r["steps"]
-        return {"K3": 12 * (n + r["eval_calls"]), "K3+lse": 12 * n,
-                "K4a": 12 * n, "K4b": 12 * n}
+        return {"K3": d * (n + r["eval_calls"]), "K3+lse": d * n,
+                "K4a": d * n, "K4b": d * n}
 
     def s3_want(r):
         n, zs = r["steps"], r["zs_calls"]
         if zs != n:
             raise AssertionError(f"stage 3 rank {r['rank']}: {zs} zero-shot "
                                  f"calls for {n} steps")
-        return {"K1": 12 * (2 * n + zs), "K2": 12 * n,
-                "K3": 12 * (2 * n + r["eval_calls"]), "K3+lse": 12 * n,
-                "K4a": 12 * n, "K4b": 12 * n}
+        return {"K1": d * (2 * n + zs), "K2": d * n,
+                "K3": d * (2 * n + r["eval_calls"]), "K3+lse": d * n,
+                "K4a": d * n, "K4b": d * n}
 
-    s1 = ["--batch_size", str(ENTRY_BATCH),
+    s1 = taps1 + ["--batch_size", str(ENTRY_BATCH),
           "--stop_after_steps", str(SCALEOUT_STEPS),
           "--ann_file_train", str(tmp / "s1_source.csv"),
           "--ann_file_train_target", str(tmp / "s1_target.csv")]
@@ -5451,8 +5736,8 @@ def scaleout_entries(torch, A, workdir: Path, nproc: int) -> dict:
                             STAGE2_ARGS + s2 + ENTRY_LAYOUT_ARGS[layout],
                             s2_want, 7)
                for layout in ("ddp", "fsdp")}
-    s3 = ["--epochs", "1", "--warmup_epochs", "0",
-          "--clip_text_features", str(feats),
+    s3 = taps3 + ["--epochs", "1", "--warmup_epochs", "0",
+                  "--clip_text_features", str(feats),
           "--student_init", str(s2_runs["ddp"] / "checkpoint-best.pth"),
           "--ann_file_train", str(tmp / "s3_source.csv"),
           "--ann_file_train_target", str(tmp / "s3_target.csv"),
@@ -5463,7 +5748,8 @@ def scaleout_entries(torch, A, workdir: Path, nproc: int) -> dict:
                             s3_want, 15)
                for layout in ("ddp", "fsdp")}
     spec = tmp / "entries.json"
-    spec.write_text(json.dumps({"calls": calls, "out": str(tmp / "counts")}))
+    spec.write_text(json.dumps({"calls": calls, "out": str(tmp / "counts"),
+                                "depth": d}))
     t0 = time.perf_counter()
     torchrun(nproc, ["--rank-entries", str(spec)], tmp / "entries.log",
              timeout=2 * SCALEOUT_TIMEOUT)
@@ -5491,24 +5777,27 @@ def scaleout_entries(torch, A, workdir: Path, nproc: int) -> dict:
     from unite_torch.train.args import stage1_parser, stage2_parser, \
         stage3_parser
 
-    a1 = parse_with_config(stage1_parser(), STAGE1_ARGS)
+    a1 = parse_with_config(stage1_parser(), STAGE1_ARGS + taps1)
     a2 = parse_with_config(stage2_parser(), STAGE2_ARGS)
-    a3 = parse_with_config(stage3_parser(), STAGE3_ARGS)
+    a3 = parse_with_config(stage3_parser(), STAGE3_ARGS + taps3)
     restored = {}
-    for layout, out in s1_runs.items():
-        restored[f"stage1-{layout}"] = single_process_restore(
-            torch, run_stage1.build_student(a1, "cuda"),
-            out / "checkpoint-latest.pth")
-    for layout, out in s2_runs.items():
-        restored[f"stage2-{layout}"] = single_process_restore(
-            torch, run_stage2.build_model(a2, "cuda"),
-            out / "checkpoint-latest.pth")
-    for layout, out in s3_runs.items():
-        student = run_stage1.build_student(a3, "cuda")
-        model = run_stage3.combine(student, run_stage3.build_classifier(
-            a3, student.encoder.norm.weight.shape[0], "cuda"))
-        restored[f"stage3-{layout}"] = single_process_restore(
-            torch, model, out / "checkpoint-latest.pth")
+    cut = cut_create_model(BASE, d)
+    with patched((run_stage1, "create_model", cut),
+                 (run_stage2, "create_model", cut)):
+        for layout, out in s1_runs.items():
+            restored[f"stage1-{layout}"] = single_process_restore(
+                torch, run_stage1.build_student(a1, "cuda"),
+                out / "checkpoint-latest.pth")
+        for layout, out in s2_runs.items():
+            restored[f"stage2-{layout}"] = single_process_restore(
+                torch, run_stage2.build_model(a2, "cuda"),
+                out / "checkpoint-latest.pth")
+        for layout, out in s3_runs.items():
+            student = run_stage1.build_student(a3, "cuda")
+            model = run_stage3.combine(student, run_stage3.build_classifier(
+                a3, student.encoder.norm.weight.shape[0], "cuda"))
+            restored[f"stage3-{layout}"] = single_process_restore(
+                torch, model, out / "checkpoint-latest.pth")
     # the stage-1 layouts' checkpoints side by side (reported)
     from unite_torch.utils.checkpoint import load_checkpoint
 
@@ -6041,9 +6330,42 @@ def main() -> int:
         del state
         torch.cuda.empty_cache()
         mark("vitl-stage3-b5")
-        chain = vitl_chain(torch, A, work)
+        with budget("shortened", f"vitl-chain (24 -> {CHAIN_DEPTH} "
+                    "blocks)"):
+            chain = vitl_chain(torch, A, work)
         torch.cuda.empty_cache()
         mark("vitl-chain")
+        # the 384 ViTs at 8 frames: K3/K4 at 4608 tokens and K6 at 4609
+        # (the CLS readout) at their heads, each family's 2-block steps
+        # against the CPU, its cells at full depth, then the stage-2 entry
+        # at 384 from the stage-1 entry's checkpoint
+        v384 = {}
+        with budget("added", "the 384 phases"):
+            for fam in (V384B, V384L):
+                kr.update(check_packed_kernels(torch, A, heads=fam.heads,
+                                               seq=fam_tokens(fam),
+                                               tag=fam.tag))
+                if fam.cls:
+                    kr.update(check_flash_kernels(
+                        torch, A, shapes=((fam.tag[1:], 2, fam.heads,
+                                           fam_tokens(fam) + 1, False),),
+                        tag="/cls"))
+                rel = stage2_card_vs_cpu(torch, A, fam)
+                step, state, eval_step = stage2_path(
+                    torch, A, timed=V384_TIMED, fam=fam)
+                v384[fam.s2] = dict(card_vs_cpu_rel=rel, step=step,
+                                    eval=stage2_eval(torch, A, state,
+                                                     eval_step,
+                                                     timed=V384_TIMED,
+                                                     fam=fam))
+                del state, eval_step
+                torch.cuda.empty_cache()
+                mark(f"{fam.s2}, {fam.s2_eval}")
+            entry384 = stage2_entry_384(
+                torch, A, work / "stage1" / "run" / "checkpoint-latest.pth",
+                work)
+            torch.cuda.empty_cache()
+            mark("vit384-stage2-entry")
         cards = torch.cuda.device_count()
         scale = scaleout_entries(torch, A, work, cards)
         mark(f"scaleout-nccl-w{cards}")
@@ -6255,6 +6577,56 @@ def main() -> int:
                   ("K4b", "K4b/l16", "packed_flash_dkv",
                    "unite_torch/csrc/flash_bwd_wgmma.cu",
                    "unite_tpu/ops/attention.py:1014"))),
+            *(row for fam in (V384B, V384L) for row in (
+                (f"K3/train{fam.tag}", f"packed_flash_fwd[{fam.s2} train "
+                 f"B=8 S={fam_tokens(fam)} H={fam.heads}]",
+                 "unite_torch/csrc/flash_fwd_wgmma.cu",
+                 "unite_tpu/ops/attention.py:913",
+                 v384[fam.s2]["step"]["k3_launches"]),
+                (f"K3/eval{fam.tag}", f"packed_flash_fwd[{fam.s2_eval} "
+                 f"B=32 S={fam_tokens(fam)} H={fam.heads}]",
+                 "unite_torch/csrc/flash_fwd_wgmma.cu",
+                 "unite_tpu/ops/attention.py:913",
+                 v384[fam.s2]["eval"]["k3_launches"]),
+                (f"K4a{fam.tag}", f"packed_flash_dq[{fam.s2} train B=8 "
+                 f"S={fam_tokens(fam)} H={fam.heads}]",
+                 "unite_torch/csrc/flash_bwd_wgmma.cu",
+                 "unite_tpu/ops/attention.py:983",
+                 v384[fam.s2]["step"]["k4_dq_launches"]),
+                (f"K4b{fam.tag}", f"packed_flash_dkv[{fam.s2} train B=8 "
+                 f"S={fam_tokens(fam)} H={fam.heads}]",
+                 "unite_torch/csrc/flash_bwd_wgmma.cu",
+                 "unite_tpu/ops/attention.py:1014",
+                 v384[fam.s2]["step"]["k4_dkv_launches"]))),
+            ("K6/384b/cls", f"flash_fwd[{V384B.s2} card-vs-CPU CLS forward, "
+             f"{V384B.cut} blocks, B=2 S={fam_tokens(V384B) + 1} "
+             f"H={V384B.heads}]", "unite_torch/csrc/flash_fwd_wgmma.cu",
+             "unite_tpu/ops/attention.py:148",
+             v384[V384B.s2]["card_vs_cpu_rel"]["cls"]["launches"]["K6"]),
+            *((key, f"{name}[vit384-stage2-entry {shape}]", src, rep,
+               launches)
+              for key, name, shape, src, rep, launches in (
+                  ("K3/train/384b", "packed_flash_fwd",
+                   f"train B={S384_B} S={fam_tokens(V384B)}",
+                   "unite_torch/csrc/flash_fwd_wgmma.cu",
+                   "unite_tpu/ops/attention.py:913",
+                   entry384["launches"]["K3+lse"]),
+                  ("K3/eval/384b", "packed_flash_fwd",
+                   f"eval B=32 S={fam_tokens(V384B)}",
+                   "unite_torch/csrc/flash_fwd_wgmma.cu",
+                   "unite_tpu/ops/attention.py:913",
+                   entry384["launches"]["K3"]
+                   - entry384["launches"]["K3+lse"]),
+                  ("K4a/384b", "packed_flash_dq",
+                   f"train B={S384_B} S={fam_tokens(V384B)}",
+                   "unite_torch/csrc/flash_bwd_wgmma.cu",
+                   "unite_tpu/ops/attention.py:983",
+                   entry384["launches"]["K4a"]),
+                  ("K4b/384b", "packed_flash_dkv",
+                   f"train B={S384_B} S={fam_tokens(V384B)}",
+                   "unite_torch/csrc/flash_bwd_wgmma.cu",
+                   "unite_tpu/ops/attention.py:1014",
+                   entry384["launches"]["K4b"]))),
             ("K1/teacher/l14", "fused_qkv_fwd[clip_l14 teacher B=192 S=197 "
              "H=16]", "unite_torch/csrc/short_attn_wgmma.cu",
              "unite_tpu/ops/attention.py:678", l14["k1_teacher"]),
@@ -6432,6 +6804,11 @@ def main() -> int:
                           "vitl_stage2_step": s2l, "vitl_stage2_eval": evl,
                           "vitl_stage3_card_vs_cpu": s3l_rel,
                           "vitl_stage3_step": s3l, "vitl_chain": chain,
+                          **{f"{k.split('-')[0]}_stage2_{part}": v[part]
+                             for k, v in v384.items()
+                             for part in ("card_vs_cpu_rel", "step",
+                                          "eval")},
+                          "vit384_stage2_entry": entry384,
                           "stage1_l14_step": l14, "stage1_l14_int8_step": l14q,
                           "l14_int8_card_vs_cpu_rel": l14_rel,
                           "int8_teacher_vs_bf16": int8_teacher,

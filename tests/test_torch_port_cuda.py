@@ -83,9 +83,10 @@ def test_autograd_through_the_kernels(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("s", [784, 1000, 1568])
+@pytest.mark.parametrize("s", [784, 1000, 1568, 4608])
 def test_packed_kernels_match_plain_on_card(cuda, s):
-    # 1000 and 1568 leave a partial key tile and a partial query tile
+    # 1000 and 1568 leave a partial key tile and a partial query tile;
+    # 4608 is the 384 ViTs' 8 frames of 24^2 patches
     gen = torch.Generator(device=cuda).manual_seed(s)
     x = torch.randn((3, s, 3 * HEADS * 64), generator=gen, device=cuda
                     ).to(torch.bfloat16)
@@ -133,11 +134,13 @@ def test_packed_kernels_at_6_heads_on_card(cuda):
 
 
 @pytest.mark.cuda
-def test_packed_kernels_at_16_heads_on_card(cuda):
-    """K3 with lse, K4a and K4b on the ViT-L/16 finetune's lanes: 16
-    heads, [B, 1568, 3072] (a 6144-byte row), within the 6-head test's
-    tolerances, each repeat of the backward equal to the first."""
-    heads, s = 16, 1568
+@pytest.mark.parametrize("s", [1568, 4608])
+def test_packed_kernels_at_16_heads_on_card(cuda, s):
+    """K3 with lse, K4a and K4b on the ViT-L/16 finetunes' lanes: 16
+    heads, [B, S, 3072] (a 6144-byte row) at 224^2 and at 384^2, within
+    the 6-head test's tolerances, each repeat of the backward equal to
+    the first."""
+    heads = 16
     gen = torch.Generator(device=cuda).manual_seed(16)
     x = torch.randn((2, s, 3 * heads * 64), generator=gen, device=cuda
                     ).to(torch.bfloat16)
@@ -173,9 +176,10 @@ def _flash_inputs(cuda, b, s, seed, strided):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("strided", [False, True])
-@pytest.mark.parametrize("s", [577, 785, 1569])
+@pytest.mark.parametrize("s", [577, 785, 1569, 4609])
 def test_flash_kernels_match_plain_on_card(cuda, s, strided):
     # none of these lengths has a divisor query block: partial tiles
+    # (4609: the 384 ViTs' CLS readout)
     (q, k, v), gen = _flash_inputs(cuda, 3, s, s, strided)
     out, lse = TA.flash_fwd(q, k, v, SCALE, with_lse=True)
     ref, ref_lse = TA.flash_reference(q, k, v, scale=SCALE)
