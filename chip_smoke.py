@@ -279,6 +279,21 @@ toolkit. In order:
    --finetune`` the stage-1 entry's checkpoint, 3 steps of 8, validation
    and the 12-view test, every stage-1 encoder tensor held bit for bit,
    exact launches;
+16e. VideoMAE-L and UMT-L pretraining (``MAE_LARGE``:
+   pretrain_videomae_large_patch16_224, 24 encoder blocks of 1024 with 16
+   heads of 64, 8 decoder blocks of 512 with 8 heads of 64; ``UMT_LARGE``:
+   pretrain_umt_large_patch16_224 with its decoders 1024 -> 768): K1/K2
+   at [32, 160, 3072] and [64, 320, 3072] and K3 (with lse), K4a and K4b
+   at [32, 1568, 1536] against their plain versions with timings beside
+   SDPA's; the VideoMAE-L step cut to 4 + 2 blocks at full width against
+   the CPU (bf16 within ``STEP_RTOL``, fp32 within ``FP32_STEP_RTOL``);
+   ``videomae-l16-b32`` at full depth, 2 + 5 steps of 32, 24 K1 + 24 K2
+   at (32, 160) and 8 K3 with lse, 8 K4a and 8 K4b at (32, 1568) a step,
+   MFU of ``videomae_clip_flops``, peak memory and a profiled step; the
+   UMT-L pass cut to 6 blocks against the CPU (B=2, ``STEP_RTOL`` and
+   x_clip within 5e-2), then ``umt-l16-pretrain-b64`` at full depth, 1 +
+   3 passes of 64, 24 K1 + 24 K2 at (64, 320) a pass, MFU of
+   ``umt_clip_flops``; the phase's seconds in ``budget_s``;
 17. ``scaleout-nccl-w{N}`` (N = the cards on the machine): the three
    entries launched by ``python -m torch.distributed.run --standalone
    --nproc_per_node N`` over NCCL, each rank running this script as
@@ -731,15 +746,17 @@ def check_kernels(torch, A, heads: int = HEADS, batches=(512, 64),
     batches (192 frames, 24 clips); ``tag`` "/masked" at the masked CLIP
     teacher's 41 tokens of 512 frames and the VideoMAE encoder's 160 tokens
     of 32 clips (``lengths``); ``tag`` "/d80" at the huge VideoMAE
-    encoder's 16 heads of ``head_dim`` 80, [16, 160, 3840]. The softmax
-    scale is head_dim^-0.5."""
+    encoder's 16 heads of ``head_dim`` 80, [16, 160, 3840]. With one
+    batch and one length, the student's shape alone: ``tag`` "/mae-l" at
+    the VideoMAE-L encoder's [32, 160, 3072], "/umt-l" at the UMT-L
+    student's [64, 320, 3072]. The softmax scale is head_dim^-0.5."""
     import torch.nn.functional as F
 
     SCALE = head_dim ** -0.5
     gen = torch.Generator(device="cuda").manual_seed(0)
     results = {}
-    for label, (b, s) in (("teacher", (batches[0], lengths[0])),
-                          ("student", (batches[1], lengths[1]))):
+    labels = ("teacher", "student")[2 - len(lengths):]
+    for label, b, s in zip(labels, batches, lengths, strict=True):
         qkv = torch.randn((b, s, 3 * heads * head_dim), generator=gen,
                           device="cuda").to(torch.bfloat16)
         with_lse = label == "student"  # the student trains, the teacher not
@@ -5077,6 +5094,10 @@ MAE_HEADS = 6
 MAE_BASE = SimpleNamespace(
     name="pretrain_videomae_base_patch16_224", tag="videomae-b16-b32",
     width=768, depth=12, heads=12, dec_width=384, dec_depth=8, dec_heads=6)
+MAE_LARGE = SimpleNamespace(
+    name="pretrain_videomae_large_patch16_224", tag="videomae-l16-b32",
+    width=1024, depth=24, heads=16, dec_width=512, dec_depth=8, dec_heads=8)
+LARGE_CHECK_DEPTH = (4, 2)  # its card-vs-CPU step: encoder and decoder blocks
 MAE_HUGE = SimpleNamespace(
     name="pretrain_videomae_huge_patch16_224", tag="videomae-h16-b16",
     width=1280, depth=32, heads=16, dec_width=640, dec_depth=8, dec_heads=8)
@@ -5092,6 +5113,20 @@ D80_HEADS = (2, 8)      # the head-dim-80 length sweeps
 # tubelet 1, tube mask 0.8 (40 of 196 patches a frame), six taps (6-11)
 UMT_MASK, UMT_TAPS = 0.8, 6
 UMT_VISIBLE = 8 * (196 - int(UMT_MASK * 196))  # 320
+# the students by name: width, depth and heads, the CLIP decoders' input
+# width and output width (``clip``, passed to the model), and the depth of
+# the card-vs-CPU pass (None: the full model, which the timed cell reuses).
+# The large factory keeps PretrainUMT's clip_decoder_embed_dim of 768,
+# which its 1024-wide taps cannot take: the ViT-L student's 1024 -> 768
+# (clip_l14's output width) is passed, as bench.py does.
+UMT_BASE = SimpleNamespace(
+    name="pretrain_umt_base_patch16_224", tag="umt-pretrain-b64", width=768,
+    depth=12, heads=12, out=512, clip={}, check_depth=None)
+UMT_LARGE = SimpleNamespace(
+    name="pretrain_umt_large_patch16_224", tag="umt-l16-pretrain-b64",
+    width=1024, depth=24, heads=16, out=768,
+    clip=dict(clip_decoder_embed_dim=1024, clip_output_dim=768),
+    check_depth=UMT_TAPS)
 
 
 def tube_batch(torch, b: int, seed: int, frames: int, grid, ratio: float):
@@ -5126,6 +5161,20 @@ def videomae_clip_flops(cfg=MAE_BASE, ratio: float = MAE_MASK) -> float:
            + 2 * vis * cfg.width * cfg.dec_width
            + cfg.dec_depth * vit_block_flops(n, cfg.dec_width)
            + 2 * (n - vis) * cfg.dec_width * 1536)
+    return 3.0 * fwd
+
+
+def umt_clip_flops(cfg=UMT_BASE) -> float:
+    """Model operations of one clip's UMT student pass (forward and
+    backward as three forwards; matrix products and attention): the patch
+    embedding of the 320 gathered tokens, ``cfg``'s blocks at 320 tokens
+    and the 6 CLIP decoders at its widths."""
+    from unite_torch.utils.flops import vit_block_flops
+
+    vis = UMT_VISIBLE
+    fwd = (2 * vis * (16 * 16 * 3) * cfg.width
+           + cfg.depth * vit_block_flops(vis, cfg.width)
+           + UMT_TAPS * 2 * vis * cfg.width * cfg.out)
     return 3.0 * fwd
 
 
@@ -5269,15 +5318,18 @@ def videomae_path(torch, A, counted_per_clip, b: int = 32,
     """Phase ``videomae-b16-b32``: the VideoMAE pixel-reconstruction step
     at B=32 on pinned seeded uint8 clips (normalized on the card), each
     step 12 K1 + 12 K2 at the encoder's [32, 160] and 8 K3 (with lse) + 8
-    K4a + 8 K4b at the decoder's [32, 1568] with 6 heads; a profiled
-    step. With ``cfg`` MAE_HUGE, ``videomae-h16-b16``: the huge model at
-    B=16, 32 K1 + 32 K2 at [16, 160] (16 heads of 80 lanes) and 8 of each
-    decoder kernel at [16, 1568] (8 heads of 80). With MAE_HUGE_M075 and
-    ``ratio`` 0.75, ``videomae-h16-m075-b16``: the huge model's encoder at
-    392 tokens on K5, 32 of each of its kernels a step, and no K1/K2
-    (``mae_launches``). Its model FLOP utilization comes from the closed
-    form (``videomae_clip_flops``) and from ``counted_per_clip``, the CPU
-    step's count (None where it could not be taken)."""
+    K4a + 8 K4b at the decoder's [32, 1568] with 6 heads; a profiled step.
+    With ``cfg`` MAE_LARGE, ``videomae-l16-b32``: 24 K1 + 24 K2 at [32,
+    160] (16 heads of 64) and 8 of each decoder kernel at [32, 1568] (8
+    heads of 64). With ``cfg`` MAE_HUGE, ``videomae-h16-b16``: the huge
+    model at B=16, 32 K1 + 32 K2 at [16, 160] (16 heads of 80 lanes) and 8
+    of each decoder kernel at [16, 1568] (8 heads of 80). With
+    MAE_HUGE_M075 and ``ratio`` 0.75, ``videomae-h16-m075-b16``: the huge
+    model's encoder at 392 tokens on K5, 32 of each of its kernels a step,
+    and no K1/K2 (``mae_launches``). Its model FLOP utilization comes from
+    the closed form (``videomae_clip_flops``) and from
+    ``counted_per_clip``, the CPU step's count (None where it could not be
+    taken)."""
     torch.manual_seed(15)
     state, step = build_videomae(torch, b, torch.bfloat16, "cuda", cfg=cfg)
     gen = torch.Generator(device="cuda").manual_seed(16)
@@ -5328,13 +5380,25 @@ def videomae_path(torch, A, counted_per_clip, b: int = 32,
     return res
 
 
-def umt_pretrain_model(torch, dtype, device: str, state_dict=None):
+def umt_pretrain_model(torch, cfg, dtype, device: str, state_dict=None,
+                       depth=None):
+    """``cfg``'s student from the registry, or at full widths with
+    ``depth`` blocks (the factories fix their depth): 8 frames, tubelet 1,
+    the top ``UMT_TAPS`` blocks tapped."""
     from unite_torch import create_model
+    from unite_torch.models.pretrain_umt import PretrainUMT
 
-    model = create_model("pretrain_umt_base_patch16_224", device=device,
-                         dtype=dtype, num_frames=8, tubelet_size=1,
-                         clip_return_layer=UMT_TAPS,
-                         clip_student_return_interval=1)
+    kw = dict(num_frames=8, tubelet_size=1, clip_return_layer=UMT_TAPS,
+              clip_student_return_interval=1, **cfg.clip)
+    if depth is None:
+        model = create_model(cfg.name, device=device, dtype=dtype, **kw)
+        if len(model.encoder.blocks) != cfg.depth:
+            raise AssertionError(f"{cfg.name}: depth differs from {cfg}")
+    else:
+        model = PretrainUMT(
+            img_size=224, patch_size=16, encoder_embed_dim=cfg.width,
+            encoder_depth=depth, encoder_num_heads=cfg.heads, mlp_ratio=4,
+            qkv_bias=True, norm_eps=1e-6, dtype=dtype, **kw).to(device)
     if state_dict is not None:
         model.load_state_dict(state_dict)
     return model.train()
@@ -5356,34 +5420,52 @@ def umt_pass(torch, model, batch, targets, device: str):
     return loss.detach(), norm, out.detach()
 
 
-def umt_pretrain(torch, A, b: int = 64, timed: int = 3):
+def umt_pretrain(torch, A, cfg=UMT_BASE, b: int = 64, timed: int = 3):
     """Phase ``umt-pretrain-b64``: ``pretrain_umt_base_patch16_224`` at 8
     frames, tubelet 1, tube mask 0.8 (320 visible tokens), taps 6-11: its
     forward and backward at B=64 (12 K1 + 12 K2 at [64, 320] a pass,
     finite outputs), and at B=2 on the card (bf16) against the CPU (fp32)
-    from the same weights, clips and masks."""
+    from the same weights, clips and masks. With ``cfg`` UMT_LARGE,
+    ``umt-l16-pretrain-b64``: ``pretrain_umt_large_patch16_224`` with its
+    decoders 1024 -> 768, the card-vs-CPU pass cut to ``cfg.check_depth``
+    = 6 blocks at full width (taps 0-5), then the full model (taps 18-23)
+    at B=64, 24 K1 + 24 K2 at [64, 320] a pass. The model FLOP
+    utilization comes from ``umt_clip_flops``."""
     torch.manual_seed(18)
-    cpu = umt_pretrain_model(torch, torch.float32, "cpu")
+    depth = cfg.check_depth or cfg.depth
+    cpu = umt_pretrain_model(torch, cfg, torch.float32, "cpu",
+                             depth=cfg.check_depth)
     sd = {k: v.clone() for k, v in cpu.state_dict().items()}
-    gpu = umt_pretrain_model(torch, torch.bfloat16, "cuda", sd)
+    gpu = umt_pretrain_model(torch, cfg, torch.bfloat16, "cuda", sd,
+                             depth=cfg.check_depth)
     small = tube_batch(torch, 2, 19, 8, (8, 14, 14), UMT_MASK)
     gen = torch.Generator().manual_seed(20)
-    t_small = torch.randn((UMT_TAPS, 2, UMT_VISIBLE, 512), generator=gen)
+    t_small = torch.randn((UMT_TAPS, 2, UMT_VISIBLE, cfg.out), generator=gen)
     l_cpu, n_cpu, o_cpu = umt_pass(torch, cpu, small, t_small, "cpu")
+    torch.cuda.synchronize()
+    reset_counts(A)
     l_gpu, n_gpu, o_gpu = umt_pass(torch, gpu, small, t_small, "cuda")
+    torch.cuda.synchronize()
+    expect_counts(read_counts(A), {"K1": depth, "K2": depth},
+                  f"{cfg.tag} card pass at B=2, {depth} blocks")
     rel = {"loss": abs(l_gpu.item() - l_cpu.item()) / abs(l_cpu.item()),
            "grad_norm": abs(n_gpu.item() - n_cpu.item()) / abs(n_cpu.item())}
     out_err = (o_gpu.float().cpu() - o_cpu).abs().max().item()
-    print(f"umt-pretrain card bf16 vs cpu fp32 (B=2): loss {l_gpu.item()} / "
-          f"{l_cpu.item()}, grad norm {n_gpu.item()} / {n_cpu.item()}, rel "
-          f"{rel}, x_clip max abs err {out_err}", flush=True)
+    print(f"{cfg.tag} card bf16 vs cpu fp32 (B=2, {depth} blocks): loss "
+          f"{l_gpu.item()} / {l_cpu.item()}, grad norm {n_gpu.item()} / "
+          f"{n_cpu.item()}, rel {rel}, x_clip max abs err {out_err}",
+          flush=True)
     if not all(r <= STEP_RTOL for r in rel.values()) or out_err > 5e-2:
-        raise AssertionError(f"umt-pretrain card pass disagrees with the "
+        raise AssertionError(f"{cfg.tag} card pass disagrees with the "
                              f"CPU: {rel}, x_clip err {out_err}")
     del cpu
+    if cfg.check_depth is not None:  # the timed cell runs the full model
+        del gpu, o_gpu
+        torch.cuda.empty_cache()
+        gpu = umt_pretrain_model(torch, cfg, torch.bfloat16, "cuda")
     batch = tube_batch(torch, b, 21, 8, (8, 14, 14), UMT_MASK)
     batch["videos"] = batch["videos"].pin_memory()
-    targets = torch.randn((UMT_TAPS, b, UMT_VISIBLE, 512), generator=gen,
+    targets = torch.randn((UMT_TAPS, b, UMT_VISIBLE, cfg.out), generator=gen,
                           device="cpu").cuda()
     umt_pass(torch, gpu, batch, targets, "cuda")  # warm-up
     torch.cuda.synchronize()
@@ -5395,22 +5477,25 @@ def umt_pretrain(torch, A, b: int = 64, timed: int = 3):
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     counts, shapes = read_counts(A), read_shapes(A)["K1"]
-    expect_counts(counts, {"K1": 12 * timed, "K2": 12 * timed},
-                  f"umt-pretrain-b64, {timed} passes")
-    if shapes != {(b, UMT_VISIBLE): 12 * timed}:
-        raise AssertionError(f"umt-pretrain-b64: K1 by (B, S) {shapes}")
+    n = cfg.depth * timed
+    expect_counts(counts, {"K1": n, "K2": n}, f"{cfg.tag}, {timed} passes")
+    if shapes != {(b, UMT_VISIBLE): n}:
+        raise AssertionError(f"{cfg.tag}: K1 by (B, S) {shapes}")
     out = outs[-1][2]
-    if out.shape != (UMT_TAPS, b, UMT_VISIBLE, 512) or not bool(
+    if out.shape != (UMT_TAPS, b, UMT_VISIBLE, cfg.out) or not bool(
             torch.isfinite(out).all()):
-        raise AssertionError(f"umt-pretrain-b64: output {tuple(out.shape)} "
+        raise AssertionError(f"{cfg.tag}: output {tuple(out.shape)} "
                              "not finite or of the wrong shape")
     check_finite([(l.item(), g.item()) for l, g, _ in outs])
+    flops = b * umt_clip_flops(cfg)
     res = dict(card_vs_cpu_rel=rel, x_clip_max_abs_err=out_err,
-               pass_ms=dt / timed * 1e3,
+               card_vs_cpu_depth=depth, pass_ms=dt / timed * 1e3,
                clips_per_s=b * timed / dt,
+               model_tflop_per_pass=flops / 1e12,
+               model_flops_util=flops * timed / dt / PEAK_BF16,
                peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
                passes=timed, launches=counts)
-    print(f"umt-pretrain-b64 B={b}: {res} on {card_line()}", flush=True)
+    print(f"{cfg.tag} B={b}: {res} on {card_line()}", flush=True)
     del gpu, outs, out
     torch.cuda.empty_cache()
     return res
@@ -6366,6 +6451,33 @@ def main() -> int:
                 work)
             torch.cuda.empty_cache()
             mark("vit384-stage2-entry")
+        # phase 16e, VideoMAE-L and UMT-L: K1/K2 at their encoders' shapes
+        # (16 heads of 64), K3/K4 at the VideoMAE-L decoder's (8 heads of
+        # 64), the VideoMAE-L step cut to 4 + 2 blocks against the CPU,
+        # its full cell, then the UMT-L pass at 6 blocks against the CPU
+        # and its full cell
+        with budget("added", "phase 16e (VideoMAE-L, UMT-L)"):
+            kr.update(check_kernels(torch, A, heads=MAE_LARGE.heads,
+                                    batches=(32,), lengths=(MAE_VISIBLE,),
+                                    tag="/mae-l"))
+            kr.update(check_kernels(torch, A, heads=UMT_LARGE.heads,
+                                    batches=(64,), lengths=(UMT_VISIBLE,),
+                                    tag="/umt-l"))
+            kr.update(check_packed_kernels(
+                torch, A, shapes=(("train", 32, True),), tag="/mae-l",
+                heads=MAE_LARGE.dec_heads, repeats=BWD_REPEATS))
+            mae_l_rel = videomae_card_vs_cpu(torch, MAE_LARGE,
+                                             LARGE_CHECK_DEPTH, count=False)
+            mae_l = videomae_path(
+                torch, A, None, cfg=MAE_LARGE,
+                profile_name="chip_smoke_profile_videomae_l16.json")
+            torch.cuda.empty_cache()
+            mark("videomae-l16-b32")
+            umt_l = umt_pretrain(torch, A, UMT_LARGE)
+            mark("umt-l16-pretrain-b64")
+        print(f"phase 16e took "
+              f"{BUDGET['added']['phase 16e (VideoMAE-L, UMT-L)']:.1f} s",
+              flush=True)
         cards = torch.cuda.device_count()
         scale = scaleout_entries(torch, A, work, cards)
         mark(f"scaleout-nccl-w{cards}")
@@ -6715,6 +6827,31 @@ def main() -> int:
             ("K1/teacher/masked", "fused_qkv_fwd[clip-masked teacher B=512 "
              "S=41]", "unite_torch/csrc/short_attn_wgmma.cu",
              "unite_tpu/ops/attention.py:678", clipm["launches"]["K1"]),
+            ("K1/student/mae-l", "fused_qkv_fwd[videomae-l16-b32 encoder "
+             f"B=32 S={MAE_VISIBLE} H=16]",
+             "unite_torch/csrc/short_attn_wgmma.cu",
+             "unite_tpu/ops/attention.py:678", mae_l["launches"]["K1"]),
+            ("K2/student/mae-l", "fused_qkv_bwd[videomae-l16-b32 encoder "
+             f"B=32 S={MAE_VISIBLE} H=16]",
+             "unite_torch/csrc/short_bwd_wgmma.cu",
+             "unite_tpu/ops/attention.py:773", mae_l["launches"]["K2"]),
+            ("K3/train/mae-l", "packed_flash_fwd[videomae-l16-b32 decoder "
+             "B=32 S=1568 H=8]", "unite_torch/csrc/flash_fwd_wgmma.cu",
+             "unite_tpu/ops/attention.py:913", mae_l["launches"]["K3+lse"]),
+            ("K4a/mae-l", "packed_flash_dq[videomae-l16-b32 decoder B=32 "
+             "S=1568 H=8]", "unite_torch/csrc/flash_bwd_wgmma.cu",
+             "unite_tpu/ops/attention.py:983", mae_l["launches"]["K4a"]),
+            ("K4b/mae-l", "packed_flash_dkv[videomae-l16-b32 decoder B=32 "
+             "S=1568 H=8]", "unite_torch/csrc/flash_bwd_wgmma.cu",
+             "unite_tpu/ops/attention.py:1014", mae_l["launches"]["K4b"]),
+            ("K1/student/umt-l", "fused_qkv_fwd[umt-l16-pretrain-b64 student "
+             f"B=64 S={UMT_VISIBLE} H=16]",
+             "unite_torch/csrc/short_attn_wgmma.cu",
+             "unite_tpu/ops/attention.py:678", umt_l["launches"]["K1"]),
+            ("K2/student/umt-l", "fused_qkv_bwd[umt-l16-pretrain-b64 student "
+             f"B=64 S={UMT_VISIBLE} H=16]",
+             "unite_torch/csrc/short_bwd_wgmma.cu",
+             "unite_tpu/ops/attention.py:773", umt_l["launches"]["K2"]),
             ("K7b/probe", "bf16_matmul[probe 38400x768x3072]",
              "unite_torch/csrc/blocked_matmul_wgmma.cu",
              "tools/quant_kernel_probe.py:53", probe["launches"]["K7b"]),
@@ -6785,6 +6922,9 @@ def main() -> int:
                           "videomae_h16_m06_card_vs_cpu_rel": mae_h06_rel,
                           "head_dim80_lengths": d80_lengths,
                           "umt_pretrain": umt, "clip_masked": clipm,
+                          "videomae_l16_step": mae_l,
+                          "videomae_l16_card_vs_cpu_rel": mae_l_rel,
+                          "umt_l16_pretrain": umt_l,
                           "stage3_entry": entry3, "tool_classify": tools_c,
                           "tool_record_losses": tools_r,
                           "scaleout_nccl": scale,

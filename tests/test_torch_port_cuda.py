@@ -162,6 +162,56 @@ def test_packed_kernels_at_16_heads_on_card(cuda, s):
                            dqkv)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s", [(32, 160), (64, 320)])
+def test_fused_qkv_kernels_at_the_large_pretraining_shapes(cuda, b, s):
+    """K1 with lse and K2 at the VideoMAE-L encoder's [32, 160, 3072] (tube
+    mask 0.9) and the UMT-L student's [64, 320, 3072] (mask 0.8): 16 heads
+    of 64 at the cells' batches."""
+    heads = 16
+    gen = torch.Generator(device=cuda).manual_seed(b + s)
+    x = torch.randn((b, s, 3 * heads * 64), generator=gen, device=cuda
+                    ).to(torch.bfloat16)
+    out, lse = TA.fused_qkv_fwd(x, heads, SCALE, with_lse=True)
+    ref, ref_lse = TA.qkv_attention_reference(x, heads, SCALE)
+    assert (out.float() - ref.float()).abs().max().item() <= 1e-2
+    assert (lse - ref_lse).abs().max().item() <= 1e-3
+    do = torch.randn(out.shape, generator=gen, device=cuda).to(torch.bfloat16)
+    dqkv = TA.fused_qkv_bwd(x, out, lse, do, heads, SCALE)
+    dref = TA.qkv_attention_reference_bwd(x, do, heads, SCALE).float()
+    assert (dqkv.float() - dref).abs().max().item() <= \
+        2e-2 * dref.abs().max().item()
+    assert torch.equal(TA.fused_qkv_bwd(x, out, lse, do, heads, SCALE), dqkv)
+
+
+@pytest.mark.cuda
+def test_packed_kernels_at_the_videomae_l_decoder_on_card(cuda):
+    """K3 with lse, K4a and K4b at the VideoMAE-L decoder's [32, 1568, 1536]
+    (8 heads of 64, a 3072-byte row), within the 6-head test's tolerances,
+    each repeat of the backward equal to the first."""
+    heads, b, s = 8, 32, 1568
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    x = torch.randn((b, s, 3 * heads * 64), generator=gen, device=cuda
+                    ).to(torch.bfloat16)
+    out, lse = TA.packed_flash_fwd(x, heads, SCALE, with_lse=True)
+    ref, ref_lse = TA.packed_flash_reference(x, heads, SCALE)
+    assert (out.float() - ref.float()).abs().max().item() <= 1e-2
+    assert (lse - ref_lse).abs().max().item() <= 1e-3
+    del ref, ref_lse
+    do = torch.randn(out.shape, generator=gen, device=cuda).to(torch.bfloat16)
+    dqkv = TA.packed_flash_bwd(x, out, lse, do, heads, SCALE)
+    dref = TA.packed_flash_reference_bwd(x, out, lse, do, heads,
+                                         SCALE).float()
+    for part in range(3):  # dq, dk, dv
+        sl = slice(part * heads * 64, (part + 1) * heads * 64)
+        tol = 2e-2 * dref[..., sl].abs().max().item()
+        assert (dqkv[..., sl].float() - dref[..., sl]).abs().max().item() \
+            <= tol, part
+    for _ in range(3):
+        assert torch.equal(TA.packed_flash_bwd(x, out, lse, do, heads, SCALE),
+                           dqkv)
+
+
 def _flash_inputs(cuda, b, s, seed, strided):
     """q, k, v [B, H, S, 64] bf16: contiguous, or the strided views of a
     qkv projection output that the models pass."""
