@@ -294,6 +294,30 @@ toolkit. In order:
    x_clip within 5e-2), then ``umt-l16-pretrain-b64`` at full depth, 1 +
    3 passes of 64, 24 K1 + 24 K2 at (64, 320) a pass, MFU of
    ``umt_clip_flops``; the phase's seconds in ``budget_s``;
+16f. clip_l14_336 as the stage-3 zero-shot teacher (``L336``: the base
+   student of configs/stage3_config.yaml under clip_l14_336 at its native
+   336^2, 24 blocks of 1024 with 16 heads, 577 tokens a frame, [12, 768]
+   text features; --train_masked false with clip_matchORconf, so no
+   committee): the zero-shot similarities of one 8-frame clip with the
+   teacher cut to 2 blocks at full width on the card (2 K6 without lse at
+   (8, 577)) against the CPU, bf16 within ``STEP_RTOL`` and fp32 within
+   ``FP32_STEP_RTOL``, then the step with the student cut to 2 blocks on
+   both sides fed the CPU's similarities (loss, grad norm and logits
+   within both gates, the selection equal); ``stage3-l14336-b5``: the
+   step at full depth with the whole teacher, B_s = B_t = 5, 2 warm-up
+   and 10 timed steps with the zero-shot call inside each, 24 K6 without
+   lse at (40, 577), 24 K3 (12 with lse), 12 K4a and 12 K4b at (5, 1568)
+   a step and no K1/K2, exact by shape; the K6 forward on the q, k, v
+   views that the teacher's first block hands it, against its plain
+   version, timed beside SDPA's forward; MFU of ``stage3_step_flops``
+   (the teacher's 15.28 TFLOP a call counted), peak memory and a
+   profiled step split into the zero-shot call and the rest;
+   ``stage3-l14336-entry``: ``l336_entry`` (``run_stage3.main`` under
+   those flags from the stage-2 entry's checkpoint-best, the student cut
+   to ``CHAIN_DEPTH`` blocks, the stage-2 tensors held bit for bit,
+   exact launches, then --train_masked true refused with the committee's
+   grid ValueError before any launch); the phase's seconds in
+   ``budget_s``;
 17. ``scaleout-nccl-w{N}`` (N = the cards on the machine): the three
    entries launched by ``python -m torch.distributed.run --standalone
    --nproc_per_node N`` over NCCL, each rank running this script as
@@ -448,17 +472,30 @@ L14_DENSE = {"in_proj": (L14_M, 1024, 3072), "out_proj": (L14_M, 1024, 1024),
 # 64) and the stage 3 it feeds, with bench_large's clip_l14 at 196^2; V384B
 # and V384L the stage-2 ViTs at 384^2 (vit_{base,large}_patch16_384, 24^2
 # patches a frame); V384B's card-vs-CPU phase also runs the CLS readout
-# (``cls``: 4609 tokens, K6)
+# (``cls``: 4609 tokens, K6). The stage-3 families also give the
+# teacher's width, depth and heads (``t_width``, ``t_depth``, ``t_heads``)
+# and ``train_masked``: L336 is the base student of
+# configs/stage3_config.yaml under clip_l14_336 at its native 336^2 (24^2
+# patches, 577 tokens a frame: K6 without lse in every block), which casts
+# the committee's masks on another grid than the student's, so it trains
+# unmasked (--train_masked false with clip_matchORconf: no committee)
 BASE = SimpleNamespace(
     vit="vit_base_patch16_224", student="adaptation_umt_base_patch16_224",
     teacher="clip_b16", t_res=224, t_patch=16, width=768, depth=12, heads=12,
+    t_width=768, t_depth=12, t_heads=12, train_masked=True,
     dec=768, out=512, cut=None, img=224, cls=False,
     s2="stage2-b16-b8", s2_eval="stage2-eval-b16-b32", s3="stage3-b16-b5")
 VITL = SimpleNamespace(
     vit="vit_large_patch16_224", student="adaptation_umt_large_patch16_224",
     teacher="clip_l14", t_res=196, t_patch=14, width=1024, depth=24, heads=16,
+    t_width=1024, t_depth=24, t_heads=16, train_masked=True,
     dec=1024, out=768, cut=2, img=224, cls=False,
     s2="vitl-stage2-b8", s2_eval="vitl-stage2-eval-b32", s3="vitl-stage3-b5")
+L336 = SimpleNamespace(
+    vit="vit_base_patch16_224", student="adaptation_umt_base_patch16_224",
+    teacher="clip_l14_336", t_res=336, t_patch=14, width=768, depth=12,
+    heads=12, t_width=1024, t_depth=24, t_heads=16, train_masked=False,
+    dec=768, out=768, cut=2, img=224, cls=False, s3="stage3-l14336-b5")
 V384B = SimpleNamespace(
     vit="vit_base_patch16_384", width=768, depth=12, heads=12, cut=2,
     img=384, cls=True, tag="/384b",
@@ -696,9 +733,9 @@ def lse_counters(A) -> dict:
 
 def shape_counters(A) -> dict:
     """The wrappers that also count their launches by shape (``.by_shape``:
-    K1 and K3 by (B, S), K7a by (M, K, N))."""
+    K1, K3 and K6 by (B, S), K7a by (M, K, N))."""
     c = counters(A)
-    return {k: c[k] for k in ("K1", "K3", "K7a")}
+    return {k: c[k] for k in ("K1", "K3", "K6", "K7a")}
 
 
 def reset_counts(A) -> None:
@@ -720,7 +757,12 @@ def read_counts(A) -> dict:
 def read_shapes(A) -> dict:
     """K1's and K3's launches since ``reset_counts`` by (B, S)."""
     return {k: dict(fn.by_shape) for k, fn in shape_counters(A).items()
-            if k != "K7a"}
+            if k in ("K1", "K3")}
+
+
+def read_k6_shapes(A) -> dict:
+    """The bf16 K6 forward's launches since ``reset_counts`` by (B, S)."""
+    return dict(A.flash_fwd.by_shape)
 
 
 def read_routes(A) -> dict:
@@ -2884,42 +2926,49 @@ def check_flash_kernels(torch, A, head_dim: int = 64,
     return results
 
 
-def stage3_step_flops(b: int, cls: bool, frames: int = 8, width: int = 768,
-                      layers: int = 12, grid: int = 196,
-                      visible: int = 320, t_patch: int = 16) -> float:
-    """Model operations of one stage-3 step at B_s = B_t = b, from the
-    shapes (matrix products and attention; a backward counts as two
-    forwards): the zero-shot and the attention teacher passes over b*8
-    frames of 197 tokens (the teacher's ``t_patch`` over the same grid),
-    the source full pass forward and backward, the target full pass
-    forward, and the committee's grad member forward and backward at the
-    visible tokens (the CLS student embeds every patch before its gather).
-    The teacher's width and depth are the student's. The kernels'
-    recomputed scores are not counted."""
-    def layer(tokens, seq):  # qkv, proj, fc1, fc2 (12 w^2) + q.k^T and p.v
+def stage3_step_flops(b: int, cls: bool, frames: int = 8, fam=BASE,
+                      grid: int = 196, visible: int = 320) -> float:
+    """Model operations of one stage-3 step of ``fam`` at B_s = B_t = b,
+    from the shapes (matrix products and attention; a backward counts as
+    two forwards): the zero-shot teacher pass over b*8 frames of the
+    teacher's grid plus its CLS (and, with a committee, the attention
+    teacher's pass as well), the source full pass forward and backward,
+    the target full pass forward, and with a committee its grad member
+    forward and backward at the visible tokens (the CLS student embeds
+    every patch before its gather). The kernels' recomputed scores are not
+    counted."""
+    def layer(tokens, seq, width):  # qkv, proj, fc1, fc2 + q.k^T and p.v
         return tokens * (2 * 12 * width * width + 4 * seq * width)
 
+    width, t_grid = fam.width, (fam.t_res // fam.t_patch) ** 2
     patch = 2 * 3 * 16 * 16 * width  # per patch
     n, nv = frames * grid + cls, visible + cls
-    teacher = layers * layer(b * frames * (grid + 1), grid + 1) \
-        + b * frames * grid * 2 * 3 * t_patch * t_patch * width
-    full = layers * layer(b * n, n) + b * frames * grid * patch
-    grad = layers * layer(b * nv, nv) + b * (frames * grid if cls
-                                             else visible) * patch
+    teacher = fam.t_depth * layer(b * frames * (t_grid + 1), t_grid + 1,
+                                  fam.t_width) \
+        + b * frames * t_grid * 2 * 3 * fam.t_patch ** 2 * fam.t_width
+    full = fam.depth * layer(b * n, n, width) + b * frames * grid * patch
+    if not fam.train_masked:
+        return float(teacher + 3 * full + full)
+    grad = fam.depth * layer(b * nv, nv, width) + b * (
+        frames * grid if cls else visible) * patch
     return float(2 * teacher + 3 * full + full + 3 * grad)
 
 
 def build_stage3(torch, dtype, device: str, drop_path: float, cls: bool,
-                 b: int, model_state=None, fam=BASE, depth=None):
+                 b: int, model_state=None, fam=BASE, depth=None,
+                 teacher_state=None):
     """The stage-3 student, teacher, classifier, optimizer, steps and
     zero-shot function of configs/stage3_config.yaml with stage3.sh's run
     values (epochs 20, warmup 4, lr 1e-5 scaled by the batch, AdamW (0.9,
     0.95) eps 1e-8, wd 0.05, mask 0.8, committee 2, clip_matchORconf at
-    0.1, conf-weighted, train_masked, taps [6], 12 classes), and text
-    features for the zero-shot teacher made from a seed: ``fam``'s
+    0.1, conf-weighted, ``fam.train_masked``, taps [6], 12 classes), and
+    text features for the zero-shot teacher made from a seed: ``fam``'s
     student, teacher at its input resolution, decoders and text width,
     the classifier at the student's width; ``depth`` cuts student and
-    teacher to that many blocks at full width, tapping the last."""
+    teacher to that many blocks at their full widths, tapping the last.
+    ``model_state`` and ``teacher_state`` replace the student's and
+    classifier's and the teacher's initial weights. Returns the state, the
+    train and eval steps, the zero-shot function and the teacher."""
     import numpy as np
 
     from unite_torch import create_model
@@ -2951,15 +3000,16 @@ def build_stage3(torch, dtype, device: str, drop_path: float, cls: bool,
             img_size=224, patch_size=16, encoder_embed_dim=fam.width,
             encoder_depth=depth, encoder_num_heads=fam.heads,
             clip_return_layers=(depth - 1,), **skw).to(device)
-        # the teacher's width and heads are the student's in both families
         teacher = CLIPVisionTransformer(
-            patch_size=fam.t_patch, width=fam.width, layers=depth,
-            heads=fam.heads, output_dim=fam.out,
+            patch_size=fam.t_patch, width=fam.t_width, layers=depth,
+            heads=fam.t_heads, output_dim=fam.out,
             return_index=(depth - 1,), **tkw).to(device)
     classifier = run_stage3.build_classifier(args, fam.width, device)
     model = run_stage3.combine(student, classifier)
     if model_state is not None:
         model.load_state_dict(model_state)
+    if teacher_state is not None:
+        teacher.load_state_dict(teacher_state)
     niter, epochs = 100, 20
     lr_tab = cosine_scheduler(scaled_lr(1e-5, b), scaled_lr(1e-5, b), epochs,
                               niter, warmup_epochs=4,
@@ -2967,7 +3017,8 @@ def build_stage3(torch, dtype, device: str, drop_path: float, cls: bool,
     tx, _ = run_stage3.build_optimizer(args, model, lr_tab, 0.05, device)
     kw = dict(num_patches=1568, frames=8, mask_ratio=0.8, committee_size=2,
               selection_strategy="clip_matchORconf", clip_threshold=0.1,
-              conf_weighted_loss=True, train_masked=True, use_cls_token=cls,
+              conf_weighted_loss=True, train_masked=fam.train_masked,
+              use_cls_token=cls,
               clip_input_resolution=fam.t_res, nb_classes=12, device=device)
     step = make_selftrain_step(student, classifier, teacher, **kw)
     eval_step = make_selftrain_eval_step(student, classifier, cls,
@@ -2978,7 +3029,7 @@ def build_stage3(torch, dtype, device: str, drop_path: float, cls: bool,
         (12, fam.out)).astype(np.float32))
     args.clip_text_features = str(feats)
     zero_shot = build_zero_shot_fn(args, teacher)
-    return TrainState(model, tx), step, eval_step, zero_shot
+    return TrainState(model, tx), step, eval_step, zero_shot, teacher
 
 
 def stage3_batch(torch, b: int, seed: int):
@@ -3006,7 +3057,12 @@ def stage3_card_vs_cpu(torch, A, cls: bool, card: str = "cuda", fam=BASE):
     ``fam.cut`` blocks at full width (VITL: K3/K4 at 16 heads), the same
     step on the card in fp32 from the same weights against the same CPU
     step, within ``FP32_STEP_RTOL`` (its selection agreement reported
-    apart)."""
+    apart). A family that trains unmasked (L336: no committee, so no
+    attention teacher and no grad member) first holds the zero-shot
+    similarities of one 8-frame clip on the card, bf16 and fp32, to the
+    CPU's (``zero_shot_card_vs_cpu``), and feeds both steps the CPU's
+    similarities of the batch, so that no flip comes from the teacher;
+    its selection must then agree."""
     import numpy as np
 
     from unite_torch.engines.selftrain import pool_outputs
@@ -3016,36 +3072,52 @@ def stage3_card_vs_cpu(torch, A, cls: bool, card: str = "cuda", fam=BASE):
     torch.manual_seed(13)
     fp32 = cls or fam.cut is not None
     kw = dict(fam=fam, depth=fam.cut)
-    cpu_state, cpu_step, _, _ = build_stage3(torch, torch.float32, "cpu", 0.0,
-                                             cls, 2, **kw)
-    sd = {k: v.clone() for k, v in cpu_state.model.state_dict().items()}
-    gpu_state, gpu_step, _, _ = build_stage3(torch, torch.bfloat16, card,
-                                             0.0, cls, 2, sd, **kw)
+    cpu_state, cpu_step, _, cpu_zs, cpu_teacher = build_stage3(
+        torch, torch.float32, "cpu", 0.0, cls, 2, **kw)
+    # the same student, classifier and teacher on every side
+    kw.update(model_state={k: v.clone() for k, v in
+                           cpu_state.model.state_dict().items()},
+              teacher_state={k: v.clone() for k, v in
+                             cpu_teacher.state_dict().items()})
+    gpu_state, gpu_step, _, gpu_zs, _ = build_stage3(
+        torch, torch.bfloat16, card, 0.0, cls, 2, **kw)
     if fp32:
         with budget("added", "fp32 card steps"):
-            f32_state, f32_step, _, _ = build_stage3(
-                torch, torch.float32, card, 0.0, cls, 2, sd, **kw)
+            f32_state, f32_step, _, f32_zs, _ = build_stage3(
+                torch, torch.float32, card, 0.0, cls, 2, **kw)
     batch = stage3_batch(torch, 2, 14)
-    rng = np.random.default_rng(15)
-    batch["attn"] = torch.from_numpy(rng.dirichlet(
-        np.ones(196), size=16).astype(np.float32))
-    vis = visible_indices(greedy_committee_masks(batch["attn"], 0.8, 2)[-1]
-                          .reshape(2, -1), 320)
+    vis, zero_shot = None, None
+    if fam.train_masked:
+        rng = np.random.default_rng(15)
+        batch["attn"] = torch.from_numpy(rng.dirichlet(
+            np.ones(196), size=16).astype(np.float32))
+        vis = visible_indices(greedy_committee_masks(batch["attn"], 0.8, 2)
+                              [-1].reshape(2, -1), 320)
+    else:
+        zero_shot = zero_shot_card_vs_cpu(
+            torch, A, fam, batch["videos_t"][:1], cpu_zs, gpu_zs,
+            f32_zs if fp32 else None)
 
     def logits(model, dev):
+        """The full-target logits, and with a committee the grad
+        member's."""
         student, head = model.model.eval(), model.classifier
         with torch.no_grad():
-            full = head(pool_outputs(student.encoder(normalize_videos(
-                batch["videos_t"].to(dev)))[0], cls)).float().cpu()
-            grad = head(pool_outputs(student.encoder(normalize_videos(
-                batch["videos_t_aug"].to(dev)), vis.to(dev))[0], cls)
-                ).float().cpu()
-        return full, grad
+            out = [head(pool_outputs(student.encoder(normalize_videos(
+                batch["videos_t"].to(dev)))[0], cls)).float().cpu()]
+            if vis is not None:
+                out.append(head(pool_outputs(student.encoder(
+                    normalize_videos(batch["videos_t_aug"].to(dev)),
+                    vis.to(dev))[0], cls)).float().cpu())
+        return out
 
     l_cpu, l_gpu = logits(cpu_state.model, "cpu"), logits(gpu_state.model,
                                                            card)
-    sim = torch.full((2, 12), 0.1 / 11)
-    sim[torch.arange(2), l_cpu[0].argmax(-1)] = 0.9
+    if fam.train_masked:
+        sim = torch.full((2, 12), 0.1 / 11)
+        sim[torch.arange(2), l_cpu[0].argmax(-1)] = 0.9
+    else:
+        sim = cpu_zs(batch["videos_t"])
     batch["clip_sim"] = sim
     rel = {name: ((g - c).abs().max() / c.abs().max()).item()
            for name, g, c in zip(("full_logits", "grad_logits"), l_gpu, l_cpu)}
@@ -3062,6 +3134,7 @@ def stage3_card_vs_cpu(torch, A, cls: bool, card: str = "cuda", fam=BASE):
                 f"{what}: the fp32 card step")
     m_cpu = cpu_step(cpu_state, batch)
     f32_rel = None
+    selection = ("preds_t", "sel_ratio", "match_select_rate")
     if fp32:
         keys = ("loss", "grad_norm")
         f32_rel = fp32_gate(
@@ -3069,12 +3142,11 @@ def stage3_card_vs_cpu(torch, A, cls: bool, card: str = "cuda", fam=BASE):
             {k: m_cpu[k].item() for k in keys},
             dict(zip(("full_logits", "grad_logits"), zip(l_f32, l_cpu))))
         f32_rel["selection_agrees"] = all(
-            m_f32[k].cpu().tolist() == m_cpu[k].tolist()
-            for k in ("preds_t", "sel_ratio", "match_select_rate"))
+            m_f32[k].cpu().tolist() == m_cpu[k].tolist() for k in selection)
     for k in ("loss", "grad_norm"):
         rel[k] = abs(m_gpu[k].item() - m_cpu[k].item()) / abs(m_cpu[k].item())
     agree = {k: (m_gpu[k].cpu().tolist(), m_cpu[k].tolist())
-             for k in ("preds_t", "sel_ratio", "match_select_rate")}
+             for k in selection}
     print(f"{what} card bf16 vs cpu fp32: rel {rel}; "
           f"selection card/cpu {agree}; loss card {m_gpu['loss'].item()} "
           f"cpu {m_cpu['loss'].item()}", flush=True)
@@ -3082,17 +3154,63 @@ def stage3_card_vs_cpu(torch, A, cls: bool, card: str = "cuda", fam=BASE):
     if not all(r <= STEP_RTOL for r in rel.values()):
         raise AssertionError(f"{what}: the card step disagrees with the "
                              f"CPU: {rel}")
-    return dict(rel, selection_agrees=all(a == b for a, b in agree.values()),
-                fp32_rel=f32_rel, bf16_launches=bf16_counts)
+    agrees = all(a == b for a, b in agree.values())
+    if zero_shot is not None and not (agrees and f32_rel["selection_agrees"]):
+        raise AssertionError(f"{what}: on the CPU's zero-shot similarities "
+                             f"the card's selection differs: {agree}, fp32 "
+                             f"{f32_rel['selection_agrees']}")
+    return dict(rel, selection_agrees=agrees, fp32_rel=f32_rel,
+                bf16_launches=bf16_counts, zero_shot=zero_shot)
+
+
+def zero_shot_card_vs_cpu(torch, A, fam, clip, cpu_zs, gpu_zs, f32_zs):
+    """The zero-shot similarities [1, 12] of ``clip`` (one uint8 clip of 8
+    frames) from ``fam``'s teacher, cut to ``fam.cut`` blocks at full
+    width, on the card in bf16 (within ``STEP_RTOL`` of the CPU's fp32:
+    the max abs difference over the CPU's max) and in fp32 (within
+    ``FP32_STEP_RTOL``), each with the same weights; the bf16 call's
+    launches exact: a K6 forward without lse a block at (8, the teacher's
+    tokens a frame), nothing else."""
+    tokens = (fam.t_res // fam.t_patch) ** 2 + 1
+    want = {"K6": fam.cut}
+    ref = cpu_zs(clip)
+    reset_counts(A)
+    got = gpu_zs(clip)
+    torch.cuda.synchronize()
+    counts = read_counts(A)
+    what = f"{fam.s3} zero-shot, {fam.cut} blocks"
+    expect_counts(counts, want, what)
+    if read_k6_shapes(A) != {(8, tokens): fam.cut}:
+        raise AssertionError(f"{what}: K6 by (B, S) {read_k6_shapes(A)}")
+    with budget("added", "fp32 card steps"):
+        got32 = fp32_card_step(torch, A, lambda: f32_zs(clip), counts,
+                               f"{what}: the fp32 card call")
+
+    def rel(x):
+        return ((x.float().cpu() - ref).abs().max() / ref.abs().max()).item()
+
+    res = dict(bf16_rel=rel(got), fp32_rel=rel(got32), launches=counts,
+               cpu_max=ref.max().item(), shape=list(got.shape))
+    print(f"{what} card vs cpu: {res}", flush=True)
+    if (tuple(got.shape) != (1, 12) or not bool(torch.isfinite(got).all())
+            or res["bf16_rel"] > STEP_RTOL
+            or res["fp32_rel"] > FP32_STEP_RTOL):
+        raise AssertionError(f"{what}: the card's similarities are off the "
+                             f"CPU's: {res}")
+    return res
 
 
 def stage3_path(torch, A, cls: bool, b: int = 5, warmup: int = 2,
                 timed: int = 10, device: str = "cuda", fam=BASE):
     """Phases 10 and 11: the stage-3 train step of ``fam``'s models with
     the zero-shot similarities of each batch, as the stage-3 loop runs
-    them; returns its numbers and the trained state with its eval step."""
+    them; returns its numbers and the trained state with its eval step.
+    A family that trains unmasked (L336) first holds the K6 forward
+    inside its zero-shot teacher to the plain version
+    (``check_teacher_k6``), and its profiled step is split into the
+    zero-shot call and the rest."""
     torch.manual_seed(16)
-    state, step, eval_step, zero_shot = build_stage3(
+    state, step, eval_step, zero_shot, _ = build_stage3(
         torch, torch.bfloat16, device, 0.1, cls, b, fam=fam)
     gen = torch.Generator(device=device).manual_seed(17)
     batch = {k: v.pin_memory() if device == "cuda" else v
@@ -3102,6 +3220,8 @@ def stage3_path(torch, A, cls: bool, b: int = 5, warmup: int = 2,
         batch["clip_sim"] = zero_shot(batch["videos_t"])
         return step(state, batch, gen)
 
+    in_model = (None if fam.train_masked else
+                check_teacher_k6(torch, A, fam, zero_shot, batch["videos_t"]))
     torch.cuda.reset_peak_memory_stats()
     reset_counts(A)
     metrics = [run() for _ in range(warmup)]
@@ -3120,9 +3240,13 @@ def stage3_path(torch, A, cls: bool, b: int = 5, warmup: int = 2,
     # K1: the zero-shot teacher, the attention teacher and the committee's
     # grad member forward (a launch a block each); K2: its backward. The
     # full passes: the source forward with lse and backward, the target
-    # forward without lse, on K3/K4 at 1568 tokens or K6 at 1569.
+    # forward without lse, on K3/K4 at 1568 tokens or K6 at 1569. Without
+    # a committee only the zero-shot teacher runs beside the full passes:
+    # at 577 tokens a frame, K6 without lse in each of its blocks.
     d = fam.depth
-    want = {"K1": 3 * d * n, "K2": d * n}
+    t_tokens = (fam.t_res // fam.t_patch) ** 2 + 1
+    want = ({"K1": 3 * d * n, "K2": d * n} if fam.train_masked
+            else {"K6": fam.t_depth * n})
     if cls:
         want.update({"K6": 2 * d * n, "K6+lse": d * n, "K6dq": d * n,
                      "K6dkv": d * n})
@@ -3132,15 +3256,17 @@ def stage3_path(torch, A, cls: bool, b: int = 5, warmup: int = 2,
     expect_counts(counts, want, f"{name}, {n} steps")
     # by (B, S): the teachers' b clips of 8 frames of 197 tokens, the grad
     # member's 320 visible tokens, the full passes' 1568
-    by_shape = read_shapes(A)
+    by_shape, k6_shapes = read_shapes(A), read_k6_shapes(A)
     if not cls:
         shapes = {"K1": {(8 * b, 197): 2 * d * n, (b, 320): d * n},
                   "K3": {(b, STAGE2_TOKENS): 2 * d * n}}
-        if by_shape != shapes:
+        k6 = {}
+        if not fam.train_masked:
+            shapes["K1"], k6 = {}, {(8 * b, t_tokens): fam.t_depth * n}
+        if by_shape != shapes or k6_shapes != k6:
             raise AssertionError(f"{name}: launches by (B, S) {by_shape}, "
-                                 f"expected {shapes}")
-    flops = stage3_step_flops(b, cls, width=fam.width, layers=d,
-                              t_patch=fam.t_patch)
+                                 f"K6 {k6_shapes}, expected {shapes}, {k6}")
+    flops = stage3_step_flops(b, cls, fam=fam)
     sel = [m["sel_ratio"].item() for m in metrics]
     res = dict(clips_per_s=b * timed / dt, step_ms=dt / timed * 1e3,
                model_tflop_per_step=flops / 1e12,
@@ -3148,13 +3274,64 @@ def stage3_path(torch, A, cls: bool, b: int = 5, warmup: int = 2,
                peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
                steps=n, launches=counts, sel_ratio=sel[-1],
                by_shape={k: {f"{x}x{y}": c for (x, y), c in v.items()}
-                         for k, v in by_shape.items()})
+                         for k, v in dict(by_shape, K6=k6_shapes).items()})
     print(f"{name} B={b}: {res} on {card_line()}", flush=True)
     res["profile"] = profile_step(torch, run,
                                   f"chip_smoke_profile_{name}.json")
     res["device_share_of_timed_step"] = (res["profile"]["device_ms"]
                                          / res["step_ms"])
+    if in_model is not None:
+        res["k6_in_model"] = in_model
+        res["profile_zero_shot"] = profile_step(
+            torch, lambda: zero_shot(batch["videos_t"]),
+            f"chip_smoke_profile_{name}_zero_shot.json")
+        res["device_ms_rest_of_step"] = (
+            res["profile"]["device_ms"]
+            - res["profile_zero_shot"]["device_ms"])
     return res, state, eval_step
+
+
+def check_teacher_k6(torch, A, fam, zero_shot, videos) -> dict:
+    """The K6 forward inside ``fam``'s zero-shot teacher: the q, k, v that
+    its first block hands ``multi_head_attention`` (strided [8B, heads,
+    tokens, 64] views of the qkv projection, 577 tokens a frame for
+    clip_l14_336), through the kernel without lse against its plain version
+    on the same views, timed beside SDPA's forward on their contiguous
+    copies. These launches are outside any counted run."""
+    import torch.nn.functional as F
+
+    seen, mha = [], A.multi_head_attention
+
+    def capture(q, k, v, **kw):
+        if not seen:
+            seen.append((q, k, v, kw["scale"]))
+        return mha(q, k, v, **kw)
+
+    with patched((A, "multi_head_attention", capture)):
+        zero_shot(videos)
+    q, k, v, scale = seen[0]
+    b, h, s, d = q.shape
+    out, none = A.flash_fwd(q, k, v, scale)
+    ref, _ = A.flash_reference(q, k, v, scale=scale)
+    err = (out.float() - ref.float()).abs().max().item()
+    label = f"K6 in {fam.s3}'s teacher [{b}, {h}, {s}, {d}]"
+    if (none is not None or not bool(torch.isfinite(out).all())
+            or err > FWD_TOL):
+        raise AssertionError(f"{label}: max abs err {err} > {FWD_TOL}")
+    run = partial(A.flash_fwd, q, k, v, scale)
+    dense = [t.contiguous() for t in (q, k, v)]
+    sdpa = partial(F.scaled_dot_product_attention, *dense, scale=scale)
+    bms, by = bound(4 * b * h * s * d * 2, 4.0 * b * h * s * s * d)
+    res = dict(shape=[b, h, s, d], strides=list(q.stride()),
+               max_abs_err=err, ms=median_ms(run), device_ms=device_ms(run),
+               plain_ms=median_ms(lambda: A.flash_reference(q, k, v,
+                                                            scale=scale)),
+               bound_ms=bms, bound_by=by, library_ms=median_ms(sdpa),
+               library_device_ms=device_ms(sdpa),
+               library="scaled_dot_product_attention forward")
+    print(f"{label}: {res}", flush=True)
+    del seen, out, ref, dense
+    return res
 
 
 def stage3_eval(torch, A, state, eval_step, b: int = 32, warmup: int = 2,
@@ -4100,10 +4277,11 @@ def check_carried(torch, what: str, got: dict, want: dict) -> dict:
                 not_carried=sorted(set(got) - set(want)))
 
 
-def cut_create_model(fam, depth: int):
+def cut_create_model(fam, depth: int, cut_teacher: bool = True):
     """``registry.create_model`` with ``fam``'s student, stage-2 ViT and
-    teacher cut to ``depth`` blocks at full width (their registered
-    factories' arguments otherwise); every other name as registered."""
+    (unless not ``cut_teacher``) teacher cut to ``depth`` blocks at full
+    width (their registered factories' arguments otherwise); every other
+    name as registered."""
     import torch
 
     from unite_torch.models.adaptation import AdaptationVisionTransformer
@@ -4122,9 +4300,11 @@ def cut_create_model(fam, depth: int):
                                 encoder_num_heads=fam.heads, mlp_ratio=4,
                                 qkv_bias=True, norm_eps=1e-6),
            fam.teacher: partial(CLIPVisionTransformer,
-                                patch_size=fam.t_patch, width=fam.width,
-                                layers=depth, heads=fam.heads,
+                                patch_size=fam.t_patch, width=fam.t_width,
+                                layers=depth, heads=fam.t_heads,
                                 output_dim=fam.out)}
+    if not cut_teacher:
+        del cut[fam.teacher]
 
     def create(name, *, device=None, dtype=torch.float32, **kw):
         if name not in cut:
@@ -4331,6 +4511,137 @@ def vitl_chain(torch, A, workdir: Path) -> dict:
     res = dict(stage1=s1, stage2=s2, stage3=s3, carried=rec["carried"],
                steps=n, depth=d)
     print(f"vitl-chain: {json.dumps(res)} on {card_line()}", flush=True)
+    return res
+
+
+L336_STEPS = 3  # stage3-l14336-entry: one epoch of 3 steps of 5 + 5 clips
+
+
+def l336_entry(torch, A, student_init: Path, workdir: Path) -> dict:
+    """Phase ``stage3-l14336-entry``: ``run_stage3.main`` on synthetic
+    clips (uint8, normalized on the card) with ``STAGE3_ARGS`` and the
+    flags that run clip_l14_336 at its native 336^2 as the zero-shot
+    teacher: --clip_teacher clip_l14_336 --clip_input_resolution 336
+    --train_masked false (clip_matchORconf casts no votes, so there is no
+    committee), --clip_text_features a seeded [12, 768] .npy, and
+    --student_init ``student_init`` (the stage-2 entry's checkpoint-best).
+    The student is cut to ``CHAIN_DEPTH`` blocks at full width (its tap at
+    block ``CHAIN_DEPTH // 2``), the teacher is whole. One epoch of ``L336_STEPS`` steps of 5 + 5 clips, the
+    validation (8 clips) and the 15-view test (2 videos), no checkpoint.
+    Every stage-2 tensor the student and classifier take is held bit for
+    bit; launches exact, in all and by (B, S): 24 K6 without lse at
+    (40, 577) a zero-shot call, the student's K3/K4 at (5, 1568) and its
+    eval calls' K3 at (32, 1568), no K1 and no K2. Then the same entry
+    with --train_masked true must raise the committee's grid ValueError
+    (a 24^2 teacher grid against the student's 14^2) before any launch."""
+    import numpy as np
+
+    import unite_torch.train.run_stage1 as R1
+    import unite_torch.train.run_stage3 as R3
+    from unite_torch.config import parse_with_config
+    from unite_torch.train.args import stage3_parser
+
+    fam, n, d = L336, L336_STEPS, CHAIN_DEPTH
+    t_tokens = (fam.t_res // fam.t_patch) ** 2 + 1
+    tmp = workdir / "l336"
+    tmp.mkdir()
+    write_annotations(tmp, {"source": 5 * n, "target": 5 * n, "val": 8,
+                            "test": 2})
+    feats = tmp / "text_features.npy"
+    np.save(feats, np.random.default_rng(12).standard_normal(
+        (12, fam.out)).astype(np.float32))
+    parser = stage3_parser()
+    parser.add_argument("--clip_init", default="")
+
+    def args(train_masked: str):
+        return parse_with_config(parser, STAGE3_ARGS + [
+            "--synthetic_data", "true", "--device_normalize", "true",
+            "--clip_teacher", fam.teacher, "--clip_input_resolution",
+            str(fam.t_res), "--train_masked", train_masked,
+            "--clip_return_layers", str(d // 2),
+            "--clip_text_features", str(feats), "--student_init",
+            str(student_init), "--epochs", "1", "--initial_validation",
+            "false", "--checkpoints_enabled", "false",
+            "--ann_file_train", str(tmp / "source.csv"),
+            "--ann_file_train_target", str(tmp / "target.csv"),
+            "--ann_file_val", str(tmp / "val.csv"),
+            "--ann_file_test", str(tmp / "test.csv"),
+            "--output_dir", str(tmp / "run")])
+
+    vit2 = torch.load(student_init, map_location="cpu", mmap=True,
+                      weights_only=False)["model"]
+    rec = {"steps": [], "calls": 0, "zs_calls": 0, "carried": {}}
+
+    def from_stage2(student, classifier, *_):
+        own = dict(student.encoder.state_dict(),
+                   **{f"head.{k}": v
+                      for k, v in classifier.state_dict().items()})
+        rec["carried"] = check_carried(
+            torch, "stage3-l14336-entry stage 2 -> stage 3", own,
+            {k: v for k, v in vit2.items() if k in own})
+
+    def want():
+        steps, zs, ev = len(rec["steps"]), rec["zs_calls"], rec["calls"]
+        if not steps <= zs <= steps + 3:
+            raise AssertionError(f"stage3-l14336-entry: {zs} zero-shot "
+                                 f"calls for {steps} steps")
+        return {"K6": fam.t_depth * zs, "K3": d * (2 * steps + ev),
+                "K3+lse": d * steps, "K4a": d * steps, "K4b": d * steps}
+
+    what = "stage3-l14336-entry"
+    with patched((R1, "create_model", cut_create_model(fam, d, False)),
+                 (R3, "make_selftrain_step", timed_steps(
+                      torch, R3.make_selftrain_step, rec,
+                      ("loss", "grad_norm", "sel_ratio"),
+                      before=from_stage2)),
+                 (R3, "make_selftrain_eval_step", checked_eval_step(
+                     torch, R3.make_selftrain_eval_step, what, rec)),
+                 (R3, "build_zero_shot_fn", counted_zero_shot(
+                     R3.build_zero_shot_fn, rec))):
+        got = entry_call(torch, A, R3.main, args("false"), want, what)
+        steps, zs = len(rec["steps"]), rec["zs_calls"]
+        shapes = {"K1": {}, "K3": {(5, STAGE2_TOKENS): 2 * d * steps,
+                                   (32, STAGE2_TOKENS): d * rec["calls"]}}
+        k6 = {(40, t_tokens): fam.t_depth * zs}
+        if got["by_shape"] != shapes or read_k6_shapes(A) != k6:
+            raise AssertionError(f"{what}: launches by (B, S) "
+                                 f"{got['by_shape']}, K6 {read_k6_shapes(A)}"
+                                 f", expected {shapes}, {k6}")
+        if steps != n or rec["calls"] != 2:  # validation and the test
+            raise AssertionError(f"{what}: {steps} steps, {rec['calls']} "
+                                 f"eval calls")
+        ts = [r["t"] for r in rec["steps"]]
+        vals = step_values(rec["steps"], ("loss", "grad_norm", "sel_ratio"))
+        check_finite([v[:2] for v in vals])
+        res = dict(wall_s=got["wall_s"], first_step_s=ts[0] - got["t0"],
+                   clips_per_s=5 * (n - 1) / (ts[-1] - ts[0]),
+                   step_s=[b - a for a, b in zip(ts, ts[1:])],
+                   losses=[v[0] for v in vals], sel_ratio=[v[2] for v in vals],
+                   launches=got["launches"], peak_mem_gb=got["peak_mem_gb"],
+                   steps=steps, eval_calls=rec["calls"], zero_shot_calls=zs,
+                   k6_by_shape={f"{b}x{s}": c for (b, s), c in k6.items()},
+                   carried=rec["carried"], depth=d)
+
+        # the committee's masks on the teacher's 24^2 grid cannot index the
+        # student's 14^2: the entry raises before it launches anything
+        torch.cuda.synchronize()
+        reset_counts(A)
+        try:
+            R3.main(args("true"))
+        except ValueError as e:
+            if "teacher patch grid (576/frame) != student grid (196/frame)" \
+                    not in str(e):
+                raise
+            res["train_masked_error"] = str(e)
+        else:
+            raise AssertionError(f"{what}: --train_masked true ran")
+        torch.cuda.synchronize()
+        after = read_counts(A)
+        if any(after.values()):
+            raise AssertionError(f"{what}: --train_masked true launched "
+                                 f"{after} before its ValueError")
+    del vit2
+    print(f"{what}: {json.dumps(res)} on {card_line()}", flush=True)
     return res
 
 
@@ -6478,6 +6789,26 @@ def main() -> int:
         print(f"phase 16e took "
               f"{BUDGET['added']['phase 16e (VideoMAE-L, UMT-L)']:.1f} s",
               flush=True)
+        # phase 16f, clip_l14_336 as the stage-3 zero-shot teacher at its
+        # native 336^2 (K6 at 577 tokens) beside the base student, with no
+        # committee: its zero-shot call and the step at 2 blocks against
+        # the CPU, the full cell, then the stage-3 entry from the stage-2
+        # entry's checkpoint-best and its --train_masked true refusal
+        with budget("added", "phase 16f (clip_l14_336 teacher)"):
+            l336_rel = stage3_card_vs_cpu(torch, A, False, fam=L336)
+            l336, state, _ = stage3_path(torch, A, cls=False, fam=L336)
+            kr["K6/l336"] = l336["k6_in_model"]
+            del state
+            torch.cuda.empty_cache()
+            mark(L336.s3)
+            l336_ent = l336_entry(
+                torch, A, work / "stage2" / "run" / "checkpoint-best.pth",
+                work)
+            torch.cuda.empty_cache()
+            mark("stage3-l14336-entry")
+        print(f"phase 16f took "
+              f"{BUDGET['added']['phase 16f (clip_l14_336 teacher)']:.1f} s",
+              flush=True)
         cards = torch.cuda.device_count()
         scale = scaleout_entries(torch, A, work, cards)
         mark(f"scaleout-nccl-w{cards}")
@@ -6616,6 +6947,26 @@ def main() -> int:
             ("K4b/b5", "packed_flash_dkv[stage-3 entry train B=5 S=1568]",
              "unite_torch/csrc/flash_bwd_wgmma.cu",
              "unite_tpu/ops/attention.py:1014", entry3["launches"]["K4b"]),
+            ("K6/l336", f"flash_fwd[{L336.s3} clip_l14_336 zero-shot "
+             "teacher B=40 S=577 H=16, no lse]",
+             "unite_torch/csrc/flash_fwd_wgmma.cu",
+             "unite_tpu/ops/attention.py:148", l336["launches"]["K6"]),
+            ("K6/l336", "flash_fwd[stage3-l14336-entry clip_l14_336 "
+             "zero-shot teacher B=40 S=577 H=16, no lse]",
+             "unite_torch/csrc/flash_fwd_wgmma.cu",
+             "unite_tpu/ops/attention.py:148", l336_ent["launches"]["K6"]),
+            *((key, f"{name}[{L336.s3} student B=5 S=1568]", src, rep,
+               l336["launches"][k])
+              for k, key, name, src, rep in (
+                  ("K3", "K3/train/b5", "packed_flash_fwd",
+                   "unite_torch/csrc/flash_fwd_wgmma.cu",
+                   "unite_tpu/ops/attention.py:913"),
+                  ("K4a", "K4a/b5", "packed_flash_dq",
+                   "unite_torch/csrc/flash_bwd_wgmma.cu",
+                   "unite_tpu/ops/attention.py:983"),
+                  ("K4b", "K4b/b5", "packed_flash_dkv",
+                   "unite_torch/csrc/flash_bwd_wgmma.cu",
+                   "unite_tpu/ops/attention.py:1014"))),
             ("K6/train", "flash_fwd[stage-3 CLS train B=5 S=1569]",
              "unite_torch/csrc/flash_fwd_wgmma.cu",
              "unite_tpu/ops/attention.py:148", s3c["launches"]["K6"]),
@@ -6925,6 +7276,9 @@ def main() -> int:
                           "videomae_l16_step": mae_l,
                           "videomae_l16_card_vs_cpu_rel": mae_l_rel,
                           "umt_l16_pretrain": umt_l,
+                          "l336_stage3_card_vs_cpu": l336_rel,
+                          "l336_stage3_step": l336,
+                          "l336_stage3_entry": l336_ent,
                           "stage3_entry": entry3, "tool_classify": tools_c,
                           "tool_record_losses": tools_r,
                           "scaleout_nccl": scale,

@@ -1033,6 +1033,58 @@ def test_stage3_entry_runs_on_card(cuda, tmp_path):
 
 
 @pytest.mark.cuda
+def test_clip_l14_336_zero_shot_runs_k6_on_card(cuda, tmp_path):
+    # the stage-3 zero-shot teacher clip_l14_336 at its native 336^2, cut
+    # to 2 blocks at full width (1024, 16 heads of 64), on 5 clips of 8
+    # frames of 224^2: each block's 40 frames of 577 tokens take K6's
+    # forward without lse on the strided qkv views, 2 launches at (40, 577)
+    # and nothing else; the same call on the plain route (the plain K6 in
+    # place of the kernel) gives the same similarities within 2e-2
+    from types import SimpleNamespace
+
+    import numpy as np
+
+    from unite_torch.models.clip import CLIPVisionTransformer
+    from unite_torch.models.clip_text import build_zero_shot_fn
+
+    np.save(tmp_path / "text.npy", np.random.default_rng(0).standard_normal(
+        (12, 768)).astype(np.float32))
+    torch.manual_seed(0)
+    teacher = CLIPVisionTransformer(
+        input_resolution=336, patch_size=14, width=1024, layers=2, heads=16,
+        output_dim=768, return_attn=True, return_index=(1,),
+        dtype=torch.bfloat16).to(cuda)
+    zero_shot = build_zero_shot_fn(SimpleNamespace(
+        clip_text_features=str(tmp_path / "text.npy"),
+        clip_input_resolution=336), teacher)
+    videos = torch.randint(0, 256, (5, 8, 224, 224, 3), dtype=torch.uint8,
+                           generator=torch.Generator().manual_seed(1))
+    wrappers = ("fused_qkv_fwd", "packed_flash_fwd", "grouped_fwd",
+                "flash_fwd")
+    before = [getattr(TA, n).launches for n in wrappers]
+    shape0 = TA.flash_fwd.by_shape[(40, 577)]
+    lse0 = TA.flash_fwd.lse_launches
+    sim = zero_shot(videos)
+    torch.cuda.synchronize()
+    assert [getattr(TA, n).launches - b for n, b in zip(wrappers, before)] \
+        == [0, 0, 0, 2]
+    assert TA.flash_fwd.by_shape[(40, 577)] - shape0 == 2
+    assert TA.flash_fwd.lse_launches == lse0
+
+    def plain(q, k, v, *, scale=None, **_):
+        return TA.flash_reference(q, k, v, scale=scale)[0]
+
+    mha, TA.multi_head_attention = TA.multi_head_attention, plain
+    try:
+        ref = zero_shot(videos)
+    finally:
+        TA.multi_head_attention = mha
+    assert TA.flash_fwd.launches - before[-1] == 2
+    assert sim.shape == (5, 12) and bool(torch.isfinite(sim).all())
+    assert (sim - ref).abs().max().item() <= 2e-2 * ref.abs().max().item()
+
+
+@pytest.mark.cuda
 def test_remat_is_bit_equal_on_card_through_k1_k2(cuda):
     # an adaptation student of width 128 (2 heads) over 4 frames of 64^2
     # (64 tokens: K1 forward, K2 backward) at drop path 0.1 and dropout

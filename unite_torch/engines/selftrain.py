@@ -7,7 +7,10 @@ One train step:
 * the full target clip through the encoder under ``torch.no_grad`` with the
   classifier live (its logits give the pseudo-labels and the confidences);
 * k greedy committee masks from the teacher's CLS attention over the
-  augmented target clips (or the injected ``attn``);
+  augmented target clips (or the injected ``attn``), on a teacher grid
+  that must be the student's (``check_committee_grid``; without a
+  committee, under ``train_masked=False`` and a strategy that casts no
+  votes, any teacher serves the zero-shot similarities);
 * the selection strategy, ``clip_matchORconf`` by default, on the student's
   full-target predictions and the CLIP zero-shot similarities ``clip_sim``;
 * the confidence-weighted pseudo-label CE on committee member k-1 when
@@ -71,6 +74,23 @@ def clip_zero_shot_similarities(image_features, text_features):
     logits = 100.0 * torch.einsum("btd,cd->btc", image_features.float(),
                                   text_features.float())
     return torch.softmax(logits, dim=-1).mean(dim=1)
+
+
+def check_committee_grid(teacher_grid: int, patches_per_frame: int) -> None:
+    """Raise unless the teacher's patch grid is the student's: the
+    committee masks rank the teacher's CLS-row attention and their indices
+    gather the student's tokens. unite_tpu's step has no such check, and
+    its gather fills the indices past the student's tokens with NaN, so its
+    loss is NaN (ROADMAP queue 3, item 8)."""
+    if teacher_grid != patches_per_frame:
+        raise ValueError(
+            f"teacher patch grid ({teacher_grid}/frame) != student grid "
+            f"({patches_per_frame}/frame): the committee masks index the "
+            f"student's tokens by the teacher's attention; set --train_masked"
+            f" false with a selection strategy that casts no votes (none of "
+            f"{', '.join(VOTING)}), or clip_input_resolution so "
+            f"teacher_res/teacher_patch == student_res/student_patch (196 "
+            f"for L/14 teachers)")
 
 
 def _select(strategy: str, *, sel_cons, msp_t, preds_full_t, labels_t,
@@ -174,6 +194,10 @@ def make_selftrain_step(
             f"(k*n_unmask > N); raise mask_ratio to at least "
             f"{1 - patches_per_frame // k / patches_per_frame:.3f} or "
             f"lower committee_size")
+    if needs_committee:
+        check_committee_grid(
+            (clip_input_resolution // teacher.patch_size) ** 2,
+            patches_per_frame)
 
     def committee(videos_t_aug, b_t, batch):
         """Visible indices of the grad member and of the vote members."""
@@ -183,6 +207,7 @@ def make_selftrain_step(
             _, attn = teacher(resize_for_teacher(videos_t_aug,
                                                  clip_input_resolution),
                               raw_taps=True)
+        check_committee_grid(attn.shape[-1], patches_per_frame)
         masks = greedy_committee_masks(attn, mask_ratio, k)
         grad = (visible_indices(masks[-1].reshape(b_t, -1), nv_committee)
                 if train_masked else None)

@@ -268,7 +268,11 @@ def clip_l14(**kwargs):
 
 @register_model
 def clip_l14_336(**kwargs):
-    """CLIP ViT-L/14 at 336^2: 577 tokens a frame."""
-    return CLIPVisionTransformer(input_resolution=336, patch_size=14,
-                                 width=1024, layers=24, heads=16,
-                                 output_dim=768, **kwargs)
+    """CLIP ViT-L/14 at 336^2 by default: 577 tokens a frame. It takes an
+    ``input_resolution``, as every teacher the entries build does
+    (``run_stage1.build_teacher`` always passes
+    ``--clip_input_resolution``); unite_tpu's factory fixes 336 and raises
+    a TypeError on it (ROADMAP queue 3)."""
+    kwargs.setdefault("input_resolution", 336)
+    return CLIPVisionTransformer(patch_size=14, width=1024, layers=24,
+                                 heads=16, output_dim=768, **kwargs)

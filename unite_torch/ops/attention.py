@@ -22,8 +22,9 @@ package's dispatch (models/layers.py:174-190, models/clip.py:82-108):
   with K5's rounding points); above 512 tokens (1569 = 1568 patches + CLS,
   577, 785, ...) the blocked flash kernels K6, the same CUDA kernels as
   K3/K4, which take per-tensor strides. Each has its own launch counter;
-  K1's and K3's forwards also count their launches by (B, S) in
-  ``.by_shape``, since one path runs each at more than one shape.
+  K1's, K3's and the bf16 K6's forwards also count their launches by
+  (B, S) in ``.by_shape``, since one path runs each at more than one
+  shape.
 
 Beside each kernel is its plain version, with the TPU kernel's math and
 rounding points; a wrapper uses it only for a tensor on the CPU. On CUDA
@@ -886,12 +887,14 @@ def flash_fwd(q, k, v, scale: float, with_lse: bool = False):
            if with_lse else None)
     _launch_fwd(ptrs, strides, lse, q.shape, scale, _stream(q))
     flash_fwd.launches += 1
+    flash_fwd.by_shape[(b, s)] += 1
     if with_lse:
         flash_fwd.lse_launches += 1
     return o, lse
 
 
 flash_fwd.launches = flash_fwd.lse_launches = 0
+flash_fwd.by_shape = Counter()
 
 
 def flash_dq(q, k, v, o, do, lse, dq, delta, scale: float):
